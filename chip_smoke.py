@@ -1,0 +1,453 @@
+"""Smoke run of horovod_tpu_torch on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON object on its own line:
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: the CUDA kernels, compiled from ``horovod_tpu_torch/csrc`` with
+   nvcc at first use;
+3. kernels: each of the three flash-attention kernels against its plain
+   PyTorch version on the card, in bf16, at the training shape of
+   gpt_small (B=8, T=2048, H=12, D=64, causal) and at a non-causal
+   tq < tk shape: max abs error against a stated tolerance, kernel and
+   plain times (CUDA events, median of 20 after warm-up), the time of
+   ``scaled_dot_product_attention`` on the same inputs as a yardstick,
+   and the least time the card could take (bound);
+4. reference: gpt_tiny on the card with flash attention against the same
+   weights with dense attention (logits and one training loss);
+5. train: the port's main path, ``Trainer.step`` on gpt_small with flash
+   attention, bf16 compute, a bf16 wire through a one-rank NCCL group
+   and AdamW(3e-4, wd 1e-4), on ``synthetic_text_batch(8, 2048, 50304)``:
+   2 warm-up and 5 timed steps, with the kernels' launch counts read over
+   the 7 steps; then one profiled step.
+
+A line ``{"kernels": [...]}`` sums up the kernels, and the last line is
+``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
+without that line; so does a machine without a CUDA card.
+"""
+from __future__ import annotations
+
+import datetime
+import json
+import math
+import os
+import socket
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate and
+# device-memory bandwidth, at the full 700 W power limit.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+MAIN_SHAPE = dict(b=8, h=12, tq=2048, tk=2048, d=64, causal=True)
+SIDE_SHAPE = dict(b=2, h=12, tq=1024, tk=2048, d=64, causal=False)
+KERNEL_SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
+REPLACES = {
+    "flash_fwd": "horovod_tpu/ops/flash_attention.py:70",
+    "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:177",
+    "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:225",
+}
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+# Kernel names of the profile, by what they do (first match wins).
+KERNEL_CATEGORIES = (
+    ("flash attention (this repo)", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                     "flash_bwd_dkv_kernel")),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("softmax cross entropy", ("SoftMax", "softmax", "nll_loss")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("nccl", ("nccl",)),
+    ("reductions", ("reduce_kernel",)),
+)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median time of one call of ``fn`` on the card, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def visible_pairs(tq: int, tk: int, causal: bool) -> int:
+    """(query, key) pairs the attention computes for these lengths."""
+    if not causal:
+        return tq * tk
+    offset = tk - tq
+    return sum(min(tk, i + offset + 1) for i in range(tq))
+
+
+def bound(name: str, bh: int, tq: int, tk: int, d: int, causal: bool):
+    """Least time (ms) for the kernel's work on an H100, and what sets it:
+    its operations at the bf16 tensor-core peak, or its bytes (each input
+    read once, each output written once) at the memory rate."""
+    pairs = bh * visible_pairs(tq, tk, causal)
+    row_q, row_k, stat = bh * tq * d * 2, bh * tk * d * 2, bh * tq * 4
+    if name == "flash_fwd":       # s = q.k^T, o = p.v
+        flops = 4 * d * pairs
+        nbytes = row_q + 2 * row_k + row_q + stat
+    elif name == "flash_bwd_dq":  # s, dp = do.v^T, dq = ds.k
+        flops = 6 * d * pairs
+        nbytes = 2 * row_q + 2 * row_k + 2 * stat + row_q
+    else:                         # s, dp, dv = p^T.do, dk = ds^T.q
+        flops = 8 * d * pairs
+        nbytes = 2 * row_q + 2 * row_k + 2 * stat + 2 * row_k
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops, nbytes
+
+
+def phase_device() -> dict:
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    info = {"phase": "device", "nvidia_smi": line,
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "capability": list(torch.cuda.get_device_capability(0))}
+    emit(info)
+    return info
+
+
+def phase_build() -> None:
+    from horovod_tpu_torch.ops._build import LIBRARY
+    LIBRARY.load()
+    usage = [line.strip() for line in LIBRARY.ptxas_log.splitlines()
+             if "registers" in line or "spill" in line]
+    emit({"phase": "build", "build_s": LIBRARY.build_seconds,
+          "ptxas_lines": len(usage),
+          "spills": sorted({u for u in usage if "spill" in u
+                            and not u.startswith("0 bytes stack")})})
+
+
+def _inputs(shape: dict, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bh = shape["b"] * shape["h"]
+
+    def rnd(t):
+        return torch.randn(bh, t, shape["d"], device="cuda",
+                           dtype=torch.bfloat16, generator=gen)
+    return rnd(shape["tq"]), rnd(shape["tk"]), rnd(shape["tk"]), \
+        rnd(shape["tq"])
+
+
+def check_kernels(shape: dict, seed: int, measure: bool) -> dict:
+    """Each kernel against its plain version on the same inputs."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _inputs(shape, seed)
+    d, causal = shape["d"], shape["causal"]
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale,
+                                            causal)
+    torch.cuda.synchronize()
+    results = {}
+    checks = {"flash_fwd": [("o", o, o_ref)],
+              "flash_bwd_dq": [("dq", dq, dq_ref)],
+              "flash_bwd_dkv": [("dk", dk, dk_ref), ("dv", dv, dv_ref)]}
+    for name, outs in checks.items():
+        # Per element: 2u|ref| + 4u rms(ref row) + u/16 mean|ref|, with
+        # u = 2^-8 (bf16); see kernel_error.  "worst" is the largest
+        # error over its limit.
+        errs = {label: fa.kernel_error(a, b) for label, a, b in outs}
+        ok = all(e["ok"] for e in errs.values())
+        if name == "flash_fwd":
+            # lse is fp32 on both sides; the kernel's exp is __expf.
+            err = (lse - lse_ref).abs().max().item()
+            errs["lse"] = {"max_abs_err": err, "tol": 1e-3}
+            ok = ok and err <= 1e-3
+        results[name] = {"errs": errs, "ok": ok,
+                         "max_abs_err": max(e["max_abs_err"]
+                                            for lbl, e in errs.items()
+                                            if lbl != "lse")}
+    del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+
+    bh = shape["b"] * shape["h"]
+    for name in results:
+        t_bound, by, flops, nbytes = bound(name, bh, shape["tq"],
+                                           shape["tk"], d, causal)
+        results[name].update(bound_ms=t_bound, bound_us=t_bound * 1e3,
+                             bound_by=by, flops=flops, bytes=nbytes)
+    if measure:
+        kernel = {
+            "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, causal),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                    scale, causal),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                      delta, scale, causal),
+        }
+        plain = {
+            "flash_fwd": lambda: fa.flash_fwd_plain(q, k, v, scale, causal),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq_plain(
+                q, k, v, do, lse, delta, scale, causal),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta, scale, causal),
+        }
+        lib_fwd, lib_bwd = _library_times(q, k, v, do, shape)
+        for name in results:
+            results[name]["ms"] = time_ms(kernel[name])
+            results[name]["plain_ms"] = time_ms(plain[name], iters=10)
+            if name == "flash_fwd":
+                results[name]["library_ms"] = lib_fwd
+                results[name]["library_call"] = \
+                    "scaled_dot_product_attention forward"
+            else:
+                results[name]["library_ms"] = lib_bwd
+                results[name]["library_call"] = (
+                    "scaled_dot_product_attention backward "
+                    "(dq, dk and dv together)")
+    return results
+
+
+def _library_times(q, k, v, do, shape):
+    """scaled_dot_product_attention on the same inputs ([B, H, T, D]),
+    forward and backward: a yardstick only, never called by the port."""
+    import torch.nn.functional as F
+    b, h = shape["b"], shape["h"]
+
+    def bhtd(x):
+        return x.view(b, h, x.shape[1], x.shape[2]).detach()
+    qs, ks, vs = (bhtd(x).requires_grad_() for x in (q, k, v))
+    dos = bhtd(do)
+    fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=shape["causal"]))
+    out = F.scaled_dot_product_attention(qs, ks, vs,
+                                         is_causal=shape["causal"])
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dos, retain_graph=True))
+    return fwd_ms, bwd_ms
+
+
+def phase_kernels() -> dict:
+    main = check_kernels(MAIN_SHAPE, seed=1, measure=True)
+    emit({"phase": "kernels", "shape": MAIN_SHAPE, "results": main})
+    side = check_kernels(SIDE_SHAPE, seed=2, measure=False)
+    emit({"phase": "kernels", "shape": SIDE_SHAPE, "results": side})
+    bad = [n for r in (main, side) for n, v in r.items() if not v["ok"]]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions: "
+                           f"{bad}")
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_reference() -> None:
+    """gpt_tiny on the card: flash attention (the kernels at D=16) against
+    dense attention with the same weights."""
+    from horovod_tpu_torch import TransformerLM, gpt_tiny
+    from horovod_tpu_torch.training import cross_entropy_loss
+    tokens = torch.randint(0, 256, (2, 129), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(3))
+    flash = TransformerLM(gpt_tiny(attention="flash"), seed=4)
+    dense = TransformerLM(gpt_tiny(attention="dense"), seed=4)
+    logits_f = flash(tokens[:, :-1], train=True)
+    logits_d = dense(tokens[:, :-1], train=True)
+    loss_f = cross_entropy_loss(logits_f, tokens[:, 1:])
+    loss_d = cross_entropy_loss(logits_d, tokens[:, 1:])
+    loss_f.backward()
+    loss_d.backward()
+    err = (logits_f.float() - logits_d.float()).abs()
+    grad_err = max((pf.grad - pd.grad).abs().max().item()
+                   for pf, pd in zip(flash.parameters(), dense.parameters()))
+    out = {"phase": "reference", "logits_shape": list(logits_f.shape),
+           "logits_max_abs_err": err.max().item(),
+           "logits_mean_abs_err": err.mean().item(),
+           "loss_flash": loss_f.item(), "loss_dense": loss_d.item(),
+           "grad_max_abs_err": grad_err}
+    emit(out)
+    # bf16 logits of order 1: a few ulps (0.0078 each) where the two
+    # attentions round differently; the fp32 losses agree to 1e-2.
+    if not (torch.isfinite(logits_f).all() and out["logits_max_abs_err"] < 0.1
+            and out["logits_mean_abs_err"] < 1.5e-2
+            and abs(out["loss_flash"] - out["loss_dense"]) < 1e-2
+            and grad_err < 5e-2):
+        raise RuntimeError(f"flash and dense gpt_tiny disagree: {out}")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_train() -> dict:
+    import torch.distributed as dist
+    from horovod_tpu_torch import (GradSyncConfig, Trainer, TransformerLM,
+                                   build_mesh, gpt_small,
+                                   synthetic_text_batch)
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    store = dist.TCPStore("127.0.0.1", _free_port(), 1, is_master=True,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        cfg = gpt_small(attention="flash", max_seq_len=2048)
+        model = TransformerLM(cfg, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                weight_decay=1e-4)
+        trainer = Trainer(model, opt, build_mesh(dp=1),
+                          sync=GradSyncConfig(op="average",
+                                              compression="bf16"))
+        batch = synthetic_text_batch(8, 2048, cfg.vocab_size, seed=0)
+        state = trainer.init(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        fa.reset_launch_counts()                 # the main path starts
+        losses, step_ms = [], []
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+        launches = fa.launch_counts()            # ... and ends
+        steps = WARMUP_STEPS + TIMED_STEPS
+
+        timed = step_ms[WARMUP_STEPS:]
+        mean_ms = statistics.mean(timed)
+        tokens = 8 * 2048
+        out = {"phase": "train", "model": "gpt_small", "params": n_params,
+               "batch": 8, "seq": 2048, "dtype": "bfloat16",
+               "wire": "bf16", "backend": dist.get_backend(),
+               "losses": losses, "step_ms": step_ms,
+               "timed_step_ms_mean": mean_ms,
+               "timed_step_ms_median": statistics.median(timed),
+               "tokens_per_s": tokens / (mean_ms / 1e3),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches,
+               "launches_per_step": {n: c / steps
+                                     for n, c in launches.items()},
+               "accuracy": metrics["accuracy"].item()}
+        emit(out)
+        problems = []
+        if not all(math.isfinite(x) for x in losses):
+            problems.append("a loss is not finite")
+        if not losses[-1] < losses[0]:
+            problems.append("the loss did not fall")
+        if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+            problems.append("the first loss is far from ln(vocab)")
+        for name, count in launches.items():
+            if count != cfg.num_layers * steps:
+                problems.append(f"{name} launched {count} times, not "
+                                f"{cfg.num_layers} a step")
+        if problems:
+            raise RuntimeError("; ".join(problems))
+        out["profile"] = _profile_step(trainer, state, batch, mean_ms)
+        emit({"phase": "profile", **out["profile"]})
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _profile_step(trainer, state, batch, step_ms: float) -> dict:
+    """Device time by kernel over one more step (torch.profiler): kernel
+    events only, their union against the span from the first kernel's
+    start to the last one's end (the idle share), and the sum of kernel
+    time against the unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(state, batch)
+        torch.cuda.synchronize()
+    # Kernel events only, not the annotations the profiler also puts on
+    # the device timeline ("Optimizer.step#AdamW.step"; a kernel's own
+    # name may hold "#" too, as in "{lambda(int)#1}", but never without
+    # a space).
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not ("#" in e.name and " " not in e.name)]
+    if not kernels:
+        raise RuntimeError("the profiler saw no kernel on the card")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, cur_start, cur_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy_us += cur_end - cur_start
+    window_us = spans[-1][1] - spans[0][0]
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.end - e.time_range.start
+        entry[1] += 1
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    kernel_us = sum(v[0] for _, v in rows)
+    flash_us = {n: sum(v[0] for k, v in rows if n + "_kernel" in k)
+                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    categories: dict[str, float] = {}
+    for name, (us, _) in rows:
+        cat = next((c for c, keys in KERNEL_CATEGORIES if any(
+            key in name for key in keys)), "elementwise and other")
+        categories[cat] = categories.get(cat, 0.0) + us / 1e3
+    return {"kernel_ms": kernel_us / 1e3, "busy_ms": busy_us / 1e3,
+            "window_ms": window_us / 1e3,
+            "device_idle_share": 1 - busy_us / window_us,
+            "kernel_share_of_timed_step": kernel_us / 1e3 / step_ms,
+            "flash_ms": {n: us / 1e3 for n, us in flash_us.items()},
+            "category_ms": categories,
+            "top": [{"name": n[:100], "ms": v[0] / 1e3, "count": v[1]}
+                    for n, v in rows[:25]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    # The fp32 products of the plain versions run in full fp32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    info = phase_device()
+    phase_build()
+    kernels = phase_kernels()
+    phase_reference()
+    train = phase_train()
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES[name], "launches": train["launches"][name],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for name, r in kernels.items()]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
+                                 "count": info["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

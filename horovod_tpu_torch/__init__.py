@@ -1,0 +1,16 @@
+"""horovod_tpu_torch: the PyTorch and CUDA port of horovod_tpu for H100s.
+
+It imports torch and numpy, never JAX, and nothing of ``horovod_tpu``.
+Entry points run on the CUDA card unless ``device="cpu"`` is asked for.
+"""
+from . import models, parallel, training
+from .models import TransformerConfig, TransformerLM, gpt_small, gpt_tiny
+from .ops.flash_attention import flash_attention, flash_attention_with_lse
+from .parallel import GradSyncConfig, MeshSpec, build_mesh, sync_gradients
+from .training import Trainer, TrainState, synthetic_text_batch
+
+__all__ = ["models", "parallel", "training", "TransformerConfig",
+           "TransformerLM", "gpt_small", "gpt_tiny", "flash_attention",
+           "flash_attention_with_lse", "GradSyncConfig", "MeshSpec",
+           "build_mesh", "sync_gradients", "Trainer", "TrainState",
+           "synthetic_text_batch"]

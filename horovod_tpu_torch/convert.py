@@ -1,0 +1,104 @@
+"""Carry ``TransformerLM`` weights between the flax tree and PyTorch.
+
+The flax model (``horovod_tpu/models/transformer.py``) stores
+
+- ``embed/embedding``                  ``[vocab, d_model]``
+- ``layer_i/attn/w{q,k,v}/kernel``     ``[d_model, H, D]`` (DenseGeneral)
+- ``layer_i/attn/wo/kernel``           ``[H, D, d_model]`` (DenseGeneral)
+- ``layer_i/mlp/{gate,up,down}/kernel`` ``[in, out]`` (Dense)
+- ``layer_i/{attn,mlp}_norm/scale``, ``final_norm/scale``  ``[d_model]``
+- ``lm_head/kernel``                   ``[d_model, vocab]``
+
+and the port's ``TransformerLM`` holds Linear weights ``[out, in]``.
+``params_from_flax`` and ``params_to_flax`` convert a whole tree (numpy
+arrays in, numpy arrays out); ``flax_leaf_order`` gives the port's
+parameter names in the order ``jax.tree_util.tree_flatten`` visits the
+flax tree (keys sorted at every level: ``layer_0, layer_1, layer_10,
+layer_2, ...``), which is the order gradient buckets are filled in.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .models.transformer import TransformerConfig
+
+# (torch name, flax path, flax -> torch, torch -> flax) for every leaf.
+_Leaf = tuple[str, tuple[str, ...], Callable, Callable]
+
+
+def _same(x):
+    return x
+
+
+def _leaves(cfg: TransformerConfig) -> list[_Leaf]:
+    h, d, dm = cfg.num_heads, cfg.head_dim, cfg.d_model
+
+    def dense():                   # [in, out] <-> [out, in]
+        return (lambda k: k.T, lambda w: w.T)
+
+    def qkv():                     # [dm, H, D] <-> [H*D, dm]
+        return (lambda k: k.reshape(dm, h * d).T,
+                lambda w: w.T.reshape(dm, h, d))
+
+    def out_proj():                # [H, D, dm] <-> [dm, H*D]
+        return (lambda k: k.reshape(h * d, dm).T,
+                lambda w: w.T.reshape(h, d, dm))
+
+    leaves: list[_Leaf] = [
+        ("embed.weight", ("embed", "embedding"), _same, _same),
+        ("final_norm.scale", ("final_norm", "scale"), _same, _same),
+        ("lm_head.weight", ("lm_head", "kernel"), *dense()),
+    ]
+    for i in range(cfg.num_layers):
+        t, f = f"layers.{i}", f"layer_{i}"
+        leaves += [
+            (f"{t}.attn_norm.scale", (f, "attn_norm", "scale"), _same, _same),
+            (f"{t}.mlp_norm.scale", (f, "mlp_norm", "scale"), _same, _same),
+            (f"{t}.attn.wo.weight", (f, "attn", "wo", "kernel"),
+             *out_proj()),
+        ]
+        for name in ("wq", "wk", "wv"):
+            leaves.append((f"{t}.attn.{name}.weight",
+                           (f, "attn", name, "kernel"), *qkv()))
+        for name in ("gate", "up", "down"):
+            leaves.append((f"{t}.mlp.{name}.weight",
+                           (f, "mlp", name, "kernel"), *dense()))
+    # Lexicographic order of the paths is the flatten order of a tree
+    # whose keys are sorted at every level.
+    return sorted(leaves, key=lambda leaf: leaf[1])
+
+
+def flax_leaf_order(cfg: TransformerConfig) -> list[str]:
+    """The port's parameter names in the flax tree's flatten order."""
+    return [name for name, *_ in _leaves(cfg)]
+
+
+def _get(tree: Any, path: tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def params_from_flax(tree: Any, cfg: TransformerConfig
+                     ) -> dict[str, torch.Tensor]:
+    """flax params tree (``variables["params"]``, arrays convertible with
+    ``np.asarray``) -> ``TransformerLM`` state dict of CPU tensors."""
+    return {name: torch.from_numpy(np.array(to_torch(
+                np.asarray(_get(tree, path))), order="C"))
+            for name, path, to_torch, _ in _leaves(cfg)}
+
+
+def params_to_flax(state_dict: dict[str, torch.Tensor],
+                   cfg: TransformerConfig) -> dict:
+    """``TransformerLM`` state dict -> flax params tree of numpy arrays."""
+    tree: dict = {}
+    for name, path, _, to_flax in _leaves(cfg):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        value = state_dict[name].detach().cpu().float().numpy()
+        node[path[-1]] = np.ascontiguousarray(to_flax(value))
+    return tree

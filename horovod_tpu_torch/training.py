@@ -1,0 +1,197 @@
+"""The data-parallel training step, in PyTorch.
+
+The counterpart of ``horovod_tpu/training.py``.  ``Trainer.step`` runs the
+reference's step body in order:
+
+1. forward and backward through the model (the loss is
+   ``cross_entropy_loss``, streamed over the vocab above a threshold);
+2. ``sync_gradients``: per-dtype buckets in the flax leaf order, cast to
+   the wire dtype and averaged over the ``dp`` ranks;
+3. the optimizer update, with a ``torch.optim`` optimizer.
+
+The loss (and, behind ``HOROVOD_TRACK_ACCURACY``, the accuracy) is
+averaged over ``dp``.  PyTorch updates in place: ``TrainState`` holds the
+model and its optimizer, and ``step`` returns the same state advanced by
+one step, where the reference returns a new immutable one.
+
+The reference's ``optax.adamw(3e-4)`` is
+``torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)``: optax defaults
+to a weight decay of 1e-4, torch to 1e-2; the update rules are otherwise
+the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch import nn
+
+from .common import config
+from .common.device import resolve_device
+from .parallel.collectives import allreduce
+from .parallel.grad_sync import GradSyncConfig, sync_gradients
+from .parallel.mesh import Mesh, data_axes
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count, the model (its parameters) and the optimizer (its
+    state); ``Trainer.step`` updates the last two in place."""
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+# Above this many logit elements the loss streams over the vocab axis
+# instead of materialising an fp32 log_softmax of the whole logits tensor
+# (ops/loss.py).  The default scales with the device's memory: memory/16
+# elements, i.e. room for the fp32 copy (4 bytes an element) with the bf16
+# logits and their gradient beside it.
+def _device_memory_bytes(device: torch.device) -> int | None:
+    if device.type != "cuda":
+        return None
+    _, total = torch.cuda.mem_get_info(device)
+    return int(total)
+
+
+def _ce_threshold(device: torch.device) -> int:
+    value = config.STREAMING_CE_MIN_ELEMENTS.get()
+    if value is not None:
+        return value
+    memory = _device_memory_bytes(device)
+    if memory is not None:
+        return max(memory // 16, 1 << 20)
+    return 1 << 30
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean softmax cross entropy over integer labels (fp32 math).
+    Out-of-range labels carry no one-hot mass, as ``jax.nn.one_hot``."""
+    if logits.numel() >= _ce_threshold(logits.device):
+        from .ops.loss import streaming_softmax_cross_entropy
+        return streaming_softmax_cross_entropy(logits, labels,
+                                               label_smoothing)
+    vocab = logits.shape[-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    labels = labels.long()
+    valid = (labels >= 0) & (labels < vocab)
+    picked = logp.gather(-1, labels.clamp(0, vocab - 1)[..., None])[..., 0]
+    nll = -torch.where(valid, picked, torch.zeros_like(picked))
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll \
+            - label_smoothing * logp.mean(dim=-1)
+    return nll.mean()
+
+
+def _track_accuracy() -> bool:
+    return bool(config.TRACK_ACCURACY.get())
+
+
+def _leaf_order(model: nn.Module) -> list[str]:
+    """Parameter names in the order gradient buckets are filled: the flax
+    flatten order for the Transformer (so buckets match the reference),
+    registration order otherwise."""
+    from .models.transformer import TransformerLM
+    if isinstance(model, TransformerLM):
+        from .convert import flax_leaf_order
+        return flax_leaf_order(model.cfg)
+    return [name for name, _ in model.named_parameters()]
+
+
+class Trainer:
+    """Owns the data-parallel train step.
+
+    >>> model = TransformerLM(gpt_small(attention="flash"))
+    >>> opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+    ...                         weight_decay=1e-4)
+    >>> trainer = Trainer(model, opt, build_mesh(dp=1))
+    >>> state = trainer.init()
+    >>> state, metrics = trainer.step(state, batch)
+    """
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 mesh: Mesh, *, sync: GradSyncConfig | None = None,
+                 loss_fn: Callable = cross_entropy_loss) -> None:
+        self.model = model
+        self.optimizer = optimizer
+        self.mesh = mesh
+        axes = data_axes(mesh) or ("dp",)
+        self.sync = sync or GradSyncConfig(axes=axes, op="average")
+        self.sync.check()
+        self.loss_fn = loss_fn
+        self.device = resolve_device(mesh.device)
+        self._names = _leaf_order(model)
+        self._params = dict(model.named_parameters())
+        if sorted(self._names) != sorted(self._params):
+            raise ValueError("the gradient leaf order does not name the "
+                             "model's parameters")
+
+    def init(self, sample_batch: dict | None = None) -> TrainState:
+        """The state at step 0.  The model's parameters were drawn when
+        it was built (from its generator), so every rank that builds it
+        with the same seed starts from the same point."""
+        del sample_batch
+        for p in self.model.parameters():
+            if p.device.type != self.device.type:
+                raise ValueError(f"model parameters lie on {p.device}, the "
+                                 f"mesh's device is {self.device}")
+        return TrainState(step=0, model=self.model, optimizer=self.optimizer)
+
+    def _batch(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        return (batch["input"].to(self.device),
+                batch["label"].to(self.device))
+
+    def step(self, state: TrainState, batch: dict
+             ) -> tuple[TrainState, dict[str, torch.Tensor]]:
+        inputs, labels = self._batch(batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        logits = self.model(inputs, train=True)
+        loss = self.loss_fn(logits, labels)
+        loss.backward()
+
+        grads = {}
+        for name in self._names:
+            p = self._params[name]
+            grads[name] = p.grad if p.grad is not None \
+                else torch.zeros_like(p)
+        synced = sync_gradients(grads, self.sync, self.mesh.group)
+        for name, g in synced.items():
+            self._params[name].grad = g
+        self.optimizer.step()
+
+        group = self.mesh.group
+        metrics = {"loss": allreduce(loss.detach(), "average", group)}
+        if _track_accuracy():
+            acc = (logits.detach().argmax(-1) == labels).float().mean()
+            metrics["accuracy"] = allreduce(acc, "average", group)
+        state.step += 1
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: dict
+                  ) -> dict[str, torch.Tensor]:
+        inputs, labels = self._batch(batch)
+        logits = state.model(inputs, train=False)
+        loss = self.loss_fn(logits, labels)
+        acc = (logits.argmax(-1) == labels).float().mean()
+        group = self.mesh.group
+        return {"loss": allreduce(loss, "average", group),
+                "accuracy": allreduce(acc, "average", group)}
+
+
+def synthetic_text_batch(batch_size: int, seq_len: int = 2048,
+                         vocab_size: int = 32000, seed: int = 0,
+                         device: str | torch.device | None = None) -> dict:
+    """Random next-token-prediction batch: label[t] = input[t+1].  Drawn
+    on the card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, vocab_size, (batch_size, seq_len + 1),
+                           generator=gen, device=dev)
+    return {"input": tokens[:, :-1], "label": tokens[:, 1:]}

@@ -1,0 +1,112 @@
+"""The port's CUDA kernels on the card: each against its plain version at
+small and ragged shapes, every head dim and both 16-bit types, and the
+checks the wrappers make on CUDA tensors.
+
+These tests need an NVIDIA card with nvcc (sm_90a); elsewhere they skip.
+Run them on the card with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+This file imports torch and the port only, so that it runs where JAX is
+not installed.
+"""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the kernels are CUDA C++ with "
+                    "no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+SHAPES = [  # (bh, tq, tk, d, causal, dtype)
+    (3, 64, 64, 64, True, torch.bfloat16),
+    (2, 100, 160, 64, False, torch.bfloat16),
+    (2, 100, 160, 64, True, torch.bfloat16),
+    (2, 77, 77, 16, True, torch.float16),
+    (2, 130, 200, 32, True, torch.bfloat16),
+    (2, 96, 96, 128, True, torch.float16),
+    (2, 96, 150, 128, False, torch.bfloat16),
+    # One query (a tile that is all edge) over two keys; with one key
+    # the softmax is constant, so dq, dk are 0 and only noise is left.
+    (1, 1, 2, 64, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,causal,dtype", SHAPES)
+def test_kernels_match_plain_versions(bh, tq, tk, d, causal, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(bh * tq + d)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", dtype=dtype,
+                               generator=gen) for t in (tq, tk, tk, tq))
+    scale = d ** -0.5
+    before = fa.launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale,
+                                            causal)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in after)
+    for name, a, b in (("o", o, o_ref), ("dq", dq, dq_ref),
+                       ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        # Each element within 2u|ref| + 4u rms(ref row) + u/16 mean|ref|,
+        # u the unit roundoff of the 16-bit type (fa.kernel_error).
+        report = fa.kernel_error(a, b)
+        assert report["ok"], (name, report)
+    # lse is fp32 on both sides; the kernel's exp is the fast __expf.
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_autograd_matches_dense_reference():
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 128, 4, 64, device="cuda",
+                           dtype=torch.bfloat16, generator=gen)
+               .requires_grad_() for _ in range(3))
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    q2, k2, v2 = (x.detach().float().requires_grad_() for x in (q, k, v))
+    ref = fa.mha_reference(q2, k2, v2, causal=True)
+    ref_grads = torch.autograd.grad(ref.square().sum(), (q2, k2, v2))
+    # bf16 inputs and outputs against an fp32 reference: a few percent
+    # of each tensor's largest value.
+    assert (out.float() - ref).abs().max().item() \
+        <= 0.02 * ref.abs().max().item()
+    for g, r in zip(grads, ref_grads):
+        assert (g.float() - r).abs().max().item() \
+            <= 0.05 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 48),
+                                     (torch.bfloat16, 256)])
+def test_unsupported_inputs_raise(dtype, d):
+    q = torch.zeros(1, 16, d, device="cuda", dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA flash kernels"):
+        fa.flash_fwd(q, q, q, 1.0, False)
+
+
+def test_mismatched_shapes_raise():
+    q = torch.zeros(2, 16, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(2, 32, 64, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(2, 16, device="cuda")
+    with pytest.raises(ValueError, match="share one dtype"):
+        fa.flash_fwd(q, k, q, 1.0, False)          # v is not [BH, tk, D]
+    with pytest.raises(ValueError, match="share one dtype"):
+        fa.flash_fwd(q, k[:1], k[:1], 1.0, False)  # another BH
+    with pytest.raises(ValueError, match=r"\[BH, tq\]"):
+        fa.flash_bwd_dq(q, k, k, q, lse[:, :8], lse, 1.0, False)
+    fa.flash_bwd_dq(q, k, k, q, lse, lse, 1.0, False)

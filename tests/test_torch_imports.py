@@ -1,0 +1,119 @@
+"""The port stands alone: it imports no JAX and nothing of horovod_tpu, and
+its entry points run on the CUDA card unless the caller asks for the
+CPU."""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "horovod_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+
+_IMPORT_ALL = """
+import pkgutil, sys, importlib
+before = set(sys.modules)
+import horovod_tpu_torch
+for info in pkgutil.walk_packages(horovod_tpu_torch.__path__,
+                                  "horovod_tpu_torch."):
+    importlib.import_module(info.name)
+new = sorted(set(sys.modules) - before)
+print(len([m for m in new if m.startswith("horovod_tpu_torch")]))
+bad = [m for m in new
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "horovod_tpu")]
+print("BAD", bad)
+"""
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_import_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 12            # every module of the package
+    assert bad == "BAD []", bad
+
+
+def _python_files():
+    return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _python_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and getattr(node.func, "attr", getattr(node.func, "id", "")) \
+                in ("import_module", "__import__"):
+            names = [node.args[0].value]
+        for name in names:
+            assert not _forbidden(name), f"{path}:{node.lineno} {name}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
+    from horovod_tpu_torch import (TransformerLM, build_mesh,
+                                   flash_attention, gpt_tiny,
+                                   synthetic_text_batch)
+    from horovod_tpu_torch.parallel.mesh import Mesh
+    from horovod_tpu_torch.training import Trainer
+
+    cfg = gpt_tiny()
+    q = torch.zeros(1, 8, 2, 16)
+    for call in (lambda: TransformerLM(cfg), build_mesh,
+                 lambda: flash_attention(q, q, q),
+                 lambda: synthetic_text_batch(1, 8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    model = TransformerLM(cfg, device="cpu")
+    mesh = Mesh(shape={"dp": 1}, group=None, device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1), mesh)
+    # Asked for the CPU, each runs there.
+    assert build_mesh(device="cpu").device.type == "cpu"
+    assert flash_attention(q, q, q, device="cpu").shape == q.shape
+    assert synthetic_text_batch(1, 8, device="cpu")["input"].device.type \
+        == "cpu"
+
+
+def test_cpu_tensors_with_cuda_device_are_refused():
+    q = torch.zeros(1, 8, 2, 16)
+    from horovod_tpu_torch import flash_attention
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="expected"):
+            flash_attention(q, q, q, device="cuda")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            flash_attention(q, q, q, device="cuda")
+
+
+def test_mesh_is_dp_only_at_world_one():
+    from horovod_tpu_torch import build_mesh
+    mesh = build_mesh(device="cpu")
+    assert mesh.shape["dp"] == 1 and mesh.group is None and mesh.size == 1
+    with pytest.raises(ValueError, match="require"):
+        build_mesh(dp=2, device="cpu")

@@ -1,0 +1,185 @@
+"""TransformerLM of the port against the flax model, on the CPU: logits
+from the same weights (carried across by ``horovod_tpu_torch.convert``),
+RoPE's split-halves rotation, the weight round trip and the initial
+distributions."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu.models import transformer as jtr
+from horovod_tpu_torch import convert
+from horovod_tpu_torch.models import transformer as ttr
+
+CPU = "cpu"
+_JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _configs(dtype, attention):
+    j = jtr.gpt_tiny(dtype=_JNP[dtype], attention=attention,
+                     flash_interpret=attention == "flash", block_q=16,
+                     block_k=16)
+    t = ttr.gpt_tiny(dtype=_TORCH[dtype], attention=attention)
+    return j, t
+
+
+def _flax_params(cfg, seed=0):
+    tokens = jnp.zeros((1, 8), jnp.int32)
+    return jtr.TransformerLM(cfg).init(jax.random.key(seed), tokens)["params"]
+
+
+def _torch_model(tcfg, flax_params):
+    model = ttr.TransformerLM(tcfg, device=CPU)
+    model.load_state_dict(convert.params_from_flax(flax_params, tcfg))
+    return model
+
+
+def _tokens(seed=0, b=2, t=32, vocab=256):
+    return np.random.default_rng(seed).integers(0, vocab, (b, t),
+                                                dtype=np.int64)
+
+
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_logits_match_flax(attention, dtype):
+    jcfg, tcfg = _configs(dtype, attention)
+    params = _flax_params(jcfg)
+    tokens = _tokens()
+    jlogits = jtr.TransformerLM(jcfg).apply({"params": params},
+                                            jnp.asarray(tokens, jnp.int32))
+    model = _torch_model(tcfg, params)
+    with torch.no_grad():
+        tlogits = model(torch.from_numpy(tokens))
+    assert tlogits.dtype == _TORCH[dtype]
+    assert tuple(tlogits.shape) == tuple(jlogits.shape)
+    a = tlogits.float().numpy()
+    b = np.asarray(jlogits.astype(jnp.float32))
+    if dtype == "float32":
+        # The same arithmetic with sums in another order, through two
+        # layers (~1e-6 relative).
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+        return
+    # bf16: both sides round every projection and residual to bf16
+    # (2^-8 relative, one ulp is 0.0078 at logits of order 1), at slightly
+    # different points (XLA fuses elementwise chains in fp32).  Hold the
+    # port to the same distance from the fp32 model as flax's bf16 model.
+    jcfg32, _ = _configs("float32", attention)
+    exact = np.asarray(jtr.TransformerLM(jcfg32).apply(
+        {"params": params}, jnp.asarray(tokens, jnp.int32)))
+    assert np.abs(a - exact).mean() <= 1.25 * np.abs(b - exact).mean()
+    assert np.abs(a - b).mean() < 1.5e-2
+    assert np.abs(a - b).max() < 0.1
+
+
+def test_rope_is_split_halves():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 16, 4, 32), dtype=np.float32)
+    positions = np.arange(16)
+    ref = jtr.apply_rope(jnp.asarray(x), jnp.asarray(positions), 10000.0)
+    out = ttr.apply_rope(torch.from_numpy(x), torch.from_numpy(positions),
+                         10000.0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    # Split halves: position 1 rotates (x[i], x[i + D/2]) by the angle of
+    # frequency i, which leaves x[..., 0] * cos - x[..., 16] * sin in 0.
+    cos, sin = np.cos(1.0), np.sin(1.0)
+    np.testing.assert_allclose(
+        out.numpy()[:, 1, :, 0],
+        x[:, 1, :, 0] * cos - x[:, 1, :, 16] * sin, atol=1e-5)
+    # Per-row positions [B, T] agree too.
+    pos2 = rng.integers(0, 100, (2, 16))
+    ref2 = jtr.apply_rope(jnp.asarray(x), jnp.asarray(pos2), 10000.0)
+    out2 = ttr.apply_rope(torch.from_numpy(x), torch.from_numpy(pos2),
+                          10000.0)
+    np.testing.assert_allclose(out2.numpy(), np.asarray(ref2), atol=1e-4)
+
+
+def test_convert_round_trip():
+    jcfg, tcfg = _configs("float32", "dense")
+    params = _flax_params(jcfg, seed=3)
+    back = convert.params_to_flax(convert.params_from_flax(params, tcfg),
+                                  tcfg)
+    flat_a = jax.tree_util.tree_flatten_with_path(params)[0]
+    flat_b = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (_, a), (_, b) in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_flax_leaf_order_is_tree_flatten_order():
+    # 12 layers, so that layer_10 sorts before layer_2.
+    jcfg = jtr.gpt_tiny(num_layers=12)
+    tcfg = ttr.gpt_tiny(num_layers=12)
+    params = jax.eval_shape(
+        lambda: jtr.TransformerLM(jcfg).init(
+            jax.random.key(0), jnp.zeros((1, 4), jnp.int32)))["params"]
+    paths = [tuple(k.key for k in path) for path, _ in
+             jax.tree_util.tree_flatten_with_path(params)[0]]
+    names = convert.flax_leaf_order(tcfg)
+    state = ttr.TransformerLM(tcfg, device=CPU).state_dict()
+    assert sorted(names) == sorted(state)
+    by_name = {name: path for name, path, *_ in convert._leaves(tcfg)}
+    assert [by_name[n] for n in names] == paths
+    # Shapes agree through the conversion.
+    leaves = jax.tree_util.tree_leaves(params)
+    for name, leaf in zip(names, leaves):
+        assert int(np.prod(leaf.shape)) == state[name].numel(), name
+
+
+def test_init_draws_flax_distributions():
+    """Std of each kind of parameter against flax's defaults: Embed
+    normal(1/sqrt(d_model)), Dense lecun_normal (truncated normal of
+    std 1/sqrt(fan_in)), RMSNorm ones.  With thousands of draws the
+    sample std is within a few percent."""
+    tcfg = ttr.gpt_tiny(vocab_size=4096)
+    jcfg = jtr.gpt_tiny(vocab_size=4096)
+    state = ttr.TransformerLM(tcfg, device=CPU, seed=7).state_dict()
+    ref = convert.params_from_flax(_flax_params(jcfg, seed=7), tcfg)
+    for name, value in state.items():
+        a, b = value.float(), ref[name]
+        if name.endswith("scale"):
+            assert torch.all(a == 1.0), name
+            continue
+        assert abs(a.mean().item()) < 0.1 * b.std().item(), name
+        np.testing.assert_allclose(a.std().item(), b.std().item(),
+                                   rtol=0.08, err_msg=name)
+        # The truncation of lecun_normal: no draw beyond 2 stds (of the
+        # untruncated normal); the embedding is not truncated.
+        limit = np.abs(b.numpy()).max()
+        if name != "embed.weight":
+            assert a.abs().max().item() <= limit * 1.05, name
+
+
+def test_seeded_init_is_reproducible():
+    tcfg = ttr.gpt_tiny()
+    a = ttr.TransformerLM(tcfg, device=CPU, seed=5).state_dict()
+    b = ttr.TransformerLM(tcfg, device=CPU, seed=5).state_dict()
+    c = ttr.TransformerLM(tcfg, device=CPU, seed=6).state_dict()
+    assert all(torch.equal(a[n], b[n]) for n in a)
+    assert not torch.equal(a["embed.weight"], c["embed.weight"])
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(decode=True), dict(paged=True), dict(attention="ring"),
+    dict(attention="ulysses"), dict(moe_experts=4),
+    dict(remat=True, remat_policy="dots")])
+def test_unported_config_values_raise(overrides):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttr.TransformerLM(ttr.gpt_tiny(**overrides), device=CPU)
+
+
+def test_remat_gives_the_same_gradients():
+    tcfg = ttr.gpt_tiny(dtype=torch.float32, attention="flash")
+    rcfg = ttr.gpt_tiny(dtype=torch.float32, attention="flash", remat=True)
+    tokens = torch.from_numpy(_tokens(t=16))
+    grads = []
+    for cfg in (tcfg, rcfg):
+        model = ttr.TransformerLM(cfg, device=CPU, seed=2)
+        model(tokens, train=True).float().square().mean().backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for name in grads[0]:
+        torch.testing.assert_close(grads[1][name], grads[0][name],
+                                   atol=1e-6, rtol=1e-5, msg=name)
