@@ -6,14 +6,19 @@ Phases, each printed as one JSON object on its own line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels, compiled from ``horovod_tpu_torch/csrc`` with
-   nvcc at first use;
+   nvcc at first use, and what was compiled: for each kernel instance
+   ptxas's registers and spill bytes and the counts of its HGMMA (wgmma),
+   TMA (UTMALDG, UBLKCP), HMMA (mma.sync) and SYNCS (mbarrier) SASS
+   instructions.  The phase fails if the forward or dK/dV kernel has no
+   HGMMA or no TMA load, or if any kernel spills;
 3. kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the card, in bf16, at the training shape of
    gpt_small (B=8, T=2048, H=12, D=64, causal) and at a non-causal
    tq < tk shape: max abs error against a stated tolerance, kernel and
-   plain times (CUDA events, median of 20 after warm-up), the time of
-   ``scaled_dot_product_attention`` on the same inputs as a yardstick,
-   and the least time the card could take (bound);
+   plain times (CUDA events around 20 calls queued back to back, median
+   of 5 such rounds), the time of ``scaled_dot_product_attention`` on the
+   same inputs as a yardstick, and the least time the card could take
+   (bound);
 4. reference: gpt_tiny on the card with flash attention against the same
    weights with dense attention (logits and one training loss);
 5. train: the port's main path, ``Trainer.step`` on gpt_small with flash
@@ -70,19 +75,22 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median time of one call of ``fn`` on the card, by CUDA events."""
+def time_ms(fn, iters: int = 20, rounds: int = 5, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``, by CUDA events: ``iters`` calls
+    queued back to back between two events, so that the card never waits
+    for the host's launch; the median over ``rounds`` of the mean."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
 
 
@@ -131,14 +139,32 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    from horovod_tpu_torch.ops._build import LIBRARY
-    LIBRARY.load()
-    usage = [line.strip() for line in LIBRARY.ptxas_log.splitlines()
-             if "registers" in line or "spill" in line]
-    emit({"phase": "build", "build_s": LIBRARY.build_seconds,
-          "ptxas_lines": len(usage),
-          "spills": sorted({u for u in usage if "spill" in u
-                            and not u.startswith("0 bytes stack")})})
+    """Build the kernels and show what was compiled: per kernel instance,
+    ptxas's registers and spill bytes beside the counts of the SASS
+    opcodes that show the Hopper design (HGMMA = wgmma, TMA = UTMALDG or
+    UBLKCP loads, HMMA = mma.sync, SYNCS = mbarrier operations)."""
+    from horovod_tpu_torch.ops import _build
+    _build.LIBRARY.load()
+    usage = _build.ptxas_usage(_build.LIBRARY.ptxas_log)
+    sass = _build.sass_counts(_build.disassemble(_build.LIBRARY.path))
+    kernels = {name: {**usage.get(name, {}), **sass.get(name, {})}
+               for name in sorted(set(usage) | set(sass))}
+    warnings = [line.strip() for line in _build.LIBRARY.ptxas_log.splitlines()
+                if "warning" in line.lower()]
+    emit({"phase": "build", "build_s": _build.LIBRARY.build_seconds,
+          "kernels": kernels, "ptxas_warnings": warnings})
+    problems = [f"{name} spills {k['spill_bytes']} bytes"
+                for name, k in kernels.items() if k.get("spill_bytes")]
+    for name, k in kernels.items():
+        if "registers" not in k:
+            problems.append(f"ptxas reported no registers for {name}")
+        if name.startswith(("flash_fwd_kernel", "flash_bwd_dkv_kernel")) \
+                and not (k.get("HGMMA") and k.get("TMA")):
+            problems.append(f"{name} has no wgmma or no TMA load in its SASS")
+    if len(kernels) != 24:   # 3 kernels x 2 types x 4 head dims
+        problems.append(f"{len(kernels)} kernel instances, not 24")
+    if problems:
+        raise RuntimeError("; ".join(problems))
 
 
 def _inputs(shape: dict, seed: int):
@@ -209,19 +235,23 @@ def check_kernels(shape: dict, seed: int, measure: bool) -> dict:
             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_plain(
                 q, k, v, do, lse, delta, scale, causal),
         }
-        lib_fwd, lib_bwd = _library_times(q, k, v, do, shape)
+        lib = _library_times(q, k, v, do, shape)
         for name in results:
+            # "ms" is device time (calls back to back); "one_call_ms" puts
+            # one call between the events, so it also holds the host's
+            # launch path (the method of the port's first recorded times).
             results[name]["ms"] = time_ms(kernel[name])
-            results[name]["plain_ms"] = time_ms(plain[name], iters=10)
-            if name == "flash_fwd":
-                results[name]["library_ms"] = lib_fwd
-                results[name]["library_call"] = \
-                    "scaled_dot_product_attention forward"
-            else:
-                results[name]["library_ms"] = lib_bwd
-                results[name]["library_call"] = (
-                    "scaled_dot_product_attention backward "
-                    "(dq, dk and dv together)")
+            results[name]["one_call_ms"] = time_ms(kernel[name], iters=1,
+                                                   rounds=20)
+            results[name]["plain_ms"] = time_ms(plain[name], iters=3,
+                                                  rounds=3)
+            which = "fwd" if name == "flash_fwd" else "bwd"
+            results[name]["library_ms"] = lib[which]
+            results[name]["library_one_call_ms"] = lib[which + "_one_call"]
+            results[name]["library_call"] = (
+                "scaled_dot_product_attention forward" if which == "fwd"
+                else "scaled_dot_product_attention backward "
+                     "(dq, dk and dv together)")
     return results
 
 
@@ -235,13 +265,17 @@ def _library_times(q, k, v, do, shape):
         return x.view(b, h, x.shape[1], x.shape[2]).detach()
     qs, ks, vs = (bhtd(x).requires_grad_() for x in (q, k, v))
     dos = bhtd(do)
-    fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=shape["causal"]))
     out = F.scaled_dot_product_attention(qs, ks, vs,
                                          is_causal=shape["causal"])
-    bwd_ms = time_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), dos, retain_graph=True))
-    return fwd_ms, bwd_ms
+    calls = {"fwd": lambda: F.scaled_dot_product_attention(
+                 qs, ks, vs, is_causal=shape["causal"]),
+             "bwd": lambda: torch.autograd.grad(
+                 out, (qs, ks, vs), dos, retain_graph=True)}
+    times = {}
+    for which, fn in calls.items():
+        times[which] = time_ms(fn)
+        times[which + "_one_call"] = time_ms(fn, iters=1, rounds=20)
+    return times
 
 
 def phase_kernels() -> dict:

@@ -1,45 +1,58 @@
-// FlashAttention-2 forward and backward for Hopper (sm_90a), CUDA C++.
+// FlashAttention forward and backward for Hopper (sm_90a), CUDA C++.
 //
-// These three kernels replace the Pallas kernels of the JAX package:
+// Three kernels replace the Pallas kernels of the JAX package
+// (horovod_tpu/ops/flash_attention.py).  At gpt_small's training shape
+// (B*H = 96, T = 2048, D = 64, causal, bf16) each does O(T^2 D) tensor-core
+// work on O(T D) bytes, so operations at 989 TFLOP/s (dense bf16) bound
+// it, not the 3.35 TB/s of device memory; all three keep the T x T scores
+// out of device memory and own their outputs (no atomics, no second pass).
 //
-//   flash_fwd_kernel     <- horovod_tpu/ops/flash_attention.py  _fwd_kernel
-//   flash_bwd_dq_kernel  <- horovod_tpu/ops/flash_attention.py  _bwd_dq_kernel
-//   flash_bwd_dkv_kernel <- horovod_tpu/ops/flash_attention.py  _bwd_dkv_kernel
+// flash_fwd_kernel <- _fwd_kernel.  o = softmax(q.k^T * scale) . v and the
+//   row log-sum-exp.  Bound: 4 D flops a visible (query, key) pair,
+//   0.052 ms at the main shape; at D = 64 the exp unit (16 a clock per SM)
+//   is as busy per pair as the tensor cores, so the softmax is no small
+//   addition.  Design for Hopper, warp-specialised: a block is one
+//   producer warpgroup and three consumer warpgroups at D <= 64 (two at
+//   D = 128), each consumer owning 64 queries; setmaxnreg moves registers
+//   from the producer to the consumers.  One producer thread loads the
+//   block's Q tile once and streams K and V tiles of 128 keys (64 at
+//   D = 128) through a two-stage ring by TMA, each stage with a full and
+//   an empty mbarrier, so loads overlap the products.  Each consumer
+//   computes S = Q.K^T with wgmma from shared memory, runs the online
+//   softmax on the accumulator fragments (exp2; a row's max across its 4
+//   threads by two shuffles), packs P to 16 bits in registers and adds
+//   P.V with the register-A form of wgmma, V read transposed from its
+//   [key][d] tile.  Blocks run head-group by head-group (K and V stay in
+//   L2), heaviest causal tiles (the last queries) first.
+// flash_bwd_dq_kernel <- _bwd_dq_kernel.  dq = (p * (do.v^T - delta)) *
+//   scale . k.  Bound: 6 D flops a pair, 0.078 ms.  Simple first: 4 warps
+//   of 16 rows, tiles staged with plain 16-byte loads and one barrier, and
+//   mma.sync products; its redesign for Hopper is later work.
+// flash_bwd_dkv_kernel <- _bwd_dkv_kernel.  dv = p^T.do, dk = ds^T.q.
+//   Bound: 8 D flops a pair, 0.104 ms.  Same design as the forward with two
+//   consumer warpgroups: a block owns 128 keys, 64 per consumer; K and V
+//   are loaded once by TMA, and the producer warp streams Q and dO tiles
+//   of 64 queries (32 at D = 128) through a two-stage ring, from the first
+//   tile that sees the block's keys, with lse and delta copied beside them
+//   by plain loads masked at tq.  Each consumer computes S^T = K.Q^T and
+//   dP^T = V.dO^T with wgmma, forms P^T and dS^T in registers, and adds
+//   dV += P^T.dO and dK += dS^T.Q with register-A wgmma.  Working on the
+//   transposed scores keeps each warpgroup's dk and dv rows private.
+//   Blocks run head-group by head-group, earliest keys (which see the
+//   most queries) first.
 //
-// What bounds them on an H100: at the training shapes (T = 2048, D = 64)
-// each kernel does O(T^2 * D) tensor-core work on O(T * D) bytes, so the
-// least time is set by operations (989 TFLOP/s dense bf16), not by the
-// 3.35 TB/s of device memory.  Their design therefore keeps the T x T
-// score matrix out of device memory entirely and feeds every product to
-// the tensor cores (mma.sync m16n8k16, bf16/fp16 inputs, fp32 sums).
-//
-// Design, and where it departs from the Pallas grid:
-//   * The Pallas kernels carry their accumulators across a sequential grid
-//     axis.  Blocks on Hopper run in no order, so that axis becomes a loop
-//     inside the block: the KV loop for the forward and dq kernels, the Q
-//     loop for the dk/dv kernel.
-//   * Each block owns its outputs (the FlashAttention-2 split): forward and
-//     dq blocks are one (batch*head, 64-row query tile), a dk/dv block is
-//     one (batch*head, 64-row key tile).  No atomics, no second pass.
-//   * A block is 4 warps; each warp owns 16 rows of the block's tile and
-//     keeps their accumulators and softmax statistics in registers in the
-//     mma.sync fragment layout, so the scores of one tile go from the
-//     Q.K^T product straight into the P.V (or dS.K) product without a trip
-//     through shared memory.  The dk/dv kernel computes the transposed
-//     scores S^T = K.Q^T so that its accumulators are also warp-private.
-//   * Causal blocks wholly above the diagonal are skipped, with the
-//     bottom-right offset tk - tq of the reference.  Rows and columns past
-//     the sequence end are masked, so any sequence length works.
-//   * Rounding points follow the reference: p -> v's type before P.V,
-//     ds -> k's type before dS.K, p -> do's type before P^T.dO, ds -> q's
-//     type before dS^T.Q.  Softmax statistics stay fp32.
-//   * Simple first: tiles are staged with plain 16-byte loads and one
-//     barrier, not TMA; products use mma.sync, not wgmma.  Making these
-//     kernels fast (TMA, wgmma, warp specialisation) is later work.
+// All three follow the reference's semantics: the bottom-right causal
+// offset tk - tq, rows and columns past the sequence end masked (so any
+// length works), fp32 softmax statistics, NEG_INF = -1e30 (rows with no
+// weight give o = 0 and lse = NEG_INF), and the rounding points p -> v's
+// type before P.V, ds -> k's type before dS.K, p -> do's type before
+// P^T.dO, ds -> q's type before dS^T.Q.
 //
 // Interface: plain C functions, loaded with ctypes.  Tensors are
-// contiguous [BH, T, D]; lse and delta are [BH, tq] fp32.  Each entry
-// returns cudaGetLastError() after its launch (0 on success).
+// contiguous [BH, T, D] with 16-byte aligned bases (TMA needs them); lse
+// and delta are [BH, tq] fp32.  The TMA maps are encoded on the host in
+// each call.  Each entry returns cudaGetLastError() after its launch (0 on
+// success), or the error that stopped it before.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -49,11 +62,13 @@
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF, not -inf
-constexpr int kThreads = 128;      // 4 warps, 16 rows each
-constexpr int kTile = 64;          // rows of a block's own tile
+constexpr int kThreads = 128;      // dq kernel: 4 warps, 16 rows each
+constexpr int kTile = 64;          // dq kernel: rows of a block's tile
 
 template <typename T>
 struct Mma;
@@ -193,129 +208,270 @@ __device__ __forceinline__ int kv_tiles(int q0, int tq, int tk, int causal) {
 }
 
 // ---------------------------------------------------------------------------
+// Shared by the two warp-specialised kernels
+// ---------------------------------------------------------------------------
+constexpr int kStages = 2;        // depth of the TMA ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A block is one producer warpgroup (warp 0 issues the loads) and
+// `Consumers` consumer warpgroups; setmaxnreg moves registers from the
+// producer to the consumers (64 K registers a SM).
+template <int Consumers>
+struct WsRegs {
+  static constexpr int kThreads = 128 * (Consumers + 1);
+  static constexpr int kProducer = Consumers == 3 ? 24 : 40;
+  static constexpr int kConsumer = Consumers == 3 ? 160 : 232;
+  static_assert(128 * kProducer + 128 * Consumers * kConsumer <= 65536,
+                "register file of one SM");
+};
+
+// The (head, tile) of this block in a 1-D grid of bh * n_tiles blocks:
+// group by group of `Group` heads, and inside a group tile 0 of every head,
+// then tile 1, ...  So the K and V (or Q and dO) tiles a group streams stay
+// in L2 while its blocks run.  Each kernel maps tile 0 to its heaviest
+// causal tile.
+template <int Group>
+__device__ __forceinline__ void block_coords(int bh_total, int n_tiles,
+                                             int& bh, int& tile) {
+  const int per_group = Group * n_tiles;
+  const int group = blockIdx.x / per_group, rem = blockIdx.x % per_group;
+  const int heads = min(Group, bh_total - group * Group);
+  bh = group * Group + rem % heads;
+  tile = rem / heads;
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Packs accumulator fragments (m64nN, fp32) into the A fragments of the
+// next product, rounded to T: columns [16 kk, 16 kk + 16) of each row.
+template <typename T, int R>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[R / 8][4],
+                                       const float (&s)[R]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+    a[kk][0] = Mma<T>::pack(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = Mma<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = Mma<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = Mma<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Stores a warpgroup's 64 x D fp32 accumulator rows (scaled per row) as T.
+// Accumulator element i of a thread is row g + 8 ((i >> 1) & 1) of its
+// warp's 16 rows and column 8 (i >> 2) + 2t + (i & 1).
+template <typename T, int D>
+__device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 2],
+                                          int row_a, int n_rows,
+                                          float scale_a, float scale_b) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (row_a < n_rows)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
+          Mma<T>::pack(acc[4 * j] * scale_a, acc[4 * j + 1] * scale_a);
+    if (row_a + 8 < n_rows)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(row_a + 8) * D + col) =
+          Mma<T>::pack(acc[4 * j + 2] * scale_b, acc[4 * j + 3] * scale_b);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Forward: o = softmax(q.k^T * scale) . v, lse = log-sum-exp of each row.
 // ---------------------------------------------------------------------------
+template <int D>
+struct FwdShape {
+  // At D <= 64 the softmax costs as much as the two products, and a third
+  // consumer warpgroup hides more of its latency (9-10 % at the main shape,
+  // ops/kernel_variants.py); at D = 128 the accumulators of two fill the
+  // registers.
+  static constexpr int kConsumers = D > 64 ? 2 : 3;
+  static constexpr int kHeadGroup = 16;
+  using Regs = WsRegs<kConsumers>;
+  static constexpr int kBM = 64 * kConsumers;    // queries of a block
+  static constexpr int kBN = D > 64 ? 64 : 128;  // keys of a ring stage
+  using QTile = hopper::SmemTile<kBM, D>;
+  using KTile = hopper::SmemTile<kBN, D>;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + QTile::kBytes;
+  static constexpr int kV = kK + kStages * KTile::kBytes;
+  static constexpr int kBars = kV + kStages * KTile::kBytes;
+  // q_full, then per stage k_full, v_full, empty; 1024 bytes of slack to
+  // align the tiles.
+  static constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int tq, int tk, float sm_scale,
-                     int causal) {
-  constexpr int LD = D + 8;  // padded rows: conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + kTile * LD;
-  T* vs = ks + kTile * LD;
+__global__ void __launch_bounds__(FwdShape<D>::Regs::kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     T* __restrict__ o, float* __restrict__ lse, int bh_total,
+                     int tq, int tk, float sm_scale, int causal) {
+  using S = FwdShape<D>;
+  using QTile = typename S::QTile;
+  using KTile = typename S::KTile;
+  constexpr int kBN = S::kBN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base + S::kQ;
+  const uint32_t bars = base + S::kBars;
+  const uint32_t q_full = bars;
+  auto k_tile = [&](int s) { return base + S::kK + s * KTile::kBytes; };
+  auto v_tile = [&](int s) { return base + S::kV + s * KTile::kBytes; };
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
 
-  const int bh = blockIdx.x;
   // Heaviest causal tiles (late queries) are scheduled first.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int n_q = (tq + S::kBM - 1) / S::kBM;
+  int bh, tile;
+  block_coords<S::kHeadGroup>(bh_total, n_q, bh, tile);
+  const int q0 = (n_q - 1 - tile) * S::kBM;
   const int offset = tk - tq;
-  const T* kb = k + (size_t)bh * tk * D;
-  const T* vb = v + (size_t)bh * tk * D;
-  const T* qw = qs + warp * 16 * LD;
+  int n_kv = (tk + kBN - 1) / kBN;
+  if (causal) n_kv = min(n_kv, (q0 + S::kBM - 1 + offset) / kBN + 1);
 
-  load_tile<T, kTile, D, LD>(qs, q + (size_t)bh * tq * D, q0, tq);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(k_full(s), 1);
+      hopper::mbar_init(v_full(s), 1);
+      hopper::mbar_init(empty(s), S::kConsumers);  // one arrival each
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  const int n_kv = kv_tiles(q0, tq, tk, causal);
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, kTile, D, LD>(ks, kb, k0, tk);
-    load_tile<T, kTile, D, LD>(vs, vb, k0, tk);
-    __syncthreads();
-
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, qw + kk * 16, LD);
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        uint32_t b[2];
-        load_b_nk(b, ks + nt * 8 * LD + kk * 16, LD);
-        Mma<T>::run(s[nt], a, b);
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread issues every load.
+    hopper::regs_dec<S::Regs::kProducer>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, QTile::kBytes);
+      hopper::tma_load_tile<S::kBM, D>(q_s, &q_map, q_full, q0, bh);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) hopper::mbar_wait(empty(s), (j / kStages - 1) & 1);
+        hopper::mbar_arrive_expect_tx(k_full(s), KTile::kBytes);
+        hopper::tma_load_tile<kBN, D>(k_tile(s), &k_map, k_full(s), j * kBN,
+                                      bh);
+        hopper::mbar_arrive_expect_tx(v_full(s), KTile::kBytes);
+        hopper::tma_load_tile<kBN, D>(v_tile(s), &v_map, v_full(s), j * kBN,
+                                      bh);
       }
     }
+  } else {
+    // Consumer warpgroup c owns queries [q0 + 64c, q0 + 64c + 64); each
+    // warp 16 of them, each thread rows g and g + 8 of its warp's.
+    hopper::regs_inc<S::Regs::kConsumer>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * c;
+    const int row_a = row0 + 16 * warp + g, row_b = row_a + 8;
+    const float scale_log2 = sm_scale * kLog2e;
 
-    float mx[2] = {kNegInf, kNegInf};
+    // Softmax statistics in the log2 domain: m is the running max of
+    // s * scale * log2(e), l the thread's share of its rows' sums.
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float acc[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    hopper::mbar_wait(q_full, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const int k0 = j * kBN;
+
+      float sc[kBN / 2];
+      hopper::mbar_wait(k_full(s), parity);
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + nt * 8 + 2 * t + (i & 1);
-        const int row = (i < 2) ? row_a : row_b;
-        const bool ok = col < tk && (!causal || row + offset >= col);
-        const float x = ok ? s[nt][i] * sm_scale : kNegInf;
-        s[nt][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, kBN>(sc, QTile::k_major(q_s, 64 * c, kk),
+                                 KTile::k_major(k_tile(s), 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(sc);
+
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) sc[i] *= scale_log2;
+      if (k0 + kBN > tk || (causal && k0 + kBN - 1 > row0 + offset)) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const int row = (i & 2) ? row_b : row_a;
+          if (!(col < tk && (!causal || row + offset >= col)))
+            sc[i] = kNegInf;
+        }
       }
+      // Row max and row sum in 4 independent chains a row (element i
+      // goes to chain (i >> 2) & 3), not one chain of kBN / 4.
+      float mx[2][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx[i >> 2][i & 3] = kNegInf;
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        mx[(i >> 1) & 1][(i >> 2) & 3] =
+            fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], sc[i]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float tile_max = fmaxf(fmaxf(mx[r][0], mx[r][1]),
+                                     fmaxf(mx[r][2], mx[r][3]));
+        const float m_new = fmaxf(m[r], quad_max(tile_max));
+        alpha[r] = fast_exp2(m[r] - m_new);
+        m[r] = m_new;
+      }
+      float rs[2][4] = {};
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const float p = fast_exp2(sc[i] - m[(i >> 1) & 1]);
+        sc[i] = p;
+        rs[(i >> 1) & 1][(i >> 2) & 3] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l[r] = l[r] * alpha[r] +
+               ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // acc += p.v, with p rounded to v's type (reference :116).
+      uint32_t pa[kBN / 16][4];
+      pack_a<T, kBN / 2>(pa, sc);
+      hopper::mbar_wait(v_full(s), parity);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        hopper::wgmma_rs<T, D>(acc, pa[kk], KTile::mn_major(v_tile(s), kk),
+                               1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(acc);
+      hopper::reg_fence(pa);
+      if (tid == 0) hopper::mbar_arrive(empty(s));
     }
-    float alpha[2], rs[2] = {0.f, 0.f};
+
+    // Rows with no weight give o = 0 and lse = NEG_INF (reference :118-128).
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = __expf(m[r] - m_new);
-      m[r] = m_new;
+      l[r] = quad_sum(l[r]);
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      inv[r] = 1.f / l_safe;
+      const int row = r == 0 ? row_a : row_b;
+      if (t == 0 && row < tq)
+        lse[(size_t)bh * tq + row] =
+            l[r] == 0.f ? kNegInf : m[r] * kLn2 + logf(l_safe);
     }
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = __expf(s[nt][i] - m[i >> 1]);
-        s[nt][i] = p;
-        rs[i >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-    // acc += p.v, with p rounded to v's type (reference :116).
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t a[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-                             Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-                             Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        uint32_t b[2];
-        load_b_kn(b, vs + kk * 16 * LD + nt * 8, LD);
-        Mma<T>::run(acc[nt], a, b);
-      }
-    }
+    store_acc<T, D>(o + (size_t)bh * tq * D, acc, row_a, tq, inv[0], inv[1]);
   }
-
-  // Rows with no weight give o = 0 and lse = NEG_INF (reference :118-128).
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    inv[r] = 1.f / l_safe;
-    const int row = r == 0 ? row_a : row_b;
-    if (t == 0 && row < tq)
-      lse[(size_t)bh * tq + row] =
-          l[r] == 0.f ? kNegInf : m[r] + logf(l_safe);
-  }
-  store_rows<T, D>(o + (size_t)bh * tq * D, acc, row_a, tq, inv[0], inv[1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -421,129 +577,193 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dk and dv: one block per (bh, 64-row key tile), loop over the
-// query tiles that can see it.  Works on S^T = k.q^T so each warp's 16 key
-// rows own their dk and dv rows:  dv += p^T.do,  dk += ds^T.q.
+// Backward, dk and dv: one block per (bh, 128-key tile), loop over the
+// query tiles that can see it.  Works on S^T = k.q^T so each consumer
+// warpgroup's 64 key rows own their dk and dv rows:  dv += p^T.do,
+// dk += ds^T.q.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+template <int D>
+struct DkvShape {
+  using Regs = WsRegs<2>;
+  static constexpr int kHeadGroup = 8;
+  static constexpr int kBM = 128;             // keys of a block
+  static constexpr int kBQ = D > 64 ? 32 : 64;  // queries of a ring stage
+  using KTile = hopper::SmemTile<kBM, D>;
+  using QTile = hopper::SmemTile<kBQ, D>;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + KTile::kBytes;
+  static constexpr int kQ = kV + KTile::kBytes;
+  static constexpr int kDo = kQ + kStages * QTile::kBytes;
+  static constexpr int kLse = kDo + kStages * QTile::kBytes;  // fp32, log2
+  static constexpr int kDelta = kLse + kStages * kBQ * 4;
+  static constexpr int kBars = kDelta + kStages * kBQ * 4;
+  // kv_full, then per stage full and empty; slack to align the tiles.
+  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvShape<D>::Regs::kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int tq, int tk, float sm_scale,
-                         int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);
-  T* vs = ks + kTile * LD;
-  T* qs = vs + kTile * LD;
-  T* dos = qs + BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + BQ * LD);
-  float* delta_s = lse_s + BQ;
+                         T* __restrict__ dv, int bh_total, int tq, int tk,
+                         float sm_scale, int causal) {
+  using S = DkvShape<D>;
+  using KTile = typename S::KTile;
+  using QTile = typename S::QTile;
+  constexpr int kBQ = S::kBQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t k_s = base + S::kK, v_s = base + S::kV;
+  const uint32_t bars = base + S::kBars;
+  const uint32_t kv_full = bars;
+  auto q_tile = [&](int s) { return base + S::kQ + s * QTile::kBytes; };
+  auto do_tile = [&](int s) { return base + S::kDo + s * QTile::kBytes; };
+  auto lse_s = [&](int s) {
+    return reinterpret_cast<float*>(smem + S::kLse) + s * kBQ;
+  };
+  auto delta_s = [&](int s) {
+    return reinterpret_cast<float*>(smem + S::kDelta) + s * kBQ;
+  };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
 
-  const int bh = blockIdx.x;
   // Earliest keys see the most queries: schedule them first.
-  const int k0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  int bh, tile;
+  block_coords<S::kHeadGroup>(bh_total, (tk + S::kBM - 1) / S::kBM, bh,
+                             tile);
+  const int k0 = tile * S::kBM;
   const int offset = tk - tq;
-  const T* qb = q + (size_t)bh * tq * D;
-  const T* dob = dout + (size_t)bh * tq * D;
-  const float* lseb = lse + (size_t)bh * tq;
-  const float* deltab = delta + (size_t)bh * tq;
-  const T* kw = ks + warp * 16 * LD;
-  const T* vw = vs + warp * 16 * LD;
-
-  load_tile<T, kTile, D, LD>(ks, k + (size_t)bh * tk * D, k0, tk);
-  load_tile<T, kTile, D, LD>(vs, v + (size_t)bh * tk * D, k0, tk);
-
-  const int kv_a = k0 + warp * 16 + g, kv_b = kv_a + 8;
   // First query tile with a row that sees key k0: i*BQ + BQ-1 + offset >= k0.
   int i0 = 0;
   if (causal) {
-    const int lo = k0 - offset - (BQ - 1);
-    if (lo > 0) i0 = (lo + BQ - 1) / BQ;
+    const int lo = k0 - offset - (kBQ - 1);
+    if (lo > 0) i0 = (lo + kBQ - 1) / kBQ;
   }
-  const int n_q = (tq + BQ - 1) / BQ;
+  const int n_q = (tq + kBQ - 1) / kBQ;
 
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[nt][i] = dva[nt][i] = 0.f;
-
-  for (int it = i0; it < n_q; ++it) {
-    const int qq0 = it * BQ;
-    __syncthreads();
-    load_tile<T, BQ, D, LD>(qs, qb, qq0, tq);
-    load_tile<T, BQ, D, LD>(dos, dob, qq0, tq);
-    for (int r = threadIdx.x; r < BQ; r += kThreads) {
-      lse_s[r] = qq0 + r < tq ? lseb[qq0 + r] : 0.f;
-      delta_s[r] = qq0 + r < tq ? deltab[qq0 + r] : 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full(s), 32);  // every producer lane arrives
+      hopper::mbar_init(empty(s), 2);  // one arrival per consumer
     }
-    __syncthreads();
-
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a(ak, kw + kk * 16, LD);
-      load_a(av, vw + kk * 16, LD);
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-        uint32_t b[2];
-        load_b_nk(b, qs + nt * 8 * LD + kk * 16, LD);
-        Mma<T>::run(st[nt], ak, b);
-        load_b_nk(b, dos + nt * 8 * LD + kk * 16, LD);
-        Mma<T>::run(dpt[nt], av, b);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int local = nt * 8 + 2 * t + (i & 1);
-        const int qrow = qq0 + local;
-        const int kv = (i < 2) ? kv_a : kv_b;
-        const bool ok =
-            qrow < tq && kv < tk && (!causal || qrow + offset >= kv);
-        const float p =
-            ok ? __expf(st[nt][i] * sm_scale - lse_s[local]) : 0.f;
-        st[nt][i] = p;
-        dpt[nt][i] = p * (dpt[nt][i] - delta_s[local]) * sm_scale;
-      }
-    }
-    // dv += p^T.do (p rounded to do's type, reference :263);
-    // dk += ds^T.q (ds rounded to q's type, reference :268).
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t ap[4] = {
-          Mma<T>::pack(st[2 * kk][0], st[2 * kk][1]),
-          Mma<T>::pack(st[2 * kk][2], st[2 * kk][3]),
-          Mma<T>::pack(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-          Mma<T>::pack(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t ads[4] = {
-          Mma<T>::pack(dpt[2 * kk][0], dpt[2 * kk][1]),
-          Mma<T>::pack(dpt[2 * kk][2], dpt[2 * kk][3]),
-          Mma<T>::pack(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-          Mma<T>::pack(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        uint32_t b[2];
-        load_b_kn(b, dos + kk * 16 * LD + nt * 8, LD);
-        Mma<T>::run(dva[nt], ap, b);
-        load_b_kn(b, qs + kk * 16 * LD + nt * 8, LD);
-        Mma<T>::run(dka[nt], ads, b);
-      }
-    }
+    hopper::mbar_fence_init();
   }
-  store_rows<T, D>(dk + (size_t)bh * tk * D, dka, kv_a, tk, 1.f, 1.f);
-  store_rows<T, D>(dv + (size_t)bh * tk * D, dva, kv_a, tk, 1.f, 1.f);
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: warp 0 copies lse and delta, lane 0 issues the
+    // TMA loads.
+    hopper::regs_dec<S::Regs::kProducer>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * KTile::kBytes);
+        hopper::tma_load_tile<S::kBM, D>(k_s, &k_map, kv_full, k0, bh);
+        hopper::tma_load_tile<S::kBM, D>(v_s, &v_map, kv_full, k0, bh);
+      }
+      const float* lse_b = lse + (size_t)bh * tq;
+      const float* delta_b = delta + (size_t)bh * tq;
+      for (int it = i0; it < n_q; ++it) {
+        const int u = it - i0, s = u % kStages;
+        if (u >= kStages) hopper::mbar_wait(empty(s), (u / kStages - 1) & 1);
+        const int qq0 = it * kBQ;
+        if (lane == 0) {
+          hopper::mbar_expect_tx(full(s), 2 * QTile::kBytes);
+          hopper::tma_load_tile<kBQ, D>(q_tile(s), &q_map, full(s), qq0, bh);
+          hopper::tma_load_tile<kBQ, D>(do_tile(s), &do_map, full(s), qq0,
+                                        bh);
+        }
+        for (int r = lane; r < kBQ; r += 32) {
+          const bool in = qq0 + r < tq;
+          lse_s(s)[r] = in ? lse_b[qq0 + r] * kLog2e : 0.f;
+          delta_s(s)[r] = in ? delta_b[qq0 + r] : 0.f;
+        }
+        hopper::mbar_arrive(full(s));  // after this lane's stores
+      }
+    }
+  } else {
+    // Consumer warpgroup c owns keys [k0 + 64c, k0 + 64c + 64); each warp
+    // 16 of them, each thread rows g and g + 8 of its warp's.
+    hopper::regs_inc<S::Regs::kConsumer>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int key0 = k0 + 64 * c;
+    const int kv_a = key0 + 16 * warp + g, kv_b = kv_a + 8;
+    const float scale_log2 = sm_scale * kLog2e;
+
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int it = i0; it < n_q; ++it) {
+      const int u = it - i0, s = u % kStages;
+      const int qq0 = it * kBQ;
+      float st[kBQ / 2], dpt[kBQ / 2];
+      hopper::mbar_wait(full(s), (u / kStages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, kBQ>(st, KTile::k_major(k_s, 64 * c, kk),
+                                 QTile::k_major(q_tile(s), 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, kBQ>(dpt, KTile::k_major(v_s, 64 * c, kk),
+                                 QTile::k_major(do_tile(s), 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(st);
+      hopper::reg_fence(dpt);
+
+      const bool edge = qq0 + kBQ > tq || key0 + 64 > tk ||
+                        (causal && qq0 + offset < key0 + 63);
+      const float* lse_t = lse_s(s);
+      const float* delta_t = delta_s(s);
+#pragma unroll
+      for (int i = 0; i < kBQ / 2; ++i) {
+        const int local = 8 * (i >> 2) + 2 * t + (i & 1);
+        float p = fast_exp2(st[i] * scale_log2 - lse_t[local]);
+        if (edge) {
+          const int qrow = qq0 + local;
+          const int kv = (i & 2) ? kv_b : kv_a;
+          if (!(qrow < tq && kv < tk && (!causal || qrow + offset >= kv)))
+            p = 0.f;
+        }
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - delta_t[local]) * sm_scale;
+      }
+      // dv += p^T.do (p rounded to do's type, reference :263);
+      // dk += ds^T.q (ds rounded to q's type, reference :268).
+      uint32_t pa[kBQ / 16][4], dsa[kBQ / 16][4];
+      pack_a<T, kBQ / 2>(pa, st);
+      pack_a<T, kBQ / 2>(dsa, dpt);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        hopper::wgmma_rs<T, D>(dva, pa[kk], QTile::mn_major(do_tile(s), kk),
+                               1);
+        hopper::wgmma_rs<T, D>(dka, dsa[kk], QTile::mn_major(q_tile(s), kk),
+                               1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(dva);
+      hopper::reg_fence(dka);
+      hopper::reg_fence(pa);
+      hopper::reg_fence(dsa);
+      if (tid == 0) hopper::mbar_arrive(empty(s));
+    }
+    store_acc<T, D>(dk + (size_t)bh * tk * D, dka, kv_a, tk, 1.f, 1.f);
+    store_acc<T, D>(dv + (size_t)bh * tk * D, dva, kv_a, tk, 1.f, 1.f);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -570,15 +790,21 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int tq, int tk, float sm_scale,
                        int causal, cudaStream_t stream) {
-  constexpr size_t smem = 3 * kTile * (D + 8) * sizeof(T);
+  using S = FwdShape<D>;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = hopper::encode_map<T>(&q_map, q, bh, tq, D, S::kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_map<T>(&k_map, k, bh, tk, D, S::kBN);
+  if (err == cudaSuccess)
+    err = hopper::encode_map<T>(&v_map, v, bh, tk, D, S::kBN);
+  if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_kernel<T, D>;
   static std::atomic<unsigned long long> prepared{0};
-  cudaError_t err = prepare(kernel, smem, prepared);
+  err = prepare(kernel, S::kSmem, prepared);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (tq + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+  const int blocks = bh * ((tq + S::kBM - 1) / S::kBM);
+  kernel<<<blocks, S::Regs::kThreads, S::kSmem, stream>>>(
+      q_map, k_map, v_map, static_cast<T*>(o), static_cast<float*>(lse), bh,
       tq, tk, sm_scale, causal);
   return cudaGetLastError();
 }
@@ -607,20 +833,25 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int tq, int tk,
                        float sm_scale, int causal, cudaStream_t stream) {
-  // A narrower query tile at D = 128 keeps dk and dv in registers.
-  constexpr int BQ = D > 64 ? 32 : 64;
-  constexpr size_t smem =
-      (2 * kTile + 2 * BQ) * (D + 8) * sizeof(T) + 2 * BQ * sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<T, D, BQ>;
-  static std::atomic<unsigned long long> prepared{0};
-  cudaError_t err = prepare(kernel, smem, prepared);
+  using S = DkvShape<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err = hopper::encode_map<T>(&q_map, q, bh, tq, D, S::kBQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_map<T>(&do_map, dout, bh, tq, D, S::kBQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_map<T>(&k_map, k, bh, tk, D, S::kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_map<T>(&v_map, v, bh, tk, D, S::kBM);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (tk + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, sm_scale, causal);
+  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  static std::atomic<unsigned long long> prepared{0};
+  err = prepare(kernel, S::kSmem, prepared);
+  if (err != cudaSuccess) return err;
+  const int blocks = bh * ((tk + S::kBM - 1) / S::kBM);
+  kernel<<<blocks, S::Regs::kThreads, S::kSmem, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), bh, tq, tk, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -720,3 +951,4 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" const char* hvd_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+

@@ -23,10 +23,15 @@ gradient is a ``torch.autograd.Function`` whose backward runs the two
 backward wrappers, with ``delta = rowsum(do * o)`` computed by torch ops
 outside the kernels, as the reference computes it outside its own.
 
-Tiles.  The CUDA kernels use 64-row query and key tiles chosen for the
-card (4 warps of 16 rows), and mask the ragged edge, so any sequence
-length works.  The ``block_q``/``block_k``/``block_*_bwd`` arguments are
-kept for signature parity with the JAX package and are validated through
+Tiles.  The forward and dk/dv kernels are warp-specialised for Hopper:
+TMA loads into a ring of shared-memory stages and ``wgmma`` products,
+64 rows per consumer warpgroup (blocks of 192 queries at D <= 64 and 128
+at D = 128 forward, 128 keys for dk/dv); dq keeps 64-row tiles of 4
+warps.  All mask the ragged edge, so any sequence length works.  TMA
+reads q, k, v and do in place, so their data must start on a 16-byte
+boundary (a wrapper raises ``ValueError`` on a view at another offset).
+The ``block_q``/``block_k``/``block_*_bwd`` arguments are kept for
+signature parity with the JAX package and are validated through
 ``_fit_block``; they do not set the CUDA tiles.  Their defaults (and the
 1024 blocks of the TPU benchmark) were tuned for TPU VMEM.
 """
@@ -169,8 +174,14 @@ def _kernel_inputs(tensors, lse_like=()):
                 or tuple(x.shape) != (bh, tq):
             raise ValueError("lse and delta must be float32 [BH, tq] on "
                              "q's device")
-    return ([x.contiguous() for x in tensors],
-            [x.contiguous() for x in lse_like], _DTYPE_CODES[q.dtype], d)
+    tensors = [x.contiguous() for x in tensors]
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("the CUDA flash kernels read q, k, v and do by TMA "
+                         "and 16-byte loads, so their data must start on a "
+                         "16-byte boundary; pass a copy (.clone()) of a "
+                         "view at an offset")
+    return (tensors, [x.contiguous() for x in lse_like],
+            _DTYPE_CODES[q.dtype], d)
 
 
 def _launch(name: str, device: torch.device, *args) -> None:

@@ -39,6 +39,14 @@ SHAPES = [  # (bh, tq, tk, d, causal, dtype)
     # One query (a tile that is all edge) over two keys; with one key
     # the softmax is constant, so dq, dk are 0 and only noise is left.
     (1, 1, 2, 64, True, torch.bfloat16),
+    # Many ring stages under the causal skip, with a ragged last tile.
+    (2, 1000, 1000, 64, True, torch.bfloat16),
+    # Two TMA boxes a row (D = 128), tq < tk, ragged in both.
+    (2, 300, 777, 128, False, torch.float16),
+    # lse rows of 77 floats: a stride TMA could not take.
+    (2, 77, 77, 32, True, torch.bfloat16),
+    # One head shorter than every tile.
+    (1, 50, 90, 64, True, torch.bfloat16),
 ]
 
 
@@ -110,3 +118,18 @@ def test_mismatched_shapes_raise():
     with pytest.raises(ValueError, match=r"\[BH, tq\]"):
         fa.flash_bwd_dq(q, k, k, q, lse[:, :8], lse, 1.0, False)
     fa.flash_bwd_dq(q, k, k, q, lse, lse, 1.0, False)
+
+
+def test_misaligned_inputs_raise():
+    # A contiguous view 8 bytes into its storage: TMA and the 16-byte
+    # loads need 16-byte aligned bases, so the wrappers refuse it.
+    flat = torch.zeros(2 * 64 * 64 + 4, device="cuda", dtype=torch.bfloat16)
+    q = flat[4:].view(2, 64, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 8
+    lse = torch.zeros(2, 64, device="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_fwd(q, q, q, 1.0, False)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_bwd_dkv(q, q, q, q, lse, lse, 1.0, False)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_bwd_dq(q, q, q, q, lse, lse, 1.0, False)
