@@ -15,10 +15,11 @@ Phases, each printed as one JSON object on its own line:
    PyTorch version on the card, in bf16, at the training shape of
    gpt_small (B=8, T=2048, H=12, D=64, causal) and at a non-causal
    tq < tk shape: max abs error against a stated tolerance, kernel and
-   plain times (CUDA events around 20 calls queued back to back, median
-   of 5 such rounds), the time of ``scaled_dot_product_attention`` on the
-   same inputs as a yardstick, and the least time the card could take
-   (bound);
+   plain times (``ms``: one call between two CUDA events, median of 20;
+   ``device_ms``: 20 calls queued back to back between the events, median
+   of 5 such rounds), the times of ``scaled_dot_product_attention`` on
+   the same inputs as a yardstick, taken both ways, and the least time
+   the card could take (bound);
 4. reference: gpt_tiny on the card with flash attention against the same
    weights with dense attention (logits and one training loss);
 5. train: the port's main path, ``Trainer.step`` on gpt_small with flash
@@ -75,10 +76,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int = 20, rounds: int = 5, warmup: int = 3) -> float:
-    """Device time of one call of ``fn``, by CUDA events: ``iters`` calls
-    queued back to back between two events, so that the card never waits
-    for the host's launch; the median over ``rounds`` of the mean."""
+def time_ms(fn, calls: int = 1, rounds: int = 20, warmup: int = 3) -> float:
+    """Time of one call of ``fn`` on the card, by CUDA events: ``calls``
+    calls between two events, the median over ``rounds`` of the mean.
+    With one call (the default) the time also holds the host's launch
+    path; with 20 queued back to back the card never waits for the host,
+    so it is the device time the kernel takes inside a step."""
     for _ in range(warmup):
         fn()
     times = []
@@ -86,12 +89,15 @@ def time_ms(fn, iters: int = 20, rounds: int = 5, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
+        for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+DEVICE = dict(calls=20, rounds=5)   # time_ms's device-time setting
 
 
 def visible_pairs(tq: int, tk: int, causal: bool) -> int:
@@ -237,17 +243,12 @@ def check_kernels(shape: dict, seed: int, measure: bool) -> dict:
         }
         lib = _library_times(q, k, v, do, shape)
         for name in results:
-            # "ms" is device time (calls back to back); "one_call_ms" puts
-            # one call between the events, so it also holds the host's
-            # launch path (the method of the port's first recorded times).
             results[name]["ms"] = time_ms(kernel[name])
-            results[name]["one_call_ms"] = time_ms(kernel[name], iters=1,
-                                                   rounds=20)
-            results[name]["plain_ms"] = time_ms(plain[name], iters=3,
-                                                  rounds=3)
+            results[name]["device_ms"] = time_ms(kernel[name], **DEVICE)
+            results[name]["plain_ms"] = time_ms(plain[name], rounds=10)
             which = "fwd" if name == "flash_fwd" else "bwd"
             results[name]["library_ms"] = lib[which]
-            results[name]["library_one_call_ms"] = lib[which + "_one_call"]
+            results[name]["library_device_ms"] = lib[which + "_device"]
             results[name]["library_call"] = (
                 "scaled_dot_product_attention forward" if which == "fwd"
                 else "scaled_dot_product_attention backward "
@@ -274,7 +275,7 @@ def _library_times(q, k, v, do, shape):
     times = {}
     for which, fn in calls.items():
         times[which] = time_ms(fn)
-        times[which + "_one_call"] = time_ms(fn, iters=1, rounds=20)
+        times[which + "_device"] = time_ms(fn, **DEVICE)
     return times
 
 

@@ -182,21 +182,24 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Store a warp's 16 x D fp32 accumulator rows (scaled per row) as T.
+// Stores a thread's D / 2 fp32 accumulators of rows row_a and row_a + 8
+// (scaled per row) as T.  Element i is row g + 8 ((i >> 1) & 1) of the
+// warp's 16 rows and column 8 (i >> 2) + 2t + (i & 1): the layout of both
+// an mma.m16n8k16 accumulator array [D / 8][4] and a wgmma m64nD one.
 template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, float acc[D / 8][4],
-                                           int row_a, int n_rows,
-                                           float scale_a, float scale_b) {
-  const int t = (threadIdx.x & 31) & 3;
+__device__ __forceinline__ void store_acc(T* out, const float* acc,
+                                          int row_a, int n_rows,
+                                          float scale_a, float scale_b) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int col = nt * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * t;
     if (row_a < n_rows)
       *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
-          Mma<T>::pack(acc[nt][0] * scale_a, acc[nt][1] * scale_a);
+          Mma<T>::pack(acc[4 * j] * scale_a, acc[4 * j + 1] * scale_a);
     if (row_a + 8 < n_rows)
       *reinterpret_cast<uint32_t*>(out + (size_t)(row_a + 8) * D + col) =
-          Mma<T>::pack(acc[nt][2] * scale_b, acc[nt][3] * scale_b);
+          Mma<T>::pack(acc[4 * j + 2] * scale_b, acc[4 * j + 3] * scale_b);
   }
 }
 
@@ -261,35 +264,14 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[R / 8][4],
   }
 }
 
-// Stores a warpgroup's 64 x D fp32 accumulator rows (scaled per row) as T.
-// Accumulator element i of a thread is row g + 8 ((i >> 1) & 1) of its
-// warp's 16 rows and column 8 (i >> 2) + 2t + (i & 1).
-template <typename T, int D>
-__device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 2],
-                                          int row_a, int n_rows,
-                                          float scale_a, float scale_b) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (row_a < n_rows)
-      *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
-          Mma<T>::pack(acc[4 * j] * scale_a, acc[4 * j + 1] * scale_a);
-    if (row_a + 8 < n_rows)
-      *reinterpret_cast<uint32_t*>(out + (size_t)(row_a + 8) * D + col) =
-          Mma<T>::pack(acc[4 * j + 2] * scale_b, acc[4 * j + 3] * scale_b);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Forward: o = softmax(q.k^T * scale) . v, lse = log-sum-exp of each row.
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdShape {
   // At D <= 64 the softmax costs as much as the two products, and a third
-  // consumer warpgroup hides more of its latency (9-10 % at the main shape,
-  // ops/kernel_variants.py); at D = 128 the accumulators of two fill the
-  // registers.
+  // consumer warpgroup hides more of its latency; at D = 128 the
+  // accumulators of two fill the registers.
   static constexpr int kConsumers = D > 64 ? 2 : 3;
   static constexpr int kHeadGroup = 16;
   using Regs = WsRegs<kConsumers>;
@@ -573,7 +555,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  store_rows<T, D>(dq + (size_t)bh * tq * D, acc, row_a, tq, 1.f, 1.f);
+  store_acc<T, D>(dq + (size_t)bh * tq * D, &acc[0][0], row_a, tq, 1.f,
+                  1.f);
 }
 
 // ---------------------------------------------------------------------------

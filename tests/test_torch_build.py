@@ -128,21 +128,24 @@ def test_kernel_label(mangled, label):
     assert _build.kernel_label(mangled) == label
 
 
-def test_variant_edits_apply_to_a_copy(csrc, tmp_path):
-    from horovod_tpu_torch.ops import kernel_variants
-    src, _ = csrc
-    dst = tmp_path / "variant"
-    kernel_variants.apply_edits(
-        src, dst, [["constexpr int kStages = 2;", "constexpr int kStages = 3;"]])
-    text = (dst / "flash_attention.cu").read_text()
-    assert "constexpr int kStages = 3;" in text
-    assert "constexpr int kStages = 2;" in (src / "flash_attention.cu").read_text()
-    assert (dst / "hopper.cuh").read_text() == (src / "hopper.cuh").read_text()
-    assert _build.library_path(dst) != _build.library_path(src)
+def test_nvcc_path_prefers_cuda_home(tmp_path, monkeypatch):
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("")
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert _build.nvcc_path() == str(nvcc)
 
 
-def test_variant_edit_that_matches_nothing_raises(csrc, tmp_path):
-    from horovod_tpu_torch.ops import kernel_variants
-    src, _ = csrc
-    with pytest.raises(ValueError, match="matches no source file"):
-        kernel_variants.apply_edits(src, tmp_path / "v", [["no such text", ""]])
+def test_disassemble_runs_cuobjdump_beside_nvcc(tmp_path, monkeypatch):
+    (tmp_path / "cuobjdump").write_text("")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(tmp_path / "nvcc"))
+    seen = []
+
+    def run(argv, **kwargs):
+        seen.append(argv)
+        return subprocess.CompletedProcess(argv, 0, stdout=SASS, stderr="")
+    monkeypatch.setattr(subprocess, "run", run)
+    library = tmp_path / "lib.so"
+    assert _build.disassemble(library) == SASS
+    assert seen == [[str(tmp_path / "cuobjdump"), "-sass", str(library)]]
