@@ -25,9 +25,17 @@
 //   [key][d] tile.  Blocks run head-group by head-group (K and V stay in
 //   L2), heaviest causal tiles (the last queries) first.
 // flash_bwd_dq_kernel <- _bwd_dq_kernel.  dq = (p * (do.v^T - delta)) *
-//   scale . k.  Bound: 6 D flops a pair, 0.078 ms.  Simple first: 4 warps
-//   of 16 rows, tiles staged with plain 16-byte loads and one barrier, and
-//   mma.sync products; its redesign for Hopper is later work.
+//   scale . k.  Bound: 6 D flops a pair, 0.078 ms.  The forward's data
+//   flow and design: three consumer warpgroups at D <= 64 (two at
+//   D = 128), each owning 64 queries; Q and dO are loaded once by TMA,
+//   and the producer streams K and V tiles of 64 keys through the
+//   two-stage ring, K and V behind their own full barriers so that
+//   S = Q.K^T starts before V lands.  Each consumer holds its rows' lse
+//   and delta in registers, computes S and dP = dO.V^T with wgmma, forms
+//   P and dS in registers (the exp of P overlapping the dP product), and
+//   adds dQ += dS.K with register-A wgmma, K read transposed as the
+//   forward reads V.  Blocks run head-group by head-group, heaviest causal
+//   tiles first.
 // flash_bwd_dkv_kernel <- _bwd_dkv_kernel.  dv = p^T.do, dk = ds^T.q.
 //   Bound: 8 D flops a pair, 0.104 ms.  Same design as the forward with two
 //   consumer warpgroups: a block owns 128 keys, 64 per consumer; K and V
@@ -67,9 +75,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF, not -inf
-constexpr int kThreads = 128;      // dq kernel: 4 warps, 16 rows each
-constexpr int kTile = 64;          // dq kernel: rows of a block's tile
 
+// Rounds two fp32 values to one register of two 16-bit T (lo first).
 template <typename T>
 struct Mma;
 
@@ -81,14 +88,6 @@ struct Mma<__nv_bfloat16> {
     memcpy(&r, &v, 4);
     return r;
   }
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 };
 
 template <>
@@ -99,78 +98,16 @@ struct Mma<__half> {
     memcpy(&r, &v, 4);
     return r;
   }
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 };
 
-// Fragment layouts of mma.m16n8k16 (PTX ISA), with g = lane / 4 and
-// t = lane % 4:
-//   A 16x16 row-major: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)
-//                      a3 (g+8, 2t+8..)
-//   B 16x8 (k x n):    b0 (k = 2t..2t+1, n = g)  b1 (k = 2t+8.., n = g)
-//   C 16x8 fp32:       c0,c1 (g, 2t..2t+1)  c2,c3 (g+8, 2t..2t+1)
-// Two C tiles side by side (n = 0..15) are, packed to 16 bits, exactly the
-// A fragment of the next product, which is how P and dS stay in registers.
-
-// A fragment from a row-major shared tile; `base` points at (row0, col0).
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t a[4], const T* base, int ld) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const T* p0 = base + g * ld + 2 * t;
-  const T* p1 = p0 + 8 * ld;
-  a[0] = *reinterpret_cast<const uint32_t*>(p0);
-  a[1] = *reinterpret_cast<const uint32_t*>(p1);
-  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-}
-
-// B fragment (k x n) from a shared tile stored [n][k]: B = M^T, so the two
-// k-neighbours of a register are adjacent.  `base` points at (n0, k0).
-template <typename T>
-__device__ __forceinline__ void load_b_nk(uint32_t b[2], const T* base,
-                                          int ld) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const T* p = base + g * ld + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (k x n) from a shared tile stored [k][n]; the k-neighbours
-// are a row apart, so each register is packed from two 16-bit loads.
-// `base` points at (k0, n0).
-template <typename T>
-__device__ __forceinline__ void load_b_kn(uint32_t b[2], const T* base,
-                                          int ld) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint16_t* p = reinterpret_cast<const uint16_t*>(base) + g;
-  const uint32_t x0 = p[(2 * t) * ld], x1 = p[(2 * t + 1) * ld];
-  const uint32_t x2 = p[(2 * t + 8) * ld], x3 = p[(2 * t + 9) * ld];
-  b[0] = x0 | (x1 << 16);
-  b[1] = x2 | (x3 << 16);
-}
-
-// Copy rows [row0, row0 + ROWS) of a contiguous [n_rows, D] matrix into a
-// shared tile [ROWS][LD], 16 bytes per thread and step; rows past the end
-// are zero-filled.
-template <typename T, int ROWS, int D, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int n_rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
-}
+// Register fragments (PTX ISA), with g = lane / 4 and t = lane % 4.  A
+// wgmma m64nN fp32 accumulator gives each warp 16 rows; a thread's element
+// i is row g + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2t + (i & 1).  The
+// A operand of a register-A wgmma (per warp the A fragment of
+// mma.m16n8k16) holds a 16x16 slice as a0 (g, 2t..2t+1), a1 (g+8, 2t..),
+// a2 (g, 2t+8..), a3 (g+8, 2t+8..).  So 16 accumulator columns, packed to
+// 16 bits, are exactly one A fragment of the next product (pack_a), which
+// is how P and dS stay in registers.
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -183,9 +120,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Stores a thread's D / 2 fp32 accumulators of rows row_a and row_a + 8
-// (scaled per row) as T.  Element i is row g + 8 ((i >> 1) & 1) of the
-// warp's 16 rows and column 8 (i >> 2) + 2t + (i & 1): the layout of both
-// an mma.m16n8k16 accumulator array [D / 8][4] and a wgmma m64nD one.
+// (scaled per row) as T, from the layout of a wgmma m64nD accumulator.
 template <typename T, int D>
 __device__ __forceinline__ void store_acc(T* out, const float* acc,
                                           int row_a, int n_rows,
@@ -203,15 +138,8 @@ __device__ __forceinline__ void store_acc(T* out, const float* acc,
   }
 }
 
-// Number of 64-wide key tiles a causal query tile starting at q0 needs.
-__device__ __forceinline__ int kv_tiles(int q0, int tq, int tk, int causal) {
-  int n = (tk + kTile - 1) / kTile;
-  if (causal) n = min(n, (q0 + kTile - 1 + (tk - tq)) / kTile + 1);
-  return n;
-}
-
 // ---------------------------------------------------------------------------
-// Shared by the two warp-specialised kernels
+// Shared by the warp-specialised kernels
 // ---------------------------------------------------------------------------
 constexpr int kStages = 2;        // depth of the TMA ring
 constexpr float kLog2e = 1.4426950408889634f;
@@ -261,6 +189,31 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[R / 8][4],
     a[kk][1] = Mma<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
     a[kk][2] = Mma<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
     a[kk][3] = Mma<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// The producer thread's loop of the forward and dq kernels: K and V tiles
+// j = 0 .. n_kv-1 of BN keys into ring stage j % kStages, each once the
+// consumers have released tile j - kStages.  `bars` holds per stage a K
+// full, a V full and an empty mbarrier: k_full(s) = bars + 8 s,
+// v_full(s) = bars + 8 (kStages + s), empty(s) = bars + 8 (2 kStages + s).
+template <int BN, int D>
+__device__ __forceinline__ void stream_kv(const CUtensorMap* k_map,
+                                          const CUtensorMap* v_map,
+                                          uint32_t k_s, uint32_t v_s,
+                                          uint32_t bars, int n_kv, int bh) {
+  using Tile = hopper::SmemTile<BN, D>;
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kStages;
+    const uint32_t k_full = bars + 8 * s, v_full = k_full + 8 * kStages;
+    if (j >= kStages)
+      hopper::mbar_wait(v_full + 8 * kStages, (j / kStages - 1) & 1);
+    hopper::mbar_arrive_expect_tx(k_full, Tile::kBytes);
+    hopper::tma_load_tile<BN, D>(k_s + s * Tile::kBytes, k_map, k_full,
+                                 j * BN, bh);
+    hopper::mbar_arrive_expect_tx(v_full, Tile::kBytes);
+    hopper::tma_load_tile<BN, D>(v_s + s * Tile::kBytes, v_map, v_full,
+                                 j * BN, bh);
   }
 }
 
@@ -336,16 +289,8 @@ __global__ void __launch_bounds__(FwdShape<D>::Regs::kThreads, 1)
     if (threadIdx.x == 0) {
       hopper::mbar_arrive_expect_tx(q_full, QTile::kBytes);
       hopper::tma_load_tile<S::kBM, D>(q_s, &q_map, q_full, q0, bh);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % kStages;
-        if (j >= kStages) hopper::mbar_wait(empty(s), (j / kStages - 1) & 1);
-        hopper::mbar_arrive_expect_tx(k_full(s), KTile::kBytes);
-        hopper::tma_load_tile<kBN, D>(k_tile(s), &k_map, k_full(s), j * kBN,
-                                      bh);
-        hopper::mbar_arrive_expect_tx(v_full(s), KTile::kBytes);
-        hopper::tma_load_tile<kBN, D>(v_tile(s), &v_map, v_full(s), j * kBN,
-                                      bh);
-      }
+      stream_kv<kBN, D>(&k_map, &v_map, k_tile(0), v_tile(0), k_full(0),
+                        n_kv, bh);
     }
   } else {
     // Consumer warpgroup c owns queries [q0 + 64c, q0 + 64c + 64); each
@@ -458,105 +403,172 @@ __global__ void __launch_bounds__(FwdShape<D>::Regs::kThreads, 1)
 
 // ---------------------------------------------------------------------------
 // Backward, dq: p = exp(s - lse), ds = p * (do.v^T - delta) * scale,
-// dq = ds.k.  One block per (bh, 64-row query tile), loop over keys.
+// dq = ds.k.  One block per (bh, query tile of 64 rows a consumer), loop
+// over the key tiles its queries see.
 // ---------------------------------------------------------------------------
+template <int D>
+struct DqShape {
+  // As in the forward, a third consumer warpgroup at D <= 64 hides more of
+  // the exp's latency; with 160 registers a thread it holds S, dP, dQ and
+  // dS of 64-key tiles (128-key tiles need 192 for them alone).  Timed in
+  // turns on the card, three consumers with 64-key tiles beat two with
+  // 128-key tiles by 3 %.
+  static constexpr int kConsumers = D > 64 ? 2 : 3;
+  using Regs = WsRegs<kConsumers>;
+  static constexpr int kHeadGroup = 16;
+  static constexpr int kBM = 64 * kConsumers;  // queries of a block
+  static constexpr int kBN = 64;               // keys of a ring stage
+  using QTile = hopper::SmemTile<kBM, D>;
+  using KTile = hopper::SmemTile<kBN, D>;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + QTile::kBytes;
+  static constexpr int kK = kDo + QTile::kBytes;
+  static constexpr int kV = kK + kStages * KTile::kBytes;
+  static constexpr int kBars = kV + kStages * KTile::kBytes;
+  // q_full (Q and dO), then per stage k_full, v_full, empty; slack to
+  // align the tiles.
+  static constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+__global__ void __launch_bounds__(DqShape<D>::Regs::kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int tq, int tk, float sm_scale, int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* dos = qs + kTile * LD;
-  T* ks = dos + kTile * LD;
-  T* vs = ks + kTile * LD;
+                        int bh_total, int tq, int tk, float sm_scale,
+                        int causal) {
+  using S = DqShape<D>;
+  using QTile = typename S::QTile;
+  using KTile = typename S::KTile;
+  constexpr int kBN = S::kBN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base + S::kQ, do_s = base + S::kDo;
+  const uint32_t bars = base + S::kBars;
+  const uint32_t q_full = bars;
+  auto k_tile = [&](int s) { return base + S::kK + s * KTile::kBytes; };
+  auto v_tile = [&](int s) { return base + S::kV + s * KTile::kBytes; };
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  // Heaviest causal tiles (late queries) are scheduled first.
+  const int n_q = (tq + S::kBM - 1) / S::kBM;
+  int bh, tile;
+  block_coords<S::kHeadGroup>(bh_total, n_q, bh, tile);
+  const int q0 = (n_q - 1 - tile) * S::kBM;
   const int offset = tk - tq;
-  const T* kb = k + (size_t)bh * tk * D;
-  const T* vb = v + (size_t)bh * tk * D;
-  const T* qw = qs + warp * 16 * LD;
-  const T* dow = dos + warp * 16 * LD;
+  int n_kv = (tk + kBN - 1) / kBN;
+  if (causal) n_kv = min(n_kv, (q0 + S::kBM - 1 + offset) / kBN + 1);
 
-  load_tile<T, kTile, D, LD>(qs, q + (size_t)bh * tq * D, q0, tq);
-  load_tile<T, kTile, D, LD>(dos, dout + (size_t)bh * tq * D, q0, tq);
-
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r == 0 ? row_a : row_b;
-    row_lse[r] = row < tq ? lse[(size_t)bh * tq + row] : 0.f;
-    row_delta[r] = row < tq ? delta[(size_t)bh * tq + row] : 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(k_full(s), 1);
+      hopper::mbar_init(v_full(s), 1);
+      hopper::mbar_init(empty(s), S::kConsumers);  // one arrival each
+    }
+    hopper::mbar_fence_init();
   }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  __syncthreads();
 
-  const int n_kv = kv_tiles(q0, tq, tk, causal);
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();
-    load_tile<T, kTile, D, LD>(ks, kb, k0, tk);
-    load_tile<T, kTile, D, LD>(vs, vb, k0, tk);
-    __syncthreads();
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread issues every load.
+    hopper::regs_dec<S::Regs::kProducer>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, 2 * QTile::kBytes);
+      hopper::tma_load_tile<S::kBM, D>(q_s, &q_map, q_full, q0, bh);
+      hopper::tma_load_tile<S::kBM, D>(do_s, &do_map, q_full, q0, bh);
+      stream_kv<kBN, D>(&k_map, &v_map, k_tile(0), v_tile(0), k_full(0),
+                        n_kv, bh);
+    }
+  } else {
+    // Consumer warpgroup c owns queries [q0 + 64c, q0 + 64c + 64); each
+    // warp 16 of them, each thread rows g and g + 8 of its warp's.
+    hopper::regs_inc<S::Regs::kConsumer>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * c;
+    const int row_a = row0 + 16 * warp + g, row_b = row_a + 8;
+    const float scale_log2 = sm_scale * kLog2e;
 
-    float s[kTile / 8][4], dp[kTile / 8][4];
+    // The two rows' lse (log2 domain) and delta, fixed for the block;
+    // rows past tq read 0 and are masked.
+    float lse2[2], dlt[2];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, qw + kk * 16, LD);
-      load_a(ado, dow + kk * 16, LD);
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        uint32_t b[2];
-        load_b_nk(b, ks + nt * 8 * LD + kk * 16, LD);
-        Mma<T>::run(s[nt], aq, b);
-        load_b_nk(b, vs + nt * 8 * LD + kk * 16, LD);
-        Mma<T>::run(dp[nt], ado, b);
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int row = r == 0 ? row_a : row_b;
+      lse2[r] = row < tq ? lse[(size_t)bh * tq + row] * kLog2e : 0.f;
+      dlt[r] = row < tq ? delta[(size_t)bh * tq + row] : 0.f;
     }
+    float acc[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    hopper::mbar_wait(q_full, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const int k0 = j * kBN;
+
+      // S = Q.K^T as soon as K lands, then dP = dO.V^T behind it.
+      float sc[kBN / 2], dp[kBN / 2];
+      hopper::mbar_wait(k_full(s), parity);
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + nt * 8 + 2 * t + (i & 1);
-        const int row = (i < 2) ? row_a : row_b;
-        const bool ok =
-            row < tq && col < tk && (!causal || row + offset >= col);
-        const float p =
-            ok ? __expf(s[nt][i] * sm_scale - row_lse[i >> 1]) : 0.f;
-        s[nt][i] = p * (dp[nt][i] - row_delta[i >> 1]) * sm_scale;
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, kBN>(sc, QTile::k_major(q_s, 64 * c, kk),
+                                 KTile::k_major(k_tile(s), 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::mbar_wait(v_full(s), parity);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, kBN>(dp, QTile::k_major(do_s, 64 * c, kk),
+                                 KTile::k_major(v_tile(s), 0, kk), kk > 0);
+      hopper::wgmma_commit();
+
+      // p = exp(s * scale - lse) while dP runs.
+      hopper::wgmma_wait<1>();
+      hopper::reg_fence(sc);
+      const bool edge = k0 + kBN > tk || row0 + 64 > tq ||
+                        (causal && k0 + kBN - 1 > row0 + offset);
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        float p = fast_exp2(sc[i] * scale_log2 - lse2[(i >> 1) & 1]);
+        if (edge) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const int row = (i & 2) ? row_b : row_a;
+          if (!(row < tq && col < tk && (!causal || row + offset >= col)))
+            p = 0.f;
+        }
+        sc[i] = p;
       }
-    }
-    // dq += ds.k, with ds rounded to k's type (reference :217).
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(dp);
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t a[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-                             Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-                             Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int i = 0; i < kBN / 2; ++i)
+        dp[i] = sc[i] * (dp[i] - dlt[(i >> 1) & 1]) * sm_scale;
+
+      // dq += ds.k, with ds rounded to k's type (reference :217).
+      uint32_t dsa[kBN / 16][4];
+      pack_a<T, kBN / 2>(dsa, dp);
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        uint32_t b[2];
-        load_b_kn(b, ks + kk * 16 * LD + nt * 8, LD);
-        Mma<T>::run(acc[nt], a, b);
-      }
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        hopper::wgmma_rs<T, D>(acc, dsa[kk], KTile::mn_major(k_tile(s), kk),
+                               1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(acc);
+      hopper::reg_fence(dsa);
+      if (tid == 0) hopper::mbar_arrive(empty(s));
     }
+    store_acc<T, D>(dq + (size_t)bh * tq * D, acc, row_a, tq, 1.f, 1.f);
   }
-  store_acc<T, D>(dq + (size_t)bh * tq * D, &acc[0][0], row_a, tq, 1.f,
-                  1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -797,17 +809,25 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int tq, int tk, float sm_scale,
                       int causal, cudaStream_t stream) {
-  constexpr size_t smem = 4 * kTile * (D + 8) * sizeof(T);
+  using S = DqShape<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err = hopper::encode_map<T>(&q_map, q, bh, tq, D, S::kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_map<T>(&do_map, dout, bh, tq, D, S::kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_map<T>(&k_map, k, bh, tk, D, S::kBN);
+  if (err == cudaSuccess)
+    err = hopper::encode_map<T>(&v_map, v, bh, tk, D, S::kBN);
+  if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_dq_kernel<T, D>;
   static std::atomic<unsigned long long> prepared{0};
-  cudaError_t err = prepare(kernel, smem, prepared);
+  err = prepare(kernel, S::kSmem, prepared);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (tq + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), tq, tk, sm_scale, causal);
+  const int blocks = bh * ((tq + S::kBM - 1) / S::kBM);
+  kernel<<<blocks, S::Regs::kThreads, S::kSmem, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), bh, tq, tk,
+      sm_scale, causal);
   return cudaGetLastError();
 }
 

@@ -23,13 +23,13 @@ gradient is a ``torch.autograd.Function`` whose backward runs the two
 backward wrappers, with ``delta = rowsum(do * o)`` computed by torch ops
 outside the kernels, as the reference computes it outside its own.
 
-Tiles.  The forward and dk/dv kernels are warp-specialised for Hopper:
-TMA loads into a ring of shared-memory stages and ``wgmma`` products,
-64 rows per consumer warpgroup (blocks of 192 queries at D <= 64 and 128
-at D = 128 forward, 128 keys for dk/dv); dq keeps 64-row tiles of 4
-warps.  All mask the ragged edge, so any sequence length works.  TMA
-reads q, k, v and do in place, so their data must start on a 16-byte
-boundary (a wrapper raises ``ValueError`` on a view at another offset).
+Tiles.  All three kernels are warp-specialised for Hopper: TMA loads
+into a ring of shared-memory stages and ``wgmma`` products, 64 rows per
+consumer warpgroup (blocks of 192 queries at D <= 64 and 128 at D = 128
+for the forward and dq, 128 keys for dk/dv).  All mask the ragged
+edge, so any sequence length works.  TMA reads q, k, v and do in place,
+so their data must start on a 16-byte boundary (a wrapper raises
+``ValueError`` on a view at another offset).
 The ``block_q``/``block_k``/``block_*_bwd`` arguments are kept for
 signature parity with the JAX package and are validated through
 ``_fit_block``; they do not set the CUDA tiles.  Their defaults (and the
@@ -176,10 +176,10 @@ def _kernel_inputs(tensors, lse_like=()):
                              "q's device")
     tensors = [x.contiguous() for x in tensors]
     if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError("the CUDA flash kernels read q, k, v and do by TMA "
-                         "and 16-byte loads, so their data must start on a "
-                         "16-byte boundary; pass a copy (.clone()) of a "
-                         "view at an offset")
+        raise ValueError("the CUDA flash kernels read q, k, v and do by "
+                         "TMA, so their data must start on a 16-byte "
+                         "boundary; pass a copy (.clone()) of a view at an "
+                         "offset")
     return (tensors, [x.contiguous() for x in lse_like],
             _DTYPE_CODES[q.dtype], d)
 

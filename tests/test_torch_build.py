@@ -149,3 +149,43 @@ def test_disassemble_runs_cuobjdump_beside_nvcc(tmp_path, monkeypatch):
     library = tmp_path / "lib.so"
     assert _build.disassemble(library) == SASS
     assert seen == [[str(tmp_path / "cuobjdump"), "-sass", str(library)]]
+
+
+def _clean_build() -> dict[str, dict[str, int]]:
+    """Counts of a good build: 3 kernels x 2 types x 4 head dims, each with
+    wgmma and TMA, no mma.sync and no spill."""
+    return {f"{kernel}<{dtype},{d}>": {"registers": 168, "spill_bytes": 0,
+                                       "HGMMA": 16, "TMA": 4, "HMMA": 0,
+                                       "SYNCS": 15}
+            for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                           "flash_bwd_dkv_kernel")
+            for dtype in ("bf16", "fp16") for d in (16, 32, 64, 128)}
+
+
+@pytest.mark.parametrize("fault,message", [
+    (None, None),
+    ("dq_without_hgmma", "flash_bwd_dq_kernel<bf16,64> has no wgmma"),
+    ("dq_without_tma", "flash_bwd_dq_kernel<fp16,16> has no wgmma or no TMA"),
+    ("hmma", "flash_bwd_dq_kernel<bf16,64> has 96 mma.sync"),
+    ("spill", "flash_fwd_kernel<fp16,128> spills 24 bytes"),
+    ("missing", "23 kernel instances, not 24"),
+])
+def test_build_problems_catch_each_fault(fault, message):
+    import chip_smoke
+    kernels = _clean_build()
+    if fault == "dq_without_hgmma":
+        kernels["flash_bwd_dq_kernel<bf16,64>"]["HGMMA"] = 0
+    elif fault == "dq_without_tma":
+        kernels["flash_bwd_dq_kernel<fp16,16>"]["TMA"] = 0
+    elif fault == "hmma":
+        kernels["flash_bwd_dq_kernel<bf16,64>"]["HMMA"] = 96
+    elif fault == "spill":
+        kernels["flash_fwd_kernel<fp16,128>"]["spill_bytes"] = 24
+    elif fault == "missing":
+        del kernels["flash_bwd_dkv_kernel<bf16,32>"]
+    problems = chip_smoke.build_problems(kernels)
+    if fault is None:
+        assert problems == []
+    else:
+        assert len(problems) == 1 and problems[0].startswith(message), \
+            problems

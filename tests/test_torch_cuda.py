@@ -47,6 +47,13 @@ SHAPES = [  # (bh, tq, tk, d, causal, dtype)
     (2, 77, 77, 32, True, torch.bfloat16),
     # One head shorter than every tile.
     (1, 50, 90, 64, True, torch.bfloat16),
+    # Causal tq < tk with an offset (256) that is not a multiple of the
+    # dq kernel's block (192 queries), so its diagonal crosses key tiles.
+    (2, 200, 456, 64, True, torch.bfloat16),
+    # More heads than one head group (16), the last group part-filled.
+    (17, 256, 256, 64, True, torch.bfloat16),
+    # D = 16 (32-byte swizzle) over many ring stages, ragged.
+    (3, 700, 700, 16, True, torch.float16),
 ]
 
 
@@ -75,8 +82,23 @@ def test_kernels_match_plain_versions(bh, tq, tk, d, causal, dtype):
         # u the unit roundoff of the 16-bit type (fa.kernel_error).
         report = fa.kernel_error(a, b)
         assert report["ok"], (name, report)
-    # lse is fp32 on both sides; the kernel's exp is the fast __expf.
+    # lse is fp32 on both sides; the kernel's exp is ex2.approx.
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_dq_is_deterministic():
+    # Each block owns its dq rows and adds its key tiles in one order: no
+    # atomics, so two calls agree bit for bit.
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bh, tq, tk, d = 6, 640, 896, 64
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", dtype=torch.bfloat16,
+                               generator=gen) for t in (tq, tk, tk, tq))
+    o, lse = fa.flash_fwd(q, k, v, d ** -0.5, True)
+    delta = (do.float() * o.float()).sum(-1)
+    first = fa.flash_bwd_dq(q, k, v, do, lse, delta, d ** -0.5, True)
+    second = fa.flash_bwd_dq(q, k, v, do, lse, delta, d ** -0.5, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_autograd_matches_dense_reference():
