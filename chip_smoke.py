@@ -27,7 +27,17 @@ Phases, each printed as one JSON object on its own line:
    attention, bf16 compute, a bf16 wire through a one-rank NCCL group
    and AdamW(3e-4, wd 1e-4), on ``synthetic_text_batch(8, 2048, 50304)``:
    2 warm-up and 5 timed steps, with the kernels' launch counts read over
-   the 7 steps; then one profiled step.
+   the 7 steps; then one profiled step;
+6. serve: the port's serving path, ``ReplicaExecutor`` through
+   ``queue.submit`` and ``serve_loop`` on gpt_small at full width (12
+   layers, d_model 768, vocab 50304, max_seq 1024), one line a leg:
+   fp32 dense and paged legs in which every generated token must be a
+   near-argmax (within 1e-3) of the model's full forward over prompt and
+   generated tokens; timed bf16 dense and paged legs (tokens/s, step_ms
+   and latency p50/p99, peak memory, the paged pool's counters); a
+   profile of 8 full-batch dense decode steps; and the loadgen CLI with
+   the reference benchmark's serve arguments.  No flash kernel may launch
+   while serving: decode attention is plain torch, as in the reference.
 
 A line ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -39,10 +49,12 @@ import datetime
 import json
 import math
 import os
+import random
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -71,6 +83,30 @@ KERNEL_CATEGORIES = (
     ("nccl", ("nccl",)),
     ("reductions", ("reduce_kernel",)),
 )
+# The serve step's kernels: no flash kernel, the KV cache's writes and
+# the paged gather are index kernels.
+SERVE_CATEGORIES = (
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("KV cache writes and gathers (index_put, index)", ("index",)),
+    ("softmax", ("softmax", "SoftMax")),
+    ("reductions (argmax, RMSNorm mean)", ("reduce_kernel",)),
+)
+# The serve phase's legs: the fp32 check, then the timed bf16 legs;
+# prompts are drawn from a pool, so the paged legs reuse prefixes.
+SERVE_CHECK = dict(cfg=dict(max_batch=4, token_budget=1024, max_seq=1024,
+                            block_tokens=16, slo_ms=600000.0),
+                   requests=12, pool=4, prompt_tokens=(32, 384),
+                   max_new=16, seed=5)
+SERVE_TIMED = dict(cfg=dict(max_batch=8, token_budget=1024, max_seq=1024,
+                            block_tokens=16, slo_ms=600000.0),
+                   requests=32, pool=8, prompt_tokens=(64, 512),
+                   max_new=64, seed=6)
+NEAR_ARGMAX = 1e-3
+# bench.py's serve leg (bench_serve's loadgen arguments).
+BENCH_SERVE_ARGS = ["--requests", "96", "--duration", "5", "--rate", "120",
+                    "--max-new-tokens", "4", "--prompt-tokens", "8",
+                    "--profile", "burst", "--prompt-pool", "6",
+                    "--max-batch", "4", "--slo-ms", "400"]
 
 
 def emit(obj) -> None:
@@ -410,24 +446,26 @@ def phase_train() -> dict:
                                 f"{cfg.num_layers} a step")
         if problems:
             raise RuntimeError("; ".join(problems))
-        out["profile"] = _profile_step(trainer, state, batch, mean_ms)
+        out["profile"] = _profile(lambda: trainer.step(state, batch),
+                                  mean_ms)
         emit({"phase": "profile", **out["profile"]})
         return out
     finally:
         dist.destroy_process_group()
 
 
-def _profile_step(trainer, state, batch, step_ms: float) -> dict:
-    """Device time by kernel over one more step (torch.profiler): kernel
-    events only, their union against the span from the first kernel's
-    start to the last one's end (the idle share), and the sum of kernel
-    time against the unprofiled step time."""
+def _profile(fn, wall_ms: float, categories=KERNEL_CATEGORIES) -> dict:
+    """Device time by kernel over one more call of ``fn``
+    (torch.profiler): kernel events only, their union against the span
+    from the first kernel's start to the last one's end (the idle share),
+    and the sum of kernel time against ``wall_ms``, the unprofiled time
+    of the same work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        trainer.step(state, batch)
+        fn()
         torch.cuda.synchronize()
     # Kernel events only, not the annotations the profiler also puts on
     # the device timeline ("Optimizer.step#AdamW.step"; a kernel's own
@@ -457,19 +495,217 @@ def _profile_step(trainer, state, batch, step_ms: float) -> dict:
     kernel_us = sum(v[0] for _, v in rows)
     flash_us = {n: sum(v[0] for k, v in rows if n + "_kernel" in k)
                 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    categories: dict[str, float] = {}
+    cats: dict[str, float] = {}
     for name, (us, _) in rows:
-        cat = next((c for c, keys in KERNEL_CATEGORIES if any(
+        cat = next((c for c, keys in categories if any(
             key in name for key in keys)), "elementwise and other")
-        categories[cat] = categories.get(cat, 0.0) + us / 1e3
+        cats[cat] = cats.get(cat, 0.0) + us / 1e3
     return {"kernel_ms": kernel_us / 1e3, "busy_ms": busy_us / 1e3,
             "window_ms": window_us / 1e3,
             "device_idle_share": 1 - busy_us / window_us,
-            "kernel_share_of_timed_step": kernel_us / 1e3 / step_ms,
+            "kernel_share_of_timed_step": kernel_us / 1e3 / wall_ms,
+            "kernel_launches": sum(v[1] for _, v in rows),
             "flash_ms": {n: us / 1e3 for n, us in flash_us.items()},
-            "category_ms": categories,
+            "category_ms": cats,
             "top": [{"name": n[:100], "ms": v[0] / 1e3, "count": v[1]}
                     for n, v in rows[:25]]}
+
+
+def _prompt_pool(spec: dict, vocab: int) -> list[list[int]]:
+    rng = random.Random(spec["seed"])
+    lo, hi = spec["prompt_tokens"]
+    return [[rng.randrange(2, vocab) for _ in range(rng.randint(lo, hi))]
+            for _ in range(spec["pool"])]
+
+
+def _serve_leg(spec: dict, model_cfg, paged: bool, params=None) -> dict:
+    """One leg of the serve phase through the entry points a user calls:
+    every request queued with ``queue.submit``, then ``serve_loop`` until
+    the queue and the slots are drained."""
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    ex = ReplicaExecutor(ServeConfig(model_cfg=model_cfg, paged=paged,
+                                     **spec["cfg"]), params=params)
+    streams: dict[int, list[int]] = {}
+    collect = ex._collect_completions
+
+    def record():
+        for s in ex.slots:
+            if s is not None and s.remaining == 0:
+                streams[s.rid] = list(s.generated)
+        collect()
+    ex._collect_completions = record
+    prompts = _prompt_pool(spec, model_cfg.vocab_size)
+    rid_prompt = {}
+    for i in range(spec["requests"]):
+        prompt = prompts[i % len(prompts)]
+        ex.stats["offered"] += 1
+        rid_prompt[ex.queue.submit(prompt, spec["max_new"])] = prompt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex.serve_loop(stop_when=lambda: True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # The recording closure and the executor refer to each other; without
+    # the cycle the executor's memory is freed when the leg returns, not
+    # whenever the garbage collector runs, so later legs' peaks exclude it.
+    del ex._collect_completions
+    lat = sorted(ex.stats["latencies_ms"])
+    step = ex.admission._m_step
+    tokens = sum(len(g) for g in streams.values())
+    out = {"paged": paged,
+           "dtype": str(model_cfg.dtype).replace("torch.", ""),
+           "requests": spec["requests"], "served": ex.stats["served"],
+           "wall_s": wall, "steps": ex._step, "tokens_generated": tokens,
+           "tokens_per_s": tokens / wall,
+           "step_ms": {"p50": step.quantile(0.5), "p99": step.quantile(0.99),
+                       "count": step.count},
+           "latency_ms": {"p50": lat[len(lat) // 2] if lat else 0.0,
+                          "p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+                          if lat else 0.0},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "kv": ex.kv_stats(),
+           "max_concurrent_seqs": ex.batcher.max_concurrent}
+    ex.close()
+    return {"line": out, "streams": streams, "rid_prompt": rid_prompt}
+
+
+def _near_argmax(model, streams: dict, rid_prompt: dict) -> dict:
+    """Every generated token against the full forward (no cache, dense
+    attention, the same weights) over prompt + generated tokens: it must
+    score within NEAR_ARGMAX of the row's maximum.  Returns the counts."""
+    bad, not_exact, total = [], 0, 0
+    with torch.no_grad():
+        for rid, gen in streams.items():
+            prompt = rid_prompt[rid]
+            seq = torch.tensor([prompt + gen], device="cuda")
+            logits = model(seq)[0, len(prompt) - 1:len(prompt) - 1 + len(gen)]
+            got = torch.tensor(gen, device="cuda")
+            score = logits.gather(1, got[:, None])[:, 0]
+            top = logits.max(dim=1).values
+            short = (score < top - NEAR_ARGMAX).nonzero().flatten().tolist()
+            bad += [(rid, j) for j in short]
+            not_exact += int((logits.argmax(dim=1) != got).sum())
+            total += len(gen)
+    return {"tokens_checked": total, "not_exact_argmax": not_exact,
+            "beyond_tolerance": bad}
+
+
+def _serve_profile(model_cfg, steps: int = 8) -> dict:
+    """8 dense decode steps with every slot of the batch busy: first
+    timed unprofiled, then profiled."""
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    cfg = SERVE_TIMED["cfg"]
+    ex = ReplicaExecutor(ServeConfig(model_cfg=model_cfg, **cfg))
+    prompts = _prompt_pool(dict(SERVE_TIMED, prompt_tokens=(64, 128)),
+                           model_cfg.vocab_size)
+    for i in range(cfg["max_batch"]):
+        ex.queue.submit(prompts[i % len(prompts)], 3 * steps + 8)
+    while any(s is None for s in ex.slots):
+        ex._serve_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ex._serve_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = _profile(lambda: [ex._serve_step() for _ in range(steps)],
+                    wall_ms, SERVE_CATEGORIES)
+    busy = sum(s is not None for s in ex.slots)
+    ex.request_stop()
+    ex.serve_loop()
+    ex.close()
+    return {"steps": steps, "batch": cfg["max_batch"], "busy_slots": busy,
+            "step_ms_unprofiled": wall_ms / steps,
+            "kernel_ms_per_step": prof["kernel_ms"] / steps,
+            "kernel_launches_per_step": prof["kernel_launches"] / steps,
+            **prof}
+
+
+def phase_serve() -> dict:
+    """The port's serving path on gpt_small (see the module docstring)."""
+    from horovod_tpu_torch import TransformerLM, gpt_small
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.serving import loadgen
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    problems = []
+
+    # 1. fp32 legs, each token held against the full forward.
+    cfg32 = gpt_small(dtype=torch.float32)
+    ref = TransformerLM(cfg32, seed=0)
+    params = ref.state_dict()
+    legs = {}
+    for paged in (False, True):
+        leg = _serve_leg(SERVE_CHECK, cfg32, paged, params)
+        check = _near_argmax(ref, leg["streams"], leg["rid_prompt"])
+        leg["line"]["check"] = check
+        legs[paged] = leg
+        if leg["line"]["served"] != SERVE_CHECK["requests"]:
+            problems.append(f"fp32 {'paged' if paged else 'dense'} leg "
+                            f"served {leg['line']['served']}")
+        if check["beyond_tolerance"]:
+            problems.append(f"tokens beyond {NEAR_ARGMAX} of the full "
+                            f"forward's argmax: {check['beyond_tolerance']}")
+    kv = legs[True]["line"]["kv"]
+    if not (kv["active"] == 0 and kv["prefix_hits"] > 0
+            and kv["cow_copies"] > 0 and kv["prefill_skipped"] > 0):
+        problems.append(f"paged census: {kv}")
+    differ = sum(legs[False]["streams"][r] != legs[True]["streams"].get(r)
+                 for r in legs[False]["streams"])
+    for paged in (False, True):
+        emit({"phase": "serve", "leg": "check", **legs[paged]["line"],
+              "streams_dense_vs_paged_differ": differ})
+    del ref, params, legs
+    torch.cuda.empty_cache()
+
+    # 2. timed bf16 legs.
+    cfg16 = gpt_small()
+    timed = {paged: _serve_leg(SERVE_TIMED, cfg16, paged)
+             for paged in (False, True)}
+    agree = sum(timed[False]["streams"][r] == timed[True]["streams"].get(r)
+                for r in timed[False]["streams"])
+    for paged in (False, True):
+        line = timed[paged]["line"]
+        emit({"phase": "serve", "leg": "timed", **line,
+              "streams_dense_vs_paged_equal": agree,
+              "streams": len(timed[False]["streams"])})
+        if line["served"] != SERVE_TIMED["requests"]:
+            problems.append(f"bf16 {'paged' if paged else 'dense'} leg "
+                            f"served {line['served']}")
+    del timed
+    torch.cuda.empty_cache()
+
+    # 3. where a decode step's time goes.
+    prof = _serve_profile(cfg16)
+    emit({"phase": "serve", "leg": "profile", **prof})
+    if prof["busy_slots"] != SERVE_TIMED["cfg"]["max_batch"]:
+        problems.append(f"profiled {prof['busy_slots']} busy slots")
+
+    # 4. the loadgen CLI with the reference benchmark's serve arguments.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "SERVE_r{rank}.json")
+        rc = loadgen.main(BENCH_SERVE_ARGS + ["--output", out])
+        with open(out.replace("{rank}", "0")) as f:
+            report = json.load(f)
+    emit({"phase": "serve", "leg": "loadgen", "rc": rc,
+          **{k: report[k] for k in ("schema", "offered", "served", "shed",
+                                    "expired", "goodput_rps", "latency_ms",
+                                    "step_ms", "steps", "wall_s")}})
+    if rc != 0 or report["schema"] != loadgen.SCHEMA or report["served"] <= 0:
+        problems.append(f"loadgen: rc {rc}, schema {report['schema']}, "
+                        f"served {report['served']}")
+
+    launches = fa.launch_counts()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "serve", "leg": "summary", "flash_launches": launches,
+          "seconds": seconds})
+    if any(launches.values()):
+        problems.append(f"flash kernels launched while serving: {launches}")
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds}
 
 
 def main() -> int:
@@ -486,6 +722,7 @@ def main() -> int:
     kernels = phase_kernels()
     phase_reference()
     train = phase_train()
+    phase_serve()
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": train["launches"][name],

@@ -15,6 +15,13 @@ arrays in, numpy arrays out); ``flax_leaf_order`` gives the port's
 parameter names in the order ``jax.tree_util.tree_flatten`` visits the
 flax tree (keys sorted at every level: ``layer_0, layer_1, layer_10,
 layer_2, ...``), which is the order gradient buckets are filled in.
+
+A ``decode=True`` model has the same parameters, so these serve it as
+they are.  Its KV cache is the flax ``cache`` collection,
+``layer_i/attn/{cached_key, cached_value, cache_index}`` (dense) or
+``layer_i/attn/{key_pool, value_pool}`` (paged); ``cache_from_flax`` and
+``cache_to_flax`` carry it across, so that both packages can start from
+one cache state.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .models.transformer import TransformerConfig
+from .models.transformer import KVCache, PagedKVCache, TransformerConfig
 
 # (torch name, flax path, flax -> torch, torch -> flax) for every leaf.
 _Leaf = tuple[str, tuple[str, ...], Callable, Callable]
@@ -101,4 +108,43 @@ def params_to_flax(state_dict: dict[str, torch.Tensor],
             node = node.setdefault(key, {})
         value = state_dict[name].detach().cpu().float().numpy()
         node[path[-1]] = np.ascontiguousarray(to_flax(value))
+    return tree
+
+
+def cache_from_flax(cache_tree: Any, cfg: TransformerConfig,
+                    device: str | torch.device = "cpu"
+                    ) -> KVCache | PagedKVCache:
+    """flax ``cache`` collection (dense or paged) -> the port's cache, in
+    ``cfg.dtype`` (the index in int32), on ``device``."""
+    attn = [_get(cache_tree, (f"layer_{i}", "attn"))
+            for i in range(cfg.num_layers)]
+
+    def tensors(key, dtype=cfg.dtype):
+        # Through float32: numpy has no bfloat16, and the round trip is
+        # exact for 16-bit values.
+        return [torch.from_numpy(np.array(a[key], np.float32)).to(
+            device=device, dtype=dtype) for a in attn]
+    if "key_pool" in attn[0]:
+        return PagedKVCache(tensors("key_pool"), tensors("value_pool"))
+    return KVCache(tensors("cached_key"), tensors("cached_value"),
+                   [torch.from_numpy(np.array(a["cache_index"], np.int32))
+                    .to(device) for a in attn])
+
+
+def cache_to_flax(cache: KVCache | PagedKVCache,
+                  cfg: TransformerConfig) -> dict:
+    """The port's cache -> flax ``cache`` collection of numpy arrays
+    (16-bit values come back as float32, exactly)."""
+    def arr(x):
+        return x.detach().cpu().float().numpy()
+    tree: dict = {}
+    for i in range(cfg.num_layers):
+        if isinstance(cache, PagedKVCache):
+            node = {"key_pool": arr(cache.key_pool[i]),
+                    "value_pool": arr(cache.value_pool[i])}
+        else:
+            node = {"cached_key": arr(cache.key[i]),
+                    "cached_value": arr(cache.value[i]),
+                    "cache_index": cache.index[i].detach().cpu().numpy()}
+        tree[f"layer_{i}"] = {"attn": node}
     return tree

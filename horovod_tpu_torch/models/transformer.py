@@ -10,7 +10,12 @@ Same configuration, presets and mixed-precision rules as the flax model:
 - RMSNorm computes in fp32 and casts after multiplying by its fp32 scale;
 - RoPE uses global positions and the split-halves rotation;
 - attention is ``"dense"`` (``mha_reference``) or ``"flash"`` (the CUDA
-  kernels of ``ops/flash_attention.py``).
+  kernels of ``ops/flash_attention.py``);
+- with ``decode=True`` attention runs over a KV cache passed to the
+  forward: a dense ``KVCache`` or, with ``paged=True``, a
+  ``PagedKVCache`` addressed through block tables.  Decode attention is
+  plain torch in fp32, as the reference's is plain ``jnp``: no kernel of
+  this repo runs on the serving path.
 
 Casts are explicit rather than ``torch.autocast``, which would cast at
 other places.  Parameter names follow PyTorch (``layers.0.attn.wq.weight``,
@@ -18,8 +23,9 @@ Linear weights ``[out, in]``); ``convert.py`` maps them to and from the
 flax tree.  Initialisation draws from flax's default distributions with a
 ``torch.Generator``.
 
-The slice covers the training forward.  KV-cache decoding, paged caches,
-sequence parallelism (ring/ulysses), MoE and the "dots" remat policy raise
+The port covers the training forward and KV-cache decoding (dense and
+paged; ``prefill``, ``decode_step``, ``paged_apply``, ``paged_copy_block``).
+Sequence parallelism (ring/ulysses), MoE and the "dots" remat policy raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -34,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..common.device import resolve_device
-from ..ops.flash_attention import flash_attention, mha_reference
+from ..ops.flash_attention import NEG_INF, flash_attention, mha_reference
 
 # flax's truncated normal draws N(0, 1) cut to [-2, 2], rescaled by this
 # constant so that the truncated distribution has unit variance.
@@ -85,11 +91,14 @@ class TransformerConfig:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise NotImplementedError for what this slice does not port yet."""
+    """Raise NotImplementedError for what the port does not cover yet, and
+    ValueError for what the reference refuses too."""
+    if cfg.decode and cfg.attention in ("ring", "ulysses"):
+        raise ValueError(
+            "cfg.decode is incompatible with sequence-parallel attention "
+            f"('{cfg.attention}'): the KV cache is a whole-sequence "
+            "structure")
     unported = [
-        (cfg.decode or cfg.paged,
-         "KV-cache decoding (decode/paged) is ROADMAP queue A item 5 "
-         "(serving)"),
         (cfg.attention in ("ring", "ulysses"),
          f"attention={cfg.attention!r} is ROADMAP queue A item 10 "
          "(sequence parallelism)"),
@@ -106,6 +115,9 @@ def check_supported(cfg: TransformerConfig) -> None:
             raise NotImplementedError(what)
     if cfg.attention not in ("dense", "flash", "ring", "ulysses"):
         raise ValueError(f"Unknown attention impl: {cfg.attention}")
+    if cfg.paged and cfg.decode and cfg.kv_pool_blocks <= 0:
+        raise ValueError("cfg.paged needs kv_pool_blocks > 0 (the per-layer "
+                         "block pool size)")
     if cfg.remat_policy not in ("full", "dots"):
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
                          "(expected 'full' or 'dots')")
@@ -193,25 +205,125 @@ class Attention(nn.Module):
         self.wv = Dense(cfg.d_model, hd, *args)
         self.wo = Dense(hd, cfg.d_model, *args)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
+                block_tables=None, cursors=None, lengths=None
+                ) -> torch.Tensor:
         cfg = self.cfg
         b, t, _ = x.shape
         shape = (b, t, cfg.num_heads, cfg.head_dim)
         q = self.wq(x).view(shape)
         k = self.wk(x).view(shape)
         v = self.wv(x).view(shape)
-        positions = torch.arange(t, device=x.device)
+        if cache is not None and cfg.paged:
+            out = self._decode_attend_paged(q, k, v, cache, layer,
+                                            block_tables, cursors, lengths)
+        elif cache is not None:
+            out = self._decode_attend(q, k, v, cache, layer)
+        else:
+            positions = torch.arange(t, device=x.device)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            if cfg.attention == "flash":
+                out = flash_attention(q, k, v, causal=cfg.causal,
+                                      block_q=cfg.block_q,
+                                      block_k=cfg.block_k,
+                                      block_q_bwd=cfg.block_q_bwd,
+                                      block_k_bwd=cfg.block_k_bwd,
+                                      device=x.device)
+            else:
+                out = mha_reference(q, k, v, causal=cfg.causal)
+        return self.wo(out.to(cfg.dtype).reshape(b, t, -1))
+
+    def _decode_attend(self, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, cache: "KVCache", layer: int
+                       ) -> torch.Tensor:
+        """Incremental attention over the dense cache: write this call's
+        K/V at each row's own depth, attend causally over the cached
+        prefix at absolute positions."""
+        cfg = self.cfg
+        b, t, _, _ = q.shape
+        s = cfg.max_seq_len
+        idx = cache.index[layer]                                 # [B]
+        steps = torch.arange(t, device=q.device)
+        # Per-row positions: each row of the batch sits at its own depth.
+        positions = idx.long()[:, None] + steps[None, :]         # [B, T]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        if cfg.attention == "flash":
-            out = flash_attention(q, k, v, causal=cfg.causal,
-                                  block_q=cfg.block_q, block_k=cfg.block_k,
-                                  block_q_bwd=cfg.block_q_bwd,
-                                  block_k_bwd=cfg.block_k_bwd,
-                                  device=x.device)
-        else:
-            out = mha_reference(q, k, v, causal=cfg.causal)
-        return self.wo(out.to(cfg.dtype).reshape(b, t, -1))
+        # jax.lax.dynamic_update_slice clamps its start to [0, S - t], and
+        # a free serving slot's cursor does run past S (every decode step
+        # advances every row).  A slice assignment would raise there, so
+        # the write start is clamped as JAX clamps it.
+        start = idx.long().clamp(0, s - t)
+        rows = torch.arange(b, device=q.device)[:, None]
+        write = start[:, None] + steps[None, :]
+        cache.key[layer][rows, write] = k.to(cfg.dtype)
+        cache.value[layer][rows, write] = v.to(cfg.dtype)
+        cache.index[layer] = idx + t
+        # Right-padded prefill garbage sits at key positions past every
+        # live query, so key_pos <= q_pos alone keeps it invisible.
+        key_pos = torch.arange(s, device=q.device)
+        mask = key_pos[None, None, :] <= positions[:, :, None]   # [B,T,S]
+        return _cache_attention(q, cache.key[layer], cache.value[layer],
+                                mask)
+
+    def _decode_attend_paged(self, q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, cache: "PagedKVCache",
+                             layer: int, block_tables, cursors, lengths
+                             ) -> torch.Tensor:
+        """Incremental attention over the shared block pool: K/V scatter
+        into pool rows through each row's block table (logical position
+        p of row b lives at ``pool[tables[b, p // bt], p % bt]``), the
+        table gathers the sequence back as ``[B, M*bt, H, D]``, and the
+        same absolute-position causal attention runs over it.  Padded
+        positions (``lengths``) write to the sink row, the pool's last."""
+        cfg = self.cfg
+        if block_tables is None or cursors is None:
+            raise ValueError("paged decode needs block_tables [B, M] and "
+                             "cursors [B] on every call")
+        b, t, h, d = q.shape
+        bt = cfg.kv_block_tokens
+        sink = cfg.kv_pool_blocks
+        tables = block_tables.long()                             # [B, M]
+        m = tables.shape[1]
+        steps = torch.arange(t, device=q.device)
+        positions = cursors.long()[:, None] + steps[None, :]     # [B, T]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        logical = torch.clamp(positions // bt, max=m - 1)
+        phys = torch.gather(tables, 1, logical)                  # [B, T]
+        if lengths is not None:
+            valid = steps[None, :] < lengths.long()[:, None]
+            phys = torch.where(valid, phys, torch.full_like(phys, sink))
+        offs = positions % bt
+        # Two writes meet only in the sink row (padded positions); CUDA's
+        # index_put_ then keeps either, which is harmless there alone.
+        kp, vp = cache.key_pool[layer], cache.value_pool[layer]
+        kp[phys.reshape(-1), offs.reshape(-1)] = \
+            k.to(cfg.dtype).reshape(b * t, h, d)
+        vp[phys.reshape(-1), offs.reshape(-1)] = \
+            v.to(cfg.dtype).reshape(b * t, h, d)
+        # Positions past the cursor (stale or sink-backed) are masked like
+        # the dense path's not-yet-written tail.
+        k_seq = kp[tables].reshape(b, m * bt, h, d)
+        v_seq = vp[tables].reshape(b, m * bt, h, d)
+        key_pos = torch.arange(m * bt, device=q.device)
+        mask = key_pos[None, None, :] <= positions[:, :, None]   # [B,T,S]
+        return _cache_attention(q, k_seq, v_seq, mask)
+
+
+def _cache_attention(q: torch.Tensor, keys: torch.Tensor,
+                     values: torch.Tensor, mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """The decode paths' attention, at the reference's precision: q, K and
+    V in fp32, masked logits set to -1e30, fp32 softmax, and probs @ V in
+    fp32 (the caller casts after it).  ``mha_reference`` casts p to V's
+    dtype before the product, so it is not reused here."""
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          keys.float()) / math.sqrt(d)
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, values.float())
 
 
 class MLP(nn.Module):
@@ -235,8 +347,11 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, *norm, device=device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x))
+    def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
+                block_tables=None, cursors=None, lengths=None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), cache, layer, block_tables,
+                          cursors, lengths)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -281,16 +396,162 @@ class TransformerLM(nn.Module):
             elif isinstance(module, RMSNorm):
                 module.reset_parameters()
 
-    def forward(self, tokens: torch.Tensor, train: bool = False
-                ) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, train: bool = False,
+                cache=None, block_tables=None, cursors=None,
+                lengths=None) -> torch.Tensor:
+        """``cache`` (a ``KVCache``, or a ``PagedKVCache`` with
+        ``block_tables`` and ``cursors``) is required when ``cfg.decode``
+        and refused otherwise; it is updated in place."""
         cfg = self.cfg
+        if cfg.decode:
+            kind = PagedKVCache if cfg.paged else KVCache
+            if not isinstance(cache, kind):
+                raise ValueError(f"a decode=True model takes a "
+                                 f"{kind.__name__} (see prefill, "
+                                 f"decode_step and paged_apply)")
+        elif cache is not None:
+            raise ValueError("a KV cache needs cfg.decode=True")
         x = self.embed.weight.to(cfg.dtype)[tokens]
-        for block in self.layers:
-            if cfg.remat and train and torch.is_grad_enabled():
+        for i, block in enumerate(self.layers):
+            if cache is not None:
+                x = block(x, cache, i, block_tables, cursors, lengths)
+            elif cfg.remat and train and torch.is_grad_enabled():
                 x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x)
         return self.lm_head(self.final_norm(x))
+
+
+# ---------------------------------------------------------------------------
+# KV-cache incremental decoding (inference serving; serving/replica.py)
+# ---------------------------------------------------------------------------
+# Every helper runs under torch.inference_mode(): the caches they make are
+# inference tensors, which may be written in place only inside that mode,
+# so every write to a cache (these helpers and the serving replica) runs
+# in it.
+@dataclasses.dataclass
+class KVCache:
+    """Dense KV cache of a ``decode=True`` model, the flax ``cache``
+    collection as tensors: per layer ``key`` and ``value`` ``[B, S, H, D]``
+    in ``cfg.dtype`` (``cached_key``, ``cached_value``) and the write
+    cursor ``index`` ``[B]`` int32 (``cache_index``)."""
+    key: list[torch.Tensor]
+    value: list[torch.Tensor]
+    index: list[torch.Tensor]
+
+    @classmethod
+    def zeros(cls, cfg: TransformerConfig, batch: int,
+              device: torch.device) -> "KVCache":
+        shape = (batch, cfg.max_seq_len, cfg.num_heads, cfg.head_dim)
+        n = cfg.num_layers
+
+        def kv():
+            return [torch.zeros(shape, dtype=cfg.dtype, device=device)
+                    for _ in range(n)]
+        return cls(kv(), kv(), [torch.zeros(batch, dtype=torch.int32,
+                                            device=device)
+                                for _ in range(n)])
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged KV cache: per layer ``key_pool`` and ``value_pool``
+    ``[kv_pool_blocks + 1, kv_block_tokens, H, D]`` in ``cfg.dtype``; the
+    last row is the sink that padded positions write to."""
+    key_pool: list[torch.Tensor]
+    value_pool: list[torch.Tensor]
+
+    @classmethod
+    def zeros(cls, cfg: TransformerConfig,
+              device: torch.device) -> "PagedKVCache":
+        shape = (cfg.kv_pool_blocks + 1, cfg.kv_block_tokens,
+                 cfg.num_heads, cfg.head_dim)
+
+        def pool():
+            return [torch.zeros(shape, dtype=cfg.dtype, device=device)
+                    for _ in range(cfg.num_layers)]
+        return cls(pool(), pool())
+
+
+def _as_index(x, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).long()
+
+
+def _with_cache_index(cache: KVCache, lengths) -> KVCache:
+    """``cache`` with every layer's write cursor set to ``lengths``
+    (scalar or ``[B]``): prefill() rewinds past padding with it, and the
+    serving replica resets its slots.  The K/V tensors are shared."""
+    b = cache.key[0].shape[0]
+    device = cache.key[0].device
+    index = torch.as_tensor(lengths, dtype=torch.int32,
+                            device=device).expand(b)
+    return dataclasses.replace(cache, index=[index.clone()
+                                             for _ in cache.index])
+
+
+@torch.inference_mode()
+def prefill(model: TransformerLM, tokens, lengths=None
+            ) -> tuple[torch.Tensor, KVCache]:
+    """Run the prompt through a dense ``decode=True`` model into a fresh
+    cache and return ``(logits [B, T, vocab], cache)``.
+
+    ``lengths`` ([B] or scalar) gives each row's true prompt length when
+    ``tokens`` is right-padded to a shared bucket: the write cursor
+    rewinds to it, so the first decode_step overwrites the padding, and
+    the causal mask hides the rest.  The next-token logits of row b are
+    ``logits[b, lengths[b] - 1]``.  The reference's ``variables`` argument
+    is the module's own parameters here."""
+    if model.cfg.paged:
+        raise ValueError("prefill is the dense path; a paged model "
+                         "prefills through paged_apply")
+    tokens = _as_index(tokens, model.device)
+    cache = KVCache.zeros(model.cfg, tokens.shape[0], model.device)
+    logits = model(tokens, cache=cache)
+    if lengths is not None:
+        cache = _with_cache_index(cache, lengths)
+    return logits, cache
+
+
+@torch.inference_mode()
+def decode_step(model: TransformerLM, cache: KVCache, tokens
+                ) -> tuple[torch.Tensor, KVCache]:
+    """One incremental step: ``tokens`` [B, 1] (or [B]) -> ``(logits
+    [B, 1, vocab], cache)``, each row at its own cache depth (what lets
+    continuous batching admit a prefill into a half-decoded batch)."""
+    tokens = _as_index(tokens, model.device)
+    if tokens.dim() == 1:
+        tokens = tokens[:, None]
+    return model(tokens, cache=cache), cache
+
+
+@torch.inference_mode()
+def paged_apply(model: TransformerLM, cache: PagedKVCache, tokens,
+                block_tables, cursors, lengths=None
+                ) -> tuple[torch.Tensor, PagedKVCache]:
+    """One paged call, prefill and decode alike: ``tokens [B, T]`` write
+    into the pool through each row's ``block_tables`` entry from its
+    ``cursors`` position and attend over the gathered prefix.
+    ``lengths`` sends padded positions to the sink row."""
+    dev = model.device
+    tokens = _as_index(tokens, dev)
+    if tokens.dim() == 1:
+        tokens = tokens[:, None]
+    logits = model(tokens, cache=cache,
+                   block_tables=_as_index(block_tables, dev),
+                   cursors=_as_index(cursors, dev),
+                   lengths=None if lengths is None
+                   else _as_index(lengths, dev))
+    return logits, cache
+
+
+@torch.inference_mode()
+def paged_copy_block(cache: PagedKVCache, src: int, dst: int
+                     ) -> PagedKVCache:
+    """The tensor half of a copy-on-write: copy pool row ``src`` to
+    ``dst`` in every layer (the id half is ``KVBlockPool.cow``)."""
+    for pool in (*cache.key_pool, *cache.value_pool):
+        pool[dst] = pool[src]
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,214 @@
+"""Continuous batcher: token-budgeted batch assembly over in-flight
+decode batches (a copy of ``horovod_tpu/serving/batcher.py``).
+
+Classic batching waits for a batch to fill, runs it to completion, and
+only then admits more — tail latency inherits the longest generation in
+every batch.  Continuous batching (Orca-style) instead treats the batch
+as a set of SLOTS: every serve step, finished slots free up and the
+batcher admits queued requests straight into the half-decoded batch.
+The unit of work per step is bounded by a token budget (prefill tokens
+of new admissions + one decode token per active slot), which keeps step
+time — and therefore the admission controller's SLO math — predictable.
+
+The batcher runs on the front-end rank and produces one :class:`BatchPlan`
+per step; the plan is broadcast to every rank (replica.py), which is the
+broadcast-consistent scheduling discipline: replicas never diverge on a
+collective because every rank executes the same plan sequence.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import field
+
+from ..common import config
+from .queue import RequestQueue, ServeRequest
+
+
+@dataclasses.dataclass
+class Assignment:
+    """One request newly admitted into a replica group's decode batch."""
+    rid: int
+    replica: int                       # replica-group index
+    tokens: list[int]
+    max_new_tokens: int
+    age_ms: float                      # ingress age when the plan formed
+    deadline_rel_ms: float             # SLO budget left when it formed
+    slo_ms: float = 0.0
+    # Disaggregated prefill/decode (HOROVOD_SERVE_PREFILL_RANKS): the
+    # rank that runs this prompt's prefill and streams the finished KV
+    # blocks to the decode replica; -1 = the replica prefills locally.
+    prefill: int = -1
+
+
+@dataclasses.dataclass
+class BatchPlan:
+    """The per-step schedule every rank executes identically (pickled
+    over ``torch.distributed.broadcast_object_list``)."""
+    step: int
+    assign: list[Assignment] = field(default_factory=list)
+    stop: bool = False
+    # Fleet continuous deployment: when non-zero, every rank swaps to
+    # this weight version at THIS step.  Kept so the plan is the
+    # reference's; the port never sets it (ROADMAP queue A item 12).
+    swap_version: int = 0
+
+
+class ContinuousBatcher:
+    """Front-end accounting of replica-group slots + plan assembly.
+
+    With paged KV (``block_capacity > 0``) the batcher also mirrors each
+    replica's block-pool residency: an admission reserves the prompt's
+    worst-case block count (prompt + max_new tokens, plus one block of
+    copy-on-write headroom) and a candidate replica must have capacity.
+    The mirror is conservative — prefix-cache hits on the replica use
+    fewer physical blocks than reserved — which is exactly what makes
+    reserve-at-admission safe: a replica can never run out of blocks
+    mid-decode."""
+
+    def __init__(self, num_replicas: int,
+                 slots_per_replica: int | None = None,
+                 token_budget: int | None = None,
+                 max_prompt_tokens: int | None = None,
+                 block_capacity: int = 0,
+                 block_tokens: int | None = None,
+                 max_deferrals: int | None = None) -> None:
+        self.slots_per_replica = config.SERVE_MAX_BATCH.get() \
+            if slots_per_replica is None else int(slots_per_replica)
+        self.token_budget = config.SERVE_TOKEN_BUDGET.get() \
+            if token_budget is None else int(token_budget)
+        max_seq = config.SERVE_MAX_SEQ.get()
+        self.max_prompt_tokens = max_seq if max_prompt_tokens is None \
+            else int(max_prompt_tokens)
+        self.block_capacity = int(block_capacity)
+        self.block_tokens = config.SERVE_BLOCK_TOKENS.get() \
+            if block_tokens is None else int(block_tokens)
+        self.max_deferrals = config.SERVE_MAX_DEFERRALS.get() \
+            if max_deferrals is None else int(max_deferrals)
+        # rid -> replica group, the front end's in-flight view (rebuilt
+        # from ground truth after an elastic shrink — see rebuild()).
+        self.inflight: dict[int, int] = {}
+        self._active: list[int] = [0] * num_replicas   # slots in use
+        self._blocks: list[int] = [0] * num_replicas   # blocks reserved
+        self._req_blocks: dict[int, int] = {}          # rid -> reserve
+        # Peak concurrent in-flight sequences — the number the paged A/B
+        # reports next to SERVE_MAX_BATCH.
+        self.max_concurrent = 0
+
+    @property
+    def num_replicas(self) -> int:
+        return len(self._active)
+
+    def inflight_count(self) -> int:
+        return len(self.inflight)
+
+    def blocks_needed(self, req: ServeRequest) -> int:
+        """Worst-case pool reservation: every prompt + generated token
+        paged, plus one block of COW headroom (a sequence extending its
+        own published tail copies it first)."""
+        tokens = min(len(req.tokens), self.max_prompt_tokens) \
+            + req.max_new_tokens
+        return -(-tokens // self.block_tokens) + 1
+
+    # -- assembly --------------------------------------------------------
+    def assemble(self, step: int, queue: RequestQueue, admission,
+                 stop: bool = False, prefill_ranks=()
+                 ) -> tuple[BatchPlan, list[ServeRequest]]:
+        """Build the step's plan: admit queued requests into free slots
+        replica-by-replica (least-loaded first) under the token budget
+        (and, when paged, the block-capacity mirror).  Returns (plan,
+        expired-in-queue requests).  Requests that fit no slot or
+        budget THIS step are returned to the queue head — that is
+        back-pressure, not a shed; the admission controller decides
+        actual sheds.  A request deferred more than ``max_deferrals``
+        steps turns URGENT: it bypasses the token budget (one over-sized
+        step beats unbounded starvation) and raises a barrier — nothing
+        behind it is admitted until it lands — so a stream of small
+        prompts can never starve a large one indefinitely."""
+        now = time.monotonic()
+        plan = BatchPlan(step=step, stop=stop)
+        free_slots = sum(self.slots_per_replica - a for a in self._active)
+        if free_slots <= 0:
+            return plan, []
+        ready, expired = queue.pop_ready(free_slots, now=now)
+        # Decode tokens already claimed this step by in-flight slots.
+        budget = [self.token_budget - a for a in self._active]
+        deferred: list[ServeRequest] = []
+        barrier = False
+        n_prefill = len(prefill_ranks)
+        for req in ready:
+            if barrier:
+                # Reserved for the urgent prompt ahead: requeued without
+                # aging (these were never individually refused).
+                deferred.append(req)
+                continue
+            urgent = req.deferrals >= self.max_deferrals
+            need = self.blocks_needed(req) if self.block_capacity else 0
+            # Least-loaded replica group with a free slot, budget for
+            # the prompt's prefill tokens (waived when urgent) and block
+            # capacity (never waived — blocks are real memory); no
+            # candidate is back-pressure (requeued, no admission verdict
+            # yet), not a shed.
+            candidates = [r for r in range(self.num_replicas)
+                          if self._active[r] < self.slots_per_replica
+                          and (urgent or budget[r] >= len(req.tokens))
+                          and (not self.block_capacity
+                               or self._blocks[r] + need
+                               <= self.block_capacity)]
+            if not candidates:
+                req.deferrals += 1
+                deferred.append(req)
+                if urgent:
+                    barrier = True
+                continue
+            ok, _ = admission.admit(req, queue.depth(), now=now)
+            if not ok:
+                continue
+            r = min(candidates, key=lambda i: self._active[i])
+            self._active[r] += 1
+            budget[r] -= len(req.tokens)
+            if self.block_capacity:
+                self._blocks[r] += need
+                self._req_blocks[req.rid] = need
+            self.inflight[req.rid] = r
+            self.max_concurrent = max(self.max_concurrent,
+                                      len(self.inflight))
+            req.replica = r
+            plan.assign.append(Assignment(
+                rid=req.rid, replica=r, tokens=req.tokens,
+                max_new_tokens=req.max_new_tokens,
+                age_ms=(now - req.arrival) * 1e3,
+                deadline_rel_ms=req.remaining_ms(now),
+                slo_ms=req.slo_ms,
+                prefill=prefill_ranks[req.rid % n_prefill]
+                if n_prefill else -1))
+        if deferred:
+            queue.requeue_front(deferred)
+        return plan, expired
+
+    # -- completion / failure accounting ---------------------------------
+    def note_done(self, rid: int) -> None:
+        r = self.inflight.pop(rid, None)
+        if r is not None and 0 <= r < self.num_replicas:
+            self._active[r] = max(0, self._active[r] - 1)
+            freed = self._req_blocks.pop(rid, 0)
+            self._blocks[r] = max(0, self._blocks[r] - freed)
+
+    def rebuild(self, per_replica_rids: list[list[int]]) -> list[int]:
+        """Resynchronize from ground truth after an elastic shrink: slot
+        occupancy, block reservations and the in-flight map are rebuilt
+        from each surviving replica group's actual resident rids;
+        returns the rids that vanished with dead replicas (lost
+        in-flight work)."""
+        before = set(self.inflight)
+        self.inflight = {}
+        self._active = [0] * len(per_replica_rids)
+        self._blocks = [0] * len(per_replica_rids)
+        for r, rids in enumerate(per_replica_rids):
+            for rid in rids:
+                self.inflight[rid] = r
+                self._active[r] += 1
+                self._blocks[r] += self._req_blocks.get(rid, 0)
+        for rid in before - set(self.inflight):
+            self._req_blocks.pop(rid, None)
+        return sorted(before - set(self.inflight))

@@ -1,0 +1,258 @@
+"""Open-loop SLO load harness: ``python -m horovod_tpu_torch.serving.loadgen``
+(the counterpart of ``horovod_tpu/serving/loadgen.py``, same CLI and
+report schema).
+
+Drives synthetic traffic at the serving world and reports the numbers a
+capacity planner actually needs, next to the training benches:
+
+- **Open-loop Poisson arrivals** (``--rate``, ``--profile
+  steady|burst|ramp``): arrival times are drawn independently of
+  completion times, so an overloaded server sees the queue grow instead
+  of the load generator politely slowing down — the only honest way to
+  measure shed behavior (closed-loop generators hide collapse).
+- **SLO accounting**: every request carries a deadline stamped at
+  ingress; the report separates served / served-within-SLO / shed /
+  expired / lost, with p50/p99/p999 latency and goodput vs offered
+  load.
+
+The JSON report lands in ``--output`` (default ``SERVE_r{rank}.json``,
+``{rank}`` substitutes); it runs one replica on the card unless
+``--device cpu``.  Not ported: chaos (``HOROVOD_CHAOS``) and the elastic
+shrink and grow it drives, the statesync wiring (ROADMAP queue A item
+11) and the fleet weights accounting (item 12), which the report names
+as not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import threading
+import time
+
+from ..common import config
+from .replica import ReplicaExecutor, ServeConfig
+
+SCHEMA = "horovod_tpu.serving.loadgen/2"
+
+
+def arrival_times(rng: random.Random, n: int, duration: float,
+                  rate: float, profile: str) -> list[float]:
+    """Relative arrival offsets: Poisson process at ``rate`` req/s,
+    shaped by profile (burst = 4x rate through the middle fifth; ramp =
+    0.25x -> 2x linearly), truncated at ``n`` requests or ``duration``
+    seconds, whichever first."""
+    times: list[float] = []
+    t = 0.0
+    while len(times) < n:
+        frac = min(t / duration, 1.0) if duration > 0 else 0.0
+        r = rate
+        if profile == "burst" and 0.4 <= frac < 0.6:
+            r = rate * 4.0
+        elif profile == "ramp":
+            r = rate * (0.25 + 1.75 * frac)
+        t += rng.expovariate(r)
+        if duration > 0 and t >= duration:
+            break
+        times.append(t)
+    return times
+
+
+def drive_ingress(executor: ReplicaExecutor, times: list[float],
+                  rng: random.Random, *, prompt_tokens: int,
+                  max_new_tokens: int, slo_ms: float | None,
+                  done: threading.Event, prompt_pool: int = 0) -> None:
+    """Submit one request per arrival time (front-end thread); closes
+    the queue and sets ``done`` when the schedule is exhausted.
+    ``prompt_pool > 0`` draws prompts from that many fixed token lists
+    instead of fresh randomness — the repeated-prompt profile that
+    exercises the paged prefix cache."""
+    vocab = executor.model.cfg.vocab_size
+    pool = None
+    if prompt_pool > 0:
+        pool = [[rng.randrange(2, vocab)
+                 for _ in range(rng.randint(2, max(2, prompt_tokens)))]
+                for _ in range(prompt_pool)]
+    start = time.monotonic()
+    try:
+        for i, t in enumerate(times):
+            delay = start + t - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            if pool is not None:
+                toks = pool[i % len(pool)]
+            else:
+                n = rng.randint(2, max(2, prompt_tokens))
+                toks = [rng.randrange(2, vocab) for _ in range(n)]
+            executor.stats["offered"] += 1
+            executor.queue.submit(toks, max_new_tokens, slo_ms)
+    finally:
+        executor.queue.close()
+        done.set()
+
+
+def build_report(executor: ReplicaExecutor, *, offered: int,
+                 wall_s: float, args_echo: dict) -> dict:
+    """The SERVE_r*.json payload (front end carries the full stats;
+    other ranks report their local completion view)."""
+    stats = executor.stats
+    lat = sorted(stats["latencies_ms"])
+
+    def pct(q: float) -> float:
+        if not lat:
+            return 0.0
+        return lat[min(len(lat) - 1, int(q * len(lat)))]
+
+    reg_snapshot = {m["name"]: m for m
+                    in executor.admission._reg.snapshot()["metrics"]
+                    if m["name"] == "horovod_serve_step_ms"}
+    step_hist = executor.admission._m_step
+    served = stats["served"]
+    report = {
+        "schema": SCHEMA,
+        "rank": executor.rank,
+        "world": {"size": executor.size,
+                  "replica_groups": executor.num_groups,
+                  "group_size": executor.group_size,
+                  "shrinks": stats["shrinks"],
+                  "grows": stats["grows"]},
+        # Goodput around an elastic grow: no grow without statesync.
+        "goodput_phases": None,
+        "config": args_echo,
+        "offered": offered,
+        "served": served,
+        "served_within_slo": stats["served_slo"],
+        "expired": stats["expired"],
+        "lost_on_failure": stats["lost"],
+        "shed": max(0, offered - served - stats["expired"]
+                    - stats["lost"]),
+        "shed_rate": (max(0, offered - served) / offered
+                      if offered else 0.0),
+        "latency_ms": {"p50": pct(0.50), "p99": pct(0.99),
+                       "p999": pct(0.999),
+                       "mean": (sum(lat) / len(lat)) if lat else 0.0,
+                       "max": lat[-1] if lat else 0.0},
+        "step_ms": {"p50": step_hist.quantile(0.5),
+                    "p99": step_hist.quantile(0.99),
+                    "count": step_hist.count},
+        "goodput_rps": served / wall_s if wall_s > 0 else 0.0,
+        "offered_rps": offered / wall_s if wall_s > 0 else 0.0,
+        "tokens_generated": sum(rec["tokens"]
+                                for rec in executor.completed.values()),
+        "local_completed": len(executor.completed),
+        "wall_s": wall_s,
+        "steps": executor._step,
+        "step_metrics_present": bool(reg_snapshot),
+        # Paged-KV residency/reuse (None in dense mode).
+        "kv": executor.kv_stats(),
+        "max_concurrent_seqs": executor.batcher.max_concurrent,
+        "weights": {"ported": False,
+                    "note": "fleet weight deployment is ROADMAP queue A "
+                            "items 11 and 12"},
+    }
+    return report
+
+
+def write_report(report: dict, output: str, rank: int) -> str:
+    path = output.replace("{rank}", str(rank))
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return path
+
+
+def run(args: argparse.Namespace) -> dict:
+    overrides = {}
+    if args.max_batch:
+        overrides["max_batch"] = args.max_batch
+    if args.token_budget:
+        overrides["token_budget"] = args.token_budget
+    if args.slo_ms:
+        overrides["slo_ms"] = args.slo_ms
+    executor = ReplicaExecutor(ServeConfig.from_env(**overrides),
+                               device=args.device)
+    done = threading.Event()
+    t0 = time.monotonic()
+    rng = random.Random(args.seed)
+    times = arrival_times(rng, args.requests, args.duration, args.rate,
+                          args.profile)
+    ingress = threading.Thread(
+        target=drive_ingress, daemon=True, name="serve-ingress",
+        args=(executor, times, rng),
+        kwargs=dict(prompt_tokens=args.prompt_tokens,
+                    max_new_tokens=args.max_new_tokens,
+                    slo_ms=args.slo_ms, done=done,
+                    prompt_pool=args.prompt_pool))
+    ingress.start()
+    try:
+        executor.serve_loop(stop_when=done.is_set)
+    finally:
+        # drive_ingress sets `done` as its last act, so by the time
+        # serve_loop returned it is at most one submit away from exit.
+        ingress.join(timeout=10.0)
+    wall = time.monotonic() - t0
+    report = build_report(
+        executor, offered=executor.stats["offered"], wall_s=wall,
+        args_echo={"requests": args.requests, "duration": args.duration,
+                   "rate": args.rate, "profile": args.profile,
+                   "prompt_tokens": args.prompt_tokens,
+                   "max_new_tokens": args.max_new_tokens,
+                   "slo_ms": args.slo_ms
+                   or config.SERVE_SLO_MS.get(),
+                   "prompt_pool": args.prompt_pool,
+                   "paged": executor.cfg.paged,
+                   "seed": args.seed})
+    path = write_report(report, args.output, executor.rank)
+    print(json.dumps({k: report[k] for k in
+                      ("served", "shed", "expired", "goodput_rps",
+                       "latency_ms", "world")}, sort_keys=True))
+    print(f"loadgen: report written to {path}")
+    executor.close()
+    return report
+
+
+def make_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.serving.loadgen",
+        description="Open-loop Poisson load harness for the serving "
+                    "subsystem, on one replica.")
+    parser.add_argument("--requests", type=int, default=64,
+                        help="max requests to offer")
+    parser.add_argument("--duration", type=float, default=5.0,
+                        help="ingress window seconds (0 = until "
+                             "--requests exhausts)")
+    parser.add_argument("--rate", type=float, default=20.0,
+                        help="mean offered load, requests/second")
+    parser.add_argument("--profile", default="steady",
+                        choices=["steady", "burst", "ramp"])
+    parser.add_argument("--prompt-tokens", type=int, default=12,
+                        help="max prompt length (uniform 2..N)")
+    parser.add_argument("--max-new-tokens", type=int, default=8)
+    parser.add_argument("--slo-ms", type=float, default=0.0,
+                        help="per-request SLO (0 = HOROVOD_SERVE_SLO_MS)")
+    parser.add_argument("--max-batch", type=int, default=0)
+    parser.add_argument("--token-budget", type=int, default=0)
+    parser.add_argument("--prompt-pool", type=int, default=0,
+                        help="draw prompts from N fixed token lists "
+                             "(0 = fresh random per request); the "
+                             "repeated-prompt profile that exercises "
+                             "the paged prefix cache")
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--output", default="SERVE_r{rank}.json",
+                        help="report path; {rank} substitutes")
+    parser.add_argument("--device", default=None,
+                        help="where the replica runs (default: the CUDA "
+                             "card; 'cpu' runs the plain PyTorch path)")
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = make_parser().parse_args(argv)
+    if args.slo_ms == 0.0:
+        args.slo_ms = None
+    run(args)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,134 @@
+"""Front-end request queue: bounded ingress with deadlines stamped at
+the door (a copy of ``horovod_tpu/serving/queue.py``).
+
+Every request that enters the serving system gets its absolute SLO
+deadline computed HERE, at ingress — not when it is scheduled — so time
+spent queued counts against the SLO exactly like time spent decoding
+(the property the MLPerf serving rules and every production queue share).
+The queue itself is bounded: a full queue sheds at submit instead of
+buffering, because an unbounded ingress queue converts overload into
+unbounded latency for every later request.
+
+Deadlines are ``time.monotonic()``-absolute.  The batch plan ships them
+to replicas as *remaining milliseconds* (re-stamped on arrival), so a
+cross-host clock offset shifts a deadline by one plan hop, not by the
+absolute clock difference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import deque
+from dataclasses import field
+
+from ..common import config
+from ..telemetry.registry import MetricsRegistry
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    """One inference request as the front end sees it."""
+    rid: int
+    tokens: list[int]                  # prompt token ids
+    max_new_tokens: int
+    arrival: float                     # monotonic ingress stamp
+    deadline: float                    # absolute monotonic SLO deadline
+    slo_ms: float
+    replica: int = -1                  # assigned replica group (batcher)
+    generated: list[int] = field(default_factory=list)
+    # Steps the batcher has deferred this request for budget/slot/block
+    # pressure; past HOROVOD_SERVE_MAX_DEFERRALS it turns urgent and
+    # reserves the step's admission budget (the starvation fix).
+    deferrals: int = 0
+
+    def remaining_ms(self, now: float | None = None) -> float:
+        now = time.monotonic() if now is None else now
+        return (self.deadline - now) * 1e3
+
+
+class RequestQueue:
+    """Bounded FIFO ingress queue (front-end rank only holds traffic;
+    other ranks keep an empty one so a promoted front end after an
+    elastic shrink is ready immediately)."""
+
+    def __init__(self, maxsize: int | None = None,
+                 default_slo_ms: float | None = None,
+                 registry=None) -> None:
+        self.maxsize = config.SERVE_QUEUE_DEPTH.get() \
+            if maxsize is None else int(maxsize)
+        self.default_slo_ms = config.SERVE_SLO_MS.get() \
+            if default_slo_ms is None else float(default_slo_ms)
+        self._lock = threading.Lock()
+        self._items: deque[ServeRequest] = deque()
+        self._next_rid = 0
+        self._closed = False
+        if registry is None:
+            # Real depth/shed accounting in a registry of its own (see
+            # AdmissionController).
+            registry = MetricsRegistry(0)
+        self._m_depth = registry.gauge(
+            "horovod_serve_queue_depth",
+            "Requests waiting in the front-end ingress queue")
+        self._m_rejected = registry.counter(
+            "horovod_serve_requests_total",
+            "Serving requests by outcome",
+            labels={"outcome": "rejected_full"})
+
+    # -- ingress ---------------------------------------------------------
+    def submit(self, tokens, max_new_tokens: int,
+               slo_ms: float | None = None) -> int | None:
+        """Enqueue one request; returns its rid, or None when the queue
+        is full (the caller counts the shed — nothing blocks)."""
+        now = time.monotonic()
+        slo = self.default_slo_ms if slo_ms is None else float(slo_ms)
+        with self._lock:
+            if self._closed or len(self._items) >= self.maxsize:
+                self._m_rejected.inc()
+                return None
+            rid = self._next_rid
+            self._next_rid += 1
+            self._items.append(ServeRequest(
+                rid=rid, tokens=[int(t) for t in tokens],
+                max_new_tokens=int(max_new_tokens), arrival=now,
+                deadline=now + slo / 1e3, slo_ms=slo))
+            self._m_depth.set(len(self._items))
+            return rid
+
+    def close(self) -> None:
+        """No further submissions; queued requests still drain."""
+        with self._lock:
+            self._closed = True
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    # -- scheduling side -------------------------------------------------
+    def pop_ready(self, limit: int,
+                  now: float | None = None
+                  ) -> tuple[list[ServeRequest], list[ServeRequest]]:
+        """Dequeue up to ``limit`` requests in arrival order, splitting
+        out the ones whose deadline already expired while queued (they
+        are shed — 'expired' — and must never be executed)."""
+        now = time.monotonic() if now is None else now
+        ready: list[ServeRequest] = []
+        expired: list[ServeRequest] = []
+        with self._lock:
+            while self._items and len(ready) < limit:
+                req = self._items.popleft()
+                (expired if req.deadline <= now else ready).append(req)
+            self._m_depth.set(len(self._items))
+        return ready, expired
+
+    def requeue_front(self, reqs: list[ServeRequest]) -> None:
+        """Return not-yet-admitted requests to the head of the queue in
+        their original order (budget/slot pressure, not a shed)."""
+        with self._lock:
+            for req in reversed(reqs):
+                self._items.appendleft(req)
+            self._m_depth.set(len(self._items))
+
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._items)

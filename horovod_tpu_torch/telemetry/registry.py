@@ -1,0 +1,216 @@
+"""Metrics registry: counters, gauges and log2 histograms.
+
+The port's own copy of ``horovod_tpu/telemetry/registry.py``'s metric
+types and registry, which serving needs as control state: admission reads
+its live step-time estimate from a histogram's quantile, and the paged
+pool's counters back ``kv_stats()``.  Each metric owns one uncontended
+lock taken only for its own update; lookup takes the registry's lock and
+is meant for init time.  Histograms are fixed arrays of 64 log2 buckets.
+
+Not ported here (ROADMAP queue A item 12): the process-wide registry
+behind ``HOROVOD_METRICS``, its no-op stand-in, Prometheus rendering and
+the exporters.
+"""
+from __future__ import annotations
+
+import math
+import threading
+
+# Histogram buckets: bucket k holds observations in (2^(k-1+_LOW), 2^(k+_LOW)]
+# with everything below 2^_LOW in bucket 0; the bounds run from about 1e-6
+# to 1.7e13, wide enough for ms, bytes and ratios alike.
+_NBUCKETS = 64
+_LOW = -20
+
+
+def _bucket_index(value: float) -> int:
+    if value <= 0.0:
+        return 0
+    idx = int(math.ceil(math.log2(value))) - _LOW
+    return min(max(idx, 0), _NBUCKETS - 1)
+
+
+def bucket_upper_bound(index: int) -> float:
+    """Inclusive upper bound of bucket ``index``."""
+    return 2.0 ** (index + _LOW)
+
+
+class Counter:
+    """Monotonic counter."""
+
+    __slots__ = ("name", "labels", "_value", "_lock")
+
+    def __init__(self, name: str, labels: dict[str, str]) -> None:
+        self.name = name
+        self.labels = labels
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, value: float = 1.0) -> None:
+        with self._lock:
+            self._value += value
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins instantaneous value."""
+
+    __slots__ = ("name", "labels", "_value")
+
+    def __init__(self, name: str, labels: dict[str, str]) -> None:
+        self.name = name
+        self.labels = labels
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        # A single attribute store — atomic under the GIL, no lock needed.
+        self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Histogram:
+    """Fixed-size log2-bucketed histogram with sum/count/min/max."""
+
+    __slots__ = ("name", "labels", "_buckets", "_count", "_sum",
+                 "_min", "_max", "_lock")
+
+    def __init__(self, name: str, labels: dict[str, str]) -> None:
+        self.name = name
+        self.labels = labels
+        self._buckets = [0] * _NBUCKETS
+        self._count = 0
+        self._sum = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        idx = _bucket_index(value)
+        with self._lock:
+            self._buckets[idx] += 1
+            self._count += 1
+            self._sum += value
+            if value < self._min:
+                self._min = value
+            if value > self._max:
+                self._max = value
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    @property
+    def mean(self) -> float:
+        return self._sum / self._count if self._count else 0.0
+
+    def quantile(self, q: float) -> float:
+        """Interpolated quantile, ``q`` in [0, 1]: geometric (log-space)
+        interpolation within the log2 bucket holding the q-th
+        observation, clamped to the observed min/max so single-bucket
+        histograms and extreme quantiles report a value that was
+        actually plausible rather than a power-of-two bound.  This is
+        the one quantile path serving SLO reports (p50/p99/p999) and
+        training step-time summaries share."""
+        with self._lock:
+            count = self._count
+            buckets = list(self._buckets)
+            lo_obs, hi_obs = self._min, self._max
+        if count == 0:
+            return 0.0
+        q = min(max(q, 0.0), 1.0)
+        target = q * count
+        cum = 0
+        value = bucket_upper_bound(_NBUCKETS - 1)
+        for i, n in enumerate(buckets):
+            if not n:
+                continue
+            prev, cum = cum, cum + n
+            if cum >= target:
+                frac = (target - prev) / n
+                hi = bucket_upper_bound(i)
+                lo = hi / 2.0
+                value = lo * (hi / lo) ** frac
+                break
+        return min(max(value, lo_obs), hi_obs)
+
+    def nonzero_buckets(self) -> list[tuple[float, int]]:
+        """(upper bound, count) for populated buckets, ascending."""
+        return [(bucket_upper_bound(i), n)
+                for i, n in enumerate(self._buckets) if n]
+
+
+def _label_key(labels: dict[str, str] | None) -> tuple:
+    return tuple(sorted((labels or {}).items()))
+
+
+class MetricsRegistry:
+    """A registry of metrics by name and labels; each serving object
+    that keeps metrics owns one unless it is handed one."""
+
+    def __init__(self, rank: int = 0) -> None:
+        self.rank = rank
+        self._lock = threading.Lock()
+        self._metrics: dict[tuple, Counter | Gauge | Histogram] = {}
+        self._help: dict[str, str] = {}
+
+    # -- get-or-create (init-time; hot paths cache the returned object) --
+    def _get(self, cls, name: str, help_: str,
+             labels: dict[str, str] | None):
+        key = (name, _label_key(labels))
+        with self._lock:
+            m = self._metrics.get(key)
+            if m is None:
+                m = cls(name, dict(labels or {}))
+                self._metrics[key] = m
+                if help_:
+                    self._help.setdefault(name, help_)
+            return m
+
+    def counter(self, name: str, help: str = "",
+                labels: dict[str, str] | None = None) -> Counter:
+        return self._get(Counter, name, help, labels)
+
+    def gauge(self, name: str, help: str = "",
+              labels: dict[str, str] | None = None) -> Gauge:
+        return self._get(Gauge, name, help, labels)
+
+    def histogram(self, name: str, help: str = "",
+                  labels: dict[str, str] | None = None) -> Histogram:
+        return self._get(Histogram, name, help, labels)
+
+    def _sorted_metrics(self):
+        with self._lock:
+            return sorted(self._metrics.items(), key=lambda kv: kv[0])
+
+    # -- exposition ------------------------------------------------------
+    def snapshot(self) -> dict:
+        """JSON-able dump of every metric."""
+        metrics = []
+        for (name, _), m in self._sorted_metrics():
+            entry: dict = {"name": name, "labels": m.labels}
+            if isinstance(m, Counter):
+                entry["type"] = "counter"
+                entry["value"] = m.value
+            elif isinstance(m, Gauge):
+                entry["type"] = "gauge"
+                entry["value"] = m.value
+            else:
+                entry["type"] = "histogram"
+                entry["count"] = m.count
+                entry["sum"] = m.sum
+                entry["mean"] = m.mean
+                entry["p50"] = m.quantile(0.5)
+                entry["p99"] = m.quantile(0.99)
+                entry["buckets"] = [[b, n] for b, n in m.nonzero_buckets()]
+            metrics.append(entry)
+        return {"rank": self.rank, "metrics": metrics}

@@ -155,3 +155,42 @@ def test_misaligned_inputs_raise():
         fa.flash_bwd_dkv(q, q, q, q, lse, lse, 1.0, False)
     with pytest.raises(ValueError, match="16-byte boundary"):
         fa.flash_bwd_dq(q, q, q, q, lse, lse, 1.0, False)
+
+
+def test_gpt_tiny_serves_dense_and_paged_alike():
+    """The serving replica on the card: gpt_tiny in fp32, the same
+    requests through the dense and the paged cache give the same token
+    streams, and no flash kernel runs on the serving path."""
+    import random
+
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+
+    rng = random.Random(7)
+    prompts = [[rng.randrange(2, 256) for _ in range(rng.randint(2, 40))]
+               for _ in range(4)]
+    fa.reset_launch_counts()
+    streams = {}
+    for paged in (False, True):
+        ex = ReplicaExecutor(ServeConfig(max_batch=2, token_budget=64,
+                                         max_seq=64, slo_ms=60000.0,
+                                         block_tokens=8, paged=paged))
+        got = {}
+        collect = ex._collect_completions
+
+        def record(ex=ex, got=got, collect=collect):
+            for s in ex.slots:
+                if s is not None and s.remaining == 0:
+                    got[s.rid] = list(s.generated)
+            collect()
+        ex._collect_completions = record
+        for i in range(12):
+            ex.queue.submit(prompts[i % 4], 6)
+        ex.serve_loop(stop_when=lambda: True)
+        assert ex.stats["served"] == 12
+        if paged:
+            kv = ex.kv_stats()
+            assert kv["active"] == 0 and kv["prefix_hits"] > 0, kv
+        streams[paged] = got
+        ex.close()
+    assert streams[False] == streams[True]
+    assert sum(fa.launch_counts().values()) == 0

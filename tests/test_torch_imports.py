@@ -42,7 +42,7 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 12            # every module of the package
+    assert int(count) >= 22            # every module of the package
     assert bad == "BAD []", bad
 
 
@@ -76,7 +76,8 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
-    from horovod_tpu_torch import (TransformerLM, build_mesh,
+    from horovod_tpu_torch import (ReplicaExecutor, ServeConfig,
+                                   TransformerLM, build_mesh,
                                    flash_attention, gpt_tiny,
                                    synthetic_text_batch)
     from horovod_tpu_torch.parallel.mesh import Mesh
@@ -86,7 +87,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
     q = torch.zeros(1, 8, 2, 16)
     for call in (lambda: TransformerLM(cfg), build_mesh,
                  lambda: flash_attention(q, q, q),
-                 lambda: synthetic_text_batch(1, 8)):
+                 lambda: synthetic_text_batch(1, 8), ReplicaExecutor,
+                 lambda: ReplicaExecutor(ServeConfig(paged=True))):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     model = TransformerLM(cfg, device="cpu")
@@ -98,6 +100,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
     assert flash_attention(q, q, q, device="cpu").shape == q.shape
     assert synthetic_text_batch(1, 8, device="cpu")["input"].device.type \
         == "cpu"
+    replica = ReplicaExecutor(ServeConfig(max_seq=32), device="cpu")
+    assert replica.model.device.type == "cpu"
 
 
 def test_cpu_tensors_with_cuda_device_are_refused():

@@ -163,7 +163,10 @@ def test_seeded_init_is_reproducible():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(decode=True), dict(paged=True), dict(attention="ring"),
+    dict(decode=True, moe_experts=4),
+    dict(decode=True, paged=True, kv_pool_blocks=8, remat=True,
+         remat_policy="dots"),
+    dict(attention="ring"),
     dict(attention="ulysses"), dict(moe_experts=4),
     dict(remat=True, remat_policy="dots")])
 def test_unported_config_values_raise(overrides):
