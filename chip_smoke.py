@@ -37,7 +37,20 @@ Phases, each printed as one JSON object on its own line:
    and latency p50/p99, peak memory, the paged pool's counters); a
    profile of 8 full-batch dense decode steps; and the loadgen CLI with
    the reference benchmark's serve arguments.  No flash kernel may launch
-   while serving: decode attention is plain torch, as in the reference.
+   while serving: decode attention is plain torch, as in the reference;
+7. cnn: the CNN leg of the reference benchmark (``bench.py``'s default
+   model), one line a leg over a one-rank NCCL group.  A check leg in
+   fp32: ResNet-50 (B=2, 224x224) on the card against the same weights
+   on the CPU after one train-mode forward (logits within 1e-4 of
+   max|ref|, BatchNorm statistics within 1e-5) and after one SGD step
+   through ``Trainer`` (parameters within 1e-5), and the space-to-depth
+   stem with folded weights against the conv7 stem (1e-4).  Then timed
+   legs in bf16 with a bf16 wire and SGD(0.1, momentum 0.9) at B=128:
+   ResNet-50 at 224 (2 warm-up and 5 timed steps, then one profiled
+   step), VGG-16 at 224 and Inception V3 at 299 (2 warm-up and 3 timed
+   steps each), with ``cudnn.benchmark`` on.  No flash kernel may launch:
+   the CNNs run cuDNN convolutions and plain torch, as the reference runs
+   XLA's convolutions and no Pallas kernel.
 
 A line ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -45,6 +58,7 @@ without that line; so does a machine without a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import math
@@ -102,6 +116,36 @@ SERVE_TIMED = dict(cfg=dict(max_batch=8, token_budget=1024, max_seq=1024,
                    requests=32, pool=8, prompt_tokens=(64, 512),
                    max_new=64, seed=6)
 NEAR_ARGMAX = 1e-3
+# The cnn phase: the reference benchmark's batch a card (bench.py's
+# --batch-size) and its models; (leg, preset, image size, warm-up steps,
+# timed steps).  bench.py runs 3 warm-up and 20 timed steps.  The step
+# after cuDNN's autotuning one still carries a warm-up cost (on an H100:
+# 65-432 ms against 37-76 for ResNet-50, 193-580 against 66-109 for
+# Inception V3, 54-93 against 53 for VGG-16), so every leg warms up for
+# two steps.
+CNN_BATCH = 128
+CNN_LEGS = (("resnet50", "ResNet50", 224, 2, 5),
+            ("vgg16", "VGG16", 224, 2, 3),
+            ("inception3", "InceptionV3", 299, 2, 3))
+CNN_LOGITS_REL, CNN_STATS_TOL, CNN_PARAMS_TOL = 1e-4, 1e-5, 1e-5
+# A CNN step's kernels by what they do (first match wins: cuDNN's own
+# BatchNorm and transpose kernels also carry "cudnn" in their names).
+CNN_CATEGORIES = (
+    ("flash attention (this repo)", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                     "flash_bwd_dkv_kernel")),
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("BatchNorm", ("batch_norm", "bn_fw", "bn_bw", "BatchNorm")),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "implicit",
+                             "convolve", "conv2d", "cudnn")),
+    ("GEMM kernels (cuDNN's 1x1 convolutions, the Dense layers)",
+     ("nvjet", "gemm", "gemv", "xmma", "cutlass")),
+    ("pooling", ("max_pool", "avg_pool", "MaxPool", "AvgPool")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("all-reduce and copies (NCCL, bucket cat, dtype casts)",
+     ("nccl", "CatArrayBatchedCopy", "copy")),
+    ("softmax cross entropy", ("SoftMax", "softmax", "nll_loss")),
+    ("reductions", ("reduce_kernel",)),
+)
 # bench.py's serve leg (bench_serve's loadgen arguments).
 BENCH_SERVE_ARGS = ["--requests", "96", "--duration", "5", "--rate", "120",
                     "--max-new-tokens", "4", "--prompt-tokens", "8",
@@ -381,18 +425,28 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_train() -> dict:
+@contextlib.contextmanager
+def _one_rank_nccl():
+    """A NCCL process group of one rank on card 0, for the Trainer's
+    all-reduces; destroyed on the way out."""
     import torch.distributed as dist
-    from horovod_tpu_torch import (GradSyncConfig, Trainer, TransformerLM,
-                                   build_mesh, gpt_small,
-                                   synthetic_text_batch)
-    from horovod_tpu_torch.ops import flash_attention as fa
-
     store = dist.TCPStore("127.0.0.1", _free_port(), 1, is_master=True,
                           timeout=datetime.timedelta(seconds=60))
     dist.init_process_group("nccl", store=store, rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
     try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train() -> dict:
+    from horovod_tpu_torch import (GradSyncConfig, Trainer, TransformerLM,
+                                   build_mesh, gpt_small,
+                                   synthetic_text_batch)
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    with _one_rank_nccl() as dist:
         cfg = gpt_small(attention="flash", max_seq_len=2048)
         model = TransformerLM(cfg, seed=0)
         n_params = sum(p.numel() for p in model.parameters())
@@ -450,8 +504,6 @@ def phase_train() -> dict:
                                   mean_ms)
         emit({"phase": "profile", **out["profile"]})
         return out
-    finally:
-        dist.destroy_process_group()
 
 
 def _profile(fn, wall_ms: float, categories=KERNEL_CATEGORIES) -> dict:
@@ -495,7 +547,9 @@ def _profile(fn, wall_ms: float, categories=KERNEL_CATEGORIES) -> dict:
     kernel_us = sum(v[0] for _, v in rows)
     flash_us = {n: sum(v[0] for k, v in rows if n + "_kernel" in k)
                 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    cats: dict[str, float] = {}
+    # Every category is listed, 0 where no kernel fell in it.
+    cats = dict.fromkeys([c for c, _ in categories]
+                         + ["elementwise and other"], 0.0)
     for name, (us, _) in rows:
         cat = next((c for c, keys in categories if any(
             key in name for key in keys)), "elementwise and other")
@@ -708,6 +762,200 @@ def phase_serve() -> dict:
     return {"seconds": seconds}
 
 
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max|got - ref| over max|ref|."""
+    got, ref = got.detach().cpu().float(), ref.detach().cpu().float()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def _max_err(got: dict, ref: dict) -> float:
+    """Largest max|got[k] - ref[k]| over the entries of ``ref``."""
+    return max((got[k].detach().cpu() - v).abs().max().item()
+               for k, v in ref.items())
+
+
+def _cnn_cpu_reference() -> dict:
+    """fp32 ResNet-50 on the CPU, before the process group exists (so that
+    its Trainer's all-reduce is the identity): the initial state, one
+    train-mode forward's logits and statistics, and the parameters after
+    one SGD step through ``Trainer``."""
+    from horovod_tpu_torch import (ResNet50, Trainer, build_mesh,
+                                   synthetic_image_batch)
+    model = ResNet50(dtype=torch.float32, device="cpu", seed=0)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = synthetic_image_batch(2, 224, seed=1, device="cpu")
+    with torch.no_grad():
+        logits = model(batch["image"], train=True)
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    model.load_state_dict(state0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    trainer = Trainer(model, opt, build_mesh(device="cpu"))
+    _, metrics = trainer.step(trainer.init(), batch)
+    return {"state0": state0, "batch": batch, "logits": logits,
+            "stats": stats, "loss": metrics["loss"].item(),
+            "params": {k: v.detach().clone()
+                       for k, v in model.named_parameters()}}
+
+
+def _cnn_check(ref: dict) -> dict:
+    """The check leg on the card, against ``_cnn_cpu_reference``."""
+    from horovod_tpu_torch import ResNet50, Trainer, build_mesh
+    from horovod_tpu_torch.models.resnet import fold_conv7_stem_weights
+    model = ResNet50(dtype=torch.float32, seed=0)
+    model.load_state_dict(ref["state0"])
+    batch = {k: v.cuda() for k, v in ref["batch"].items()}
+    with torch.no_grad():
+        logits = model(batch["image"], train=True)
+    out = {"phase": "cnn", "leg": "check", "model": "ResNet50",
+           "dtype": "float32", "batch": 2, "image_size": 224,
+           "logits_rel_err": _rel_err(logits, ref["logits"]),
+           "stats_max_abs_err": _max_err(dict(model.named_buffers()),
+                                         ref["stats"])}
+    # The space-to-depth stem with the conv7 weights folded, eval mode.
+    model.load_state_dict(ref["state0"])
+    s2d = ResNet50(dtype=torch.float32, stem="space_to_depth", seed=0)
+    folded = dict(ref["state0"])
+    folded["conv_init.weight"] = fold_conv7_stem_weights(
+        folded["conv_init.weight"])
+    s2d.load_state_dict(folded)
+    with torch.no_grad():
+        out["s2d_vs_conv7_rel_err"] = _rel_err(s2d(batch["image"]),
+                                               model(batch["image"]))
+    del s2d
+    # One SGD step through the Trainer (fp32 wire, one-rank NCCL group).
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    trainer = Trainer(model, opt, build_mesh(dp=1))
+    _, metrics = trainer.step(trainer.init(batch), batch)
+    out.update(loss=metrics["loss"].item(), loss_cpu=ref["loss"],
+               params_max_abs_err=_max_err(dict(model.named_parameters()),
+                                           ref["params"]))
+    emit(out)
+    bounds = {"logits_rel_err": CNN_LOGITS_REL,
+              "stats_max_abs_err": CNN_STATS_TOL,
+              "s2d_vs_conv7_rel_err": CNN_LOGITS_REL,
+              "params_max_abs_err": CNN_PARAMS_TOL}
+    return {k: out[k] for k, bound in bounds.items()
+            if not out[k] <= bound}
+
+
+def _cnn_work(model, image_size: int) -> dict:
+    """What one image costs, counted by hooks over a forward of one image:
+    the FLOPs of the convolutions and Dense layers (2 per multiply-add)
+    and the elements the BatchNorms normalise."""
+    from horovod_tpu_torch.models import layers
+    count = {"flops": 0, "bn_elements": 0}
+
+    def conv(mod, args, out):
+        count["flops"] += 2 * out.numel() * mod.weight[0].numel()
+
+    def dense(mod, args, out):
+        count["flops"] += 2 * out.numel() * mod.in_features
+
+    def norm(mod, args, out):
+        count["bn_elements"] += out.numel()
+    hooks = [m.register_forward_hook(
+        {layers.Conv: conv, layers.Dense: dense, layers.BatchNorm: norm}[
+            type(m)]) for m in model.modules()
+        if type(m) in (layers.Conv, layers.Dense, layers.BatchNorm)]
+    with torch.no_grad():
+        model(torch.zeros(1, image_size, image_size, 3, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return count
+
+
+def _cnn_leg(leg: str, preset: str, image_size: int, warmup: int,
+             timed: int, profile: bool) -> dict:
+    """One timed leg: ``Trainer.step`` in bf16 with a bf16 wire and
+    SGD(0.1, momentum 0.9) on one fixed synthetic batch of CNN_BATCH."""
+    import horovod_tpu_torch as hvt
+    model = getattr(hvt, preset)(seed=0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    trainer = hvt.Trainer(model, opt, hvt.build_mesh(dp=1),
+                          sync=hvt.GradSyncConfig(op="average",
+                                                  compression="bf16"))
+    batch = hvt.synthetic_image_batch(CNN_BATCH, image_size, 1000, seed=0)
+    state = trainer.init(batch)
+    work = _cnn_work(model, image_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(warmup + timed):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    steps = step_ms[warmup:]
+    mean_ms = statistics.mean(steps)
+    out = {"phase": "cnn", "leg": leg, "model": preset,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": CNN_BATCH, "image_size": image_size,
+           "dtype": "bfloat16", "wire": "bf16",
+           "optimizer": "SGD(lr=0.1, momentum=0.9)", "losses": losses,
+           "step_ms": step_ms, "timed_step_ms_mean": mean_ms,
+           "timed_step_ms_median": statistics.median(steps),
+           "timed_step_ms_min": min(steps), "timed_step_ms_max": max(steps),
+           "images_per_s": CNN_BATCH / (mean_ms / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           # Forward and backward are 3x the forward's FLOPs; BatchNorm
+           # moves its bf16 activations (2 bytes) 8 times: read for the
+           # statistics, read and written by the transform, x and dy read
+           # for the backward reduction, x and dy read and dx written by
+           # the backward elementwise pass.
+           "train_flops": 3 * work["flops"] * CNN_BATCH,
+           "flops_bound_ms": 3 * work["flops"] * CNN_BATCH
+           / PEAK_BF16_FLOPS * 1e3,
+           "bn_elements": work["bn_elements"] * CNN_BATCH,
+           "bn_bytes_bound_ms": 16 * work["bn_elements"] * CNN_BATCH
+           / PEAK_BYTES_PER_S * 1e3}
+    if profile:
+        out["profile"] = _profile(lambda: trainer.step(state, batch),
+                                  mean_ms, CNN_CATEGORIES)
+    emit(out)
+    return out
+
+
+def phase_cnn() -> dict:
+    """The CNN train step (see the module docstring)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    problems = []
+    ref = _cnn_cpu_reference()
+    with _one_rank_nccl():
+        bad = _cnn_check(ref)
+        if bad:
+            problems.append(f"check leg beyond its bounds: {bad}")
+        del ref
+        torch.backends.cudnn.benchmark = True
+        try:
+            legs = {}
+            for leg, preset, size, warmup, timed in CNN_LEGS:
+                torch.cuda.empty_cache()
+                legs[leg] = _cnn_leg(leg, preset, size, warmup, timed,
+                                     profile=leg == "resnet50")
+        finally:
+            torch.backends.cudnn.benchmark = False
+    for leg, out in legs.items():
+        if not all(math.isfinite(x) for x in out["losses"]):
+            problems.append(f"{leg}: a loss is not finite")
+    losses = legs["resnet50"]["losses"]
+    if not losses[-1] < losses[0]:
+        problems.append("resnet50: the loss did not fall")
+    launches = fa.launch_counts()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "cnn", "leg": "summary", "flash_launches": launches,
+          "seconds": seconds})
+    if any(launches.values()):
+        problems.append(f"flash kernels launched in the cnn phase: "
+                        f"{launches}")
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"flash_launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -723,9 +971,11 @@ def main() -> int:
     phase_reference()
     train = phase_train()
     phase_serve()
+    cnn = phase_cnn()
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": train["launches"][name],
+         "cnn_launches": cnn["flash_launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

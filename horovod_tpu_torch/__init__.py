@@ -4,19 +4,24 @@ It imports torch and numpy, never JAX, and nothing of ``horovod_tpu``.
 Entry points run on the CUDA card unless ``device="cpu"`` is asked for.
 """
 from . import models, parallel, serving, training
-from .models import TransformerConfig, TransformerLM, gpt_small, gpt_tiny
+from .models import (VGG, VGG16, VGG19, InceptionV3, ResNet, ResNet18,
+                     ResNet34, ResNet50, ResNet101, ResNet152,
+                     TransformerConfig, TransformerLM, gpt_small, gpt_tiny)
 from .ops.flash_attention import flash_attention, flash_attention_with_lse
 from .parallel import GradSyncConfig, MeshSpec, build_mesh, sync_gradients
 from .serving import (AdmissionController, Assignment, BatchPlan,
                       ContinuousBatcher, KVBlockPool, ReplicaExecutor,
                       RequestQueue, ServeConfig, ServeRequest)
-from .training import Trainer, TrainState, synthetic_text_batch
+from .training import (Trainer, TrainState, synthetic_image_batch,
+                       synthetic_text_batch)
 
 __all__ = ["models", "parallel", "serving", "training",
            "TransformerConfig", "TransformerLM", "gpt_small", "gpt_tiny",
+           "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
+           "ResNet152", "VGG", "VGG16", "VGG19", "InceptionV3",
            "flash_attention", "flash_attention_with_lse", "GradSyncConfig",
            "MeshSpec", "build_mesh", "sync_gradients", "Trainer",
-           "TrainState", "synthetic_text_batch", "AdmissionController",
-           "Assignment", "BatchPlan", "ContinuousBatcher", "KVBlockPool",
-           "ReplicaExecutor", "RequestQueue", "ServeConfig",
-           "ServeRequest"]
+           "TrainState", "synthetic_text_batch", "synthetic_image_batch",
+           "AdmissionController", "Assignment", "BatchPlan",
+           "ContinuousBatcher", "KVBlockPool", "ReplicaExecutor",
+           "RequestQueue", "ServeConfig", "ServeRequest"]

@@ -22,6 +22,16 @@ they are.  Its KV cache is the flax ``cache`` collection,
 ``layer_i/attn/{key_pool, value_pool}`` (paged); ``cache_from_flax`` and
 ``cache_to_flax`` carry it across, so that both packages can start from
 one cache state.
+
+The CNNs (``ResNet``, ``VGG``, ``InceptionV3``) name their submodules as
+flax does, so their trees map by path: the port's ``a.b.weight`` is flax's
+``params/a/b/kernel`` (conv ``[kh, kw, in, out]`` <-> ``[out, in, kh, kw]``,
+Dense ``[in, out]`` <-> ``[out, in]``), ``scale`` and ``bias`` keep their
+names, and the BatchNorm buffers ``a.b.mean``/``a.b.var`` are
+``batch_stats/a/b/mean|var``.  ``cnn_params_from_flax`` and
+``cnn_params_to_flax`` carry both collections; ``cnn_leaf_order`` gives
+the parameter names in the flax flatten order (``BottleneckBlock_10``
+before ``BottleneckBlock_2``, and upper case before ``bn_init``).
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch import nn
 
 from .models.transformer import KVCache, PagedKVCache, TransformerConfig
 
@@ -148,3 +159,58 @@ def cache_to_flax(cache: KVCache | PagedKVCache,
                     "cache_index": cache.index[i].detach().cpu().numpy()}
         tree[f"layer_{i}"] = {"attn": node}
     return tree
+
+
+def _cnn_path(name: str) -> tuple[str, tuple[str, ...]]:
+    """The flax collection and path of a CNN state-dict entry."""
+    *modules, leaf = name.split(".")
+    if leaf in ("mean", "var"):
+        return "batch_stats", (*modules, leaf)
+    return "params", (*modules, "kernel" if leaf == "weight" else leaf)
+
+
+def _kernel_to_torch(k: np.ndarray) -> np.ndarray:
+    if k.ndim == 4:                # [kh, kw, in, out] -> [out, in, kh, kw]
+        return k.transpose(3, 2, 0, 1)
+    return k.T if k.ndim == 2 else k
+
+
+def _kernel_to_flax(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 4:
+        return w.transpose(2, 3, 1, 0)
+    return w.T if w.ndim == 2 else w
+
+
+def cnn_leaf_order(model: nn.Module) -> list[str]:
+    """A CNN's parameter names in the flax tree's flatten order."""
+    return sorted((name for name, _ in model.named_parameters()),
+                  key=lambda name: _cnn_path(name)[1])
+
+
+def cnn_params_from_flax(params: Any, batch_stats: Any, model: nn.Module
+                         ) -> dict[str, torch.Tensor]:
+    """flax ``params`` and ``batch_stats`` trees (arrays convertible with
+    ``np.asarray``) -> the CNN's state dict of CPU tensors, every entry of
+    ``model.state_dict()`` filled."""
+    trees = {"params": params, "batch_stats": batch_stats}
+    out = {}
+    for name in model.state_dict():
+        collection, path = _cnn_path(name)
+        value = _kernel_to_torch(np.asarray(_get(trees[collection], path)))
+        out[name] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def cnn_params_to_flax(state_dict: dict[str, torch.Tensor]
+                       ) -> tuple[dict, dict]:
+    """A CNN's state dict -> flax ``(params, batch_stats)`` trees of numpy
+    arrays."""
+    trees: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, tensor in state_dict.items():
+        collection, path = _cnn_path(name)
+        node = trees[collection]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        value = tensor.detach().cpu().float().numpy()
+        node[path[-1]] = np.ascontiguousarray(_kernel_to_flax(value))
+    return trees["params"], trees["batch_stats"]

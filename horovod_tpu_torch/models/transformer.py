@@ -41,10 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..common.device import resolve_device
 from ..ops.flash_attention import NEG_INF, flash_attention, mha_reference
-
-# flax's truncated normal draws N(0, 1) cut to [-2, 2], rescaled by this
-# constant so that the truncated distribution has unit variance.
-_TRUNC_STD = 0.87962566103423978
+from .layers import Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,30 +147,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
-class Dense(nn.Linear):
-    """Bias-free projection with flax's mixed precision: input and weight
-    are cast to ``dtype`` and the product is ``dtype``."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype, param_dtype: torch.dtype,
-                 device: torch.device) -> None:
-        super().__init__(in_features, out_features, bias=False,
-                         device=device, dtype=param_dtype)
-        self.compute_dtype = dtype
-
-    def reset_parameters(self, generator: torch.Generator | None = None
-                         ) -> None:
-        # lecun_normal: truncated normal, std sqrt(1 / fan_in).
-        std = math.sqrt(1.0 / self.in_features) / _TRUNC_STD
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.compute_dtype),
-                        self.weight.to(self.compute_dtype))
-
-
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,

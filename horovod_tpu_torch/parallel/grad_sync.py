@@ -4,7 +4,9 @@ The counterpart of ``horovod_tpu/parallel/grad_sync.py`` (sum/average
 with the none/fp16/bf16 codecs, fused loss-scaling and global-norm
 clipping).  Gradients are grouped by dtype, packed in the caller's leaf
 order into flat buckets of at most ``fusion_threshold_bytes`` *wire* bytes
-(``_bucketize``), cast to the wire dtype, reduced with one
+(``_bucketize``; each leaf flattened in its memory order, so that a
+channels_last conv gradient keeps its layout and the optimizer's foreach
+kernels see one layout), cast to the wire dtype, reduced with one
 ``torch.distributed.all_reduce`` per bucket (NCCL on the card, gloo on the
 CPU), and cast back.  The reducer is the port's own, not DDP's: bucket
 membership follows the reference's rule, so it depends on the leaf order,
@@ -91,6 +93,26 @@ def _bucketize(leaves: Sequence[torch.Tensor], threshold: int,
     return buckets
 
 
+def _memory_order(t: torch.Tensor) -> list[int]:
+    """t's dims from the largest stride to the smallest: the permutation
+    under which a dense tensor is contiguous ((0, 2, 3, 1) for a
+    channels_last conv weight)."""
+    return sorted(range(t.dim()), key=lambda d: -t.stride(d))
+
+
+def _flatten(t: torch.Tensor) -> torch.Tensor:
+    """t's elements in memory order (no copy for a dense tensor)."""
+    return t.permute(_memory_order(t)).reshape(-1)
+
+
+def _unflatten(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``flat`` (from ``_flatten``) as a tensor of ``like``'s shape and
+    layout, so a channels_last gradient comes back channels_last."""
+    order = _memory_order(like)
+    inverse = sorted(range(len(order)), key=order.__getitem__)
+    return flat.view([like.shape[d] for d in order]).permute(inverse)
+
+
 def sync_gradients(grads: Mapping[str, torch.Tensor]
                    | Sequence[torch.Tensor],
                    config: GradSyncConfig = GradSyncConfig(),
@@ -130,7 +152,7 @@ def _sync_impl(leaves: list[torch.Tensor], config: GradSyncConfig,
         for bucket in _bucketize(group_leaves, config.fusion_threshold_bytes,
                                  itemsize):
             members = [idxs[j] for j in bucket]
-            parts = [leaves[i].reshape(-1) for i in members]
+            parts = [_flatten(leaves[i]) for i in members]
             if cast is not None:
                 parts = [p.to(cast) for p in parts]
             flat = torch.cat(parts) if len(parts) > 1 else parts[0]
@@ -147,7 +169,7 @@ def _sync_impl(leaves: list[torch.Tensor], config: GradSyncConfig,
         offset = 0
         for i in members:
             n = leaves[i].numel()
-            out[i] = flat[offset:offset + n].view(leaves[i].shape)
+            out[i] = _unflatten(flat[offset:offset + n], leaves[i])
             offset += n
     return out
 

@@ -3,11 +3,17 @@
 The counterpart of ``horovod_tpu/training.py``.  ``Trainer.step`` runs the
 reference's step body in order:
 
-1. forward and backward through the model (the loss is
-   ``cross_entropy_loss``, streamed over the vocab above a threshold);
+1. forward and backward through the model on the batch's ``"image"``
+   (the CNNs) or ``"input"`` (the Transformer); the loss is
+   ``cross_entropy_loss``, streamed over the vocab above a threshold;
 2. ``sync_gradients``: per-dtype buckets in the flax leaf order, cast to
    the wire dtype and averaged over the ``dp`` ranks;
-3. the optimizer update, with a ``torch.optim`` optimizer.
+3. the optimizer update, with a ``torch.optim`` optimizer;
+4. the BatchNorm running statistics (``TrainState.batch_stats``, the
+   model's buffers) averaged over the ``dp`` ranks in one all-reduce, as
+   the reference averages ``batch_stats`` when BatchNorm has no
+   ``axis_name``.  DDP's default, broadcasting rank 0's buffers, would be
+   another result.
 
 The loss (and, behind ``HOROVOD_TRACK_ACCURACY``, the accuracy) is
 averaged over ``dp``.  PyTorch updates in place: ``TrainState`` holds the
@@ -17,7 +23,10 @@ one step, where the reference returns a new immutable one.
 The reference's ``optax.adamw(3e-4)`` is
 ``torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)``: optax defaults
 to a weight decay of 1e-4, torch to 1e-2; the update rules are otherwise
-the same.
+the same.  The reference's ``optax.sgd(0.1, momentum=0.9)`` (the CNN
+benchmark's) is ``torch.optim.SGD(params, lr=0.1, momentum=0.9)``:
+dampening 0 and no Nesterov, and the first step's momentum buffer is the
+gradient itself in both.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .common import config
@@ -45,6 +55,11 @@ class TrainState:
     @property
     def params(self) -> dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
+
+    @property
+    def batch_stats(self) -> dict[str, torch.Tensor]:
+        """The BatchNorm running statistics (empty for the Transformer)."""
+        return dict(self.model.named_buffers())
 
 
 # Above this many logit elements the loss streams over the vocab axis
@@ -95,13 +110,34 @@ def _track_accuracy() -> bool:
 
 def _leaf_order(model: nn.Module) -> list[str]:
     """Parameter names in the order gradient buckets are filled: the flax
-    flatten order for the Transformer (so buckets match the reference),
-    registration order otherwise."""
-    from .models.transformer import TransformerLM
+    flatten order for the Transformer and the CNNs (so buckets match the
+    reference), registration order otherwise."""
+    from .convert import cnn_leaf_order, flax_leaf_order
+    from .models import VGG, InceptionV3, ResNet, TransformerLM
     if isinstance(model, TransformerLM):
-        from .convert import flax_leaf_order
         return flax_leaf_order(model.cfg)
+    if isinstance(model, (ResNet, VGG, InceptionV3)):
+        return cnn_leaf_order(model)
     return [name for name, _ in model.named_parameters()]
+
+
+def _model_input(batch: dict) -> torch.Tensor:
+    """The model's input tensor: "image" for vision batches, "input" for
+    token batches."""
+    return batch["image"] if "image" in batch else batch["input"]
+
+
+def _average_batch_stats(stats: list[torch.Tensor],
+                         group: dist.ProcessGroup | None) -> None:
+    """Average the running statistics over the group's ranks in place, in
+    one all-reduce of their concatenation; nothing to do at one rank."""
+    if not (stats and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size(group) > 1):
+        return
+    flat = allreduce(torch.cat([s.reshape(-1) for s in stats]), "average",
+                     group)
+    for s, part in zip(stats, flat.split([s.numel() for s in stats])):
+        s.copy_(part.view_as(s))
 
 
 class Trainer:
@@ -128,6 +164,7 @@ class Trainer:
         self.device = resolve_device(mesh.device)
         self._names = _leaf_order(model)
         self._params = dict(model.named_parameters())
+        self._stats = list(model.buffers())
         if sorted(self._names) != sorted(self._params):
             raise ValueError("the gradient leaf order does not name the "
                              "model's parameters")
@@ -144,7 +181,7 @@ class Trainer:
         return TrainState(step=0, model=self.model, optimizer=self.optimizer)
 
     def _batch(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        return (batch["input"].to(self.device),
+        return (_model_input(batch).to(self.device),
                 batch["label"].to(self.device))
 
     def step(self, state: TrainState, batch: dict
@@ -164,8 +201,9 @@ class Trainer:
         for name, g in synced.items():
             self._params[name].grad = g
         self.optimizer.step()
-
         group = self.mesh.group
+        _average_batch_stats(self._stats, group)
+
         metrics = {"loss": allreduce(loss.detach(), "average", group)}
         if _track_accuracy():
             acc = (logits.detach().argmax(-1) == labels).float().mean()
@@ -195,3 +233,16 @@ def synthetic_text_batch(batch_size: int, seq_len: int = 2048,
     tokens = torch.randint(0, vocab_size, (batch_size, seq_len + 1),
                            generator=gen, device=dev)
     return {"input": tokens[:, :-1], "label": tokens[:, 1:]}
+
+
+def synthetic_image_batch(batch_size: int, image_size: int = 224,
+                          num_classes: int = 1000, seed: int = 0,
+                          device: str | torch.device | None = None) -> dict:
+    """Random NHWC fp32 images and integer labels, as the reference's
+    synthetic benchmark draws them.  On the card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"image": torch.randn(batch_size, image_size, image_size, 3,
+                                 generator=gen, device=dev),
+            "label": torch.randint(0, num_classes, (batch_size,),
+                                   generator=gen, device=dev)}

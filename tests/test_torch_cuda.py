@@ -194,3 +194,76 @@ def test_gpt_tiny_serves_dense_and_paged_alike():
         ex.close()
     assert streams[False] == streams[True]
     assert sum(fa.launch_counts().values()) == 0
+
+
+@pytest.fixture
+def fp32_convs():
+    """cuDNN convolutions in full fp32 for the comparisons below."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _small_resnets(stem="conv7"):
+    from horovod_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    cpu = ResNet((1, 1, 1), BottleneckBlock, num_filters=8, num_classes=10,
+                 dtype=torch.float32, stem=stem, device="cpu", seed=3)
+    card = ResNet((1, 1, 1), BottleneckBlock, num_filters=8, num_classes=10,
+                  dtype=torch.float32, stem=stem, seed=4)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_small_resnet_on_card_matches_cpu(fp32_convs, train):
+    """fp32 ResNet with the same weights on the card and on the CPU:
+    logits within 1e-4 of max|ref|, running statistics within 1e-5."""
+    cpu, card = _small_resnets()
+    x = torch.randn(4, 33, 33, 3, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        want = cpu(x, train)
+        got = card(x.cuda(), train).cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    stats = dict(card.named_buffers())
+    for name, ref in cpu.named_buffers():
+        assert (stats[name].cpu() - ref).abs().max() <= 1e-5, name
+
+
+def test_space_to_depth_stem_matches_conv7_on_card(fp32_convs):
+    from horovod_tpu_torch.models.resnet import fold_conv7_stem_weights
+    _, conv7 = _small_resnets()
+    _, s2d = _small_resnets("space_to_depth")
+    state = conv7.state_dict()
+    state["conv_init.weight"] = fold_conv7_stem_weights(
+        state["conv_init.weight"])
+    s2d.load_state_dict(state)
+    x = torch.randn(2, 32, 32, 3, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    with torch.no_grad():
+        want, got = conv7(x), s2d(x)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_cnn_activations_are_channels_last():
+    """Every conv and BatchNorm output on the card is channels_last, so
+    cuDNN needs no layout transposes; the conv weights are too."""
+    from horovod_tpu_torch.models import layers
+    from horovod_tpu_torch.models.inception import InceptionA
+    _, model = _small_resnets()
+    block = InceptionA(16, 8, device="cuda")
+    seen = []
+
+    def hook(module, args, out):
+        seen.append((type(module).__name__, out.is_contiguous(
+            memory_format=torch.channels_last)))
+    for m in list(model.modules()) + list(block.modules()):
+        if isinstance(m, layers.Conv):
+            assert m.weight.is_contiguous(memory_format=torch.channels_last)
+        if isinstance(m, (layers.Conv, layers.BatchNorm)):
+            m.register_forward_hook(hook)
+    model(torch.randn(2, 32, 32, 3, device="cuda"), train=True)
+    x = torch.randn(2, 5, 5, 16, device="cuda").permute(0, 3, 1, 2)
+    assert block(x, train=True).is_contiguous(
+        memory_format=torch.channels_last)
+    assert seen and all(ok for _, ok in seen), seen

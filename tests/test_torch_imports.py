@@ -76,9 +76,11 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
-    from horovod_tpu_torch import (ReplicaExecutor, ServeConfig,
+    from horovod_tpu_torch import (VGG16, InceptionV3, ReplicaExecutor,
+                                   ResNet18, ResNet50, ServeConfig,
                                    TransformerLM, build_mesh,
                                    flash_attention, gpt_tiny,
+                                   synthetic_image_batch,
                                    synthetic_text_batch)
     from horovod_tpu_torch.parallel.mesh import Mesh
     from horovod_tpu_torch.training import Trainer
@@ -88,7 +90,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
     for call in (lambda: TransformerLM(cfg), build_mesh,
                  lambda: flash_attention(q, q, q),
                  lambda: synthetic_text_batch(1, 8), ReplicaExecutor,
-                 lambda: ReplicaExecutor(ServeConfig(paged=True))):
+                 lambda: ReplicaExecutor(ServeConfig(paged=True)),
+                 ResNet50, VGG16, InceptionV3,
+                 lambda: synthetic_image_batch(1, 8)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     model = TransformerLM(cfg, device="cpu")
@@ -102,6 +106,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
         == "cpu"
     replica = ReplicaExecutor(ServeConfig(max_seq=32), device="cpu")
     assert replica.model.device.type == "cpu"
+    assert ResNet18(num_filters=8, device="cpu").head.weight.device.type \
+        == "cpu"
+    assert synthetic_image_batch(1, 8, device="cpu")["image"].device.type \
+        == "cpu"
 
 
 def test_cpu_tensors_with_cuda_device_are_refused():
