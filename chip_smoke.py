@@ -52,6 +52,24 @@ Phases, each printed as one JSON object on its own line:
    the CNNs run cuDNN convolutions and plain torch, as the reference runs
    XLA's convolutions and no Pallas kernel.
 
+8. sync: the rest of gradient sync over a one-rank NCCL group, one line
+   a leg.  The codec leg draws a 64 Mi-element fp32 bucket (what a 64 MiB
+   fusion threshold gives at 1 wire byte an element): for int8 and uint4,
+   ``quantize_rows`` and ``dequantize_rows`` on the card must equal the
+   same calls on the CPU bitwise; ``quantized_allreduce`` of the bucket is
+   timed against the bf16-wire all-reduce of it (median of 5), beside the
+   bytes a single fused pass would move (10 B an element).  The gpt legs
+   train gpt_small as the train phase does with the bf16 wire (the
+   baseline), int8, uint4, adasum on the bf16 wire, the ring on the bf16
+   wire and the ring with an int8 gradient leg; the resnet50 legs train
+   ResNet-50 at B=128 with SGD(0.1, 0.9), int8 and the ring.  Each leg:
+   2 warm-up and 3 timed steps (step ms, the mean), the sync alone on the
+   last step's gradients between CUDA events (median of 5), peak memory,
+   the optimizer state's bytes, the loss at every step and the flash
+   launches (12 a gpt step, none in a resnet50 step).  A bitwise
+   mismatch, a loss that is not finite or does not fall, or a launch
+   count that is off fails the phase.
+
 A line ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line; so does a machine without a CUDA card.
@@ -145,6 +163,27 @@ CNN_CATEGORIES = (
      ("nccl", "CatArrayBatchedCopy", "copy")),
     ("softmax cross entropy", ("SoftMax", "softmax", "nll_loss")),
     ("reductions", ("reduce_kernel",)),
+)
+# The sync phase: the codec leg's bucket (64 MiB of wire at 1 byte an
+# element), its block, and the legs (leg, model, GradSyncConfig keywords).
+SYNC_BUCKET = 64 << 20
+SYNC_BLOCK = 256
+SYNC_STEPS = (2, 3)                     # warm-up, timed
+SYNC_GPT_LEGS = (
+    ("bf16", dict(compression="bf16")),
+    ("int8", dict(compression="int8")),
+    ("uint4", dict(compression="uint4")),
+    ("adasum-bf16", dict(op="adasum", compression="bf16")),
+    ("ring-bf16", dict(compression="bf16", optimizer_in_ring=True)),
+    ("ring-int8", dict(compression="int8", optimizer_in_ring=True)))
+SYNC_RESNET_LEGS = (
+    ("int8", dict(compression="int8")),
+    ("ring", dict(compression="bf16", optimizer_in_ring=True)))
+# The int8 sync's kernels by what they do (first match wins).
+SYNC_CATEGORIES = (
+    ("nccl (all-to-all, all-gather)", ("nccl",)),
+    ("reductions (block min and max, the row sum)", ("reduce_kernel",)),
+    ("copies (pack, pad, unpack, casts)", ("copy", "CatArrayBatchedCopy")),
 )
 # bench.py's serve leg (bench_serve's loadgen arguments).
 BENCH_SERVE_ARGS = ["--requests", "96", "--duration", "5", "--rate", "120",
@@ -956,6 +995,175 @@ def phase_cnn() -> dict:
     return {"flash_launches": launches, "seconds": seconds}
 
 
+def _sync_codec_leg() -> dict:
+    """The codec on the card against the CPU, bitwise, and the quantized
+    all-reduce of a 64 Mi-element bucket against the bf16 wire's."""
+    from horovod_tpu_torch.compress import CompressionCodec
+    from horovod_tpu_torch.compress import ops
+    from horovod_tpu_torch.parallel import collectives
+    n = SYNC_BUCKET
+    gen = torch.Generator().manual_seed(11)
+    cpu = torch.randn(1, n, generator=gen) * 2
+    bucket = cpu.cuda()
+    out = {"phase": "sync", "leg": "codec", "elements": n,
+           "block": SYNC_BLOCK, "bitwise_equal": {}}
+    problems = []
+    for name in ("int8", "uint4"):
+        codec = CompressionCodec[name.upper()]
+        card = ops.quantize_rows(bucket, codec, SYNC_BLOCK)
+        host = ops.quantize_rows(cpu, codec, SYNC_BLOCK)
+        card_deq = ops.dequantize_rows(*card, codec, SYNC_BLOCK)
+        host_deq = ops.dequantize_rows(*host, codec, SYNC_BLOCK)
+        equal = {part: torch.equal(a.cpu(), b) for part, a, b in zip(
+            ("payload", "scales", "zero_points", "dequantized"),
+            (*card, card_deq), (*host, host_deq))}
+        out["bitwise_equal"][name] = equal
+        if not all(equal.values()):
+            problems.append(f"{name} codec: card and CPU differ: {equal}")
+        del card, host, card_deq, host_deq
+    flat = bucket.view(-1)
+    for name in ("int8", "uint4"):
+        codec = CompressionCodec[name.upper()]
+        out[f"{name}_allreduce_ms"] = time_ms(
+            lambda: ops.quantized_allreduce(flat, None, "average", codec,
+                                            SYNC_BLOCK), rounds=5)
+    out["bf16_allreduce_ms"] = time_ms(
+        lambda: collectives.allreduce(flat.to(torch.bfloat16), "average")
+        .float(), rounds=5)
+    # A single fused pass: read the fp32 bucket, write the fp32 result,
+    # and about 2 bytes of wire between them.
+    out["fused_bytes_per_element"] = 10
+    out["fused_bound_ms"] = 10 * n / PEAK_BYTES_PER_S * 1e3
+    out["bf16_bytes_bound_ms"] = (4 + 2 + 2 + 2 + 4) * n \
+        / PEAK_BYTES_PER_S * 1e3
+    emit(out)
+    del bucket, flat
+    torch.cuda.empty_cache()
+    return {"problems": problems}
+
+
+def _optimizer_bytes(opt) -> int:
+    return sum(t.numel() * t.element_size() for st in opt.state.values()
+               for t in st.values() if torch.is_tensor(t))
+
+
+def _sync_leg(model_name: str, leg: str, sync_kw: dict) -> dict:
+    """One leg: Trainer.step with this sync, 2 warm-up and 3 timed steps,
+    then the sync alone on the last step's gradients."""
+    import horovod_tpu_torch as hvt
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import grad_sync
+    from horovod_tpu_torch.parallel.grad_sync import (sync_and_apply,
+                                                      sync_gradients)
+    if model_name == "gpt_small":
+        cfg = hvt.gpt_small(attention="flash", max_seq_len=2048)
+        model = hvt.TransformerLM(cfg, seed=0)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                weight_decay=1e-4)
+        batch = hvt.synthetic_text_batch(8, 2048, cfg.vocab_size, seed=0)
+        flash_per_step = cfg.num_layers
+    else:
+        model = hvt.ResNet50(seed=0)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        batch = hvt.synthetic_image_batch(CNN_BATCH, 224, 1000, seed=0)
+        flash_per_step = 0
+    sync = hvt.GradSyncConfig(**{"op": "average", **sync_kw})
+    trainer = hvt.Trainer(model, opt, hvt.build_mesh(dp=1), sync=sync)
+    state = trainer.init(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warmup, timed = SYNC_STEPS
+    fa.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(warmup + timed):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    params = {n: trainer._params[n] for n in trainer._names}
+    grads = {n: p.grad for n, p in params.items()}
+    if sync.optimizer_in_ring:
+        sync_ms = time_ms(lambda: sync_and_apply(
+            state.optimizer, grads, params, sync, None, trainer._layouts),
+            rounds=5, warmup=1)
+    else:
+        sync_ms = time_ms(lambda: sync_gradients(
+            grads, sync, None, trainer._layouts), rounds=5, warmup=1)
+    extra = {}
+    if model_name == "gpt_small" and leg == "int8":
+        # Where the int8 sync's time goes, and what packing the gradients
+        # in flax's element order costs against memory order (one read
+        # and one write of 762 MB).
+        extra["profile"] = _profile(lambda: sync_gradients(
+            grads, sync, None, trainer._layouts), sync_ms, SYNC_CATEGORIES)
+        flat = torch.empty(sum(g.numel() for g in grads.values()),
+                           device="cuda")
+        leaves = list(grads.values())
+        layouts = [trainer._layouts[n] for n in grads]
+        extra["pack_flax_order_ms"] = time_ms(
+            lambda: grad_sync._pack(leaves, layouts, flat), rounds=5)
+        extra["pack_memory_order_ms"] = time_ms(
+            lambda: grad_sync._pack(leaves, [None] * len(leaves), flat),
+            rounds=5)
+        extra["pack_bytes_bound_ms"] = 8 * flat.numel() \
+            / PEAK_BYTES_PER_S * 1e3
+        del flat
+    out = {"phase": "sync", "leg": f"{model_name}-{leg}",
+           "model": model_name, "sync": sync_kw, "losses": losses,
+           "step_ms": step_ms,
+           "timed_step_ms_mean": statistics.mean(step_ms[warmup:]),
+           "sync_ms": sync_ms, "peak_memory_bytes": peak,
+           "optimizer_state_bytes": _optimizer_bytes(state.optimizer),
+           "gradient_elements": sum(p.numel() for p in params.values()),
+           "launches": launches, **extra}
+    emit(out)
+    problems = []
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"{out['leg']}: a loss is not finite")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"{out['leg']}: the loss did not fall")
+    steps = warmup + timed
+    for name, count in launches.items():
+        if count != flash_per_step * steps:
+            problems.append(f"{out['leg']}: {name} launched {count} times, "
+                            f"not {flash_per_step} a step")
+    del trainer, model, opt, state, params, grads
+    torch.cuda.empty_cache()
+    return {"problems": problems, "line": out}
+
+
+def phase_sync() -> dict:
+    """The rest of gradient sync (see the module docstring)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    problems = []
+    with _one_rank_nccl():
+        problems += _sync_codec_leg()["problems"]
+        legs = {}
+        for leg, kw in SYNC_GPT_LEGS:
+            r = _sync_leg("gpt_small", leg, kw)
+            problems += r["problems"]
+            legs[f"gpt_small-{leg}"] = r["line"]
+        torch.backends.cudnn.benchmark = True
+        try:
+            for leg, kw in SYNC_RESNET_LEGS:
+                r = _sync_leg("resnet50", leg, kw)
+                problems += r["problems"]
+                legs[f"resnet50-{leg}"] = r["line"]
+        finally:
+            torch.backends.cudnn.benchmark = False
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "sync", "leg": "summary", "seconds": seconds,
+          "step_ms": {k: v["timed_step_ms_mean"] for k, v in legs.items()},
+          "sync_ms": {k: v["sync_ms"] for k, v in legs.items()}})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -972,6 +1180,7 @@ def main() -> int:
     train = phase_train()
     phase_serve()
     cnn = phase_cnn()
+    phase_sync()
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": train["launches"][name],

@@ -32,6 +32,10 @@ names, and the BatchNorm buffers ``a.b.mean``/``a.b.var`` are
 ``cnn_params_to_flax`` carry both collections; ``cnn_leaf_order`` gives
 the parameter names in the flax flatten order (``BottleneckBlock_10``
 before ``BottleneckBlock_2``, and upper case before ``bn_init``).
+
+``flax_layouts`` gives, for every parameter of either kind of model, the
+views between the port's shape and flax's: the element order that the
+quantized gradient sync and the optimizer-in-ring buffer follow.
 """
 from __future__ import annotations
 
@@ -169,15 +173,22 @@ def _cnn_path(name: str) -> tuple[str, tuple[str, ...]]:
     return "params", (*modules, "kernel" if leaf == "weight" else leaf)
 
 
-def _kernel_to_torch(k: np.ndarray) -> np.ndarray:
+def _permute(x, axes):
+    """``x`` with its dims in ``axes`` order: a view of a tensor or of a
+    numpy array."""
+    return x.permute(*axes) if isinstance(x, torch.Tensor) \
+        else x.transpose(axes)
+
+
+def _kernel_to_torch(k):
     if k.ndim == 4:                # [kh, kw, in, out] -> [out, in, kh, kw]
-        return k.transpose(3, 2, 0, 1)
+        return _permute(k, (3, 2, 0, 1))
     return k.T if k.ndim == 2 else k
 
 
-def _kernel_to_flax(w: np.ndarray) -> np.ndarray:
+def _kernel_to_flax(w):
     if w.ndim == 4:
-        return w.transpose(2, 3, 1, 0)
+        return _permute(w, (2, 3, 1, 0))
     return w.T if w.ndim == 2 else w
 
 
@@ -214,3 +225,23 @@ def cnn_params_to_flax(state_dict: dict[str, torch.Tensor]
         value = tensor.detach().cpu().float().numpy()
         node[path[-1]] = np.ascontiguousarray(_kernel_to_flax(value))
     return trees["params"], trees["batch_stats"]
+
+
+def flax_layouts(model: nn.Module
+                 ) -> dict[str, tuple[Callable, Callable]] | None:
+    """For each parameter of a ``TransformerLM`` or a CNN, the pair
+    ``(to_flax, from_flax)``: ``to_flax(t)`` is a view of the
+    torch-shaped tensor ``t`` in flax's shape (its elements in flax's
+    order when flattened), and ``from_flax`` the inverse view.  The
+    gradient sync packs quantized buckets and the ring's flat buffer
+    through them, so that blocks and rank chunks cut the elements the
+    reference cuts.  None for a model with no flax twin: the sync then
+    keeps memory order."""
+    from .models import VGG, InceptionV3, ResNet, TransformerLM
+    if isinstance(model, TransformerLM):
+        return {name: (to_flax, to_torch)
+                for name, _, to_torch, to_flax in _leaves(model.cfg)}
+    if isinstance(model, (ResNet, VGG, InceptionV3)):
+        return {name: (_kernel_to_flax, _kernel_to_torch)
+                for name, _ in model.named_parameters()}
+    return None

@@ -1,30 +1,175 @@
-"""Collectives over the data axis: ``torch.distributed`` calls.
+"""Collectives over the data axes: ``torch.distributed`` calls.
 
-The counterpart of ``allreduce`` in ``horovod_tpu/parallel/collectives.py``
-(sum and average).  The reduction runs in the tensor's own dtype, as the
-reference's psum/pmean do, so a 16-bit wire reduces in 16 bits.  With no
-initialised process group it is the identity; with one, it always goes
-through the group's backend (NCCL on the card), a group of one rank
-included.
+The counterpart of ``horovod_tpu/parallel/collectives.py``.  Where the
+reference names mesh axes, the port names process groups: ``group`` is
+one group (``None`` for the default one) or a sequence of groups, one
+per mesh axis, outermost first (``mesh.axis_groups``).  Over a sequence
+each collective is the reference's multi-axis one: a reduction runs
+group after group, a scatter splits the outermost axis first and a
+gather stacks the innermost first, so that shard ``i`` of a tiled result
+belongs to the rank whose row-major index over the axes is ``i``.
+
+A reduction runs in the tensor's own dtype, as the reference's
+psum/pmean do, so a 16-bit wire reduces in 16 bits.  With no initialised
+process group every collective is the identity (a world of one); with
+one, it always goes through the group's backend (NCCL on the card), a
+group of one rank included.
+
+``adasum_allreduce`` is the reference's recursive distance-doubling: at
+level ``l`` rank ``i`` exchanges its vector with rank ``i ^ 2^l``
+(``batch_isend_irecv``) and both combine
+
+    a' = a (1 - a.b / 2|a|^2) + b (1 - a.b / 2|b|^2)
+
+with ``a`` the vector of the rank whose bit ``l`` is clear.
 """
 from __future__ import annotations
+
+import math
+from typing import Sequence
 
 import torch
 import torch.distributed as dist
 
+# One process group (None: the default one) or one per mesh axis,
+# outermost first.
+Groups = dist.ProcessGroup | None | Sequence[dist.ProcessGroup | None]
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "average": dist.ReduceOp.SUM,
+               "mean": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
+
+
+def _initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def group_list(group: Groups) -> list:
+    """``group`` as a list of groups, outermost axis first."""
+    if isinstance(group, (list, tuple)):
+        return list(group)
+    return [group]
+
+
+def world_size(group: Groups) -> int:
+    """Ranks over all the groups' axes (1 with no process group)."""
+    if not _initialized():
+        return 1
+    return math.prod(dist.get_world_size(g) for g in group_list(group))
+
+
+def axis_index(group: Groups) -> int:
+    """This rank's row-major index over the groups' axes."""
+    if not _initialized():
+        return 0
+    idx = 0
+    for g in group_list(group):
+        idx = idx * dist.get_world_size(g) + dist.get_rank(g)
+    return idx
+
 
 def allreduce(x: torch.Tensor, op: str = "sum",
-              group: dist.ProcessGroup | None = None) -> torch.Tensor:
-    """Sum or average of ``x`` over the group's ranks (a new tensor)."""
-    if op not in ("sum", "average", "mean"):
-        raise NotImplementedError(
-            f"allreduce op {op!r}: the port has sum/average so far "
-            "(max/min/adasum are ROADMAP queue A item 7, rest of grad sync)")
-    if not (dist.is_available() and dist.is_initialized()):
+              group: Groups = None) -> torch.Tensor:
+    """sum, average, max, min or adasum of ``x`` over the groups' ranks
+    (a new tensor, except where there is nothing to reduce)."""
+    if op == "adasum":
+        return adasum_allreduce(x, group)
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"unknown reduce op {op!r}")
+    if not _initialized():
         return x
     out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    world = dist.get_world_size(group)
-    if op != "sum" and world > 1:
+    for g in group_list(group):
+        dist.all_reduce(out, op=_REDUCE_OPS[op], group=g)
+    world = world_size(group)
+    if op in ("average", "mean") and world > 1:
         out = out / world
     return out
+
+
+def reduce_scatter(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
+    """Sum over the groups' ranks, then this rank's shard of dim 0
+    (``x.shape[0]`` divisible by the world size)."""
+    if not _initialized():
+        return x
+    for g in group_list(group):
+        out = x.new_empty((x.shape[0] // dist.get_world_size(g),)
+                          + x.shape[1:])
+        dist.reduce_scatter_tensor(out, x.contiguous(),
+                                   op=dist.ReduceOp.SUM, group=g)
+        x = out
+    return x
+
+
+def allgather(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0, in rank order."""
+    if not _initialized():
+        return x
+    for g in reversed(group_list(group)):
+        out = x.new_empty((x.shape[0] * dist.get_world_size(g),)
+                          + x.shape[1:])
+        dist.all_gather_into_tensor(out, x.contiguous(), group=g)
+        x = out
+    return x
+
+
+def alltoall(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
+    """Split dim 0 into one block per rank and exchange: block ``p`` of
+    the result is rank ``p``'s block for this rank."""
+    if not _initialized():
+        return x
+    groups = group_list(group)
+    sizes = [dist.get_world_size(g) for g in groups]
+    y = x.reshape(*sizes, x.shape[0] // math.prod(sizes), *x.shape[1:])
+    # One exchange per axis: each swaps that axis' coordinate of a block
+    # from "destination" to "source".
+    for i, g in enumerate(groups):
+        send = y.movedim(i, 0).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=g)
+        y = recv.movedim(0, i)
+    return y.reshape(x.shape)
+
+
+def adasum_allreduce(x: torch.Tensor, group: Groups = None,
+                     eps: float = 0.0) -> torch.Tensor:
+    """Adasum over the groups' ranks, innermost axis first (the
+    reference's hierarchical order).  Power-of-2 group sizes only."""
+    if not _initialized():
+        return x
+    for g in reversed(group_list(group)):
+        x = _adasum_one_group(x, g, eps)
+    return x
+
+
+def _adasum_one_group(x: torch.Tensor, group, eps: float) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if n & (n - 1):
+        raise ValueError(f"Adasum requires power-of-2 axis size, got {n}")
+    idx = dist.get_rank(group)
+    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
+        else x.dtype
+    v = x.to(acc).contiguous()
+    for level in range(int(math.log2(n))):
+        distance = 1 << level
+        peer = dist.get_global_rank(
+            dist.group.WORLD if group is None else group, idx ^ distance)
+        other = torch.empty_like(v)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, v, peer, group),
+                dist.P2POp(dist.irecv, other, peer, group)]):
+            req.wait()
+        # Both partners compute with the same (a, b): a is the vector of
+        # the rank whose level bit is clear.
+        a, b = (v, other) if (idx & distance) == 0 else (other, v)
+        aa, bb, ab = (a * a).sum(), (b * b).sum(), (a * b).sum()
+        one = torch.ones_like(aa)
+        acoef = torch.where(aa > eps, 1.0 - ab / (2.0 * aa + 1e-30), one)
+        bcoef = torch.where(bb > eps, 1.0 - ab / (2.0 * bb + 1e-30), one)
+        zero = (aa == 0.0) & (bb == 0.0)
+        acoef = torch.where(zero, one, acoef)
+        bcoef = torch.where(zero, one, bcoef)
+        v = acoef.to(acc) * a + bcoef.to(acc) * b
+    return v.to(x.dtype)

@@ -5,7 +5,9 @@ the same axes (``pp dp fsdp ep sp tp``, outermost first) and the same
 ``dp=-1`` rule; this slice builds meshes whose only axis larger than one
 is ``dp``.  The ``dp`` axis is the ranks of a ``torch.distributed``
 process group (the default group unless one is given); a world of one
-needs no group at all.  Each rank drives one card.
+needs no group at all.  Each rank drives one card.  ``axis_groups``
+forms one subgroup per axis of a data mesh (``dp`` and ``fsdp``) for the
+gradient sync's multi-axis reductions.
 """
 from __future__ import annotations
 
@@ -100,3 +102,38 @@ def data_axes(mesh: Mesh) -> tuple[str, ...]:
     """The axes gradients are reduced over: every data-parallel-like axis
     larger than 1."""
     return tuple(a for a in ("dp", "fsdp") if axis_size(mesh, a) > 1)
+
+
+def axis_groups(shape: dict[str, int],
+                group: dist.ProcessGroup | None = None
+                ) -> dict[str, dist.ProcessGroup]:
+    """One process group per axis of a mesh over ``group``'s ranks
+    (default: the world), holding this rank and the ranks that differ
+    from it in that axis' coordinate only.
+
+    The mesh is row-major over ``shape``'s axes in ``DEFAULT_AXES``
+    order: with ``{"dp": 2, "fsdp": 2}`` the rank of group rank ``r`` has
+    ``dp`` index ``r // 2`` and ``fsdp`` index ``r % 2``, the index of
+    its slice in the reference's stacked ``P(("dp", "fsdp"))`` input.
+    Every rank of ``group`` must call this with the same shape: each
+    ``dist.new_group`` is collective."""
+    axes = [a for a in DEFAULT_AXES if a in shape]
+    sizes = [shape[a] for a in axes]
+    world = dist.get_world_size(group)
+    if math.prod(sizes) != world:
+        raise ValueError(f"mesh axes {shape} require {math.prod(sizes)} "
+                         f"ranks, the group has {world}")
+    ranks = [dist.get_global_rank(group, r) if group is not None else r
+             for r in range(world)]
+    me = dist.get_rank(group)
+    grid = torch.arange(world).reshape(sizes)
+    out = {}
+    for i, axis in enumerate(axes):
+        # Every line of the grid along this axis, in the same order on
+        # every rank.
+        lines = grid.movedim(i, -1).reshape(-1, sizes[i])
+        for line in lines.tolist():
+            g = dist.new_group([ranks[r] for r in line])
+            if me in line:
+                out[axis] = g
+    return out

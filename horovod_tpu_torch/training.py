@@ -7,13 +7,24 @@ reference's step body in order:
    (the CNNs) or ``"input"`` (the Transformer); the loss is
    ``cross_entropy_loss``, streamed over the vocab above a threshold;
 2. ``sync_gradients``: per-dtype buckets in the flax leaf order, cast to
-   the wire dtype and averaged over the ``dp`` ranks;
+   the wire dtype (or block-quantized, each leaf in flax's element order
+   through ``convert.flax_layouts``) and averaged over the ``dp`` ranks;
 3. the optimizer update, with a ``torch.optim`` optimizer;
 4. the BatchNorm running statistics (``TrainState.batch_stats``, the
    model's buffers) averaged over the ``dp`` ranks in one all-reduce, as
    the reference averages ``batch_stats`` when BatchNorm has no
    ``axis_name``.  DDP's default, broadcasting rank 0's buffers, would be
    another result.
+
+With ``GradSyncConfig(optimizer_in_ring=True)`` steps 2 and 3 are the
+reference's ring branch, ``sync_and_apply``: the gradients are
+reduce-scattered, a shard optimizer of the user optimizer's class steps
+this rank's flat fp32 shard of the parameters, and the updated shards
+are all-gathered; ``TrainState.optimizer`` is that shard optimizer, so
+the optimizer state is 1/world per rank.  ``error_feedback`` does
+nothing in the step, as in the reference, whose step calls
+``sync_gradients`` and passes no residuals; error feedback is
+``sync_gradients_ef``'s.
 
 The loss (and, behind ``HOROVOD_TRACK_ACCURACY``, the accuracy) is
 averaged over ``dp``.  PyTorch updates in place: ``TrainState`` holds the
@@ -39,8 +50,11 @@ from torch import nn
 
 from .common import config
 from .common.device import resolve_device
+from .convert import flax_layouts
+from .parallel import collectives
 from .parallel.collectives import allreduce
-from .parallel.grad_sync import GradSyncConfig, sync_gradients
+from .parallel.grad_sync import (GradSyncConfig, init_ring_optimizer,
+                                 sync_and_apply, sync_gradients)
 from .parallel.mesh import Mesh, data_axes
 
 
@@ -149,6 +163,10 @@ class Trainer:
     >>> trainer = Trainer(model, opt, build_mesh(dp=1))
     >>> state = trainer.init()
     >>> state, metrics = trainer.step(state, batch)
+
+    ``sync`` takes every reference knob; with ``optimizer_in_ring`` the
+    state's optimizer is the shard optimizer, and ``error_feedback`` is
+    ignored by the step, as in the reference (use ``sync_gradients_ef``).
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -168,6 +186,12 @@ class Trainer:
         if sorted(self._names) != sorted(self._params):
             raise ValueError("the gradient leaf order does not name the "
                              "model's parameters")
+        self._layouts = flax_layouts(model)
+        self._ring = None
+        if self.sync.optimizer_in_ring:
+            self._ring = init_ring_optimizer(
+                optimizer, [self._params[n] for n in self._names],
+                collectives.world_size(mesh.group), self.sync)
 
     def init(self, sample_batch: dict | None = None) -> TrainState:
         """The state at step 0.  The model's parameters were drawn when
@@ -178,7 +202,9 @@ class Trainer:
             if p.device.type != self.device.type:
                 raise ValueError(f"model parameters lie on {p.device}, the "
                                  f"mesh's device is {self.device}")
-        return TrainState(step=0, model=self.model, optimizer=self.optimizer)
+        return TrainState(step=0, model=self.model,
+                          optimizer=self.optimizer if self._ring is None
+                          else self._ring)
 
     def _batch(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         return (_model_input(batch).to(self.device),
@@ -197,11 +223,16 @@ class Trainer:
             p = self._params[name]
             grads[name] = p.grad if p.grad is not None \
                 else torch.zeros_like(p)
-        synced = sync_gradients(grads, self.sync, self.mesh.group)
-        for name, g in synced.items():
-            self._params[name].grad = g
-        self.optimizer.step()
         group = self.mesh.group
+        if self._ring is not None:
+            sync_and_apply(self._ring, grads,
+                           {n: self._params[n] for n in self._names},
+                           self.sync, group, self._layouts)
+        else:
+            synced = sync_gradients(grads, self.sync, group, self._layouts)
+            for name, g in synced.items():
+                self._params[name].grad = g
+            self.optimizer.step()
         _average_batch_stats(self._stats, group)
 
         metrics = {"loss": allreduce(loss.detach(), "average", group)}

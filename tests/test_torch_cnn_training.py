@@ -6,7 +6,10 @@ numpy) on the same batch of 16 images of 16x16, fp32.
 - a 2-rank gloo world (``tests/torch_cnn_worker.py``, 8 images a rank)
   against a 2-device mesh on the same global batch: the loss, the
   gradients (through the parameters) and the BatchNorm statistics are
-  averaged over ``dp`` on both sides, and the two ranks end equal.
+  averaged over ``dp`` on both sides, and the two ranks end equal;
+- the same with ``optimizer_in_ring=True`` on both sides: the reference's
+  ring branch against ``Trainer``'s ``sync_and_apply``, each rank's
+  optimizer state one flat shard of ``ring_chunk_size`` elements.
 
 Losses within 1e-5 relative; parameters and ``batch_stats`` within 1e-5.
 """
@@ -35,6 +38,7 @@ from horovod_tpu_torch import convert
 from horovod_tpu_torch import training as ttrain
 from horovod_tpu_torch.models import resnet as tres
 from horovod_tpu_torch.parallel import build_mesh as tbuild_mesh
+from horovod_tpu_torch.parallel import grad_sync as tsync
 from torch_cnn_util import assert_trees_close, load, random_variables
 
 REPO = Path(__file__).resolve().parent.parent
@@ -64,18 +68,18 @@ def setup():
     return variables, images, labels
 
 
-def _run_jax(variables, images, labels, devices):
+def _run_jax(variables, images, labels, devices, **sync):
     mesh = jbuild_mesh(JMeshSpec(dp=devices),
                        devices=jax.devices()[:devices])
     tx = optax.sgd(LR, momentum=MOMENTUM)
     trainer = jtrain.Trainer(_flax_model(), tx, mesh,
-                             sync=JSync(axes=("dp",), op="average"))
+                             sync=JSync(axes=("dp",), op="average", **sync))
     batch = {"image": jnp.asarray(images),
              "label": jnp.asarray(labels, jnp.int32)}
     state = trainer.init(jax.random.key(0), batch)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     state = dataclasses.replace(
-        state, params=params, opt_state=tx.init(params),
+        state, params=params, opt_state=trainer._init_opt_state(params),
         batch_stats=jax.tree_util.tree_map(jnp.asarray,
                                            variables["batch_stats"]))
     losses = []
@@ -129,12 +133,15 @@ def test_synthetic_image_batch():
     assert torch.equal(batch["label"], again["label"])
 
 
-def _gloo_train(tmp_path, variables, images, labels, world=2):
+def _gloo_train(tmp_path, variables, images, labels, world=2, **sync):
     model = load(_port_model(), variables)
     inputs = {f"state/{k}": v.numpy() for k, v in model.state_dict().items()}
-    inputs.update(images=images, labels=labels, config=np.array(json.dumps(
-        dict(stage_sizes=list(STAGES), num_filters=FILTERS,
-             num_classes=CLASSES, steps=STEPS, lr=LR, momentum=MOMENTUM))))
+    config = dict(stage_sizes=list(STAGES), num_filters=FILTERS,
+                  num_classes=CLASSES, steps=STEPS, lr=LR, momentum=MOMENTUM)
+    if sync:
+        config["sync"] = dict(op="average", **sync)
+    inputs.update(images=images, labels=labels,
+                  config=np.array(json.dumps(config)))
     np.savez(tmp_path / "inputs.npz", **inputs)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -174,3 +181,27 @@ def test_gloo_world_matches_jax_dp2(setup, tmp_path):
     diff = max(np.abs(a - b).max() for a, b in zip(
         jax.tree_util.tree_leaves(single), jax.tree_util.tree_leaves(jstats)))
     assert diff > 100 * TOL
+
+
+def test_gloo_ring_trainer_matches_jax_dp2(setup, tmp_path):
+    variables, images, labels = setup
+    jlosses, jparams, jstats = _run_jax(variables, images, labels, 2,
+                                        optimizer_in_ring=True)
+    outs = _gloo_train(tmp_path, variables, images, labels,
+                       optimizer_in_ring=True)
+    names = [k for k in outs[0].files if k.startswith("state/")]
+    n_params = sum(v.size for v in jax.tree_util.tree_leaves(
+        variables["params"]))
+    chunk = tsync.ring_chunk_size(n_params, 2, tsync.GradSyncConfig())
+    for out in outs:
+        np.testing.assert_allclose(out["losses"], jlosses, rtol=TOL)
+        params, stats = convert.cnn_params_to_flax(
+            {k[len("state/"):]: torch.from_numpy(out[k]) for k in names})
+        assert_trees_close(params, jparams, atol=TOL)
+        assert_trees_close(stats, jstats, atol=TOL)
+        # SGD with momentum: the shard and its momentum buffer, 1/world
+        # of the parameters each.
+        assert out["opt_numel"].tolist() == [chunk, chunk]
+    for k in names:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k])
+    assert jlosses[-1] < jlosses[0]

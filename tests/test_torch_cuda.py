@@ -267,3 +267,38 @@ def test_cnn_activations_are_channels_last():
     assert block(x, train=True).is_contiguous(
         memory_format=torch.channels_last)
     assert seen and all(ok for _, ok in seen), seen
+
+
+@pytest.mark.parametrize("codec", ["int8", "uint4"])
+@pytest.mark.parametrize("block", [2, 16, 256])
+def test_codec_on_card_matches_cpu_bitwise(codec, block):
+    """quantize_rows and dequantize_rows are correctly rounded fp32 ops
+    (min, max, subtract, divide, round half to even, multiply, add), so
+    the card gives the CPU's bytes."""
+    from horovod_tpu_torch.compress import CompressionCodec
+    from horovod_tpu_torch.compress import ops
+    c = CompressionCodec[codec.upper()]
+    gen = torch.Generator().manual_seed(block)
+    x = torch.randn(3, block * 333, generator=gen) * 3
+    x[1, :block] = 0.7                      # a constant block
+    host = ops.quantize_rows(x, c, block)
+    card = ops.quantize_rows(x.cuda(), c, block)
+    for a, b in zip(card, host):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(ops.dequantize_rows(*card, c, block).cpu(),
+                       ops.dequantize_rows(*host, c, block))
+
+
+def test_quantized_allreduce_on_card_matches_cpu():
+    """One rank without a process group: quantize, reduce, requantize,
+    dequantize, the same on the card as on the CPU."""
+    from horovod_tpu_torch.compress import CompressionCodec
+    from horovod_tpu_torch.compress import ops
+    x = torch.randn(100_003, generator=torch.Generator().manual_seed(1))
+    r = torch.randn(100_003, generator=torch.Generator().manual_seed(2))
+    for c in (CompressionCodec.INT8, CompressionCodec.UINT4):
+        host = ops.quantized_allreduce(x, None, "average", c, 64, residual=r)
+        card = ops.quantized_allreduce(x.cuda(), None, "average", c, 64,
+                                       residual=r.cuda())
+        for a, b in zip(card, host):
+            assert torch.equal(a.cpu(), b)

@@ -7,15 +7,13 @@
   gradients, for the none/fp16 wires x sum/average and with fused loss
   scaling and clipping;
 - the bf16 wire, which XLA on the CPU cannot all-reduce, is checked
-  against a bf16 round trip of the mean.
+  against a bf16 round trip of the mean;
+- the reference's refusals (adasum with a quantized codec or with loss
+  scaling, the ring with error feedback or adasum, uint4 with an odd
+  block) raise its ValueErrors.  The other knobs are tested in
+  ``tests/test_torch_sync_knobs.py``.
 """
 from __future__ import annotations
-
-import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,9 +28,8 @@ from horovod_tpu.parallel import grad_sync as jsync
 from horovod_tpu_torch import convert
 from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.parallel import grad_sync as tsync
+from torch_sync_util import run_gloo_world
 
-REPO = Path(__file__).resolve().parent.parent
-WORKER = Path(__file__).resolve().parent / "torch_sync_worker.py"
 WORLD = 2
 
 # Gradients of a few shapes; a threshold of 2000 bytes puts them in
@@ -74,29 +71,9 @@ def _jax_sync(per_rank, kwargs):
 
 def _gloo_sync(tmp_path, per_rank, configs):
     """Run the port's sync_gradients in a WORLD-process gloo world."""
-    inputs = {f"{r}/{n}": per_rank[r][n] for r in range(WORLD)
-              for n in SHAPES}
-    inputs["names"] = np.array(json.dumps(list(SHAPES)))
-    inputs["configs"] = np.array(json.dumps(configs))
-    np.savez(tmp_path / "inputs.npz", **inputs)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(WORLD),
-         str(tmp_path / "store"), str(tmp_path / "inputs.npz"),
-         str(tmp_path / f"out{r}.npz")], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
-    try:
-        logs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log
-    return [np.load(tmp_path / f"out{r}.npz") for r in range(WORLD)]
+    jobs = [dict(kind="sync", set="g", config=kw) for kw in configs]
+    return run_gloo_world(tmp_path, WORLD, {"g": {"names": list(SHAPES),
+                                                  "ranks": per_rank}}, jobs)
 
 
 @pytest.fixture(scope="module")
@@ -183,10 +160,16 @@ def test_world_one_scale_clip_matches_jax():
                                    rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(compression="int8"), dict(compression="uint4"), dict(op="adasum"),
-    dict(error_feedback=True), dict(hierarchical=True),
-    dict(optimizer_in_ring=True)])
-def test_unported_knobs_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(op="adasum", compression="int8"), "quantized"),
+    (dict(op="adasum", compression="uint4"), "quantized"),
+    (dict(op="adasum", loss_scale=128.0), "loss-scaling"),
+    (dict(op="adasum", clip_global_norm=1.0), "loss-scaling"),
+    (dict(optimizer_in_ring=True, error_feedback=True), "error-feedback"),
+    (dict(optimizer_in_ring=True, op="adasum"), "sum|average"),
+    (dict(compression="uint4", compression_block_size=15), "even block"),
+])
+def test_reference_refusals_remain(kwargs, match):
+    """The reference's own ValueErrors are the only refusals left."""
+    with pytest.raises(ValueError, match=match):
         tsync.sync_gradients([torch.zeros(3)], tsync.GradSyncConfig(**kwargs))

@@ -25,6 +25,7 @@ for info in pkgutil.walk_packages(horovod_tpu_torch.__path__,
     importlib.import_module(info.name)
 new = sorted(set(sys.modules) - before)
 print(len([m for m in new if m.startswith("horovod_tpu_torch")]))
+assert "horovod_tpu_torch.compress.ops" in new
 bad = [m for m in new
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "horovod_tpu")]
 print("BAD", bad)
@@ -42,7 +43,7 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 22            # every module of the package
+    assert int(count) >= 30            # every module, compress/ included
     assert bad == "BAD []", bad
 
 

@@ -489,3 +489,53 @@ def test_two_rank_gloo_serving(tmp_path):
     got = {int(k): v for out in outs for k, v in out["streams"].items()}
     _assert_streams_agree(got, want, rids, params, "gloo")
     solo.close()
+
+
+def _dense_paged_agreement(run) -> tuple[int, int]:
+    """(requests whose dense and paged streams are equal, requests), from
+    ``run(paged)`` -> rid -> stream."""
+    dense, paged = run(False), run(True)
+    assert sorted(dense) == sorted(paged)
+    return sum(dense[r] == paged[r] for r in dense), len(dense)
+
+
+def test_bf16_dense_and_paged_agree_as_often_as_in_the_reference():
+    """bf16 gpt_tiny, the same weights and prompts through both packages:
+    the port's dense and paged streams agree on at least as many requests
+    as the JAX package's do.  In bf16 the paged gather and the dense
+    cache round alike but sum attention in another order, so a stream
+    may part at a near tie in either package."""
+    from horovod_tpu.serving import ReplicaExecutor, ServeConfig
+    prompts = _prompts(13, n=8, lo=20, hi=40)
+    params = {}
+
+    def run_jax(paged):
+        hvd = _solo_world()
+        try:
+            ex = ReplicaExecutor(ServeConfig.from_env(**_cfg_kwargs(
+                paged=paged, model_cfg=jtr.gpt_tiny())),
+                params=params.get("p"))
+            params["p"] = ex.params
+            streams = _record_streams(ex)
+            _submit(ex, prompts, 16, max_new=24)
+            ex.serve_loop(stop_when=lambda: True)
+            ex.close()
+            return dict(streams)
+        finally:
+            hvd.shutdown()
+
+    def run_port(paged):
+        ex = _port_executor(params["p"], paged=paged,
+                            model_cfg=ttr.gpt_tiny())
+        streams = _record_streams(ex)
+        _submit(ex, prompts, 16, max_new=24)
+        ex.serve_loop(stop_when=lambda: True)
+        ex.close()
+        return dict(streams)
+
+    jax_agree, n = _dense_paged_agreement(run_jax)
+    port_agree, n_port = _dense_paged_agreement(run_port)
+    print(f"bf16 dense == paged: JAX {jax_agree}/{n}, port "
+          f"{port_agree}/{n_port}")
+    assert n == n_port == 16
+    assert port_agree >= jax_agree
