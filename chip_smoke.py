@@ -27,7 +27,10 @@ Phases, each printed as one JSON object on its own line:
    attention, bf16 compute, a bf16 wire through a one-rank NCCL group
    and AdamW(3e-4, wd 1e-4), on ``synthetic_text_batch(8, 2048, 50304)``:
    2 warm-up and 5 timed steps, with the kernels' launch counts read over
-   the 7 steps; then one profiled step;
+   the 7 steps (12 of each a step); then one profiled step; then the
+   remat legs, each block checkpointed under ``remat_policy`` "full" and
+   "dots": step ms, peak memory, losses and launches (the forward 24 a
+   step, dq and dK/dV 12);
 6. serve: the port's serving path, ``ReplicaExecutor`` through
    ``queue.submit`` and ``serve_loop`` on gpt_small at full width (12
    layers, d_model 768, vocab 50304, max_seq 1024), one line a leg:
@@ -70,9 +73,28 @@ Phases, each printed as one JSON object on its own line:
    mismatch, a loss that is not finite or does not fall, or a launch
    count that is off fails the phase.
 
+9. eager: the eager Horovod core (``hvd.init``, the negotiation, the TCP
+   and shm planes, the native host kernels) on the card machine's host,
+   in worlds spawned against the port's ``RendezvousServer``: the native
+   library's build time and CPU tag; a 2-rank world checking the
+   collectives battery of ``tests/mp_worker.py:17-107`` in every dtype
+   against numpy, with a timeline on every rank (NEGOTIATE_* and op
+   events); a 2-rank world timing bench.py's eager leg (the cached cycle
+   rate over 200 cycles of a 64-float allreduce after 20, and a 16 MiB
+   fp32 allreduce's 2(n-1)/n bandwidth, 5 reps after 2) on the TCP ring
+   (natively and through the Python ring) and on the shm plane; a 4-rank
+   ladder of ring against tree at 4 KiB, 64 KiB and 1 MiB; the native
+   entry points against their plain versions; and a CUDA tensor, which
+   ``allreduce`` must refuse.
+
 A line ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line; so does a machine without a CUDA card.
+
+    python3 chip_smoke.py --phases train,eager
+
+runs the device and build phases and then only the phases named, and
+prints neither the kernels line nor the last line.
 """
 from __future__ import annotations
 
@@ -105,6 +127,8 @@ REPLACES = {
     "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:225",
 }
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+# The train phase's remat legs, after the main leg (which runs without).
+REMAT_POLICIES = ("full", "dots")
 # Kernel names of the profile, by what they do (first match wins).
 KERNEL_CATEGORIES = (
     ("flash attention (this repo)", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
@@ -542,7 +566,75 @@ def phase_train() -> dict:
         out["profile"] = _profile(lambda: trainer.step(state, batch),
                                   mean_ms)
         emit({"phase": "profile", **out["profile"]})
+        del trainer, state, opt, model
+        torch.cuda.empty_cache()
+        legs = {"none": {"timed_step_ms_mean": mean_ms,
+                         "peak_memory_bytes": out["peak_memory_bytes"],
+                         "profile": out["profile"]}}
+        for policy in REMAT_POLICIES:
+            legs[policy] = _remat_leg(policy, batch)
+        emit({"phase": "train", "leg": "remat-summary",
+              **{key: {k: v[key] for k, v in legs.items()}
+                 for key in ("timed_step_ms_mean", "peak_memory_bytes")},
+              **{key: {k: v["profile"][key] for k, v in legs.items()}
+                 for key in ("kernel_ms", "device_idle_share",
+                             "kernel_launches")}})
         return out
+
+
+def _remat_leg(policy: str, batch: dict) -> dict:
+    """gpt_small as the main leg trains it, with each block checkpointed
+    under ``remat_policy``: step ms, peak memory, losses and the flash
+    launches by kernel.  A checkpointed block runs its forward twice, so
+    a step launches the forward kernel 24 times and dq and dK/dV 12."""
+    from horovod_tpu_torch import (GradSyncConfig, Trainer, TransformerLM,
+                                   build_mesh, gpt_small)
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt_small(attention="flash", max_seq_len=2048, remat=True,
+                    remat_policy=policy)
+    model = TransformerLM(cfg, seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    trainer = Trainer(model, opt, build_mesh(dp=1),
+                      sync=GradSyncConfig(op="average", compression="bf16"))
+    state = trainer.init(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, step_ms = [], []
+    steps = WARMUP_STEPS + TIMED_STEPS
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = fa.launch_counts()
+    out = {"phase": "train", "leg": f"remat-{policy}", "model": "gpt_small",
+           "batch": 8, "seq": 2048, "dtype": "bfloat16", "losses": losses,
+           "step_ms": step_ms,
+           "timed_step_ms_mean": statistics.mean(step_ms[WARMUP_STEPS:]),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "launches_per_step": {n: c / steps for n, c in launches.items()}}
+    emit(out)
+    out["profile"] = _profile(lambda: trainer.step(state, batch),
+                              out["timed_step_ms_mean"])
+    emit({"phase": "profile", "leg": f"remat-{policy}", **out["profile"]})
+    want = {"flash_fwd": 2 * cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
+            "flash_bwd_dkv": cfg.num_layers}
+    problems = [f"remat {policy}: {name} launched {launches[name]} times, "
+                f"not {per_step} a step" for name, per_step in want.items()
+                if launches[name] != per_step * steps]
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"remat {policy}: a loss is not finite")
+    if not losses[-1] < losses[0]:
+        problems.append(f"remat {policy}: the loss did not fall")
+    del trainer, state, opt, model
+    torch.cuda.empty_cache()
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return out
 
 
 def _profile(fn, wall_ms: float, categories=KERNEL_CATEGORIES) -> dict:
@@ -1164,7 +1256,437 @@ def phase_sync() -> dict:
     return {"seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# The eager phase: worlds of the port's eager API on this machine's host
+# ---------------------------------------------------------------------------
+EAGER_WORLD_TIMEOUT = 240.0
+EAGER_BIG_BYTES = 16 << 20
+LADDER_BYTES = (4 << 10, 64 << 10, 1 << 20)
+# Every dtype of the checks: name -> (torch dtype, numpy dtype of the
+# expectation).
+EAGER_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+                "float32": torch.float32, "float64": torch.float64,
+                "int8": torch.int8, "uint8": torch.uint8,
+                "int32": torch.int32, "int64": torch.int64}
+
+
+def _eager_check(hvd, rank: int, size: int) -> list[str]:
+    """The collectives battery of ``tests/mp_worker.py:17-107`` on torch
+    tensors, each result against its numpy expectation; returns what
+    disagreed."""
+    import numpy as np
+    bad: list[str] = []
+
+    def check(tag, got, want, tol=0.0):
+        g = got.float().double().numpy() if got.dtype == torch.bfloat16             else got.double().numpy()
+        w = np.asarray(want, dtype=np.float64)
+        if g.shape != w.shape or not np.allclose(g, w, rtol=tol, atol=0):
+            bad.append(f"{tag}: got {g.ravel()[:4]} want {w.ravel()[:4]}")
+
+    x = torch.arange(16, dtype=torch.float32) + rank
+    want = np.arange(16) * size + sum(range(size))
+    check("ar_sum", hvd.allreduce(x, op=hvd.Sum, name="ar_sum"), want)
+    check("ar_avg", hvd.allreduce(x, op=hvd.Average, name="ar_avg"),
+          want / size, 1e-6)
+    check("ar_scale", hvd.allreduce(torch.ones(8), op=hvd.Sum,
+                                    name="ar_scale", prescale_factor=2.0,
+                                    postscale_factor=0.5),
+          np.full(8, float(size)))
+    for tag, dt in EAGER_DTYPES.items():
+        v = (torch.arange(17) % 5 + rank + 1).to(dt)
+        out = hvd.allreduce(v, op=hvd.Sum, name=f"ar_{tag}")
+        if out.dtype != dt:
+            bad.append(f"ar_{tag}: dtype {out.dtype}")
+        check(f"ar_{tag}", out, sum(np.arange(17) % 5 + r + 1
+                                    for r in range(size)))
+    b = torch.tensor([rank == 0, True, False])
+    check("ar_bool", hvd.allreduce(b, op=hvd.Sum, name="ar_bool"),
+          [1, 1, 0])
+    xs = [torch.full((4,), float(rank + i)) for i in range(3)]
+    for i, out in enumerate(hvd.grouped_allreduce(xs, op=hvd.Sum,
+                                                  name="gar")):
+        check(f"gar{i}", out, np.full(4, sum(r + i for r in range(size))))
+    local = torch.full((rank + 1, 3), float(rank))
+    check("ag", hvd.allgather(local, name="ag"),
+          np.concatenate([np.full((r + 1, 3), r) for r in range(size)]))
+    handles = [hvd.allgather_async(
+        torch.full((rank + 1, i + 2), 10.0 * rank + i), name=f"burst{i}")
+        for i in range(4)]
+    for i, h in enumerate(handles):
+        check(f"burst{i}", hvd.synchronize(h),
+              np.concatenate([np.full((r + 1, i + 2), 10.0 * r + i)
+                              for r in range(size)]))
+    root = size - 1
+    check("bc", hvd.broadcast(torch.arange(6, dtype=torch.float64)
+                              * (rank + 1), root_rank=root, name="bc"),
+          np.arange(6) * (root + 1))
+    out, splits = hvd.alltoall(torch.arange(2 * size, dtype=torch.float32)
+                               + 100 * rank, splits=[2] * size, name="a2a")
+    check("a2a", out, np.concatenate([np.arange(2 * rank, 2 * rank + 2)
+                                      + 100 * r for r in range(size)]))
+    check("a2a_splits", splits, [2] * size)
+    rs = hvd.reducescatter(torch.arange(4 * size, dtype=torch.float32)
+                           .reshape(2 * size, 2) * (rank + 1), op=hvd.Sum,
+                           name="rs")
+    full = np.arange(4 * size).reshape(2 * size, 2) * \
+        sum(r + 1 for r in range(size))
+    check("rs", rs, full[2 * rank:2 * rank + 2])
+    hvd.barrier()
+    for _ in range(5):
+        check("steady", hvd.allreduce(torch.ones(4), op=hvd.Sum,
+                                      name="steady"), np.full(4, size))
+    if hvd.broadcast_object({"r": rank}, root_rank=0) != {"r": 0}:
+        bad.append("broadcast_object")
+    return bad
+
+
+def _eager_timing(hvd, core, rank: int, size: int) -> dict:
+    """bench.py's eager leg (``_eager_worker``, ``:884-940``): the steady
+    cached cycle rate and the 16 MiB fp32 allreduce bandwidth on the plane
+    this world formed, with the plane that served each op."""
+    small = torch.ones(64)
+    for _ in range(20):
+        hvd.allreduce(small, op=hvd.Sum, name="cycle")
+    t0 = time.perf_counter()
+    for _ in range(200):
+        hvd.allreduce(small, op=hvd.Sum, name="cycle")
+    cycles_per_s = 200 / (time.perf_counter() - t0)
+    st = core.global_state()
+    shm = next((b for b in st.op_manager.backends if b.name == "shm"), None)
+    big = torch.ones(EAGER_BIG_BYTES // 4)
+
+    def bandwidth(name):
+        for _ in range(2):
+            hvd.allreduce(big, op=hvd.Sum, name=name)
+        before = shm.ops_executed if shm is not None else 0
+        t0 = time.perf_counter()
+        for _ in range(5):
+            out = hvd.allreduce(big, op=hvd.Sum, name=name)
+        dt = time.perf_counter() - t0
+        assert float(out[0]) == size and float(out[-1]) == size
+        coll = st.tcp_collectives[0]
+        plane = "shm" if shm is not None and shm.ops_executed > before \
+            else f"tcp-{coll.last_algo}" + \
+            ("-native" if coll.last_native else "-python")
+        moved = 5 * EAGER_BIG_BYTES * 2 * (size - 1) / size
+        return {"gbyte_per_s": moved / dt / 1e9, "ms": dt / 5 * 1e3,
+                "plane": plane}
+
+    out = {"cycles_per_s": cycles_per_s,
+           "cycle_plane": "shm" if shm is not None else "tcp",
+           "big": bandwidth("ring")}
+    if shm is None:
+        # The same op through the plain Python ring: every rank flips the
+        # knob at the same point (the frames are the same either way).
+        os.environ["HOROVOD_TPU_DISABLE_NATIVE"] = "1"
+        try:
+            out["big_python_ring"] = bandwidth("ring_py")
+        finally:
+            del os.environ["HOROVOD_TPU_DISABLE_NATIVE"]
+    return out
+
+
+def _eager_ladder(hvd, core) -> dict:
+    """bench.py's ladder (``_ladder_worker``, ``:959-990``): ring against
+    tree at each payload on the flat TCP plane, median of 5."""
+    st = core.global_state()
+    out = {}
+    for algo in ("ring", "tree"):
+        for c in st.tcp_collectives:      # a symmetric flip on every rank
+            c.algo = algo
+        for nb in LADDER_BYTES:
+            x = torch.ones(max(nb // 4, 1))
+            name = f"ladder_{algo}_{nb}"
+            hvd.allreduce(x, op=hvd.Sum, name=name)
+            samples = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                hvd.allreduce(x, op=hvd.Sum, name=name)
+                samples.append(time.perf_counter() - t0)
+            out[f"{algo}_{nb}"] = statistics.median(samples) * 1e3
+            out[f"{algo}_{nb}_ran"] = st.tcp_collectives[0].last_algo
+    return out
+
+
+def eager_worker(job: str, rank: int, size: int, port: int,
+                 outdir: str) -> int:
+    """One rank of an eager world (``chip_smoke.py --eager-worker ...``):
+    runs ``job`` and writes ``<job>_<rank>.json``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+                      HOROVOD_GLOO_RENDEZVOUS_PORT=str(port))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import core, native
+    result: dict = {}
+    base = dict(os.environ)
+
+    def world(epoch: str, **env):
+        os.environ.clear()
+        os.environ.update(base, HOROVOD_RENDEZVOUS_EPOCH=epoch, **env)
+        hvd.init()
+        return [b.name for b in core.global_state().op_manager.backends]
+
+    if job == "check":
+        result["planes"] = world(
+            "check", HOROVOD_TIMELINE=os.path.join(outdir, "timeline.json"))
+        result["problems"] = _eager_check(hvd, rank, size)
+        hvd.shutdown()
+    elif job == "timing":
+        result["tcp_planes"] = world("tcp", HOROVOD_SHM_OPERATIONS="0")
+        result["tcp"] = _eager_timing(hvd, core, rank, size)
+        hvd.shutdown()
+        result["shm_planes"] = world(
+            "shm", HOROVOD_SHM_OPERATIONS="1",
+            HOROVOD_SHM_CAPACITY=str(EAGER_BIG_BYTES))
+        result["shm"] = _eager_timing(hvd, core, rank, size)
+        hvd.shutdown()
+    else:
+        result["planes"] = world("ladder", HOROVOD_SHM_OPERATIONS="0")
+        result["ladder"] = _eager_ladder(hvd, core)
+        hvd.shutdown()
+    result["native_loaded"] = native.loaded()
+    result["native_calls"] = dict(native.calls)
+    with open(os.path.join(outdir, f"{job}_{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _eager_world(job: str, size: int, outdir: str) -> list[dict]:
+    """Spawn one world of ``size`` ranks against the port's own
+    RendezvousServer; every rank within EAGER_WORLD_TIMEOUT."""
+    from horovod_tpu_torch.runner.network import RendezvousServer
+    server = RendezvousServer()
+    port = server.start()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    env["CUDA_VISIBLE_DEVICES"] = ""          # the eager planes are host
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--eager-worker", job,
+         str(r), str(size), str(port), outdir], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(size)]
+    failures = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(timeout=EAGER_WORLD_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+                failures.append(f"rank {r} timed out")
+            if p.returncode != 0:
+                failures.append(f"rank {r} rc={p.returncode}: "
+                                + out.decode(errors="replace")[-2000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        server.stop()
+    if failures:
+        raise RuntimeError(f"eager {job} world: " + "; ".join(failures))
+    results = []
+    for r in range(size):
+        with open(os.path.join(outdir, f"{job}_{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _host() -> dict:
+    """The host's CPU as lscpu and /proc/cpuinfo name it (a VM may say
+    "unknown" in either), its core count and /dev/shm's size."""
+    model = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        for line in out.splitlines():
+            key, _, value = line.partition(":")
+            if key.strip() in ("Model name", "Vendor ID", "Architecture",
+                               "CPU family", "Model", "Flags"):
+                model[key.strip()] = value.strip()[:80]
+    except OSError:
+        pass
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                model["cpuinfo"] = line.split(":", 1)[1].strip()
+                break
+    shm = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
+    return {"cpu": model, "nproc": os.cpu_count(),
+            "dev_shm_bytes": shm.f_frsize * shm.f_blocks if shm else 0}
+
+
+def _native_times() -> dict:
+    """Each native entry point against its plain version at the eager
+    phase's sizes (the ring's two versions are timed in the worlds): the
+    two outputs, each from the same inputs, must be bitwise equal, and
+    each version is timed after."""
+    from horovod_tpu_torch import native
+    n = EAGER_BIG_BYTES // 4
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(n, generator=g)
+    parts = list(x.split(n // 64))
+    out = torch.empty(n)
+    outs = [torch.empty(p.numel()) for p in parts]
+    wire = torch.empty(native.wire_nbytes(n, 256, False), dtype=torch.uint8)
+    dec = torch.empty(n)
+    a64_0 = torch.randn(1 << 16, generator=g, dtype=torch.float64)
+    a64 = a64_0.clone()
+    b64 = torch.randn(1 << 16, generator=g, dtype=torch.float64)
+
+    def nothing():
+        pass
+
+    # name: (call, bytes moved, reset of what it writes, its output)
+    calls = {
+        "pack": (lambda: native.pack(parts, [p.numel() for p in parts],
+                                     out), n * 8, nothing, lambda: [out]),
+        "unpack": (lambda: native.unpack(out, outs), n * 8, nothing,
+                   lambda: outs),
+        "scale_f32": (lambda: native.scale_(out, 0.5), n * 8,
+                      lambda: out.copy_(x), lambda: [out]),
+        "qencode_int8": (lambda: native.qencode(x, 256, 256, False, wire),
+                         n * 5, nothing, lambda: [wire]),
+        "qdecode_int8": (lambda: native.qdecode(wire, n, 256, False, dec,
+                                                True), n * 9,
+                         lambda: dec.copy_(x), lambda: [dec]),
+        "dot_norms_f64": (lambda: native.dot_norms(a64, b64),
+                          a64.numel() * 16, nothing,
+                          lambda: [torch.tensor(native.dot_norms(a64, b64),
+                                                dtype=torch.float64)]),
+        "scaled_add_f64": (lambda: native.scaled_add_(a64, b64, 0.5, 0.5),
+                           a64.numel() * 24, lambda: a64.copy_(a64_0),
+                           lambda: [a64]),
+    }
+    times, unequal = {}, []
+    for name, (fn, nbytes, reset, result) in calls.items():
+        row = {"bytes": nbytes}
+        got = {}
+        for mode in ("native", "plain"):
+            if mode == "plain":
+                os.environ["HOROVOD_TPU_DISABLE_NATIVE"] = "1"
+            try:
+                reset()
+                fn()
+                got[mode] = [t.clone() for t in result()]
+                samples = []
+                for _ in range(3 if mode == "plain" else 5):
+                    t0 = time.perf_counter()
+                    fn()
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                row[f"{mode}_ms"] = statistics.median(samples)
+            finally:
+                os.environ.pop("HOROVOD_TPU_DISABLE_NATIVE", None)
+        row["bitwise_equal"] = all(
+            torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(got["native"], got["plain"]))
+        if not row["bitwise_equal"]:
+            unequal.append(name)
+        times[name] = row
+    if unequal:
+        raise RuntimeError(f"native entry points differ from their plain "
+                           f"versions: {unequal}")
+    return times
+
+
+def phase_eager() -> dict:
+    """The eager Horovod core on this machine's host (see the module
+    docstring)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import native
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    t0 = time.perf_counter()
+    native.load()
+    host = _host()
+    emit({"phase": "eager", "leg": "native",
+          "build_s": native.build_seconds,
+          "load_s": time.perf_counter() - t0, "cpu_tag": native.cpu_tag(),
+          "loaded": native.loaded(), "library": native.library_path(),
+          **host})
+    if not native.loaded() or native.disabled():
+        problems.append("the native library is not loaded")
+    with tempfile.TemporaryDirectory(prefix="eager") as outdir:
+        check = _eager_world("check", 2, outdir)
+        timeline = {}
+        for r in range(2):
+            path = os.path.join(outdir, "timeline.json" if r == 0
+                                else f"timeline.r{r}.json")
+            with open(path) as f:
+                events = json.load(f)
+            names = {e.get("name") for e in events}
+            timeline[r] = {
+                "events": len(events),
+                "negotiate": sorted(n for n in names
+                                    if str(n).startswith("NEGOTIATE_")),
+                "ops": sorted(n for n in names if n in (
+                    "ALLREDUCE", "ALLGATHER", "BROADCAST", "ALLTOALL",
+                    "REDUCESCATTER", "SHM_ALLREDUCE", "TCP_RING_ALLREDUCE"))}
+            if not timeline[r]["negotiate"] or not timeline[r]["ops"]:
+                problems.append(f"rank {r}'s timeline lacks negotiation or "
+                                f"op events")
+        for r, res in enumerate(check):
+            problems += [f"check rank {r}: {p}" for p in res["problems"]]
+            if not res["native_loaded"] or not res["native_calls"].get(
+                    "pack"):
+                problems.append(f"check rank {r}: the native pack did not "
+                                f"run")
+        emit({"phase": "eager", "leg": "check", "ranks": 2,
+              "planes": check[0]["planes"], "timeline": timeline,
+              "native_calls": check[0]["native_calls"],
+              "problems": sum((len(r["problems"]) for r in check), 0)})
+        timing = _eager_world("timing", 2, outdir)[0]
+        if timing["shm"]["big"]["plane"] != "shm" or \
+                "shm" not in timing["shm_planes"]:
+            problems.append("the shm leg did not run on the shm plane")
+        if not timing["tcp"]["big"]["plane"].startswith("tcp-ring-native"):
+            problems.append("the tcp leg did not run the native ring")
+        emit({"phase": "eager", "leg": "timing", "ranks": 2,
+              "native_calls": timing["native_calls"],
+              "tcp_planes": timing["tcp_planes"],
+              "shm_planes": timing["shm_planes"],
+              "shm_capacity": EAGER_BIG_BYTES,
+              "payload_bytes": EAGER_BIG_BYTES, **host,
+              "tcp": timing["tcp"], "shm": timing["shm"]})
+        lad = _eager_world("ladder", 4, outdir)[0]["ladder"]
+        ladder = {str(nb): {"ring_ms": lad[f"ring_{nb}"],
+                            "tree_ms": lad[f"tree_{nb}"],
+                            "ran": [lad[f"ring_{nb}_ran"],
+                                    lad[f"tree_{nb}_ran"]]}
+                  for nb in LADDER_BYTES}
+        crossover = max((nb for nb in LADDER_BYTES
+                         if lad[f"tree_{nb}"] < lad[f"ring_{nb}"]),
+                        default=0)
+        emit({"phase": "eager", "leg": "ladder", "ranks": 4,
+              "ladder": ladder, "tree_ring_crossover_bytes": crossover})
+    natives = _native_times()
+    emit({"phase": "eager", "leg": "native-times", "kernels": natives,
+          "ring": {"native_ms": timing["tcp"]["big"]["ms"],
+                   "plain_ms": timing["tcp"]["big_python_ring"]["ms"]}})
+    # A CUDA tensor is refused, naming the NCCL plane's item.
+    os.environ.pop("HOROVOD_RANK", None)
+    os.environ.pop("HOROVOD_SIZE", None)
+    hvd.init()
+    try:
+        hvd.allreduce(torch.ones(4, device="cuda"), name="cuda")
+        problems.append("a CUDA tensor was not refused")
+    except NotImplementedError as exc:
+        if "9(b)" not in str(exc):
+            problems.append(f"the CUDA refusal names no item: {exc}")
+    finally:
+        hvd.shutdown()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "eager", "leg": "summary", "seconds": seconds,
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds}
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
+        job, rank, size, port, outdir = sys.argv[2:7]
+        return eager_worker(job, int(rank), int(size), int(port), outdir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1175,12 +1697,21 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     info = phase_device()
     phase_build()
+    if len(sys.argv) > 2 and sys.argv[1] == "--phases":
+        phases = {"kernels": phase_kernels, "reference": phase_reference,
+                  "train": phase_train, "serve": phase_serve,
+                  "cnn": phase_cnn, "sync": phase_sync,
+                  "eager": phase_eager}
+        for name in sys.argv[2].split(","):
+            phases[name]()
+        return 0
     kernels = phase_kernels()
     phase_reference()
     train = phase_train()
     phase_serve()
     cnn = phase_cnn()
     phase_sync()
+    phase_eager()
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": train["launches"][name],

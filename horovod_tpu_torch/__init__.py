@@ -1,9 +1,13 @@
 """horovod_tpu_torch: the PyTorch and CUDA port of horovod_tpu for H100s.
 
 It imports torch and numpy, never JAX, and nothing of ``horovod_tpu``.
-Entry points run on the CUDA card unless ``device="cpu"`` is asked for.
+Entry points run on the CUDA card unless ``device="cpu"`` is asked for;
+the eager Horovod API (``hvd.init()``, ``hvd.allreduce`` ..., from
+``eager.py``) takes CPU tensors and refuses CUDA ones until the NCCL
+plane is ported.
 """
-from . import models, parallel, serving, training
+from . import eager, models, parallel, serving, training
+from .eager import *  # noqa: F401,F403 - the Horovod API at package level
 from .models import (VGG, VGG16, VGG19, InceptionV3, ResNet, ResNet18,
                      ResNet34, ResNet50, ResNet101, ResNet152,
                      TransformerConfig, TransformerLM, gpt_small, gpt_tiny)
@@ -15,7 +19,7 @@ from .serving import (AdmissionController, Assignment, BatchPlan,
 from .training import (Trainer, TrainState, synthetic_image_batch,
                        synthetic_text_batch)
 
-__all__ = ["models", "parallel", "serving", "training",
+__all__ = ["eager", "models", "parallel", "serving", "training",
            "TransformerConfig", "TransformerLM", "gpt_small", "gpt_tiny",
            "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
            "ResNet152", "VGG", "VGG16", "VGG19", "InceptionV3",
@@ -24,4 +28,4 @@ __all__ = ["models", "parallel", "serving", "training",
            "TrainState", "synthetic_text_batch", "synthetic_image_batch",
            "AdmissionController", "Assignment", "BatchPlan",
            "ContinuousBatcher", "KVBlockPool", "ReplicaExecutor",
-           "RequestQueue", "ServeConfig", "ServeRequest"]
+           "RequestQueue", "ServeConfig", "ServeRequest", *eager.__all__]

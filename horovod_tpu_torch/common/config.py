@@ -115,3 +115,132 @@ SERVE_PREFILL_RANKS = Knob(
     "Disaggregated prefill/decode: the highest N ranks prefill only and "
     "stream KV blocks to the decode ranks.  Not ported (ROADMAP queue A "
     "items 8 and 11): a value above 0 raises NotImplementedError.")
+
+
+def parse_tristate(value: str) -> bool | None:
+    """'1'/'true'/... -> True, '0'/'false'/... -> False, else None (auto)."""
+    v = value.strip().lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off"):
+        return False
+    return None
+
+
+# --- The eager core (core.py; the reference's common/config.py) -------------
+# World identity (launcher-set; -1 = unset).
+RANK = Knob("HOROVOD_RANK", -1, int, "Global rank of this process.")
+SIZE = Knob("HOROVOD_SIZE", -1, int, "Global number of ranks.")
+LOCAL_RANK = Knob("HOROVOD_LOCAL_RANK", -1, int, "Rank within this host.")
+LOCAL_SIZE = Knob("HOROVOD_LOCAL_SIZE", -1, int, "Ranks on this host.")
+CROSS_RANK = Knob("HOROVOD_CROSS_RANK", -1, int, "Host index.")
+CROSS_SIZE = Knob("HOROVOD_CROSS_SIZE", -1, int, "Number of hosts.")
+RENDEZVOUS_ADDR = Knob(
+    "HOROVOD_GLOO_RENDEZVOUS_ADDR", "", str,
+    "Rendezvous KV-store host (control plane over TCP).")
+RENDEZVOUS_PORT = Knob(
+    "HOROVOD_GLOO_RENDEZVOUS_PORT", -1, int, "Rendezvous KV-store port.")
+GLOO_TIMEOUT_SECONDS = Knob(
+    "HOROVOD_GLOO_TIMEOUT_SECONDS", 30.0, float,
+    "Control-plane connect/recv timeout.")
+RENDEZVOUS_WAL_DIR = Knob(
+    "HOROVOD_RENDEZVOUS_WAL_DIR", "", str,
+    "Directory of the rendezvous write-ahead log.  Not ported (ROADMAP "
+    "queue A item 12): a value raises NotImplementedError.")
+CYCLE_TIME = Knob(
+    "HOROVOD_CYCLE_TIME", 1.0, float,
+    "Background-loop cycle time in milliseconds.")
+CACHE_CAPACITY = Knob(
+    "HOROVOD_CACHE_CAPACITY", 1024, int,
+    "Response-cache capacity (0 disables caching).")
+DISABLE_GROUP_FUSION = Knob(
+    "HOROVOD_DISABLE_GROUP_FUSION", False, _parse_bool,
+    "Disable fusion across explicitly grouped collectives.")
+STALL_CHECK_DISABLE = Knob(
+    "HOROVOD_STALL_CHECK_DISABLE", False, _parse_bool,
+    "Disable the stalled-tensor warning check.")
+STALL_CHECK_TIME_SECONDS = Knob(
+    "HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0, float,
+    "Seconds before warning about ranks with missing submissions.")
+STALL_SHUTDOWN_TIME_SECONDS = Knob(
+    "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0, float,
+    "Seconds before a stall aborts the job (0 = never).")
+TIMELINE = Knob(
+    "HOROVOD_TIMELINE", "", str,
+    "Path for the Chrome-trace timeline JSON ('DYNAMIC' = start "
+    "stopped); ranks > 0 write '<path>.r<rank>'.")
+TIMELINE_MARK_CYCLES = Knob(
+    "HOROVOD_TIMELINE_MARK_CYCLES", False, _parse_bool,
+    "Mark background-loop cycles in the timeline.")
+SHM_OPERATIONS = Knob(
+    "HOROVOD_SHM_OPERATIONS", "auto", str,
+    "Same-host shared-memory data plane: 1=require, 0=disable, auto=use "
+    "when every rank shares one memory domain.")
+SHM_CAPACITY = Knob(
+    "HOROVOD_SHM_CAPACITY", 0, int,
+    "Per-rank shm region bytes (0 = max(fusion threshold, 64MB)); "
+    "payloads above it fall through to the TCP plane.")
+TOPOLOGY = Knob(
+    "HOROVOD_TOPOLOGY", "", str,
+    "Physical layout declaration: flat | host | torus:RxC.  Empty = auto: "
+    "host when the env describes a homogeneous two-level layout, else "
+    "flat.  Must be launcher-uniform across ranks.")
+ALGO = Knob(
+    "HOROVOD_ALGO", "auto", str,
+    "Eager-plane allreduce algorithm: auto (tree at or under "
+    "HOROVOD_TREE_THRESHOLD_BYTES in worlds above two ranks, torus on a "
+    "declared torus, segmented ring otherwise) | ring | tree | rhd | "
+    "torus.")
+TREE_THRESHOLD_BYTES = Knob(
+    "HOROVOD_TREE_THRESHOLD_BYTES", 64 * 1024, int,
+    "Payloads at or below this many wire bytes take the tree allreduce "
+    "under HOROVOD_ALGO=auto; 0 disables the small-tensor path.")
+LOG_LEVEL = Knob("HOROVOD_LOG_LEVEL", "warning", str,
+                 "trace|debug|info|warning|error|fatal")
+LOG_HIDE_TIME = Knob("HOROVOD_LOG_HIDE_TIME", False, _parse_bool,
+                     "Hide timestamps in log output.")
+XLA_OPERATIONS = Knob(
+    "HOROVOD_XLA_OPERATIONS", "auto", str,
+    "The device plane (the reference's XLA plane; in the port, NCCL for "
+    "CUDA tensors).  Not ported (ROADMAP queue A item 9(b)): 1 raises "
+    "NotImplementedError.")
+
+_REST_9A = "ROADMAP queue A item 9(a), the rest"
+
+# Eager knobs whose feature the port does not have yet: (knob, default,
+# parser, roadmap item).  A value other than the default raises at init.
+UNPORTED_EAGER_KNOBS = (
+    ("HOROVOD_HIERARCHICAL_ALLREDUCE", False, _parse_bool, _REST_9A),
+    ("HOROVOD_HIERARCHICAL_ALLGATHER", False, _parse_bool, _REST_9A),
+    ("HOROVOD_COMPRESSION", "none", str, _REST_9A),
+    ("HOROVOD_NUM_STREAMS", 1, lambda v: max(int(v), 1), _REST_9A),
+    ("HOROVOD_AUTOTUNE", False, _parse_bool, _REST_9A),
+    ("HOROVOD_FINGERPRINT", "off", str, _REST_9A),
+    ("HOROVOD_SAN", False, _parse_bool, _REST_9A),
+    ("HOROVOD_FAULT_TOLERANCE", False, _parse_bool, _REST_9A),
+    ("HOROVOD_CHAOS", "", str, _REST_9A),
+    ("HOROVOD_METRICS", False, _parse_bool, _REST_9A),
+    ("HOROVOD_METRICS_PORT", 0, int, _REST_9A),
+    ("HOROVOD_ELASTIC", False, _parse_bool,
+     "ROADMAP queue A item 11 (elasticity)"),
+)
+
+
+def check_eager_knobs() -> None:
+    """Raise NotImplementedError for an eager knob set to a feature the
+    port lacks.  ``HOROVOD_FLIGHT`` defaults to on in the reference; the
+    port has no flight recorder, so it runs without one when the knob is
+    unset and raises when it is set on explicitly."""
+    for name, default, parser, item in UNPORTED_EAGER_KNOBS:
+        raw = os.environ.get(name, "")
+        if raw.strip().lower() in ("", str(default).lower()):
+            continue
+        if parser(raw) != default:
+            raise NotImplementedError(f"{name}={raw} is {item}")
+    if _parse_bool(os.environ.get("HOROVOD_FLIGHT", "")):
+        raise NotImplementedError(
+            f"HOROVOD_FLIGHT (the flight recorder) is {_REST_9A}")
+    if parse_tristate(XLA_OPERATIONS.get()) is True:
+        raise NotImplementedError(
+            "HOROVOD_XLA_OPERATIONS=1 (the device plane; NCCL for CUDA "
+            "tensors) is ROADMAP queue A item 9(b)")

@@ -1,0 +1,707 @@
+"""Global state, background coordination thread, and the enqueue API.
+
+The port's copy of ``horovod_tpu/core.py`` (``Handle``, ``HandleManager``,
+``GlobalState``, ``init``, ``shutdown``, the rank/size getters,
+``_background_loop``, ``_execute_response``, ``_enqueue`` and the
+``enqueue_*`` functions) on CPU torch tensors.  ``init`` forms the world
+in the reference's order: the rendezvous KV, the same-host shm plane, the
+control and data meshes, the clock-offset probe, the TCP plane and the
+world-of-one fallback.  Left out, each raising ``NotImplementedError``
+naming its ROADMAP item when asked for (``common/config.py``
+``check_eager_knobs``): the device plane (a CUDA tensor; item 9(b)), the
+hierarchical plane, the eager codecs, Adasum, dispatch streams, the
+autotuner, fingerprints, fault tolerance and chaos, the metrics exporter
+and the flight recorder (item 9(a)'s rest), and elastic re-init (item 11).
+
+Design: user threads enqueue TensorTableEntries + Requests; a single
+background thread runs the controller protocol every CycleTime ms, receives
+the identical fused ResponseList on every rank, and executes each Response
+through the backend priority chain.  Completion flows back through per-entry
+callbacks into Handle futures, never blocking the background thread.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Sequence
+
+import torch
+
+from .backend.base import OperationManager
+from .backend.basic import BasicBackend
+from .common import config
+from .common.controller import Controller, LocalTransport
+from .common.dtypes import from_any
+from .common.group_table import GroupTable
+from .common.logging import configure as configure_logging
+from .common.logging import logger
+from .common.message import Request, RequestType, Response, ResponseType
+from .common.response_cache import ResponseCache
+from .common.stall_inspector import StallInspector
+from .common.status import Status
+from .common.tensor_queue import TensorQueue, TensorTableEntry
+from .common.timeline import Timeline
+
+JOIN_TENSOR_NAME = "__join__"
+_REST_9A = "ROADMAP queue A item 9(a), the rest"
+
+
+class Handle:
+    """Future for one (possibly grouped) async collective
+    (reference: torch/handle_manager.cc)."""
+
+    __slots__ = ("_event", "status", "entries", "_pending", "_hid",
+                 "wrap_refs")
+
+    def __init__(self, entries: list[TensorTableEntry]) -> None:
+        self._event = threading.Event()
+        self.status: Status | None = None
+        self.entries = entries
+        self._pending = len(entries)
+        self._hid = -1
+        # The caller's input tensors, so async results come back in their
+        # dtype, as the sync API's do.
+        self.wrap_refs: list[Any] = []
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def wait(self, timeout: float | None = None) -> Status:
+        if not self._event.wait(timeout):
+            raise TimeoutError("collective did not complete in time")
+        assert self.status is not None
+        return self.status
+
+    def outputs(self) -> list[Any]:
+        return [e.output for e in self.entries]
+
+
+class HandleManager:
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._next = 0
+        self._handles: dict[int, Handle] = {}
+
+    def allocate(self, entries: list[TensorTableEntry]) -> tuple[int, Handle]:
+        handle = Handle(entries)
+        with self._lock:
+            hid = self._next
+            self._next += 1
+            handle._hid = hid
+            self._handles[hid] = handle
+        return hid, handle
+
+    def get(self, hid: int) -> Handle:
+        with self._lock:
+            return self._handles[hid]
+
+    def entry_done(self, handle: Handle, status: Status) -> None:
+        with self._lock:
+            handle._pending -= 1
+            # First error wins; OK only recorded if nothing failed.
+            if handle.status is None or (handle.status.ok_p()
+                                         and not status.ok_p()):
+                handle.status = status
+            if handle._pending <= 0:
+                # Auto-release: the caller's Handle is the only owner now.
+                self._handles.pop(handle._hid, None)
+                handle._event.set()
+
+    def release(self, hid: int) -> None:
+        with self._lock:
+            self._handles.pop(hid, None)
+
+
+@dataclass
+class GlobalState:
+    rank: int = 0
+    size: int = 1
+    local_rank: int = 0
+    local_size: int = 1
+    cross_rank: int = 0
+    cross_size: int = 1
+    initialized: bool = False
+    shutdown_requested: bool = False
+    background_thread: threading.Thread | None = None
+    tensor_queue: TensorQueue = field(default_factory=TensorQueue)
+    group_table: GroupTable = field(default_factory=GroupTable)
+    controller: Controller | None = None
+    op_manager: OperationManager | None = None
+    tcp_collectives: list[Any] = field(default_factory=list)
+    handle_manager: HandleManager = field(default_factory=HandleManager)
+    timeline: Timeline | None = None
+    cycle_time_ms: float = 1.0
+    joined: bool = False
+    # Resolved fabric layout (common/topology.Topology): drives the ring
+    # order and the torus allreduce eligibility.
+    topology: Any = None
+    # resources to close at shutdown (sockets, shm regions, ...)
+    resources: list[Any] = field(default_factory=list)
+
+    def mark_done_callback(self, handle: Handle):
+        def _cb(status: Status) -> None:
+            self.handle_manager.entry_done(handle, status)
+        return _cb
+
+
+_global = GlobalState()
+_init_lock = threading.Lock()
+_atexit_registered = False
+
+
+def global_state() -> GlobalState:
+    return _global
+
+
+# ---------------------------------------------------------------------------
+# Initialization / shutdown (reference: operations.cc:651-769)
+# ---------------------------------------------------------------------------
+def init(*, rank: int | None = None, size: int | None = None,
+         rendezvous_addr: str | None = None,
+         rendezvous_port: int | None = None,
+         local_rank: int | None = None, local_size: int | None = None,
+         cross_rank: int | None = None, cross_size: int | None = None) -> None:
+    """Initialize the runtime: discover the world from env/args, connect the
+    control plane, build backends, spawn the background thread."""
+    with _init_lock:
+        if _global.initialized:
+            return
+        config.check_eager_knobs()
+
+        def _resolve(kwarg, knob, fallback):
+            if kwarg is not None:
+                return kwarg
+            env = knob.get()
+            return env if env >= 0 else fallback
+
+        rank = _resolve(rank, config.RANK, 0)
+        size = _resolve(size, config.SIZE, 1)
+        # Topology default: one host holding every rank (local == global).
+        local_rank = _resolve(local_rank, config.LOCAL_RANK, rank)
+        local_size = _resolve(local_size, config.LOCAL_SIZE, size)
+        cross_rank = _resolve(cross_rank, config.CROSS_RANK, 0)
+        cross_size = _resolve(cross_size, config.CROSS_SIZE, 1)
+
+        configure_logging(rank)
+        _global.rank, _global.size = rank, size
+        _global.local_rank, _global.local_size = local_rank, local_size
+        _global.cross_rank, _global.cross_size = cross_rank, cross_size
+        # Fabric layout (HOROVOD_TOPOLOGY; common/topology.py): the knob is
+        # launcher-uniform, so every rank resolves the same Topology.
+        from .common import topology as _topology
+        topo = _topology.resolve(size, local_size, cross_size)
+        _global.topology = topo
+        _global.cycle_time_ms = config.CYCLE_TIME.get()
+        _global.shutdown_requested = False
+        _global.tensor_queue.reset()
+        _global.joined = False
+        _global.tcp_collectives = []
+
+        # EVERY rank records its own trace file: rank 0 keeps the exact
+        # configured path, ranks > 0 get the '.r<rank>' suffix.
+        _global.timeline = Timeline(
+            config.TIMELINE.get(),
+            mark_cycles=config.TIMELINE_MARK_CYCLES.get(), rank=rank)
+
+        backends = []
+        epoch = os.environ.get("HOROVOD_RENDEZVOUS_EPOCH", "0")
+        if size > 1:
+            addr = rendezvous_addr or config.RENDEZVOUS_ADDR.get()
+            port = rendezvous_port if rendezvous_port is not None \
+                else config.RENDEZVOUS_PORT.get()
+            if not addr or port <= 0:
+                raise RuntimeError(
+                    "Multi-process world requires a rendezvous server: set "
+                    "HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT (a RendezvousServer "
+                    "of horovod_tpu_torch.runner.network serves them).")
+            from .backend.tcp import TcpBackend, TcpCollectives
+            from .common.tcp_transport import TcpTransport
+            from .runner.network import PeerMesh, RendezvousClient
+
+            timeout = config.GLOO_TIMEOUT_SECONDS.get()
+            kv = RendezvousClient(addr, port, timeout)
+            # Same-host shared-memory plane: formation is collective and
+            # unanimous through the KV store.
+            shm_backend = None
+            shm_mode = config.parse_tristate(config.SHM_OPERATIONS.get())
+            shm_capacity = config.SHM_CAPACITY.get() or \
+                max(config.FUSION_THRESHOLD.get(), 64 * 1024 * 1024)
+            if shm_mode is not False:
+                from .backend.shm import ShmBackend, ShmWorld
+                shm_world = ShmWorld(
+                    rank, size, kv, scope=f"shm{epoch}",
+                    capacity=shm_capacity, timeout=timeout)
+                if shm_world.formed:
+                    _global.resources.append(shm_world)
+                    shm_backend = ShmBackend(shm_world)
+                elif shm_mode is True:
+                    raise RuntimeError(
+                        "HOROVOD_SHM_OPERATIONS=1 requires every rank on "
+                        "one host/memory domain; formation failed.")
+            ctrl_mesh = PeerMesh(rank, size, kv, scope=f"ctrl{epoch}",
+                                 timeout=timeout)
+            data_mesh = PeerMesh(rank, size, kv, scope=f"data{epoch}",
+                                 timeout=timeout)
+            _global.resources.extend([ctrl_mesh, data_mesh])
+            transport = TcpTransport(ctrl_mesh)
+            # Per-rank clock-offset estimate against the coordinator (the
+            # FIRST frames on the ctrl mesh), recorded as trace metadata.
+            clock_offset_us, clock_rtt_us = transport.estimate_clock_offset()
+            _global.timeline.set_clock_sync(clock_offset_us, clock_rtt_us)
+            # Topology-aware ring order + torus shape for the data plane;
+            # identity order keeps the flat schedule.
+            ring_order = topo.ring_order() if topo.kind != "flat" else None
+            torus_shape = (topo.rows, topo.cols) \
+                if topo.kind == "torus" else None
+            tcp_coll = TcpCollectives(data_mesh, ring_order=ring_order,
+                                      torus=torus_shape)
+            tcp_backend = TcpBackend(tcp_coll)
+            _global.tcp_collectives = [tcp_coll]
+            if shm_backend is not None:
+                shm_backend.tcp = tcp_backend   # oversized-alltoall delegate
+                backends.append(shm_backend)
+            backends.append(tcp_backend)
+        else:
+            transport = LocalTransport()
+            _global.timeline.set_clock_sync(0.0, 0.0)
+        backends.append(BasicBackend(size))
+
+        _global.controller = Controller(
+            rank=rank, size=size, transport=transport,
+            tensor_queue=_global.tensor_queue,
+            group_table=_global.group_table,
+            response_cache=ResponseCache(config.CACHE_CAPACITY.get()),
+            stall_inspector=StallInspector(),
+            local_rank=local_rank, local_size=local_size,
+            cross_rank=cross_rank, cross_size=cross_size,
+            timeline=_global.timeline)
+        for backend in backends:
+            backend.timeline = _global.timeline
+        _global.op_manager = OperationManager(backends)
+
+        _global.background_thread = threading.Thread(
+            target=_background_loop, daemon=True, name="hvd-background")
+        _global.initialized = True
+        _global.background_thread.start()
+        # Finalize on interpreter exit like the reference: a script that
+        # returns without shutdown() still flushes the timeline and tears
+        # sockets/regions down cleanly.
+        global _atexit_registered
+        if not _atexit_registered:
+            import atexit
+            atexit.register(shutdown)
+            _atexit_registered = True
+        logger.debug("horovod_tpu_torch initialized: rank=%d size=%d",
+                     rank, size)
+
+
+def shutdown() -> None:
+    with _init_lock:
+        if not _global.initialized:
+            return
+        _global.shutdown_requested = True
+        thread = _global.background_thread
+    if thread is not None:
+        thread.join(timeout=60)
+    with _init_lock:
+        if not _global.initialized:
+            return   # a concurrent shutdown won the race past the join
+        _global.tensor_queue.finalize()
+        timeline = _global.timeline
+        resources = list(_global.resources)
+        _global.resources.clear()
+        _global.controller = None
+        _global.op_manager = None
+        _global.tcp_collectives = []
+        _global.initialized = False
+        _global.background_thread = None
+    if timeline is not None:
+        timeline.stop()
+    for res in resources:
+        try:
+            res.close()
+        except Exception:  # noqa: BLE001 - best-effort cleanup
+            pass
+
+
+def reinit_world(*, rank: int, size: int, epoch: str) -> None:
+    """The elastic re-init primitive: not ported."""
+    raise NotImplementedError(
+        "reinit_world (elastic re-formation) is ROADMAP queue A item 11")
+
+
+def is_initialized() -> bool:
+    return _global.initialized
+
+
+def _require_init() -> GlobalState:
+    if not _global.initialized:
+        raise RuntimeError(
+            "horovod_tpu_torch has not been initialized; call hvd.init().")
+    return _global
+
+
+def rank() -> int:
+    return _require_init().rank
+
+
+def size() -> int:
+    return _require_init().size
+
+
+def local_rank() -> int:
+    return _require_init().local_rank
+
+
+def local_size() -> int:
+    return _require_init().local_size
+
+
+def cross_rank() -> int:
+    return _require_init().cross_rank
+
+
+def cross_size() -> int:
+    return _require_init().cross_size
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of ranks."""
+    st = _require_init()
+    return st.size % max(st.local_size, 1) == 0 and \
+        st.cross_size * st.local_size == st.size
+
+
+def start_timeline(path: str, mark_cycles: bool = False) -> None:
+    st = _require_init()
+    if st.timeline is not None:
+        st.timeline._mark_cycles = mark_cycles
+        st.timeline.start(path)
+
+
+def stop_timeline() -> None:
+    st = _require_init()
+    if st.timeline is not None:
+        st.timeline.stop()
+
+
+# ---------------------------------------------------------------------------
+# Background loop (reference: operations.cc:589-647 RunLoopOnce)
+# ---------------------------------------------------------------------------
+def _background_loop() -> None:
+    st = _global
+    while True:
+        t0 = time.monotonic()
+        try:
+            response_list = st.controller.compute_response_list(
+                st.shutdown_requested)
+        except Exception as exc:  # noqa: BLE001 - control-plane failure
+            logger.error("controller failure: %s", exc)
+            st.tensor_queue.finalize()
+            return
+        if st.timeline is not None:
+            st.timeline.mark_cycle()
+
+        for response in response_list.responses:
+            _perform_operation(st, response)
+
+        if response_list.shutdown:
+            # Flip the visible flag: ranks that never submitted anything
+            # must observe that the world shut down around them.
+            st.shutdown_requested = True
+            st.tensor_queue.finalize()
+            return
+
+        elapsed = time.monotonic() - t0
+        timeline = st.timeline
+        if timeline is not None and timeline.enabled \
+                and response_list.responses:
+            # Counter tracks ("ph":"C"): queue depth and cumulative wire
+            # bytes as series in the trace, next to the op spans.
+            timeline.counter("tensor_queue_depth",
+                             {"depth": st.tensor_queue.size()})
+            if st.tcp_collectives:
+                timeline.counter(
+                    "wire_bytes",
+                    {"sent": sum(c.mesh.bytes_sent
+                                 for c in st.tcp_collectives),
+                     "received": sum(c.mesh.bytes_received
+                                     for c in st.tcp_collectives)})
+        sleep_s = st.cycle_time_ms / 1000.0 - elapsed
+        if sleep_s > 0:
+            # Wake early on fresh enqueues, then grant a short batching
+            # grace so bursts still fuse into one response.
+            if st.tensor_queue.wait_for_work(sleep_s):
+                time.sleep(min(0.0003, st.cycle_time_ms / 5000.0))
+
+
+def _perform_join(st: GlobalState, response: Response) -> None:
+    st.joined = False
+    if st.tensor_queue.has_tensor_entry(JOIN_TENSOR_NAME):
+        entry = st.tensor_queue.pop_tensor_entry(JOIN_TENSOR_NAME)
+        entry.output = torch.tensor(response.last_joined_rank,
+                                    dtype=torch.int32)
+        entry.finish(Status.ok())
+        if st.timeline is not None and st.timeline.enabled:
+            st.timeline.queue_end(JOIN_TENSOR_NAME,
+                                  trace=response.trace_id())
+
+
+def _pop_entries(st: GlobalState,
+                 response: Response) -> list[TensorTableEntry]:
+    """Pop the response's entries from the tensor table (background
+    thread only) and close their negotiation spans."""
+    entries: list[TensorTableEntry] = []
+    for name in response.tensor_names:
+        if st.tensor_queue.has_tensor_entry(name):
+            entries.append(st.tensor_queue.pop_tensor_entry(name))
+        else:
+            # Joined rank: participate with a zero stand-in
+            # (reference: controller.cc:254-308 joined-rank handling).
+            entries.append(TensorTableEntry(tensor_name=name))
+    trace = response.trace_id()
+    for e in entries:
+        e.trace = trace
+    timeline = st.timeline
+    if timeline is not None and timeline.enabled:
+        for e in entries:
+            timeline.negotiate_end(e.tensor_name, trace=trace)
+    return entries
+
+
+def _execute_response(st: GlobalState, response: Response,
+                      entries: list[TensorTableEntry]) -> None:
+    """Execute one response on the backend chain and finish its
+    entries."""
+    timeline = st.timeline
+    trace = response.trace_id()
+    if timeline is not None and timeline.enabled:
+        for e in entries:
+            timeline.activity_start(e.tensor_name,
+                                    response.response_type.name,
+                                    stream=0, trace=trace)
+    if response.response_type == ResponseType.ERROR:
+        status = Status.precondition_error(response.error_message)
+    else:
+        try:
+            status = st.op_manager.execute_operation(response, entries)
+        except Exception as exc:  # noqa: BLE001 - backend failure
+            logger.error("collective execution failed: %s", exc)
+            status = Status.unknown_error(str(exc))
+
+    if timeline is not None and timeline.enabled:
+        for e in entries:
+            timeline.activity_end(e.tensor_name)
+
+    # Release explicit groups everywhere — the coordinator deregisters
+    # during response construction; worker ranks would leak one group
+    # per grouped collective.
+    st.group_table.deregister_groups(response.tensor_names)
+
+    for e in entries:
+        e.finish(status)
+    if timeline is not None and timeline.enabled:
+        # Close the enqueue->callback spans AFTER the callbacks ran.
+        for e in entries:
+            timeline.queue_end(e.tensor_name, trace=trace)
+
+
+def _perform_operation(st: GlobalState, response: Response) -> None:
+    """Reference: operations.cc:256-329 PerformOperation."""
+    if response.response_type == ResponseType.JOIN:
+        _perform_join(st, response)
+        return
+    _execute_response(st, response, _pop_entries(st, response))
+
+
+# ---------------------------------------------------------------------------
+# Enqueue API (reference: operations.cc:919-1226)
+# ---------------------------------------------------------------------------
+def _as_tensor(tensor) -> torch.Tensor:
+    """The eager planes take CPU torch tensors.  A CUDA tensor is refused
+    rather than staged through the host behind the caller's back."""
+    if not isinstance(tensor, torch.Tensor):
+        raise TypeError(f"horovod_tpu_torch collectives take torch tensors, "
+                        f"not {type(tensor).__name__}")
+    if tensor.device.type == "cuda":
+        raise NotImplementedError(
+            "a CUDA tensor in the eager API needs the device plane (NCCL), "
+            "ROADMAP queue A item 9(b); pass a CPU tensor")
+    if tensor.device.type != "cpu":
+        raise ValueError(f"unsupported device {tensor.device}")
+    return tensor.detach()
+
+
+def _enqueue(entries: list[TensorTableEntry],
+             requests: list[Request]) -> tuple[int, Handle]:
+    st = _require_init()
+    hid, handle = st.handle_manager.allocate(entries)
+    cb = st.mark_done_callback(handle)
+    for e in entries:
+        e.callback = cb
+    # Open the enqueue->callback trace span BEFORE submission: the
+    # background loop may finish an entry before this thread runs again.
+    timeline = st.timeline
+    tl_on = timeline is not None and timeline.enabled
+    if tl_on:
+        for e in entries:
+            timeline.queue_start(e.tensor_name)
+    status = st.tensor_queue.add_to_tensor_queue_multi(entries, requests)
+    if not status.ok_p():
+        # Fail synchronously (duplicate name / shut down).
+        for e in entries:
+            e.callback = None
+            if tl_on:
+                timeline.queue_end(e.tensor_name)
+        handle.status = status
+        st.handle_manager.release(hid)
+        handle._event.set()
+    return hid, handle
+
+
+def _check_codec(codec) -> None:
+    if codec is not None and str(getattr(codec, "name", codec)).lower() \
+            not in ("none", "0"):
+        raise NotImplementedError(
+            f"eager wire compression (compression={codec!r}) is "
+            f"{_REST_9A}")
+
+
+def enqueue_allreduce(name: str, tensor, *, op: str = "sum",
+                      prescale_factor: float = 1.0,
+                      postscale_factor: float = 1.0,
+                      adasum: bool = False,
+                      codec=None) -> tuple[int, Handle]:
+    return enqueue_grouped_allreduce([name], [tensor], op=op,
+                                     prescale_factor=prescale_factor,
+                                     postscale_factor=postscale_factor,
+                                     adasum=adasum, register_group=False,
+                                     codec=codec)
+
+
+def enqueue_grouped_allreduce(names: Sequence[str], tensors: Sequence[Any], *,
+                              op: str = "sum",
+                              prescale_factor: float = 1.0,
+                              postscale_factor: float = 1.0,
+                              adasum: bool = False,
+                              register_group: bool = True,
+                              codec=None) -> tuple[int, Handle]:
+    st = _require_init()
+    if adasum:
+        raise NotImplementedError(f"Adasum on the eager planes is {_REST_9A}")
+    _check_codec(codec)
+    if op == "average":
+        postscale_factor = postscale_factor / st.size
+    elif op != "sum":
+        raise ValueError(f"Unknown allreduce op: {op}")
+    arrs = [_as_tensor(t) for t in tensors]
+    entries, requests = [], []
+    if register_group and len(names) > 1:
+        st.group_table.register_group(list(names))
+    for name, arr in zip(names, arrs):
+        entries.append(TensorTableEntry(tensor_name=name, tensor=arr))
+        requests.append(Request(
+            request_rank=st.rank, request_type=RequestType.ALLREDUCE,
+            tensor_type=from_any(arr.dtype), tensor_name=name,
+            tensor_shape=tuple(arr.shape),
+            prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor))
+    return _enqueue(entries, requests)
+
+
+def enqueue_reducescatter(name: str, tensor, *, op: str = "sum",
+                          prescale_factor: float = 1.0,
+                          postscale_factor: float = 1.0
+                          ) -> tuple[int, Handle]:
+    """Reduce over all ranks, scatter dim-0 slices back."""
+    st = _require_init()
+    if op == "average":
+        postscale_factor = postscale_factor / st.size
+    elif op != "sum":
+        raise ValueError(f"Unknown reducescatter op: {op}")
+    arr = _as_tensor(tensor)
+    entry = TensorTableEntry(tensor_name=name, tensor=arr)
+    request = Request(request_rank=st.rank,
+                      request_type=RequestType.REDUCESCATTER,
+                      tensor_type=from_any(arr.dtype), tensor_name=name,
+                      tensor_shape=tuple(arr.shape),
+                      prescale_factor=prescale_factor,
+                      postscale_factor=postscale_factor)
+    return _enqueue([entry], [request])
+
+
+def enqueue_allgather(name: str, tensor) -> tuple[int, Handle]:
+    st = _require_init()
+    arr = _as_tensor(tensor)
+    entry = TensorTableEntry(tensor_name=name, tensor=arr)
+    request = Request(request_rank=st.rank,
+                      request_type=RequestType.ALLGATHER,
+                      tensor_type=from_any(arr.dtype), tensor_name=name,
+                      tensor_shape=tuple(arr.shape))
+    return _enqueue([entry], [request])
+
+
+def enqueue_broadcast(name: str, tensor,
+                      root_rank: int) -> tuple[int, Handle]:
+    st = _require_init()
+    arr = _as_tensor(tensor)
+    entry = TensorTableEntry(tensor_name=name, tensor=arr,
+                             root_rank=root_rank)
+    request = Request(request_rank=st.rank,
+                      request_type=RequestType.BROADCAST,
+                      tensor_type=from_any(arr.dtype), tensor_name=name,
+                      root_rank=root_rank, tensor_shape=tuple(arr.shape))
+    return _enqueue([entry], [request])
+
+
+def enqueue_alltoall(name: str, tensor,
+                     splits=None) -> tuple[int, Handle]:
+    st = _require_init()
+    arr = _as_tensor(tensor)
+    split_list = [int(x) for x in torch.as_tensor(splits).reshape(-1)] \
+        if splits is not None else []
+    # Validate at ENQUEUE like the reference (operations.cc:1176): the
+    # submitting rank fails fast before negotiation.
+    if split_list:
+        if len(split_list) != st.size:
+            raise ValueError(
+                f"alltoall splits must have one entry per rank (got "
+                f"{len(split_list)} for world size {st.size})")
+        if any(s < 0 for s in split_list):
+            raise ValueError(
+                f"alltoall splits must be non-negative (got {split_list})")
+        if sum(split_list) != arr.shape[0]:
+            raise ValueError(
+                f"alltoall splits sum to {sum(split_list)} but tensor "
+                f"first dimension is {arr.shape[0]}")
+    entry = TensorTableEntry(tensor_name=name, tensor=arr,
+                             splits=split_list)
+    request = Request(request_rank=st.rank,
+                      request_type=RequestType.ALLTOALL,
+                      tensor_type=from_any(arr.dtype), tensor_name=name,
+                      tensor_shape=tuple(arr.shape))
+    return _enqueue([entry], [request])
+
+
+def enqueue_barrier() -> tuple[int, Handle]:
+    st = _require_init()
+    name = "__barrier__"
+    entry = TensorTableEntry(tensor_name=name)
+    request = Request(request_rank=st.rank, request_type=RequestType.BARRIER,
+                      tensor_name=name)
+    return _enqueue([entry], [request])
+
+
+def enqueue_join() -> tuple[int, Handle]:
+    """Graceful uneven-data exit (reference: operations.cc:1202-1226).
+
+    After join() this rank keeps participating in negotiated collectives
+    with zero stand-ins until every rank has joined."""
+    st = _require_init()
+    st.joined = True
+    entry = TensorTableEntry(tensor_name=JOIN_TENSOR_NAME)
+    request = Request(request_rank=st.rank, request_type=RequestType.JOIN,
+                      tensor_name=JOIN_TENSOR_NAME)
+    return _enqueue([entry], [request])

@@ -25,13 +25,18 @@ flax tree.  Initialisation draws from flax's default distributions with a
 
 The port covers the training forward and KV-cache decoding (dense and
 paged; ``prefill``, ``decode_step``, ``paged_apply``, ``paged_copy_block``).
-Sequence parallelism (ring/ulysses), MoE and the "dots" remat policy raise
-``NotImplementedError`` naming their ROADMAP item.
+``remat=True`` checkpoints each block; ``remat_policy="dots"`` keeps the
+products' outputs as ``jax.checkpoint_policies.checkpoint_dots`` does and
+recomputes the rest of the block in the backward.
+Sequence parallelism (ring/ulysses) and MoE raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any
 
 import torch
@@ -58,7 +63,7 @@ class TransformerConfig:
     attention: str = "dense"          # dense | flash (ring | ulysses later)
     causal: bool = True
     remat: bool = False               # checkpoint each block
-    remat_policy: str = "full"        # full ("dots" later)
+    remat_policy: str = "full"        # full | dots
     block_q: int = 128
     block_k: int = 128
     block_q_bwd: int | None = None
@@ -101,8 +106,6 @@ def check_supported(cfg: TransformerConfig) -> None:
          "(sequence parallelism)"),
         (cfg.moe_experts > 0,
          "moe_experts > 0 is ROADMAP queue A item 10 (expert parallelism)"),
-        (cfg.remat and cfg.remat_policy == "dots",
-         "remat_policy='dots' is ROADMAP queue A item 6 (models, rest)"),
         (cfg.flash_interpret,
          "flash_interpret runs Pallas kernels interpreted; the port's "
          "CPU path is device='cpu'"),
@@ -118,6 +121,154 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.remat_policy not in ("full", "dots"):
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
                          "(expected 'full' or 'dots')")
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation (reference: nn.remat with policy None or
+# jax.checkpoint_policies.checkpoint_dots)
+# ---------------------------------------------------------------------------
+# "full" is torch.utils.checkpoint.  "dots" keeps every product of the
+# block (each Dense output, and dense attention's two einsums) from the
+# forward, and its backward recomputes the rest of the block around them:
+# the block's own code runs again, each product taken back from a tape in
+# the order it was written.  Flash attention is recomputed, as
+# checkpoint_dots recomputes the Pallas call.  torch's selective
+# checkpointing would keep the same tensors, but its policy runs every op
+# of the forward and the recompute through a Python dispatch mode, which
+# left the card idle most of a gpt_small step (PERF.md §6).
+class _Tape(threading.local):
+    """The products of the block being checkpointed under "dots" on this
+    thread: ``kept`` is written while its forward runs (``recording``) and
+    read back in order while its backward recomputes it; None outside."""
+    kept: list | None = None
+    recording: bool = False
+    pos: int = 0
+
+
+_TAPE = _Tape()
+
+
+@contextlib.contextmanager
+def _taping(kept: list, recording: bool):
+    prev = _TAPE.kept, _TAPE.recording, _TAPE.pos
+    _TAPE.kept, _TAPE.recording, _TAPE.pos = kept, recording, 0
+    try:
+        yield
+    finally:
+        _TAPE.kept, _TAPE.recording, _TAPE.pos = prev
+
+
+def _take() -> torch.Tensor:
+    y = _TAPE.kept[_TAPE.pos]
+    _TAPE.pos += 1
+    return y
+
+
+def _dense(layer: Dense, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)``, kept on the tape under "dots"."""
+    if _TAPE.kept is None:
+        return layer(x)
+    if _TAPE.recording:
+        _TAPE.kept.append(layer(x))
+        return _TAPE.kept[-1]
+    return _KeptDense.apply(x, layer.weight, layer.bias, _take(),
+                            layer.compute_dtype)
+
+
+def _einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(equation, a, b)``, kept on the tape under "dots"."""
+    if _TAPE.kept is None:
+        return torch.einsum(equation, a, b)
+    if _TAPE.recording:
+        _TAPE.kept.append(torch.einsum(equation, a, b))
+        return _TAPE.kept[-1]
+    return _KeptEinsum.apply(equation, a, b, _take())
+
+
+class _KeptDense(torch.autograd.Function):
+    """A Dense product taken back from the tape: forward the kept output,
+    backward the gradients of ``F.linear`` in the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, y, dtype):
+        ctx.save_for_backward(x, weight)
+        ctx.dtype = dtype
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dt = ctx.dtype
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ weight.to(dt)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (g2.t() @ x.reshape(-1, x.shape[-1]).to(dt)) \
+                .to(weight.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = g2.sum(0).to(ctx.bias_dtype)
+        return gx, gw, gb, None, None
+
+
+class _KeptEinsum(torch.autograd.Function):
+    """A two-operand einsum taken back from the tape.  Every index of
+    each operand appears in the other operand or in the output, so each
+    gradient is again one einsum."""
+
+    @staticmethod
+    def forward(ctx, equation, a, b, y):
+        ctx.save_for_backward(a, b)
+        ctx.equation = equation
+        return y.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.equation.split("->")
+        ia, ib = ins.split(",")
+        ga = gb = None
+        if ctx.needs_input_grad[1]:
+            ga = torch.einsum(f"{out},{ib}->{ia}", g, b)
+        if ctx.needs_input_grad[2]:
+            gb = torch.einsum(f"{ia},{out}->{ib}", a, g)
+        return None, ga, gb, None
+
+
+class _CheckpointDots(torch.autograd.Function):
+    """``block(x)`` under checkpoint_dots: the forward keeps ``x`` and the
+    block's products; the backward runs the block again on them and
+    differentiates that run.  ``params`` are the block's parameters, so
+    that their gradients come back through this function."""
+
+    @staticmethod
+    def forward(ctx, block, x, *params):
+        kept: list[torch.Tensor] = []
+        with _taping(kept, recording=True):
+            y = block(x)
+        ctx.block = block
+        ctx.save_for_backward(x, *kept)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, *kept = ctx.saved_tensors
+        params = list(ctx.block.parameters())
+        wanted = [i for i, need in enumerate(ctx.needs_input_grad[2:])
+                  if need]
+        x = x.detach().requires_grad_(ctx.needs_input_grad[1])
+        with torch.enable_grad(), _taping(kept, recording=False):
+            y = ctx.block(x)
+            assert _TAPE.pos == len(kept), (_TAPE.pos, len(kept))
+        inputs = ([x] if x.requires_grad else []) + [params[i]
+                                                     for i in wanted]
+        grads = iter(torch.autograd.grad(y, inputs, gy, allow_unused=True))
+        gx = next(grads) if x.requires_grad else None
+        gparams = [None] * len(params)
+        for i in wanted:
+            gparams[i] = next(grads)
+        return (None, gx, *gparams)
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +335,9 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         shape = (b, t, cfg.num_heads, cfg.head_dim)
-        q = self.wq(x).view(shape)
-        k = self.wk(x).view(shape)
-        v = self.wv(x).view(shape)
+        q = _dense(self.wq, x).view(shape)
+        k = _dense(self.wk, x).view(shape)
+        v = _dense(self.wv, x).view(shape)
         if cache is not None and cfg.paged:
             out = self._decode_attend_paged(q, k, v, cache, layer,
                                             block_tables, cursors, lengths)
@@ -204,8 +355,9 @@ class Attention(nn.Module):
                                       block_k_bwd=cfg.block_k_bwd,
                                       device=x.device)
             else:
-                out = mha_reference(q, k, v, causal=cfg.causal)
-        return self.wo(out.to(cfg.dtype).reshape(b, t, -1))
+                out = mha_reference(q, k, v, causal=cfg.causal,
+                                    einsum=_einsum)
+        return _dense(self.wo, out.to(cfg.dtype).reshape(b, t, -1))
 
     def _decode_attend(self, q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, cache: "KVCache", layer: int
@@ -308,7 +460,8 @@ class MLP(nn.Module):
         self.down = Dense(cfg.ff_dim, cfg.d_model, *args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        return _dense(self.down, F.silu(_dense(self.gate, x))
+                      * _dense(self.up, x))
 
 
 class Block(nn.Module):
@@ -389,7 +542,9 @@ class TransformerLM(nn.Module):
             if cache is not None:
                 x = block(x, cache, i, block_tables, cursors, lengths)
             elif cfg.remat and train and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x = (checkpoint(block, x, use_reentrant=False)
+                     if cfg.remat_policy == "full" else
+                     _CheckpointDots.apply(block, x, *block.parameters()))
             else:
                 x = block(x)
         return self.lm_head(self.final_norm(x))

@@ -51,20 +51,22 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
 # Dense reference (the "dense" attention of the model)
 # ===========================================================================
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = False,
-                  sm_scale: float | None = None) -> torch.Tensor:
+                  causal: bool = False, sm_scale: float | None = None,
+                  einsum=torch.einsum) -> torch.Tensor:
     """Dense softmax attention. q,k,v: [B, T, H, D] (BTHD).  Scores and
-    softmax in fp32; p is cast to v's dtype before the value product."""
+    softmax in fp32; p is cast to v's dtype before the value product.
+    ``einsum`` computes the two products (the transformer's remat passes
+    one that keeps them)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    s = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     if causal:
         tq, tk = s.shape[-2], s.shape[-1]
         mask = torch.ones(tq, tk, dtype=torch.bool,
                           device=s.device).tril(tk - tq)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return einsum("bhqk,bkhd->bqhd", p, v)
 
 
 # ===========================================================================

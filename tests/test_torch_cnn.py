@@ -104,6 +104,10 @@ def test_same_stride2_on_even_map_is_not_torch_padding_one():
     """The check above can tell (0, 1) from torchvision's (1, 1)."""
     x = to_nchw(_images((1, 8, 8, 3)))
     conv = layers.Conv(3, 4, (3, 3), (2, 2), "SAME", dtype=torch.float32)
+    # Drawn weights: the constructor leaves them uninitialised (the models
+    # draw every layer's), and whatever memory they landed on decided
+    # the test.
+    conv.reset_parameters(torch.Generator().manual_seed(0))
     ours = conv(x)
     theirs = F.conv2d(x, conv.weight, None, 2, 1)
     assert ours.shape == theirs.shape

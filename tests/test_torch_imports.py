@@ -1,6 +1,6 @@
-"""The port stands alone: it imports no JAX and nothing of horovod_tpu, and
-its entry points run on the CUDA card unless the caller asks for the
-CPU."""
+"""The port stands alone: it imports no JAX (nor ml_dtypes) and nothing of
+horovod_tpu, its native kernels are its own copy, and its entry points run
+on the CUDA card unless the caller asks for the CPU."""
 from __future__ import annotations
 
 import ast
@@ -14,7 +14,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "horovod_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "horovod_tpu")
 
 _IMPORT_ALL = """
 import pkgutil, sys, importlib
@@ -26,8 +26,12 @@ for info in pkgutil.walk_packages(horovod_tpu_torch.__path__,
 new = sorted(set(sys.modules) - before)
 print(len([m for m in new if m.startswith("horovod_tpu_torch")]))
 assert "horovod_tpu_torch.compress.ops" in new
+for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
+            "runner.network", "core", "eager"):
+    assert "horovod_tpu_torch." + sub in new, sub
 bad = [m for m in new
-       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "horovod_tpu")]
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
+                              "horovod_tpu")]
 print("BAD", bad)
 """
 
@@ -43,7 +47,7 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 30            # every module, compress/ included
+    assert int(count) >= 50            # every module, the eager core too
     assert bad == "BAD []", bad
 
 
@@ -69,6 +73,20 @@ def test_no_forbidden_import_in_source(path):
             names = [node.args[0].value]
         for name in names:
             assert not _forbidden(name), f"{path}:{node.lineno} {name}"
+
+
+def test_native_kernels_are_the_ports_own_copy():
+    """The loader builds kernels.cc from the port's tree, and the copy
+    carries every entry point of the reference's."""
+    from horovod_tpu_torch import native
+    src = Path(native._SRC)
+    assert src == PACKAGE / "native" / "kernels.cc"
+    assert Path(native.library_path()).parent == PACKAGE / "_build"
+    ref = (REPO / "horovod_tpu" / "native" / "kernels.cc").read_text()
+    ours = src.read_text()
+    import re
+    entry = re.compile(r"\b(hvd_[a-z0-9_]+)\(")
+    assert set(entry.findall(ref)) == set(entry.findall(ours))
 
 
 @pytest.fixture

@@ -491,6 +491,14 @@ def test_two_rank_gloo_serving(tmp_path):
     solo.close()
 
 
+# Both packages' bf16 runs under 6 pytest-xdist workers took 40 s
+# (dense) and 54 s (paged) for what takes 1.3 s alone (each worker's torch
+# runs 8 threads on the same 8 cores): the 60 s SLO of ``_cfg_kwargs``
+# then expired the last paged request and it left the streams.  What the
+# test compares are streams, so neither package's requests may expire.
+NO_DEADLINE_MS = 24 * 3600 * 1000.0
+
+
 def _dense_paged_agreement(run) -> tuple[int, int]:
     """(requests whose dense and paged streams are equal, requests), from
     ``run(paged)`` -> rid -> stream."""
@@ -513,8 +521,8 @@ def test_bf16_dense_and_paged_agree_as_often_as_in_the_reference():
         hvd = _solo_world()
         try:
             ex = ReplicaExecutor(ServeConfig.from_env(**_cfg_kwargs(
-                paged=paged, model_cfg=jtr.gpt_tiny())),
-                params=params.get("p"))
+                paged=paged, model_cfg=jtr.gpt_tiny(),
+                slo_ms=NO_DEADLINE_MS)), params=params.get("p"))
             params["p"] = ex.params
             streams = _record_streams(ex)
             _submit(ex, prompts, 16, max_new=24)
@@ -526,7 +534,7 @@ def test_bf16_dense_and_paged_agree_as_often_as_in_the_reference():
 
     def run_port(paged):
         ex = _port_executor(params["p"], paged=paged,
-                            model_cfg=ttr.gpt_tiny())
+                            model_cfg=ttr.gpt_tiny(), slo_ms=NO_DEADLINE_MS)
         streams = _record_streams(ex)
         _submit(ex, prompts, 16, max_new=24)
         ex.serve_loop(stop_when=lambda: True)
