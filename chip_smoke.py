@@ -84,10 +84,44 @@ Phases, each printed as one JSON object on its own line:
    fp32 allreduce's 2(n-1)/n bandwidth, 5 reps after 2) on the TCP ring
    (natively and through the Python ring) and on the shm plane; a 4-rank
    ladder of ring against tree at 4 KiB, 64 KiB and 1 MiB; the native
-   entry points against their plain versions; and a CUDA tensor, which
-   ``allreduce`` must refuse.
+   entry points against their plain versions; a 2-rank world on CPU
+   tensors with the one card visible to both ranks, where no device
+   plane may form, a CUDA tensor is refused, and
+   ``HOROVOD_NCCL_OPERATIONS=1`` raises on both ranks; and a CUDA
+   tensor's allreduce at one rank, which must stay on the card.
 
-A line ``{"kernels": [...]}`` sums up the kernels, and the last line is
+10. binding: the torch binding (``horovod_tpu_torch.torch``) and the
+   NCCL device plane, one line a leg.  (a) The user loop: ``hvd.init()``
+   (a world of one on cuda:0), ``broadcast_parameters``,
+   ``DistributedOptimizer(AdamW(3e-4, wd 1e-4),
+   compression=Compression.bf16)``, ``broadcast_optimizer_state``, and 2
+   warm-up and 5 timed steps of gpt_small at full width (B=8, T=2048,
+   flash attention, bf16 compute): step ms, tokens/s, peak memory, the
+   flash launches (12 of each a step), the core's responses and fused
+   bytes a step (none: as in the reference, hooks register only in a
+   world of more than one rank), a profile with its device-to-host
+   copies; then the hooks' path driven by hand on one step's gradients
+   (every gradient through the core to the basic plane on the card),
+   timed and profiled, every installed gradient bitwise its bf16
+   rounding; then 5 more steps of the loop after ``hvd.shutdown()``
+   (``AdamW.step`` itself), timed without the core's thread; then
+   ``Trainer.step`` on the same weights, batch and bf16 wire over a
+   one-rank NCCL group, its step time beside the loop's and the losses
+   within 1e-3; and ``Trainer.step`` once more on the plain wire, the
+   losses' difference printed.  (b) ``NcclBackend`` on a one-rank NCCL
+   group: allreduce (sum, average, scaled, fused), allgather (also
+   fused with an empty entry), broadcast, alltoall and reduce-scatter in
+   fp16, bf16, fp32, fp64, int8, uint8, int32, int64, int16, uint16 and
+   bool, each equal to torch's result on the card; and a 64 MiB fused
+   fp32 allreduce timed (at one rank a copy).  (c) The cycle rate of a
+   64-float ``hvd.allreduce`` on a CUDA tensor and on a CPU tensor.  (d)
+   ``_SyncBatchNormFn`` at one rank against ``F.batch_norm`` in training
+   mode, fp32, within 1e-5 of max|ref|.  The native host kernels must
+   not run in any of these legs, and no device-to-host copy in the
+   profiled step or hook path may be longer than 20 us.
+
+A line ``{"phase": "total"}`` gives the script's wall time, a line
+``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line; so does a machine without a CUDA card.
 
@@ -109,6 +143,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -678,6 +713,10 @@ def _profile(fn, wall_ms: float, categories=KERNEL_CATEGORIES) -> dict:
     kernel_us = sum(v[0] for _, v in rows)
     flash_us = {n: sum(v[0] for k, v in rows if n + "_kernel" in k)
                 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # Device-to-host copies: a CUDA tensor staged through the host
+    # would show as one as long as its bytes take.
+    dtoh = [e.time_range.end - e.time_range.start for e in kernels
+            if "DtoH" in e.name]
     # Every category is listed, 0 where no kernel fell in it.
     cats = dict.fromkeys([c for c, _ in categories]
                          + ["elementwise and other"], 0.0)
@@ -690,6 +729,8 @@ def _profile(fn, wall_ms: float, categories=KERNEL_CATEGORIES) -> dict:
             "device_idle_share": 1 - busy_us / window_us,
             "kernel_share_of_timed_step": kernel_us / 1e3 / wall_ms,
             "kernel_launches": sum(v[1] for _, v in rows),
+            "dtoh_copies": len(dtoh), "dtoh_ms": sum(dtoh) / 1e3,
+            "dtoh_max_ms": max(dtoh, default=0.0) / 1e3,
             "flash_ms": {n: us / 1e3 for n, us in flash_us.items()},
             "category_ms": cats,
             "top": [{"name": n[:100], "ms": v[0] / 1e3, "count": v[1]}
@@ -1278,7 +1319,8 @@ def _eager_check(hvd, rank: int, size: int) -> list[str]:
     bad: list[str] = []
 
     def check(tag, got, want, tol=0.0):
-        g = got.float().double().numpy() if got.dtype == torch.bfloat16             else got.double().numpy()
+        g = got.float().double().numpy() if got.dtype == torch.bfloat16 \
+            else got.double().numpy()
         w = np.asarray(want, dtype=np.float64)
         if g.shape != w.shape or not np.allclose(g, w, rtol=tol, atol=0):
             bad.append(f"{tag}: got {g.ravel()[:4]} want {w.ravel()[:4]}")
@@ -1441,6 +1483,26 @@ def eager_worker(job: str, rank: int, size: int, port: int,
             HOROVOD_SHM_CAPACITY=str(EAGER_BIG_BYTES))
         result["shm"] = _eager_timing(hvd, core, rank, size)
         hvd.shutdown()
+    elif job == "visible":
+        # Every rank sees the one card: no device plane forms, CPU
+        # tensors ride the host planes, and a CUDA tensor is refused.
+        result["planes"] = world("visible")
+        result["device_index"] = core.global_state().device_index
+        result["cpu_sum"] = hvd.allreduce(
+            torch.full((4,), float(rank + 1)), name="visible",
+            op=hvd.Sum).tolist()
+        try:
+            hvd.allreduce(torch.ones(2, device="cuda"), name="visible.cuda")
+            result["cuda_refusal"] = None
+        except RuntimeError as exc:
+            result["cuda_refusal"] = str(exc)
+        hvd.shutdown()
+        try:
+            world("visible-required", HOROVOD_NCCL_OPERATIONS="1")
+            result["required_refusal"] = None
+        except RuntimeError as exc:
+            result["required_refusal"] = str(exc)
+        hvd.shutdown()
     else:
         result["planes"] = world("ladder", HOROVOD_SHM_OPERATIONS="0")
         result["ladder"] = _eager_ladder(hvd, core)
@@ -1452,7 +1514,8 @@ def eager_worker(job: str, rank: int, size: int, port: int,
     return 0
 
 
-def _eager_world(job: str, size: int, outdir: str) -> list[dict]:
+def _eager_world(job: str, size: int, outdir: str,
+                 hide_cuda: bool = True) -> list[dict]:
     """Spawn one world of ``size`` ranks against the port's own
     RendezvousServer; every rank within EAGER_WORLD_TIMEOUT."""
     from horovod_tpu_torch.runner.network import RendezvousServer
@@ -1460,7 +1523,8 @@ def _eager_world(job: str, size: int, outdir: str) -> list[dict]:
     port = server.start()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("HOROVOD_")}
-    env["CUDA_VISIBLE_DEVICES"] = ""          # the eager planes are host
+    if hide_cuda:
+        env["CUDA_VISIBLE_DEVICES"] = ""      # the eager planes are host
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--eager-worker", job,
          str(r), str(size), str(port), outdir], env=env,
@@ -1659,20 +1723,35 @@ def phase_eager() -> dict:
                         default=0)
         emit({"phase": "eager", "leg": "ladder", "ranks": 4,
               "ladder": ladder, "tree_ring_crossover_bytes": crossover})
+        visible = _eager_world("visible", 2, outdir, hide_cuda=False)
+        for r, res in enumerate(visible):
+            if "nccl" in res["planes"] or res["cpu_sum"] != [3.0] * 4:
+                problems.append(f"cuda-visible rank {r}: planes "
+                                f"{res['planes']}, sum {res['cpu_sum']}")
+            if "device plane" not in (res["cuda_refusal"] or ""):
+                problems.append(f"cuda-visible rank {r}: a CUDA tensor "
+                                f"gave {res['cuda_refusal']}")
+            if "share a card" not in (res["required_refusal"] or ""):
+                problems.append(f"cuda-visible rank {r}: the knob at 1 "
+                                f"gave {res['required_refusal']}")
+        emit({"phase": "eager", "leg": "cuda-visible", "ranks": 2,
+              "planes": visible[0]["planes"],
+              "device_index": [res["device_index"] for res in visible],
+              "cuda_refusal": visible[0]["cuda_refusal"],
+              "required_refusal": visible[0]["required_refusal"]})
     natives = _native_times()
     emit({"phase": "eager", "leg": "native-times", "kernels": natives,
           "ring": {"native_ms": timing["tcp"]["big"]["ms"],
                    "plain_ms": timing["tcp"]["big_python_ring"]["ms"]}})
-    # A CUDA tensor is refused, naming the NCCL plane's item.
+    # A CUDA tensor at one rank stays on its card (the binding phase
+    # drives the device plane).
     os.environ.pop("HOROVOD_RANK", None)
     os.environ.pop("HOROVOD_SIZE", None)
     hvd.init()
     try:
-        hvd.allreduce(torch.ones(4, device="cuda"), name="cuda")
-        problems.append("a CUDA tensor was not refused")
-    except NotImplementedError as exc:
-        if "9(b)" not in str(exc):
-            problems.append(f"the CUDA refusal names no item: {exc}")
+        out = hvd.allreduce(torch.ones(4, device="cuda"), name="cuda")
+        if out.device.type != "cuda" or out.tolist() != [1.0] * 4:
+            problems.append(f"a CUDA tensor's allreduce gave {out}")
     finally:
         hvd.shutdown()
     seconds = time.perf_counter() - t_phase
@@ -1683,7 +1762,478 @@ def phase_eager() -> dict:
     return {"seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# The binding phase: the torch binding and the device plane on the card
+# ---------------------------------------------------------------------------
+BINDING_DTYPES = ("float16", "bfloat16", "float32", "float64", "int8",
+                  "uint8", "int32", "int64", "int16", "uint16", "bool")
+BINDING_FUSED_BYTES = 64 << 20          # the fused allreduce timed in (b)
+BINDING_CYCLES = (20, 200)              # warm-up, timed cycles in (c)
+BINDING_DTOH_MAX_MS = 0.02              # 1.3 MB at PCIe 5.0 x16's 64 GB/s
+
+
+class _ResponseCount:
+    """Counts the responses the core executes and their payload bytes, by
+    wrapping the op manager's entry point (the background thread's only
+    way to a plane)."""
+
+    def __init__(self, core) -> None:
+        from horovod_tpu_torch.common.dtypes import element_size
+        self.responses = self.bytes = 0
+        manager = core.global_state().op_manager
+        inner = manager.execute_operation
+
+        def counted(response, entries):
+            self.responses += 1
+            self.bytes += sum(response.tensor_sizes) * \
+                element_size(response.tensor_type)
+            return inner(response, entries)
+
+        manager.execute_operation = counted
+
+    def take(self) -> tuple[int, int]:
+        out = (self.responses, self.bytes)
+        self.responses = self.bytes = 0
+        return out
+
+
+def _binding_hook_path(opt, params) -> None:
+    """What the optimizer's hooks and ``synchronize`` do in a world of
+    more than one rank (``_allreduce_grad_async`` per gradient, then the
+    install), driven by hand: in a world of one no hook registers."""
+    pending = [(p, *opt._allreduce_grad_async(p)) for p in params]
+    for _, handle, _ in pending:
+        handle.wait().raise_if_error()
+    for p, handle, (compressed, ctx) in pending:
+        opt._install_grad(p, compressed, ctx, handle.outputs()[0])
+
+
+def _binding_user_loop(problems: list[str]) -> dict:
+    """Leg (a): gpt_small at full width trained as a Horovod user writes
+    it, then ``Trainer.step`` on the same weights, batch and wire."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import (GradSyncConfig, Trainer, TransformerLM,
+                                   build_mesh, core, gpt_small, native,
+                                   synthetic_text_batch)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    cfg = gpt_small(attention="flash", max_seq_len=2048)
+    batch = synthetic_text_batch(8, 2048, cfg.vocab_size, seed=0)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    tokens = 8 * 2048
+    calls = dict(native.calls)
+    hvd.init()
+    # Every Python thread alive in the loop takes the GIL from it.
+    python_threads = sorted(t.name for t in threading.enumerate())
+    try:
+        count = _ResponseCount(core)
+        model = TransformerLM(cfg, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            compression=hvd.Compression.bf16)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
+        setup = count.take()
+
+        def step():
+            logits = model(batch["input"], train=True)
+            loss = cross_entropy_loss(logits, batch["label"])
+            loss.backward()
+            opt.step()
+            opt.zero_grad()
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()                 # the main path starts
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        launches = fa.launch_counts()            # ... and ends
+        responses, fused = count.take()
+        peak = torch.cuda.max_memory_allocated()
+        mean_ms = statistics.mean(step_ms[WARMUP_STEPS:])
+        profile = _profile(step, mean_ms)
+        # The hooks' path at one rank: every gradient through the core
+        # and the basic plane on the card, as a world of more ranks
+        # sends it to the device plane.
+        params = [p for p in model.parameters() if p.requires_grad]
+        cross_entropy_loss(model(batch["input"], train=True),
+                           batch["label"]).backward()
+        # Each installed gradient is its bf16 rounding, bit for bit: at
+        # one rank the sum is the value itself and the average's scale 1.
+        wire = [p.grad.detach().to(torch.bfloat16).to(p.grad.dtype)
+                for p in params]
+        _binding_hook_path(opt, params)
+        count.take()
+        hook_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _binding_hook_path(opt, params)
+            torch.cuda.synchronize()
+            hook_ms.append((time.perf_counter() - t0) * 1e3)
+        hook_responses, hook_bytes = count.take()
+        hook_profile = _profile(lambda: _binding_hook_path(opt, params),
+                                statistics.median(hook_ms))
+        # Idempotent: bf16 values come back as themselves every time.
+        hook_unequal = sum(not torch.equal(p.grad, w)
+                           for p, w in zip(params, wire))
+        n_grads = len(params)
+        del wire, params
+        opt.zero_grad()
+    finally:
+        hvd.shutdown()
+    native_moved = {k: v - calls.get(k, 0) for k, v in native.calls.items()
+                    if v != calls.get(k, 0)}
+    # The same loop once the core's background thread is gone: what its
+    # 1 ms cycle, which takes the GIL, costs a host-bound step.
+    bare_ms = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        cross_entropy_loss(model(batch["input"], train=True),
+                           batch["label"]).backward()
+        torch.optim.AdamW.step(opt)
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        bare_ms.append((time.perf_counter() - t0) * 1e3)
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # The Trainer on the bf16 wire (the gate), then on the plain wire:
+    # at one rank no hook registers, so the loop's gradients never meet
+    # the wire, and the plain Trainer tells whether the wire is all
+    # that tells the two paths apart.
+    trainers = {}
+    for wire_kind in ("bf16", "none"):
+        with _one_rank_nccl():
+            model = TransformerLM(cfg, seed=0)
+            trainer = Trainer(
+                model, torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                         weight_decay=1e-4),
+                build_mesh(dp=1), sync=GradSyncConfig(
+                    op="average", compression=wire_kind))
+            state = trainer.init(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_losses, t_ms = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, metrics = trainer.step(state, batch)
+                torch.cuda.synchronize()
+                t_ms.append((time.perf_counter() - t0) * 1e3)
+                t_losses.append(metrics["loss"].item())
+            trainers[wire_kind] = {
+                "losses": t_losses, "step_ms": t_ms,
+                "timed_step_ms_mean": statistics.mean(t_ms[WARMUP_STEPS:]),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "loss_max_rel_diff": max(
+                    abs(a - b) / abs(b) for a, b in zip(losses, t_losses))}
+            del trainer, state, model
+        torch.cuda.empty_cache()
+
+    t_mean = trainers["bf16"]["timed_step_ms_mean"]
+    rel = trainers["bf16"]["loss_max_rel_diff"]
+    out = {"phase": "binding", "leg": "user-loop", "model": "gpt_small",
+           "params": n_params, "batch": 8, "seq": 2048, "dtype": "bfloat16",
+           "optimizer": "AdamW(3e-4, wd 1e-4)", "compression": "bf16",
+           "losses": losses, "step_ms": step_ms,
+           "timed_step_ms_mean": mean_ms,
+           "tokens_per_s": tokens / (mean_ms / 1e3),
+           "without_core_thread": {
+               "step_ms": bare_ms,
+               "timed_step_ms_mean": statistics.mean(bare_ms)},
+           "python_threads": python_threads,
+           "peak_memory_bytes": peak, "launches": launches,
+           "launches_per_step": {n: c / steps for n, c in launches.items()},
+           "setup_responses_bytes": list(setup),
+           "core_responses_per_step": responses / steps,
+           "core_fused_bytes_per_step": fused / steps,
+           "hook_path": {"ms": hook_ms, "ms_median": statistics.median(
+               hook_ms), "responses": hook_responses / 5,
+               "bytes": hook_bytes / 5,
+               "dtoh_max_ms": hook_profile["dtoh_max_ms"],
+               "dtoh_copies": hook_profile["dtoh_copies"],
+               "gradients": n_grads,
+               "not_bf16_rounding": hook_unequal},
+           "native_calls_during": native_moved,
+           "trainer": {**trainers["bf16"],
+                       "tokens_per_s": tokens / (t_mean / 1e3)},
+           "trainer_plain_wire": trainers["none"],
+           "step_ms_binding_vs_trainer": [mean_ms, t_mean],
+           "loss_max_rel_diff": rel,
+           "loss_max_rel_diff_plain_wire":
+               trainers["none"]["loss_max_rel_diff"]}
+    emit(out)
+    emit({"phase": "profile", "leg": "binding-user-loop", **profile})
+    emit({"phase": "profile", "leg": "binding-hook-path", **hook_profile})
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        problems.append(f"binding loop: losses {losses}")
+    for name, c in launches.items():
+        if c != cfg.num_layers * steps:
+            problems.append(f"binding loop: {name} launched {c} times, not "
+                            f"{cfg.num_layers} a step")
+    if rel > 1e-3:
+        problems.append(f"binding and Trainer losses differ by {rel:.3g}")
+    if native_moved:
+        problems.append(f"the native host kernels ran: {native_moved}")
+    for name, prof in (("loop", profile), ("hook path", hook_profile)):
+        if prof["dtoh_max_ms"] > BINDING_DTOH_MAX_MS:
+            problems.append(f"binding {name}: a device-to-host copy of "
+                            f"{prof['dtoh_max_ms']:.3f} ms")
+    if hook_responses == 0:
+        problems.append("the hook path ran no response on the card")
+    if hook_unequal:
+        problems.append(f"the hook path installed {hook_unequal} of "
+                        f"{n_grads} gradients that are not their bf16 "
+                        f"rounding")
+    return out
+
+
+def _torch_scale(x: torch.Tensor, f: float) -> torch.Tensor:
+    """torch's own arithmetic for a scale factor: 16-bit floats in fp32,
+    integers by the float64 factor truncated, bool and-ed."""
+    if f == 1.0:
+        return x
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return (x.float() * f).to(x.dtype)
+    if x.dtype == torch.bool:
+        return x & bool(f)
+    if not x.dtype.is_floating_point:
+        return (x.double() * f).to(x.dtype)
+    return x * f
+
+
+def _binding_input(shape, dtype: str, seed: int) -> torch.Tensor:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    if dtype == "bool":
+        return torch.rand(shape, generator=g, device="cuda") < 0.3
+    if dt.is_floating_point:
+        return (torch.randn(shape, generator=g, device="cuda") * 8).to(dt)
+    info = torch.iinfo(dt)
+    return torch.randint(max(info.min // 4, -2 ** 40),
+                         min(info.max // 4, 2 ** 40), shape, generator=g,
+                         device="cuda", dtype=torch.int64).to(dt)
+
+
+def _binding_plane(problems: list[str]) -> dict:
+    """Leg (b): NcclBackend on a one-rank NCCL group, driven with
+    responses built as the controller builds them."""
+    from horovod_tpu_torch.backend.nccl import NcclBackend, NcclCommunicator
+    from horovod_tpu_torch.common.dtypes import from_any
+    from horovod_tpu_torch.common.message import Response, ResponseType
+    from horovod_tpu_torch.common.tensor_queue import TensorTableEntry
+    from horovod_tpu_torch import native
+
+    calls = dict(native.calls)
+    plane = NcclBackend(NcclCommunicator(device=torch.device("cuda", 0)))
+    results: dict[str, bool] = {}
+    for i, dt in enumerate(BINDING_DTYPES):
+        x = _binding_input((1000, 3), dt, seed=i)
+        fused = [_binding_input(s, dt, seed=100 + i + j)
+                 for j, s in enumerate(((7,), (), (64, 64), (33,)))]
+        ttype = from_any(x.dtype)
+        base = dict(devices=[0], tensor_type=ttype)
+
+        def run(rtype, xs, splits=(), **kw):
+            entries = [TensorTableEntry(tensor_name=f"t{j}", tensor=t)
+                       for j, t in enumerate(xs)]
+            entries[0].splits = list(splits)
+            resp = Response(response_type=rtype,
+                            tensor_names=[e.tensor_name
+                                          for e in entries],
+                            **base, **kw)
+            assert plane.enabled(resp, entries)
+            plane.execute(resp, entries).raise_if_error()
+            return [e.output for e in entries]
+
+        def same(tag, got, want):
+            ok = got.dtype == want.dtype and got.shape == want.shape \
+                and got.device == want.device and torch.equal(got, want)
+            results[f"{tag}_{dt}"] = bool(ok)
+
+        ar = ResponseType.ALLREDUCE
+        for tag, pre, post in (("ar_sum", 1.0, 1.0),
+                               ("ar_avg", 1.0, 1.0),
+                               ("ar_scaled", 2.0, 0.25)):
+            same(tag, run(ar, [x], tensor_sizes=[x.numel()],
+                          prescale_factor=pre,
+                          postscale_factor=post)[0],
+                 _torch_scale(_torch_scale(x, pre), post))
+        outs = run(ar, fused, tensor_sizes=[t.numel() for t in fused],
+                   prescale_factor=2.0, postscale_factor=0.25)
+        results[f"ar_fused_{dt}"] = all(
+            torch.equal(o, _torch_scale(_torch_scale(t, 2.0), 0.25))
+            and o.shape == t.shape for o, t in zip(outs, fused))
+        same("ag", run(ResponseType.ALLGATHER, [x],
+                       tensor_sizes=[x.shape[0]])[0], x)
+        outs = run(ResponseType.ALLGATHER, [x, x[:0]],
+                   tensor_sizes=[x.shape[0], 0])
+        results[f"ag_fused_{dt}"] = torch.equal(outs[0], x) and \
+            outs[1].shape == (0, 3)
+        same("bc", run(ResponseType.BROADCAST, [x],
+                       tensor_sizes=[x.numel()], root_rank=0)[0], x)
+        same("a2a", run(ResponseType.ALLTOALL, [x],
+                        splits=[x.shape[0]])[0], x)
+        same("rs", run(ResponseType.REDUCESCATTER, [x],
+                       tensor_sizes=[x.numel()], prescale_factor=2.0,
+                       postscale_factor=0.25)[0],
+             _torch_scale(_torch_scale(x, 2.0), 0.25))
+    torch.cuda.synchronize()
+    # A 64 MiB fused allreduce: 16 fp32 tensors of 4 MiB.
+    parts = [torch.randn(BINDING_FUSED_BYTES // 64, device="cuda")
+             for _ in range(16)]
+    entries = [TensorTableEntry(tensor_name=f"f{j}", tensor=t)
+               for j, t in enumerate(parts)]
+    resp = Response(response_type=ResponseType.ALLREDUCE,
+                    tensor_names=[e.tensor_name for e in entries],
+                    devices=[0], tensor_type=from_any(torch.float32),
+                    tensor_sizes=[t.numel() for t in parts])
+    ms = time_ms(lambda: plane.allreduce(resp, entries), rounds=5,
+                 warmup=2)
+    bad = sorted(k for k, ok in results.items() if not ok)
+    native_moved = {k: v - calls.get(k, 0) for k, v in native.calls.items()
+                    if v != calls.get(k, 0)}
+    # Pack into the fusion buffer and copy each result out: each byte
+    # read and written twice.
+    moved = 4 * BINDING_FUSED_BYTES
+    out = {"phase": "binding", "leg": "device-plane", "ranks": 1,
+           "backend": "nccl", "dtypes": list(BINDING_DTYPES),
+           "checks": len(results), "mismatches": bad,
+           "fused_allreduce": {
+               "bytes": BINDING_FUSED_BYTES, "tensors": len(parts),
+               "ms": ms, "gb_per_s": BINDING_FUSED_BYTES / ms / 1e6,
+               "note": "one rank: no byte crosses a link, so this is "
+                       "a copy: the pack into the fusion buffer, NCCL's "
+                       "one-rank all-reduce and the copies out",
+               "bytes_moved": moved,
+               "bytes_bound_ms": moved / PEAK_BYTES_PER_S * 1e3},
+           "native_calls_during": native_moved}
+    emit(out)
+    if bad:
+        problems.append(f"device plane disagrees with torch: {bad}")
+    if native_moved:
+        problems.append(f"the plane ran native host kernels: {native_moved}")
+    return out
+
+
+def _binding_cycles(problems: list[str]) -> dict:
+    """Leg (c): the eager API's cycle rate, a 64-float allreduce on a
+    CUDA tensor and on a CPU tensor, at one rank."""
+    import horovod_tpu_torch as hvd
+    warmup, timed = BINDING_CYCLES
+    rates = {}
+    hvd.init()
+    try:
+        for where in ("cuda", "cpu"):
+            x = torch.arange(64, dtype=torch.float32, device=where)
+            for _ in range(warmup):
+                out = hvd.allreduce(x, op=hvd.Sum, name=f"cycle.{where}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                out = hvd.allreduce(x, op=hvd.Sum, name=f"cycle.{where}")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if out.device.type != where or not torch.equal(out, x):
+                problems.append(f"allreduce of a {where} tensor gave "
+                                f"{out.device} {out[:4].tolist()}")
+            rates[where] = {"cycles_per_s": timed / seconds,
+                            "us_per_cycle": seconds / timed * 1e6}
+    finally:
+        hvd.shutdown()
+    out = {"phase": "binding", "leg": "eager-cycles", "ranks": 1,
+           "elements": 64, "cycles": timed, **rates}
+    emit(out)
+    return out
+
+
+def _binding_syncbn(problems: list[str]) -> dict:
+    """Leg (d): ``_SyncBatchNormFn`` at one rank on the card against
+    ``F.batch_norm`` in training mode, fp32."""
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.torch.sync_batch_norm import _SyncBatchNormFn
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(8, 64, 28, 28, device="cuda", generator=g) * 2 + 0.5
+    w = torch.rand(64, device="cuda", generator=g) + 0.5
+    b = torch.randn(64, device="cuda", generator=g)
+    dy = torch.randn(x.shape, device="cuda", generator=g)
+    got, ref = {}, {}
+    hvd.init()
+    try:
+        for side, fn in (("sync", lambda *a: _SyncBatchNormFn.apply(*a)),
+                         ("plain", lambda xi, wi, bi, rm, rv, eps, mom:
+                          F.batch_norm(xi, rm, rv, wi, bi, True, mom,
+                                       eps))):
+            xi, wi, bi = (t.clone().requires_grad_(True) for t in (x, w, b))
+            rm, rv = torch.zeros(64, device="cuda"), \
+                torch.ones(64, device="cuda")
+            y = fn(xi, wi, bi, rm, rv, 1e-5, 0.1)
+            y.backward(dy)
+            (got if side == "sync" else ref).update(
+                out=y.detach(), dx=xi.grad, dw=wi.grad, db=bi.grad,
+                running_mean=rm, running_var=rv)
+    finally:
+        hvd.shutdown()
+    err = {k: (got[k] - ref[k]).abs().max().item() for k in got}
+    scale = {k: ref[k].abs().max().item() for k in got}
+    out = {"phase": "binding", "leg": "syncbn", "shape": list(x.shape),
+           "dtype": "float32", "max_abs_err": err, "max_abs_ref": scale,
+           "tolerance": "1e-5 of max|ref|"}
+    emit(out)
+    bad = [k for k in got if err[k] > 1e-5 * max(scale[k], 1.0)]
+    if bad:
+        problems.append(f"SyncBatchNorm disagrees with F.batch_norm: {bad}")
+    return out
+
+
+def phase_binding() -> dict:
+    """The torch binding and the device plane (see the module
+    docstring)."""
+    t_phase = time.perf_counter()
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE"):
+        os.environ.pop(var, None)
+    torch.cuda.empty_cache()
+    problems: list[str] = []
+    loop = _binding_user_loop(problems)
+    with _one_rank_nccl():
+        plane = _binding_plane(problems)
+    cycles = _binding_cycles(problems)
+    _binding_syncbn(problems)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "binding", "leg": "summary", "seconds": seconds,
+          "step_ms": {"binding": loop["timed_step_ms_mean"],
+                      "binding_without_core_thread":
+                          loop["without_core_thread"]["timed_step_ms_mean"],
+                      "trainer": loop["trainer"]["timed_step_ms_mean"]},
+          "tokens_per_s": {"binding": loop["tokens_per_s"],
+                           "trainer": loop["trainer"]["tokens_per_s"]},
+          "loss_max_rel_diff": loop["loss_max_rel_diff"],
+          "loss_max_rel_diff_plain_wire":
+              loop["loss_max_rel_diff_plain_wire"],
+          "plane_fused_gb_per_s": plane["fused_allreduce"]["gb_per_s"],
+          "cycles_per_s": {k: cycles[k]["cycles_per_s"]
+                           for k in ("cuda", "cpu")},
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": loop["launches"]}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
         job, rank, size, port, outdir = sys.argv[2:7]
         return eager_worker(job, int(rank), int(size), int(port), outdir)
@@ -1701,7 +2251,7 @@ def main() -> int:
         phases = {"kernels": phase_kernels, "reference": phase_reference,
                   "train": phase_train, "serve": phase_serve,
                   "cnn": phase_cnn, "sync": phase_sync,
-                  "eager": phase_eager}
+                  "eager": phase_eager, "binding": phase_binding}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -1712,10 +2262,13 @@ def main() -> int:
     cnn = phase_cnn()
     phase_sync()
     phase_eager()
+    binding = phase_binding()
+    emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": train["launches"][name],
          "cnn_launches": cnn["flash_launches"][name],
+         "binding_launches": binding["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,10 +1,12 @@
 """horovod_tpu_torch: the PyTorch and CUDA port of horovod_tpu for H100s.
 
 It imports torch and numpy, never JAX, and nothing of ``horovod_tpu``.
-Entry points run on the CUDA card unless ``device="cpu"`` is asked for;
-the eager Horovod API (``hvd.init()``, ``hvd.allreduce`` ..., from
-``eager.py``) takes CPU tensors and refuses CUDA ones until the NCCL
-plane is ported.
+Entry points run on the CUDA card unless ``device="cpu"`` is asked for.
+The eager Horovod API (``hvd.init()``, ``hvd.allreduce`` ..., from
+``eager.py``) takes CPU tensors and CUDA tensors on this rank's card,
+which ride the NCCL device plane and never the host;
+``horovod_tpu_torch.torch`` is the torch binding on top of it
+(``DistributedOptimizer``, ``broadcast_parameters``, ``SyncBatchNorm``).
 """
 from . import eager, models, parallel, serving, training
 from .eager import *  # noqa: F401,F403 - the Horovod API at package level

@@ -2,9 +2,10 @@
 
 The port's copy of ``horovod_tpu/backend/base.py`` (``dim0_row_bounds``,
 ``accum_dtype``, ``FusionBufferManager``, ``CollectiveBackend``,
-``scale_buffer``, ``OperationManager``) on CPU torch tensors.  The codec
-helpers are left out with the eager codecs (ROADMAP queue A item 9(a),
-the rest).
+``scale_buffer``, ``OperationManager``) on torch tensors: CPU tensors for
+the TCP and shm planes, CUDA tensors for the device plane and a world of
+one, whose fusion buffers live on the card.  The codec helpers are left
+out with the eager codecs (ROADMAP queue A item 9(a), the rest).
 
 Reference: horovod/common/ops/operation_manager.{cc,h}:27-66 and
 collective_operations.h:38-288.  `OperationManager` walks backends in
@@ -41,21 +42,50 @@ def accum_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype
 
 
+def is_device_response(response: Response) -> bool:
+    """True when every rank submitted the response's tensors on a CUDA
+    card (``Request.device`` >= 0; the controller refuses a mix of CPU
+    and CUDA for one name).  The same on every rank, so the planes'
+    ``enabled`` checks built on it stay rank-symmetric; a joined rank's
+    slot holds 0 and so never turns a CPU response into a device one."""
+    return bool(response.devices) and min(response.devices) >= 0
+
+
 def add_(acc: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
     """``acc += other`` elementwise, as numpy's ``np.add(out=acc)`` does:
     integers wrap, bool sums are logical or.  torch has no add for
-    uint16, so that one goes through numpy views of the same memory."""
+    uint16, so that one goes through numpy views of the same memory
+    (host tensors only: the socket and mmap planes)."""
     if acc.dtype == torch.uint16:
+        _host_only(acc)
         a = acc.numpy()
         np.add(a, other.numpy(), out=a)
         return acc
     return acc.add_(other)
 
 
+def _host_only(t: torch.Tensor) -> None:
+    if t.device.type != "cpu":
+        raise ValueError(f"a tensor on {t.device} reached a host-memory "
+                         f"plane; CUDA tensors are never staged through "
+                         f"the host")
+
+
 def byte_view(t: torch.Tensor) -> memoryview:
-    """Flat byte view of a contiguous tensor: the zero-copy payload or
-    destination handed to sockets and mmap regions."""
-    return memoryview(t.reshape(-1).view(torch.uint8).numpy())
+    """Flat byte view of a contiguous host tensor: the zero-copy payload
+    or destination handed to sockets and mmap regions."""
+    _host_only(t)
+    return memoryview(_flat(t).view(torch.uint8).numpy())
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor as 1-d with a unit stride.  torch calls a
+    one-element tensor contiguous whatever its stride (a sparse tensor's
+    transposed indices hold stride 2), and a byte view needs 1."""
+    flat = t.reshape(-1)
+    if flat.stride(0) != 1:
+        flat = flat.clone(memory_format=torch.contiguous_format)
+    return flat
 
 
 class FusionBufferManager:
@@ -65,14 +95,16 @@ class FusionBufferManager:
     fused responses pay zero allocations."""
 
     def __init__(self) -> None:
-        self._buffers: dict[tuple[str, torch.dtype], torch.Tensor] = {}
+        self._buffers: dict[tuple[str, torch.dtype, torch.device],
+                            torch.Tensor] = {}
 
-    def get(self, tag: str, dtype: torch.dtype, n: int) -> torch.Tensor:
-        key = (tag, dtype)
+    def get(self, tag: str, dtype: torch.dtype, n: int,
+            device: torch.device = torch.device("cpu")) -> torch.Tensor:
+        key = (tag, dtype, device)
         buf = self._buffers.get(key)
         if buf is None or buf.numel() < n:
             cap = max(n, 0 if buf is None else 2 * buf.numel())
-            buf = torch.empty(cap, dtype=dtype)
+            buf = torch.empty(cap, dtype=dtype, device=device)
             self._buffers[key] = buf
         return buf[:n]
 
@@ -96,6 +128,9 @@ class CollectiveBackend(ABC):
     stream = 0
     # Algorithm used by the most recent collective on this instance.
     last_algo = "none"
+    # Where a joined rank's zero stand-ins are made (the device plane's
+    # card; the host for every other plane).
+    device = torch.device("cpu")
 
     def _act_start(self, entries, activity: str) -> None:
         tl = self.timeline
@@ -163,12 +198,17 @@ class CollectiveBackend(ABC):
                            entries: list[TensorTableEntry]) -> torch.Tensor:
         """Concatenate flattened entry payloads into the backend's
         persistent staging buffer (single entries pass through without a
-        copy — the data plane stages them itself)."""
+        copy — the data plane stages them itself).  Host buffers pack
+        through the native kernel; a buffer on the card packs with one
+        ``torch.cat`` into it there."""
         dtype = to_torch(response.tensor_type)
+        device = next((e.tensor.device for e in entries
+                       if e.tensor is not None), self.device)
         if len(entries) == 1:
             e = entries[0]
             if e.tensor is None:
-                return torch.zeros(response.tensor_sizes[0], dtype=dtype)
+                return torch.zeros(response.tensor_sizes[0], dtype=dtype,
+                                   device=device)
             return e.tensor.to(dtype).contiguous().reshape(-1)
         parts: list[torch.Tensor | None] = [
             None if e.tensor is None      # joined-rank zero stand-in
@@ -177,9 +217,15 @@ class CollectiveBackend(ABC):
         sizes = list(response.tensor_sizes)
         self._act_start(entries, "MEMCPY_IN_FUSION_BUFFER")
         try:
-            fused = self.fusion_buffers.get("pack", dtype, sum(sizes))
-            from .. import native
-            native.pack(parts, sizes, fused)
+            fused = self.fusion_buffers.get("pack", dtype, sum(sizes),
+                                            device)
+            if device.type == "cpu":
+                from .. import native
+                native.pack(parts, sizes, fused)
+            else:
+                torch.cat([torch.zeros(n, dtype=dtype, device=device)
+                           if p is None else p
+                           for p, n in zip(parts, sizes)], out=fused)
             return fused
         finally:
             self._act_end(entries)
@@ -318,7 +364,9 @@ def contiguous(t: torch.Tensor) -> torch.Tensor:
     becomes 1-d, which is the shape the reference's planes return for a
     scalar they staged this way."""
     t = t.contiguous()
-    return t.reshape(1) if t.dim() == 0 else t
+    if t.dim() == 0:
+        return t.reshape(1)
+    return t if t.numel() != 1 else _flat(t).reshape(t.shape)
 
 
 def _rest(shape) -> int:

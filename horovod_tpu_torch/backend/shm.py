@@ -56,7 +56,7 @@ from ..common.message import Response, ResponseType
 from ..common.status import Status
 from ..common.tensor_queue import TensorTableEntry
 from .base import (CollectiveBackend, _rest, accum_dtype as _accum_dtype,
-                   add_, contiguous, dim0_row_bounds)
+                   add_, contiguous, dim0_row_bounds, is_device_response)
 
 _HEADER = 4096          # one page: seq word + splits table + padding
 _SEQ_OFFSET = 0
@@ -365,7 +365,7 @@ class ShmBackend(CollectiveBackend):
 
     def enabled(self, response: Response,
                 entries: list[TensorTableEntry]) -> bool:
-        if self.world.poison_seen():
+        if self.world.poison_seen() or is_device_response(response):
             return False
         rt = response.response_type
         if rt == ResponseType.ALLREDUCE:

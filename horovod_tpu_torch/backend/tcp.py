@@ -37,7 +37,8 @@ from ..common.status import Status
 from ..common.tensor_queue import TensorTableEntry
 from ..runner.network import PeerMesh
 from .base import (CollectiveBackend, _rest, accum_dtype as _accum_dtype,
-                   add_, byte_view as _bv, contiguous, dim0_row_bounds)
+                   add_, byte_view as _bv, contiguous, dim0_row_bounds,
+                   is_device_response)
 
 _SEGMENT_BYTES = 256 * 1024
 
@@ -520,7 +521,8 @@ class TcpBackend(CollectiveBackend):
         self.coll = collectives
 
     def enabled(self, response, entries) -> bool:
-        return self.coll.size > 1
+        # CUDA tensors are the device plane's: never staged through here.
+        return self.coll.size > 1 and not is_device_response(response)
 
     def allreduce(self, response: Response,
                   entries: list[TensorTableEntry]) -> Status:

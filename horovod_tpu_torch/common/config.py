@@ -199,10 +199,18 @@ LOG_LEVEL = Knob("HOROVOD_LOG_LEVEL", "warning", str,
                  "trace|debug|info|warning|error|fatal")
 LOG_HIDE_TIME = Knob("HOROVOD_LOG_HIDE_TIME", False, _parse_bool,
                      "Hide timestamps in log output.")
+NCCL_OPERATIONS = Knob(
+    "HOROVOD_NCCL_OPERATIONS", "auto", str,
+    "The device plane for CUDA tensors (backend/nccl.py), in the place of "
+    "the reference's HOROVOD_XLA_OPERATIONS: 1 (require the NCCL group; "
+    "init raises without a card and NCCL) | 0 (no device plane: a CUDA "
+    "tensor in a world of more than one rank raises) | auto (form the "
+    "group when the world has more than one rank and this process sees "
+    "a CUDA card and NCCL).")
 XLA_OPERATIONS = Knob(
     "HOROVOD_XLA_OPERATIONS", "auto", str,
-    "The device plane (the reference's XLA plane; in the port, NCCL for "
-    "CUDA tensors).  Not ported (ROADMAP queue A item 9(b)): 1 raises "
+    "The reference's XLA device plane.  The port has none: its device "
+    "plane is HOROVOD_NCCL_OPERATIONS, and 1 here raises "
     "NotImplementedError.")
 
 _REST_9A = "ROADMAP queue A item 9(a), the rest"
@@ -242,5 +250,6 @@ def check_eager_knobs() -> None:
             f"HOROVOD_FLIGHT (the flight recorder) is {_REST_9A}")
     if parse_tristate(XLA_OPERATIONS.get()) is True:
         raise NotImplementedError(
-            "HOROVOD_XLA_OPERATIONS=1 (the device plane; NCCL for CUDA "
-            "tensors) is ROADMAP queue A item 9(b)")
+            "HOROVOD_XLA_OPERATIONS=1 asks for the reference's XLA plane; "
+            "the port's device plane is NCCL, HOROVOD_NCCL_OPERATIONS "
+            "(ROADMAP queue A item 9(b))")

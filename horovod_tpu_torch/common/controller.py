@@ -495,6 +495,16 @@ class Controller:
                          f"{name}: {codecs}. All ranks must use the same "
                          f"codec and block size.")
 
+        if any((r.device < 0) != (first.device < 0) for r in reqs):
+            # Upstream Horovod's check: one name on the CPU on one rank
+            # and on a card on another would put one collective on two
+            # planes.
+            where = {r.request_rank: "CPU" if r.device < 0
+                     else f"cuda:{r.device}" for r in reqs}
+            return error(f"Mismatched CPU/GPU device selection for tensor "
+                         f"{name}: {where}. All ranks must submit it on "
+                         f"the CPU, or all on their card.")
+
         rtype = first.request_type
         joined = len(self.joined_ranks) > 0
         devices = [0] * self.size

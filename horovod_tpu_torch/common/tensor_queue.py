@@ -27,10 +27,10 @@ DUPLICATE_NAME_ERROR = (
 class TensorTableEntry:
     """One queued collective operand (reference: common.h:252-281)."""
     tensor_name: str
-    tensor: Any = None                     # CPU torch tensor payload
+    tensor: Any = None                     # torch tensor payload
     output: Any = None                     # filled by the backend
     root_rank: int = -1
-    device: int = -1
+    device: int = -1                       # CUDA index, -1 on the CPU
     callback: Callable[[Status], None] | None = None
     # Alltoall split sizes along dim 0 (reference: common.h splits field).
     splits: list[int] = field(default_factory=list)
@@ -46,6 +46,12 @@ class TensorTableEntry:
     # dispatch thread re-raises it through op_scope so transport waits
     # of this op are bounded by the SLO, not the full fault window.
     deadline: float | None = None
+    # CUDA tensors only: recorded on the enqueuing thread's stream (the
+    # plane waits on it before it reads the tensor), and on the plane's
+    # stream once the output is written (the caller's stream waits on it
+    # before it reads the output).
+    ready_event: Any = None
+    done_event: Any = None
 
     def finish(self, status: Status) -> None:
         cb, self.callback = self.callback, None

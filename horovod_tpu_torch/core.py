@@ -3,15 +3,24 @@
 The port's copy of ``horovod_tpu/core.py`` (``Handle``, ``HandleManager``,
 ``GlobalState``, ``init``, ``shutdown``, the rank/size getters,
 ``_background_loop``, ``_execute_response``, ``_enqueue`` and the
-``enqueue_*`` functions) on CPU torch tensors.  ``init`` forms the world
-in the reference's order: the rendezvous KV, the same-host shm plane, the
-control and data meshes, the clock-offset probe, the TCP plane and the
-world-of-one fallback.  Left out, each raising ``NotImplementedError``
-naming its ROADMAP item when asked for (``common/config.py``
-``check_eager_knobs``): the device plane (a CUDA tensor; item 9(b)), the
-hierarchical plane, the eager codecs, Adasum, dispatch streams, the
-autotuner, fingerprints, fault tolerance and chaos, the metrics exporter
-and the flight recorder (item 9(a)'s rest), and elastic re-init (item 11).
+``enqueue_*`` functions) on torch tensors: on the CPU, or on this rank's
+card (``cuda:<local_rank>``).  ``init`` forms the world in the
+reference's order: the rendezvous KV, the device plane (the NCCL group,
+where the reference forms its JAX world and XLA plane), the same-host
+shm plane, the control and data meshes, the clock-offset probe, the TCP
+plane and the world-of-one fallback.  A CUDA tensor rides the device
+plane, or in a world of one the basic plane on its card; it is never
+staged through the host, and in a world of more than one rank without
+the device plane it raises.  Its enqueue records a CUDA event on the
+caller's stream, the background thread runs the card's work on a stream
+of its own after waiting on that event, and ``Handle.wait`` makes the
+caller's stream wait on the event recorded after the output was written
+(upstream Horovod's ready events).  Left out, each raising
+``NotImplementedError`` naming its ROADMAP item when asked for
+(``common/config.py`` ``check_eager_knobs``): the hierarchical plane, the
+eager codecs, Adasum, dispatch streams, the autotuner, fingerprints,
+fault tolerance and chaos, the metrics exporter and the flight recorder
+(item 9(a)'s rest), and elastic re-init (item 11).
 
 Design: user threads enqueue TensorTableEntries + Requests; a single
 background thread runs the controller protocol every CycleTime ms, receives
@@ -24,12 +33,13 @@ from __future__ import annotations
 import os
 import threading
 import time
+import types
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
 import torch
 
-from .backend.base import OperationManager
+from .backend.base import OperationManager, is_device_response
 from .backend.basic import BasicBackend
 from .common import config
 from .common.controller import Controller, LocalTransport
@@ -53,7 +63,7 @@ class Handle:
     (reference: torch/handle_manager.cc)."""
 
     __slots__ = ("_event", "status", "entries", "_pending", "_hid",
-                 "wrap_refs")
+                 "wrap_refs", "inplace_targets", "wants_recv_splits")
 
     def __init__(self, entries: list[TensorTableEntry]) -> None:
         self._event = threading.Event()
@@ -64,14 +74,27 @@ class Handle:
         # The caller's input tensors, so async results come back in their
         # dtype, as the sync API's do.
         self.wrap_refs: list[Any] = []
+        # The torch binding's: the tensors an in-place variant writes
+        # back into, and whether alltoall returns the received splits.
+        self.inplace_targets: list[Any] = []
+        self.wants_recv_splits = False
 
     def done(self) -> bool:
         return self._event.is_set()
 
     def wait(self, timeout: float | None = None) -> Status:
+        """Block until every entry finished; outputs on a card are then
+        ready in the calling thread's stream order."""
         if not self._event.wait(timeout):
             raise TimeoutError("collective did not complete in time")
         assert self.status is not None
+        for e in self.entries:
+            out = e.output
+            if e.done_event is not None and isinstance(out, torch.Tensor) \
+                    and out.is_cuda:
+                stream = torch.cuda.current_stream(out.device)
+                stream.wait_event(e.done_event)
+                out.record_stream(stream)
         return self.status
 
     def outputs(self) -> list[Any]:
@@ -137,6 +160,11 @@ class GlobalState:
     # Resolved fabric layout (common/topology.Topology): drives the ring
     # order and the torus allreduce eligibility.
     topology: Any = None
+    # This rank's card (parallel/multihost.local_card), whether the
+    # device plane formed, and the background thread's stream on the card.
+    device_index: int = 0
+    device_plane: bool = False
+    device_stream: Any = None
     # resources to close at shutdown (sockets, shm regions, ...)
     resources: list[Any] = field(default_factory=list)
 
@@ -198,6 +226,11 @@ def init(*, rank: int | None = None, size: int | None = None,
         _global.tensor_queue.reset()
         _global.joined = False
         _global.tcp_collectives = []
+        from .parallel import multihost
+        card = multihost.local_card(local_rank)
+        _global.device_index = local_rank if card is None else card
+        _global.device_plane = False
+        _global.device_stream = None
 
         # EVERY rank records its own trace file: rank 0 keeps the exact
         # configured path, ranks > 0 get the '.r<rank>' suffix.
@@ -222,6 +255,32 @@ def init(*, rank: int | None = None, size: int | None = None,
 
             timeout = config.GLOO_TIMEOUT_SECONDS.get()
             kv = RendezvousClient(addr, port, timeout)
+            # The device plane first (the reference forms its JAX world
+            # and puts the XLA plane first here): the NCCL group over the
+            # rendezvous KV, once every rank offers a card of its own.
+            nccl_mode = config.parse_tristate(config.NCCL_OPERATIONS.get())
+            why_not = "HOROVOD_NCCL_OPERATIONS=0"
+            if nccl_mode is not False:
+                offer = card if multihost.should_init(size, local_rank) \
+                    else None
+                why_not = multihost.agree_on_cards(
+                    rank, size, kv, offer, timeout=max(timeout, 120.0))
+                if why_not is not None and nccl_mode is True:
+                    raise RuntimeError(
+                        f"HOROVOD_NCCL_OPERATIONS=1 requires the device "
+                        f"plane, and it did not form: {why_not}")
+            if why_not is not None:
+                logger.debug("no device plane: %s", why_not)
+            else:
+                from .backend.nccl import NcclBackend, NcclCommunicator
+                multihost.init_process_group(
+                    rank, size, kv=kv, card=card,
+                    timeout=max(timeout, 120.0))
+                _global.resources.append(
+                    types.SimpleNamespace(close=multihost.shutdown))
+                backends.append(NcclBackend(NcclCommunicator(
+                    device=torch.device("cuda", card))))
+                _global.device_plane = True
             # Same-host shared-memory plane: formation is collective and
             # unanimous through the KV store.
             shm_backend = None
@@ -315,6 +374,8 @@ def shutdown() -> None:
         _global.controller = None
         _global.op_manager = None
         _global.tcp_collectives = []
+        _global.device_plane = False
+        _global.device_stream = None
         _global.initialized = False
         _global.background_thread = None
     if timeline is not None:
@@ -486,7 +547,11 @@ def _execute_response(st: GlobalState, response: Response,
         status = Status.precondition_error(response.error_message)
     else:
         try:
-            status = st.op_manager.execute_operation(response, entries)
+            card = _card_of(st, response, entries)
+            if card is None:
+                status = st.op_manager.execute_operation(response, entries)
+            else:
+                status = _execute_on_card(st, card, response, entries)
         except Exception as exc:  # noqa: BLE001 - backend failure
             logger.error("collective execution failed: %s", exc)
             status = Status.unknown_error(str(exc))
@@ -508,6 +573,42 @@ def _execute_response(st: GlobalState, response: Response,
             timeline.queue_end(e.tensor_name, trace=trace)
 
 
+def _card_of(st: GlobalState, response: Response,
+             entries: list[TensorTableEntry]) -> torch.device | None:
+    """The card a response's work runs on, None for host work.  A joined
+    rank's stand-ins hold no tensor: they follow the response."""
+    for e in entries:
+        if e.tensor is not None:
+            return e.tensor.device if e.tensor.is_cuda else None
+    if st.device_plane and is_device_response(response):
+        return torch.device("cuda", st.device_index)
+    return None
+
+
+def _execute_on_card(st: GlobalState, card: torch.device,
+                     response: Response,
+                     entries: list[TensorTableEntry]) -> Status:
+    """Run a response on the background thread's stream: after the
+    inputs' ready events, and record the event the callers wait on."""
+    stream = st.device_stream
+    if stream is None:
+        torch.cuda.set_device(card)
+        stream = st.device_stream = torch.cuda.Stream(card)
+    with torch.cuda.stream(stream):
+        for e in entries:
+            if e.ready_event is not None:
+                stream.wait_event(e.ready_event)
+            if e.tensor is not None:
+                # The caller may drop its input before the card reads it.
+                e.tensor.record_stream(stream)
+        status = st.op_manager.execute_operation(response, entries)
+        done = torch.cuda.Event()
+        done.record(stream)
+    for e in entries:
+        e.done_event = done
+    return status
+
+
 def _perform_operation(st: GlobalState, response: Response) -> None:
     """Reference: operations.cc:256-329 PerformOperation."""
     if response.response_type == ResponseType.JOIN:
@@ -519,19 +620,44 @@ def _perform_operation(st: GlobalState, response: Response) -> None:
 # ---------------------------------------------------------------------------
 # Enqueue API (reference: operations.cc:919-1226)
 # ---------------------------------------------------------------------------
+def check_device(device: torch.device) -> None:
+    """A collective takes a tensor on the CPU or on this rank's card.  A
+    CUDA tensor is never staged through the host: in a world of more
+    than one rank it needs the device plane."""
+    if device.type == "cpu":
+        return
+    st = _require_init()
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if device.index != st.device_index:
+        raise ValueError(f"a tensor on {device}: this rank's card is "
+                         f"cuda:{st.device_index}")
+    if st.size > 1 and not st.device_plane:
+        raise RuntimeError(
+            f"a CUDA tensor in a world of {st.size} ranks needs the device "
+            f"plane (NCCL), which did not form: HOROVOD_NCCL_OPERATIONS=0, "
+            f"or a rank without NCCL or a card of its own; pass a CPU "
+            f"tensor")
+
+
 def _as_tensor(tensor) -> torch.Tensor:
-    """The eager planes take CPU torch tensors.  A CUDA tensor is refused
-    rather than staged through the host behind the caller's back."""
     if not isinstance(tensor, torch.Tensor):
         raise TypeError(f"horovod_tpu_torch collectives take torch tensors, "
                         f"not {type(tensor).__name__}")
-    if tensor.device.type == "cuda":
-        raise NotImplementedError(
-            "a CUDA tensor in the eager API needs the device plane (NCCL), "
-            "ROADMAP queue A item 9(b); pass a CPU tensor")
-    if tensor.device.type != "cpu":
-        raise ValueError(f"unsupported device {tensor.device}")
+    check_device(tensor.device)
     return tensor.detach()
+
+
+def _entry(name: str, tensor: torch.Tensor, **kwargs) -> TensorTableEntry:
+    """The table entry of one tensor; a CUDA tensor's carries its card
+    and the event its producer's stream reaches once it is written."""
+    if not tensor.is_cuda:
+        return TensorTableEntry(tensor_name=name, tensor=tensor, **kwargs)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(tensor.device))
+    return TensorTableEntry(tensor_name=name, tensor=tensor,
+                            device=tensor.device.index, ready_event=ready,
+                            **kwargs)
 
 
 def _enqueue(entries: list[TensorTableEntry],
@@ -597,15 +723,19 @@ def enqueue_grouped_allreduce(names: Sequence[str], tensors: Sequence[Any], *,
     elif op != "sum":
         raise ValueError(f"Unknown allreduce op: {op}")
     arrs = [_as_tensor(t) for t in tensors]
+    if len({a.device for a in arrs}) > 1:
+        raise ValueError("a grouped allreduce takes its tensors on one "
+                         "device: all on the CPU or all on this rank's card")
     entries, requests = [], []
     if register_group and len(names) > 1:
         st.group_table.register_group(list(names))
     for name, arr in zip(names, arrs):
-        entries.append(TensorTableEntry(tensor_name=name, tensor=arr))
+        entry = _entry(name, arr)
+        entries.append(entry)
         requests.append(Request(
             request_rank=st.rank, request_type=RequestType.ALLREDUCE,
             tensor_type=from_any(arr.dtype), tensor_name=name,
-            tensor_shape=tuple(arr.shape),
+            device=entry.device, tensor_shape=tuple(arr.shape),
             prescale_factor=prescale_factor,
             postscale_factor=postscale_factor))
     return _enqueue(entries, requests)
@@ -622,11 +752,11 @@ def enqueue_reducescatter(name: str, tensor, *, op: str = "sum",
     elif op != "sum":
         raise ValueError(f"Unknown reducescatter op: {op}")
     arr = _as_tensor(tensor)
-    entry = TensorTableEntry(tensor_name=name, tensor=arr)
+    entry = _entry(name, arr)
     request = Request(request_rank=st.rank,
                       request_type=RequestType.REDUCESCATTER,
                       tensor_type=from_any(arr.dtype), tensor_name=name,
-                      tensor_shape=tuple(arr.shape),
+                      device=entry.device, tensor_shape=tuple(arr.shape),
                       prescale_factor=prescale_factor,
                       postscale_factor=postscale_factor)
     return _enqueue([entry], [request])
@@ -635,11 +765,11 @@ def enqueue_reducescatter(name: str, tensor, *, op: str = "sum",
 def enqueue_allgather(name: str, tensor) -> tuple[int, Handle]:
     st = _require_init()
     arr = _as_tensor(tensor)
-    entry = TensorTableEntry(tensor_name=name, tensor=arr)
+    entry = _entry(name, arr)
     request = Request(request_rank=st.rank,
                       request_type=RequestType.ALLGATHER,
                       tensor_type=from_any(arr.dtype), tensor_name=name,
-                      tensor_shape=tuple(arr.shape))
+                      device=entry.device, tensor_shape=tuple(arr.shape))
     return _enqueue([entry], [request])
 
 
@@ -647,12 +777,12 @@ def enqueue_broadcast(name: str, tensor,
                       root_rank: int) -> tuple[int, Handle]:
     st = _require_init()
     arr = _as_tensor(tensor)
-    entry = TensorTableEntry(tensor_name=name, tensor=arr,
-                             root_rank=root_rank)
+    entry = _entry(name, arr, root_rank=root_rank)
     request = Request(request_rank=st.rank,
                       request_type=RequestType.BROADCAST,
                       tensor_type=from_any(arr.dtype), tensor_name=name,
-                      root_rank=root_rank, tensor_shape=tuple(arr.shape))
+                      root_rank=root_rank, device=entry.device,
+                      tensor_shape=tuple(arr.shape))
     return _enqueue([entry], [request])
 
 
@@ -676,12 +806,11 @@ def enqueue_alltoall(name: str, tensor,
             raise ValueError(
                 f"alltoall splits sum to {sum(split_list)} but tensor "
                 f"first dimension is {arr.shape[0]}")
-    entry = TensorTableEntry(tensor_name=name, tensor=arr,
-                             splits=split_list)
+    entry = _entry(name, arr, splits=split_list)
     request = Request(request_rank=st.rank,
                       request_type=RequestType.ALLTOALL,
                       tensor_type=from_any(arr.dtype), tensor_name=name,
-                      tensor_shape=tuple(arr.shape))
+                      device=entry.device, tensor_shape=tuple(arr.shape))
     return _enqueue([entry], [request])
 
 

@@ -1,15 +1,18 @@
-"""The eager Horovod API on CPU torch tensors.
+"""The eager Horovod API on torch tensors.
 
 The port's copy of the public API of ``horovod_tpu/__init__.py``: ``init``,
 ``shutdown``, ``rank``, ``size``, the sync and async forms of
 ``allreduce``, ``grouped_allreduce``, ``allgather``, ``broadcast``,
 ``alltoall`` and ``reducescatter``, ``synchronize``, ``poll``,
 ``barrier``, ``join``, ``broadcast_object``, ``allgather_object``, the
-reduce ops and the ``*_built()`` queries.  Results come back as torch
-tensors in the input's dtype.  A CUDA tensor raises
-``NotImplementedError`` (the device plane is ROADMAP queue A item 9(b)),
-and so do ``op=Adasum``, ``compression=`` and ``run`` (items 9(a)'s rest
-and 12).
+reduce ops and the ``*_built()`` queries.  A collective takes a tensor
+on the CPU or on this rank's card (``cuda:<local_rank>``); the result
+comes back on the input's device, in its dtype.  A CUDA tensor rides the
+NCCL device plane (``HOROVOD_NCCL_OPERATIONS``), or in a world of one
+stays on its card; it is never staged through the host, and in a world
+of more than one rank without the device plane it raises.
+``op=Adasum``, ``compression=`` and ``run`` raise
+``NotImplementedError`` (ROADMAP queue A items 9(a)'s rest and 12).
 
 Start a world with a ``RendezvousServer`` of ``runner.network`` and, in
 each rank's environment, ``HOROVOD_RANK``, ``HOROVOD_SIZE``,
@@ -329,8 +332,10 @@ def gloo_built() -> bool:   # compat alias: the TCP plane plays gloo's role
 
 
 def nccl_built() -> bool:
-    """The NCCL plane for CUDA tensors is ROADMAP queue A item 9(b)."""
-    return False
+    """True where torch.distributed has NCCL, the device plane's
+    transport."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_nccl_available()
 
 
 def xla_built() -> bool:

@@ -27,7 +27,10 @@ new = sorted(set(sys.modules) - before)
 print(len([m for m in new if m.startswith("horovod_tpu_torch")]))
 assert "horovod_tpu_torch.compress.ops" in new
 for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
-            "runner.network", "core", "eager"):
+            "runner.network", "core", "eager", "backend.nccl",
+            "parallel.multihost", "torch", "torch.mpi_ops",
+            "torch.optimizer", "torch.functions", "torch.compression",
+            "torch.sync_batch_norm"):
     assert "horovod_tpu_torch." + sub in new, sub
 bad = [m for m in new
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
@@ -47,7 +50,8 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 50            # every module, the eager core too
+    assert int(count) >= 57            # every module: the eager core,
+    # the device plane and the torch binding too
     assert bad == "BAD []", bad
 
 
@@ -148,3 +152,12 @@ def test_mesh_is_dp_only_at_world_one():
     assert mesh.shape["dp"] == 1 and mesh.group is None and mesh.size == 1
     with pytest.raises(ValueError, match="require"):
         build_mesh(dp=2, device="cpu")
+
+
+def test_binding_keeps_torch_pointing_at_pytorch():
+    """Inside ``horovod_tpu_torch.torch`` an absolute ``import torch`` is
+    PyTorch, not the binding package."""
+    import horovod_tpu_torch.torch as hvt
+    from horovod_tpu_torch.torch import mpi_ops
+    assert mpi_ops.torch is torch and hvt is not torch
+    assert hvt.__name__ == "horovod_tpu_torch.torch"
