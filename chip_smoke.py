@@ -120,6 +120,33 @@ Phases, each printed as one JSON object on its own line:
    not run in any of these legs, and no device-to-host copy in the
    profiled step or hook path may be longer than 20 us.
 
+11. reduce: the eager reduction features, one line a leg.  (a) Host
+   worlds through ``--eager-worker`` (CUDA hidden): 2 and 4 ranks on the
+   TCP and shm planes, through the fused codec passes and the per-chunk
+   chain, every codec (fp16, bf16, int8, uint4) at a block-aligned and a
+   ring length bitwise equal to a numpy oracle of the reference's
+   owner-reduce, and Adasum within one fp32 ulp of
+   ``adasum_reference``; a 16 MiB fp32 allreduce on each codec at 2
+   ranks (ms, GB/s, the data mesh's bytes sent beside the plain fp32
+   ring's: int8 must move 0.258 of them and uint4 0.133, at block 256
+   and 8 bytes of metadata a block); and 2 hosts x 2 ranks through the
+   hierarchical plane, with shm and with TCP local legs (the two-level
+   sum bitwise, a ragged allgather, the legs run).  (b) ``NcclBackend``
+   on a one-rank NCCL group: int8/uint4 at 16 Mi and 1,000,003 fp32
+   elements bitwise equal to the same code on the CPU tensor and within
+   the reference's bound, fp16/bf16 equal to ``x.to(dt).float()``, each
+   timed beside the plain allreduce of the same buffer (64 MiB at 16
+   Mi), and a profiled int8 call with no device-to-host copy over 20 us.
+   (c) Adasum's float64 dot products and combine on the card at
+   50304 x 768 elements against numpy's ``adasum_combine`` (1e-12
+   relative), timed against their bytes.  (d) gpt_small at one rank
+   through ``DistributedOptimizer(op=Adasum)`` and through
+   ``compression=Compression.int8``, 2 + 3 steps each: the losses must
+   equal the plain AdamW loop's bit for bit (at one rank both are the
+   wrapped step) and every flash kernel launch 12 times a step.  With
+   two or more cards, (b) and (c) also run across two ranks, one card
+   each (``--reduce-card-worker``); with one the summary says so.
+
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -1503,6 +1530,10 @@ def eager_worker(job: str, rank: int, size: int, port: int,
         except RuntimeError as exc:
             result["required_refusal"] = str(exc)
         hvd.shutdown()
+    elif job == "reduce":
+        result = _reduce_world(hvd, core, world, rank, size)
+    elif job == "reduce-hier":
+        result = _reduce_hier_world(hvd, core, world, rank, size)
     else:
         result["planes"] = world("ladder", HOROVOD_SHM_OPERATIONS="0")
         result["ladder"] = _eager_ladder(hvd, core)
@@ -2232,11 +2263,521 @@ def phase_binding() -> dict:
     return {"seconds": seconds, "launches": loop["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The reduce phase: the eager reduction features (wire codecs, Adasum, the
+# hierarchical plane) on the host planes and the device plane
+# ---------------------------------------------------------------------------
+REDUCE_BLOCK = 256
+REDUCE_CODECS = ("none", "fp16", "bf16", "int8", "uint4")
+REDUCE_TIMED = (2, 5)                   # warm-up, timed ops in (a)
+REDUCE_DEVICE_N = (16 << 20, 1_000_003)  # 64 MiB of fp32, and ragged
+ADASUM_N = 50304 * 768                  # gpt_small's token embedding
+REDUCE_STEPS = (2, 3)                   # warm-up, timed steps in (d)
+
+
+def _draw(key: str, rank: int, n: int):
+    """Rank ``rank``'s input of one case, made with numpy from a seed."""
+    import zlib
+
+    import numpy as np
+    rng = np.random.default_rng([zlib.crc32(key.encode()), rank])
+    return (rng.standard_normal(n) * 2).astype(np.float32)
+
+
+def _codec_oracle(xs: list, codec: str):
+    """The reference's owner-reduce on every rank's input, in numpy:
+    chunk j of each rank through the wire (a cast, or quantize and
+    dequantize), summed in fp32 in rank order, rounded once (the cast
+    codecs) or requantized once (int8/uint4)."""
+    import numpy as np
+
+    from horovod_tpu_torch.compress import (CompressionCodec, chunk_bounds,
+                                            dequantize, quantize)
+
+    def wire(x):
+        if codec in ("fp16", "bf16"):
+            dt = torch.float16 if codec == "fp16" else torch.bfloat16
+            return torch.from_numpy(x).to(dt).float().numpy()
+        c = CompressionCodec[codec.upper()]
+        return dequantize(quantize(x, c, REDUCE_BLOCK))
+
+    size, n = len(xs), xs[0].size
+    bounds = chunk_bounds(n, size)
+    out = np.empty(n, np.float32)
+    for j in range(size):
+        lo, hi = bounds[j], bounds[j + 1]
+        acc = np.zeros(hi - lo, np.float32)
+        for x in xs:
+            acc += wire(x[lo:hi])
+        out[lo:hi] = wire(acc)
+    return out
+
+
+def _reduce_check(hvd, rank: int, size: int) -> list[str]:
+    """Each codec at a block-aligned length (the tree at 4 ranks) and a
+    ring length, bitwise against ``_codec_oracle``; Adasum against
+    ``adasum_reference`` within one fp32 ulp."""
+    import numpy as np
+
+    from horovod_tpu_torch.ops.adasum import adasum_reference
+    bad = []
+    for codec in REDUCE_CODECS[1:]:
+        for n in (2 * REDUCE_BLOCK * size, 100003):
+            key = f"{codec}{n}"
+            xs = [_draw(key, r, n) for r in range(size)]
+            got = hvd.allreduce(torch.from_numpy(xs[rank]), op=hvd.Sum,
+                                name=key, compression=codec).numpy()
+            if got.tobytes() != _codec_oracle(xs, codec).tobytes():
+                bad.append(f"{codec} n={n}: not the oracle's bits")
+    for n in (7, 4097, 100003):
+        key = f"adasum{n}"
+        xs = [_draw(key, r, n) for r in range(size)]
+        got = hvd.allreduce(torch.from_numpy(xs[rank]), op=hvd.Adasum,
+                            name=key).numpy()
+        want = adasum_reference(xs).astype(np.float32)
+        if not np.all(np.abs(got.astype(np.float64) - want)
+                      <= np.spacing(np.abs(want))):
+            bad.append(f"adasum n={n}: beyond one ulp of adasum_reference")
+    return bad
+
+
+def _reduce_timing(hvd, core, size: int) -> dict:
+    """A 16 MiB fp32 allreduce on each codec: ms (mean of the timed ops),
+    GB/s of fp32 payload at 2(n-1)/n bytes a rank, and the data mesh's
+    bytes sent an op (the TCP plane; the shm plane moves no socket
+    byte)."""
+    st = core.global_state()
+    mesh = st.tcp_collectives[0].mesh
+    x = torch.from_numpy(_draw("timing", 0, EAGER_BIG_BYTES // 4))
+    warmup, timed = REDUCE_TIMED
+    out = {}
+    for codec in REDUCE_CODECS:
+        name = f"timing.{codec}"
+        for _ in range(warmup):
+            hvd.allreduce(x, op=hvd.Sum, name=name, compression=codec)
+        sent = mesh.bytes_sent
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            hvd.allreduce(x, op=hvd.Sum, name=name, compression=codec)
+        dt = (time.perf_counter() - t0) / timed
+        out[codec] = {"ms": dt * 1e3,
+                      "gbyte_per_s": EAGER_BIG_BYTES * 2 * (size - 1)
+                      / size / dt / 1e9,
+                      "wire_bytes_per_op": (mesh.bytes_sent - sent) / timed}
+    plain = out["none"]["wire_bytes_per_op"]
+    for codec in REDUCE_CODECS:
+        out[codec]["wire_share"] = out[codec]["wire_bytes_per_op"] / plain \
+            if plain else None
+    return out
+
+
+REDUCE_WORLD_PHASES = (
+    ("tcp", dict(HOROVOD_SHM_OPERATIONS="0")),
+    ("tcp-chain", dict(HOROVOD_SHM_OPERATIONS="0", HOROVOD_FUSED_KERNELS="0")),
+    ("shm", dict(HOROVOD_SHM_OPERATIONS="1",
+                 HOROVOD_SHM_CAPACITY=str(EAGER_BIG_BYTES))),
+    ("shm-chain", dict(HOROVOD_SHM_OPERATIONS="1",
+                       HOROVOD_SHM_CAPACITY=str(EAGER_BIG_BYTES),
+                       HOROVOD_FUSED_KERNELS="0")),
+)
+
+
+def _reduce_world(hvd, core, world, rank: int, size: int) -> dict:
+    """Job ``reduce`` of ``--eager-worker``: the codecs and Adasum on the
+    TCP and shm planes, fused passes and per-chunk chain; the 16 MiB
+    timings on the fused phases of the 2-rank world."""
+    result: dict = {"problems": []}
+    for phase, env in REDUCE_WORLD_PHASES:
+        planes = world(f"reduce.{phase}", **env)
+        shm = next((b for b in core.global_state().op_manager.backends
+                    if b.name == "shm"), None)
+        served = shm.ops_executed if shm is not None else 0
+        result["problems"] += [f"{phase}: {p}" for p in
+                               _reduce_check(hvd, rank, size)]
+        if shm is not None and shm.ops_executed == served:
+            result["problems"].append(f"{phase}: shm served nothing")
+        if size == 2 and not phase.endswith("chain"):
+            result[phase] = {"planes": planes,
+                             **_reduce_timing(hvd, core, size)}
+        hvd.shutdown()
+    return result
+
+
+def _reduce_hier_world(hvd, core, world, rank: int, size: int) -> dict:
+    """Job ``reduce-hier``: two hosts of two ranks, host-major, both
+    hierarchical knobs on; an allreduce bitwise against the two-level sum
+    ((x0 + x1) + (x2 + x3) in fp32) and a ragged allgather, with the shm
+    local legs and with the TCP ones."""
+    import numpy as np
+    result: dict = {"problems": []}
+    layout = dict(HOROVOD_LOCAL_RANK=str(rank % 2), HOROVOD_LOCAL_SIZE="2",
+                  HOROVOD_CROSS_RANK=str(rank // 2),
+                  HOROVOD_CROSS_SIZE=str(size // 2),
+                  HOROVOD_HIERARCHICAL_ALLREDUCE="1",
+                  HOROVOD_HIERARCHICAL_ALLGATHER="1")
+    for phase, env in (("shm-legs", {}),
+                       ("tcp-legs", dict(HOROVOD_SHM_OPERATIONS="0"))):
+        planes = world(f"hier.{phase}", **layout, **env)
+        xs = [_draw("hier", r, 100003) for r in range(size)]
+        got = hvd.allreduce(torch.from_numpy(xs[rank]), op=hvd.Sum,
+                            name="hier").numpy()
+        want = (xs[0] + xs[1]) + (xs[2] + xs[3])
+        if got.tobytes() != want.tobytes():
+            result["problems"].append(f"{phase}: allreduce is not the "
+                                      f"two-level sum")
+        got = hvd.allgather(torch.full((rank + 1, 3), float(rank)),
+                            name="hier.ag").numpy()
+        want = np.concatenate([np.full((r + 1, 3), float(r), np.float32)
+                               for r in range(size)])
+        if not np.array_equal(got, want):
+            result["problems"].append(f"{phase}: ragged allgather")
+        hier = next(b for b in core.global_state().op_manager.backends
+                    if b.name == "tcp-hierarchical")
+        result[phase] = {"planes": planes, "leg_ops": dict(hier.leg_ops),
+                         "shm_local_legs": hier.shm_local is not None}
+        hvd.shutdown()
+    return result
+
+
+def _reduce_plane(problems: list[str]) -> dict:
+    """Leg (b): ``NcclBackend`` on a one-rank NCCL group: int8/uint4 at
+    16 Mi and a ragged count of fp32 elements bitwise equal to the same
+    code on the CPU tensor (the communicator over a one-rank gloo group)
+    and within the reference's bound; fp16/bf16 equal ``x.to(dt).float()``;
+    each timed beside the plain allreduce of the same 64 MiB buffer; a
+    profiled int8 call's device-to-host copies."""
+    import numpy as np
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.backend.nccl import NcclBackend, NcclCommunicator
+    from horovod_tpu_torch.common.dtypes import from_any
+    from horovod_tpu_torch.common.message import Response, ResponseType
+    from horovod_tpu_torch.common.tensor_queue import TensorTableEntry
+    from horovod_tpu_torch.compress import (CompressionCodec,
+                                            roundtrip_error_bound)
+    plane = NcclBackend(NcclCommunicator(device=torch.device("cuda", 0)))
+    host = NcclCommunicator(group=dist.new_group(backend="gloo"),
+                            device="cpu")
+    out = {"phase": "reduce", "leg": "device-plane", "ranks": 1,
+           "block": REDUCE_BLOCK, "cases": {}}
+    for n in REDUCE_DEVICE_N:
+        x_cpu = torch.from_numpy(_draw("plane", 0, n))
+        x = x_cpu.cuda()
+        entries = [TensorTableEntry(tensor_name="x", tensor=x)]
+
+        def resp(codec):
+            c = CompressionCodec[codec.upper()]
+            return Response(response_type=ResponseType.ALLREDUCE,
+                            tensor_names=["x"], devices=[0],
+                            tensor_type=from_any(torch.float32),
+                            tensor_sizes=[n], codec=int(c),
+                            codec_block_size=REDUCE_BLOCK
+                            if c in (CompressionCodec.INT8,
+                                     CompressionCodec.UINT4) else 0)
+
+        def run(r):
+            plane.allreduce(r, entries)
+            return entries[0].output
+
+        for codec in REDUCE_CODECS:
+            r = resp(codec)
+            got = run(r)
+            case = {"ms": time_ms(lambda: run(r), rounds=5, warmup=2)}
+            if codec in ("int8", "uint4"):
+                c = CompressionCodec[codec.upper()]
+                want = host.quantized_allreduce(x_cpu, c, REDUCE_BLOCK)
+                case["bitwise_equal_cpu"] = torch.equal(got.cpu(), want)
+                err = np.abs(got.cpu().numpy().astype(np.float64)
+                             - x_cpu.numpy())
+                bound = 2 * roundtrip_error_bound(x_cpu.numpy(), c,
+                                                  REDUCE_BLOCK) + 1e-5
+                case["max_abs_err"] = float(err.max())
+                case["within_bound"] = bool(np.all(err <= bound))
+                if not (case["bitwise_equal_cpu"] and case["within_bound"]):
+                    problems.append(f"device {codec} n={n}: {case}")
+            elif codec != "none":
+                dt = torch.float16 if codec == "fp16" else torch.bfloat16
+                case["equal_cast"] = torch.equal(got, x.to(dt).float())
+                if not case["equal_cast"]:
+                    problems.append(f"device {codec} n={n}: not the cast")
+            elif not torch.equal(got, x):
+                problems.append(f"device plain allreduce n={n}")
+            out["cases"][f"{codec}_{n}"] = case
+        if n == REDUCE_DEVICE_N[0]:
+            prof = _profile(lambda: run(resp("int8")),
+                            out["cases"][f"int8_{n}"]["ms"])
+            out["int8_profile"] = {k: prof[k] for k in (
+                "kernel_ms", "kernel_launches", "device_idle_share",
+                "dtoh_copies", "dtoh_max_ms", "top")}
+            out["int8_profile"]["top"] = prof["top"][:8]
+            if prof["dtoh_max_ms"] > BINDING_DTOH_MAX_MS:
+                problems.append(f"device int8: a device-to-host copy of "
+                                f"{prof['dtoh_max_ms']:.3f} ms")
+        del x, entries
+    # The plain fused allreduce of the binding phase's leg (b): 64 MiB in 16
+    # tensors, packed into the fusion buffer and copied out.
+    parts = [torch.randn(BINDING_FUSED_BYTES // 64, device="cuda")
+             for _ in range(16)]
+    entries = [TensorTableEntry(tensor_name=f"f{j}", tensor=t)
+               for j, t in enumerate(parts)]
+    fused = Response(response_type=ResponseType.ALLREDUCE,
+                     tensor_names=[e.tensor_name for e in entries],
+                     devices=[0], tensor_type=from_any(torch.float32),
+                     tensor_sizes=[t.numel() for t in parts])
+    out["plain_fused_64mib_ms"] = time_ms(
+        lambda: plane.allreduce(fused, entries), rounds=5, warmup=2)
+    del parts, entries
+    big = REDUCE_DEVICE_N[0]
+    out["ms_vs_plain_64mib"] = {
+        codec: out["cases"][f"{codec}_{big}"]["ms"]
+        / out["cases"][f"none_{big}"]["ms"] for codec in REDUCE_CODECS}
+    out["ms_vs_plain_fused_64mib"] = {
+        codec: out["cases"][f"{codec}_{big}"]["ms"]
+        / out["plain_fused_64mib_ms"] for codec in REDUCE_CODECS}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _reduce_adasum_arith(problems: list[str]) -> dict:
+    """Leg (c): the device plane's Adasum arithmetic (float64 dot
+    products and ``adasum_combine``) at gpt_small's token embedding,
+    against numpy's ``ops/adasum.py`` ``adasum_combine``, and timed."""
+    import numpy as np
+
+    from horovod_tpu_torch.backend.nccl import adasum_combine
+    from horovod_tpu_torch.ops import adasum as host_adasum
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn(ADASUM_N, generator=g, device="cuda",
+                    dtype=torch.float64)
+    b = torch.randn(ADASUM_N, generator=g, device="cuda",
+                    dtype=torch.float64) * 0.5 + 0.25 * a
+
+    def step():
+        dots = torch.stack([a @ a, b @ b, a @ b])
+        return adasum_combine(a, b, dots), dots
+
+    got, dots = step()
+    ms = time_ms(step, rounds=5, warmup=2)
+    a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+    aa, bb, ab = float(a_np @ a_np), float(b_np @ b_np), float(a_np @ b_np)
+    want = host_adasum.adasum_combine(a_np, b_np, aa, bb, ab)
+    rel = float(np.max(np.abs(got.cpu().numpy() - want))
+                / np.max(np.abs(want)))
+    dots_rel = float(np.max(np.abs(dots.cpu().numpy() - [aa, bb, ab])
+                            / np.abs([aa, bb, ab])))
+    # Bound: a and b read once, the result written once, at 3.35 TB/s.
+    bound_ms = 3 * 8 * ADASUM_N / PEAK_BYTES_PER_S * 1e3
+    out = {"phase": "reduce", "leg": "adasum-arithmetic",
+           "elements": ADASUM_N, "dtype": "float64", "ms": ms,
+           "bytes_bound_ms": bound_ms, "max_rel_err": rel,
+           "dots_max_rel_err": dots_rel, "tolerance": 1e-12}
+    emit(out)
+    if rel > 1e-12 or dots_rel > 1e-12:
+        problems.append(f"device Adasum arithmetic off numpy's by {rel}")
+    del a, b, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _reduce_gpt(problems: list[str]) -> dict:
+    """Leg (d): gpt_small at one rank through
+    ``DistributedOptimizer(op=Adasum)`` and through
+    ``compression=Compression.int8``, beside the plain AdamW loop on the
+    same weights and batch: at one rank both are the wrapped step, so
+    every loss must be the plain loop's, bit for bit."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import TransformerLM, gpt_small, \
+        synthetic_text_batch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import cross_entropy_loss
+    cfg = gpt_small(attention="flash", max_seq_len=2048)
+    batch = synthetic_text_batch(8, 2048, cfg.vocab_size, seed=0)
+    steps = sum(REDUCE_STEPS)
+    legs = {}
+    hvd.init()
+    try:
+        for leg in ("plain", "adasum", "int8"):
+            model = TransformerLM(cfg, seed=0)
+            opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                    weight_decay=1e-4)
+            if leg == "adasum":
+                opt = hvd.DistributedOptimizer(
+                    opt, named_parameters=model.named_parameters(),
+                    op=hvd.Adasum)
+            elif leg == "int8":
+                opt = hvd.DistributedOptimizer(
+                    opt, named_parameters=model.named_parameters(),
+                    compression=hvd.Compression.int8)
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            losses, step_ms = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                loss = cross_entropy_loss(model(batch["input"], train=True),
+                                          batch["label"])
+                loss.backward()
+                opt.step()
+                opt.zero_grad()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss.item())
+            launches = fa.launch_counts()
+            legs[leg] = {"losses": losses, "step_ms": step_ms,
+                         "timed_step_ms_mean": statistics.mean(
+                             step_ms[REDUCE_STEPS[0]:]),
+                         "launches_per_step": {k: v / steps for k, v in
+                                               launches.items()}}
+            for name, c in launches.items():
+                if c != cfg.num_layers * steps:
+                    problems.append(f"reduce gpt {leg}: {name} launched "
+                                    f"{c} times, not {cfg.num_layers} a "
+                                    f"step")
+            del model, opt
+            torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+    for leg in ("adasum", "int8"):
+        legs[leg]["losses_bitwise_plain"] = \
+            legs[leg]["losses"] == legs["plain"]["losses"]
+        if not legs[leg]["losses_bitwise_plain"]:
+            problems.append(f"reduce gpt {leg}: losses differ from the "
+                            f"plain loop's")
+    out = {"phase": "reduce", "leg": "gpt_small-one-rank", "ranks": 1,
+           "batch": 8, "seq": 2048, "optimizer": "AdamW(3e-4, wd 1e-4)",
+           **legs}
+    emit(out)
+    return out
+
+
+def phase_reduce() -> dict:
+    """The eager reduction features (see the module docstring)."""
+    t_phase = time.perf_counter()
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE"):
+        os.environ.pop(var, None)
+    problems: list[str] = []
+    host: dict = {}
+    with tempfile.TemporaryDirectory(prefix="reduce") as outdir:
+        for job, size in (("reduce", 2), ("reduce", 4),
+                          ("reduce-hier", 4)):
+            res = _eager_world(job, size, outdir)
+            for r, rr in enumerate(res):
+                problems += [f"{job} {size} rank {r}: {p}"
+                             for p in rr["problems"]]
+            host[f"{job}-{size}"] = {k: v for k, v in res[0].items()
+                                     if k not in ("problems",
+                                                  "native_loaded")}
+    timing = host["reduce-2"]
+    for plane in ("tcp", "shm"):
+        emit({"phase": "reduce", "leg": f"host-{plane}", "ranks": 2,
+              "payload_bytes": EAGER_BIG_BYTES, "block": REDUCE_BLOCK,
+              **timing[plane]})
+    tcp = timing["tcp"]
+    for codec, want in (("int8", 0.258), ("uint4", 0.133)):
+        share = tcp[codec]["wire_share"]
+        if share is None or abs(share - want) > 0.01:
+            problems.append(f"tcp {codec} wire share {share}, not {want}")
+    emit({"phase": "reduce", "leg": "host-worlds",
+          "worlds": {k: {kk: vv for kk, vv in v.items()
+                         if kk not in ("tcp", "shm")}
+                     for k, v in host.items()}})
+    with _one_rank_nccl():
+        _reduce_plane(problems)
+    _reduce_adasum_arith(problems)
+    _reduce_gpt(problems)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        across = f"not run: the machine shows {cards} card"
+    else:
+        across = _reduce_two_cards(problems)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "reduce", "leg": "summary", "seconds": seconds,
+          "across_two_cards": across, "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds}
+
+
+def reduce_card_worker(rank: int, port: int, outdir: str) -> int:
+    """One rank of the 2-card check (``chip_smoke.py --reduce-card-worker
+    <rank> <port> <outdir>``): legs (b) and (c) through ``NcclBackend``
+    across two cards, against numpy."""
+    import numpy as np
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.backend.nccl import NcclCommunicator
+    from horovod_tpu_torch.compress import (CompressionCodec, dequantize,
+                                            quantize)
+    from horovod_tpu_torch.ops.adasum import adasum_reference
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    store = dist.TCPStore("127.0.0.1", port, 2, is_master=rank == 0,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("nccl", store=store, rank=rank, world_size=2,
+                            device_id=torch.device("cuda", rank))
+    try:
+        comm = NcclCommunicator(device=torch.device("cuda", rank))
+        xs = [_draw("two", r, REDUCE_DEVICE_N[1]) for r in range(2)]
+        x = torch.from_numpy(xs[rank]).cuda(rank)
+        res = {}
+        for codec in ("int8", "uint4"):
+            c = CompressionCodec[codec.upper()]
+            got = comm.quantized_allreduce(x, c, REDUCE_BLOCK).cpu().numpy()
+            # The device plane's wire: each rank quantized once, summed
+            # in fp32, no requantization.
+            want = dequantize(quantize(xs[0], c, REDUCE_BLOCK)) \
+                + dequantize(quantize(xs[1], c, REDUCE_BLOCK))
+            res[codec] = float(np.max(np.abs(got - want)))
+            res[f"{codec}_ms"] = time_ms(
+                lambda: comm.quantized_allreduce(x, c, REDUCE_BLOCK),
+                rounds=5)
+        got = comm.adasum(x).cpu().numpy()
+        want = adasum_reference(xs).astype(np.float32)
+        res["adasum_max_ulps"] = float(np.max(
+            np.abs(got.astype(np.float64) - want)
+            / np.spacing(np.abs(want))))
+        res["adasum_ms"] = time_ms(lambda: comm.adasum(x), rounds=5)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(outdir, f"card_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _reduce_two_cards(problems: list[str]) -> dict:
+    """(b) and (c) across two ranks, one card each."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="cards") as outdir:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--reduce-card-worker", str(r), str(port), outdir])
+            for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=EAGER_WORLD_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(rcs):
+            problems.append(f"two-card reduce workers exited {rcs}")
+            return {"ran": False}
+        with open(os.path.join(outdir, "card_0.json")) as f:
+            res = json.load(f)
+    if res["adasum_max_ulps"] > 1.0 or res["int8"] > 1e-4 or \
+            res["uint4"] > 1e-4:
+        problems.append(f"two-card reduce: {res}")
+    return {"ran": True, "ranks": 2, **res}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
         job, rank, size, port, outdir = sys.argv[2:7]
         return eager_worker(job, int(rank), int(size), int(port), outdir)
+    if len(sys.argv) > 1 and sys.argv[1] == "--reduce-card-worker":
+        rank, port, outdir = sys.argv[2:5]
+        return reduce_card_worker(int(rank), int(port), outdir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -2251,7 +2792,8 @@ def main() -> int:
         phases = {"kernels": phase_kernels, "reference": phase_reference,
                   "train": phase_train, "serve": phase_serve,
                   "cnn": phase_cnn, "sync": phase_sync,
-                  "eager": phase_eager, "binding": phase_binding}
+                  "eager": phase_eager, "binding": phase_binding,
+                  "reduce": phase_reduce}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -2263,6 +2805,7 @@ def main() -> int:
     phase_sync()
     phase_eager()
     binding = phase_binding()
+    phase_reduce()
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,

@@ -4,8 +4,9 @@ The port's copy of ``horovod_tpu/backend/base.py`` (``dim0_row_bounds``,
 ``accum_dtype``, ``FusionBufferManager``, ``CollectiveBackend``,
 ``scale_buffer``, ``OperationManager``) on torch tensors: CPU tensors for
 the TCP and shm planes, CUDA tensors for the device plane and a world of
-one, whose fusion buffers live on the card.  The codec helpers are left
-out with the eager codecs (ROADMAP queue A item 9(a), the rest).
+one, whose fusion buffers live on the card; and the codec helpers every
+plane reads a response's codec through (``quantized_codec``,
+``codec_block_size``, ``wire_cast_dtype``).
 
 Reference: horovod/common/ops/operation_manager.{cc,h}:27-66 and
 collective_operations.h:38-288.  `OperationManager` walks backends in
@@ -342,6 +343,48 @@ class CollectiveBackend(ABC):
                 blocks.append(blk)
             e.output = torch.cat(blocks, dim=0)
 
+    # ------------------------------------------------------------------
+    # Wire-compression codec helpers, shared by the planes so every one
+    # interprets Response.codec the same way.
+    # ------------------------------------------------------------------
+    @staticmethod
+    def quantized_codec(response: Response):
+        """The response's quantized codec (int8/uint4) when it applies —
+        floating payloads only — else None."""
+        from ..common.dtypes import is_floating
+        from ..compress import QUANTIZED_CODECS, CompressionCodec
+        codec = CompressionCodec(response.codec)
+        if codec in QUANTIZED_CODECS and is_floating(response.tensor_type):
+            return codec
+        return None
+
+    @staticmethod
+    def codec_block_size(response: Response) -> int:
+        """Negotiated quantization block size (the knob's default for a
+        hand-built response that left it out)."""
+        if response.codec_block_size > 0:
+            return response.codec_block_size
+        from ..compress import default_block_size
+        return default_block_size()
+
+    @staticmethod
+    def wire_cast_dtype(response: Response) -> torch.dtype | None:
+        """Wire dtype for the cast codecs (fp16/bf16) when the payload is
+        a wider float, else None.  The planes reduce 16-bit wires with
+        fp32 accumulation already (accum_dtype), so the cast alone is the
+        legacy Compression.fp16's semantics."""
+        from ..common.dtypes import element_size, is_floating
+        from ..compress import CompressionCodec
+        codec = CompressionCodec(response.codec)
+        if not is_floating(response.tensor_type) or \
+                element_size(response.tensor_type) <= 2:
+            return None
+        if codec == CompressionCodec.FP16:
+            return torch.float16
+        if codec == CompressionCodec.BF16:
+            return torch.bfloat16
+        return None
+
     @staticmethod
     def scale_buffer(buf: torch.Tensor, factor: float) -> torch.Tensor:
         """Multiply by ``factor`` with the reference's numpy arithmetic:
@@ -357,6 +400,26 @@ class CollectiveBackend(ABC):
         if not buf.dtype.is_floating_point:
             return (buf.double() * factor).to(buf.dtype)
         return buf * factor
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` with numpy's rounding (numpy's ``astype``, as
+    the reference's planes cast), on the host or the card.  torch casts
+    float64 to float16 through float32, rounding twice, where numpy rounds
+    once; rounding to float32 *to odd* first (an inexact result keeps its
+    last bit set) makes the second rounding the single correct one.
+    Every other float cast is torch's and equals numpy's and ml_dtypes'
+    (bf16) already."""
+    if t.dtype == dtype:
+        return t
+    if dtype == torch.float16 and t.dtype == torch.float64:
+        f = t.to(torch.float32)
+        back = f.double()
+        inexact = (back != t) & torch.isfinite(back)
+        away = back.abs() > t.abs()
+        bits = f.view(torch.int32) - (inexact & away).to(torch.int32)
+        t = (bits | inexact.to(torch.int32)).view(torch.float32)
+    return t.to(dtype)
 
 
 def contiguous(t: torch.Tensor) -> torch.Tensor:

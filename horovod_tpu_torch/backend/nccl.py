@@ -25,8 +25,20 @@ they take every dtype.
 Where ``XlaBackend.enabled`` declines (ragged reduce-scatter, all-empty
 gathers, 64-bit types) and lets the response fall to the TCP plane, this
 plane keeps the case on the card, since falling through would stage a
-CUDA tensor through the host.  The quantized wire is ROADMAP queue A
-item 9(a)'s rest, as on the TCP plane.
+CUDA tensor through the host.
+
+The wire codecs run on the card too.  The cast codecs (fp16/bf16) are a
+cast around the allreduce.  The quantized codecs (int8/uint4) follow
+``XlaCommunicator.quantized_allreduce``: each rank quantizes its buffer
+once (``compress/ops.py`` ``quantize_rows``, the last element padding the
+last block), one all-gather moves every rank's payload, scales and zero
+points, and every rank dequantizes and sums in fp32; there is no
+requantization, so the error stays within one quantization of each
+input.  Adasum is a stated difference: the XLA plane does not claim it
+and the reference runs it on the host, but a CUDA tensor stays on its
+card, so this plane runs ``ops/adasum.py``'s VHDD itself, in float64 on
+the card, each pairwise exchange one ``batch_isend_irecv`` so both
+partners send and receive at once.
 """
 from __future__ import annotations
 
@@ -37,10 +49,8 @@ from ..common.dtypes import to_torch
 from ..common.message import Response, ResponseType
 from ..common.status import Status
 from ..common.tensor_queue import TensorTableEntry
-from .base import (CollectiveBackend, _rest, contiguous, dim0_row_bounds,
-                   is_device_response)
-
-_REST_9A = "ROADMAP queue A item 9(a), the rest"
+from .base import (CollectiveBackend, _rest, cast, contiguous,
+                   dim0_row_bounds, is_device_response)
 
 # The dtype a reduction runs in on the wire, where it is not the tensor's.
 _REDUCE_DTYPE = {torch.float16: torch.float32,
@@ -58,6 +68,18 @@ def _narrow(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if dtype == torch.bool:
         return acc != 0
     return acc.to(dtype)
+
+
+def adasum_combine(a: torch.Tensor, b: torch.Tensor,
+                   dots: torch.Tensor) -> torch.Tensor:
+    """``ops/adasum.py`` ``adasum_combine`` on tensors, without a host
+    sync: ``dots`` holds (aa, bb, ab) on a's device, and a zero norm takes
+    coefficient 1, so two zero norms give a + b."""
+    aa, bb, ab = dots[0], dots[1], dots[2]
+    one = torch.ones((), dtype=dots.dtype, device=dots.device)
+    acoef = torch.where(aa == 0, one, 1.0 - ab / (2.0 * aa))
+    bcoef = torch.where(bb == 0, one, 1.0 - ab / (2.0 * bb))
+    return acoef * a + bcoef * b
 
 
 def _bytes(rows: torch.Tensor) -> torch.Tensor:
@@ -128,6 +150,96 @@ class NcclCommunicator:
                                group=self.group)
         return out, received
 
+    def quantized_allreduce(self, buf: torch.Tensor, codec,
+                            block_size: int) -> torch.Tensor:
+        """Sum of every rank's flat ``buf`` through the quantized wire,
+        fp32: quantize once, all-gather payload, scales and zero points
+        in one exchange, dequantize every row and sum."""
+        from ..compress import CompressionCodec, num_blocks
+        from ..compress.ops import dequantize_rows, quantize_rows
+        n = buf.numel()
+        nb = num_blocks(n, block_size)
+        if nb == 0:
+            return buf.new_zeros(0, dtype=torch.float32)
+        m = nb * block_size
+        x = buf.reshape(-1).float()
+        if m > n:
+            # The last element pads the last block (compress/quantize.py's
+            # rule), so its scale is that of the elements it holds.
+            x = torch.cat([x, x[-1:].expand(m - n)])
+        q, s, zp = quantize_rows(x[None, :], codec, block_size)
+        pb = m // 2 if codec == CompressionCodec.UINT4 else m
+        row = torch.cat([q.reshape(-1), s.reshape(-1).view(torch.uint8),
+                         zp.reshape(-1).view(torch.uint8)])
+        rows = row.new_empty(self.size * row.numel())
+        dist.all_gather_into_tensor(rows, row, group=self.group)
+        rows = rows.reshape(self.size, -1)
+        meta = nb * 4
+        q = rows[:, :pb]
+        s = rows[:, pb:pb + meta].contiguous().view(torch.float32)
+        zp = rows[:, pb + meta:].contiguous().view(torch.float32)
+        deq = dequantize_rows(q, s, zp, codec, block_size)
+        return deq.sum(dim=0)[:n]
+
+    def _exchange(self, peer: int, send: torch.Tensor,
+                  recv: torch.Tensor) -> None:
+        """Send ``send`` to ``peer`` and receive ``recv`` from it at once
+        (NCCL needs the pair's send and receive posted together); an
+        empty side posts nothing, as its partner expects nothing."""
+        ops = []
+        if send.numel():
+            ops.append(dist.P2POp(dist.isend, send, self._global(peer),
+                                  group=self.group))
+        if recv.numel():
+            ops.append(dist.P2POp(dist.irecv, recv, self._global(peer),
+                                  group=self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+
+    def adasum(self, buf: torch.Tensor) -> torch.Tensor:
+        """Adasum of every rank's flat ``buf``, in float64 on the card and
+        returned in ``buf``'s dtype: ``ops/adasum.py`` ``adasum_tcp``'s
+        recursive vector-halving distance-doubling, its dot products
+        summed over each level's aligned rank group by XOR recursive
+        doubling, so both ranks of a pair combine with the same
+        coefficients.  Needs a power-of-2 world."""
+        from ..ops.adasum import is_pow2
+        size, rank = self.size, self.rank
+        if size == 1:
+            return buf
+        if not is_pow2(size):
+            raise ValueError(
+                f"Adasum requires a power-of-2 world size, got {size}")
+        frag = buf.reshape(-1).to(torch.float64, copy=True)
+        path: list[tuple[int, bool, int]] = []   # (partner, kept_first, n)
+        distance, level = 1, 0
+        while distance < size:
+            partner = rank ^ distance
+            n = frag.numel()
+            mid = n // 2
+            kept_first = rank < partner
+            keep = frag[:mid] if kept_first else frag[mid:]
+            give = frag[mid:] if kept_first else frag[:mid]
+            other = torch.empty_like(keep)
+            self._exchange(partner, give.contiguous(), other)
+            a, b = (keep, other) if kept_first else (other, keep)
+            dots = torch.stack([a @ a, b @ b, a @ b])
+            for j in range(level + 1):
+                peer_dots = torch.empty_like(dots)
+                self._exchange(rank ^ (1 << j), dots, peer_dots)
+                dots = dots + peer_dots
+            frag = adasum_combine(a, b, dots)
+            path.append((partner, kept_first, n))
+            distance <<= 1
+            level += 1
+        # Reverse sweep: reassemble the full combined vector.
+        for partner, kept_first, n in reversed(path):
+            other = frag.new_empty(n - frag.numel())
+            self._exchange(partner, frag, other)
+            frag = torch.cat([frag, other] if kept_first else [other, frag])
+        return cast(frag, buf.dtype)
+
     def reducescatter(self, rows: torch.Tensor,
                       bounds: list[int]) -> torch.Tensor:
         """Sum ``rows`` ([n, rest]) over the ranks and return rows
@@ -155,9 +267,9 @@ class NcclBackend(CollectiveBackend):
 
     name = "nccl"
 
-    _SUPPORTED = (ResponseType.ALLREDUCE, ResponseType.BROADCAST,
-                  ResponseType.ALLGATHER, ResponseType.ALLTOALL,
-                  ResponseType.REDUCESCATTER)
+    _SUPPORTED = (ResponseType.ALLREDUCE, ResponseType.ADASUM,
+                  ResponseType.BROADCAST, ResponseType.ALLGATHER,
+                  ResponseType.ALLTOALL, ResponseType.REDUCESCATTER)
 
     def __init__(self, comm: NcclCommunicator) -> None:
         self.comm = comm
@@ -174,12 +286,38 @@ class NcclBackend(CollectiveBackend):
 
     def allreduce(self, response: Response,
                   entries: list[TensorTableEntry]) -> Status:
-        if response.codec:
-            raise NotImplementedError(
-                f"the quantized wire on the device plane is {_REST_9A}")
         buf = self.pack_fusion_buffer(response, entries)
         buf = self.scale_buffer(buf, response.prescale_factor)
         dtype = buf.dtype
+        wire_dt = self.wire_cast_dtype(response)
+        codec = self.quantized_codec(response)
+        if response.response_type == ResponseType.ADASUM or \
+                codec is not None:
+            self._act_start(entries, "NCCL_ADASUM" if codec is None
+                            else "NCCL_QUANTIZED_ALLREDUCE")
+            try:
+                if codec is not None:
+                    buf = self.comm.quantized_allreduce(
+                        buf, codec, self.codec_block_size(response))
+                else:
+                    # Per tensor, as on the TCP plane; the cast codecs
+                    # shrink the exchanged payload.
+                    if wire_dt is not None:
+                        buf = cast(buf, wire_dt)
+                    offset, parts = 0, []
+                    for n in response.tensor_sizes:
+                        parts.append(self.comm.adasum(
+                            buf[offset:offset + n]))
+                        offset += n
+                    buf = torch.cat(parts) if len(parts) > 1 else parts[0]
+            finally:
+                self._act_end(entries)
+            buf = self.scale_buffer(cast(buf, dtype),
+                                    response.postscale_factor)
+            self.unpack_fusion_buffer(buf, response, entries)
+            return Status.ok()
+        if wire_dt is not None:
+            buf = cast(buf, wire_dt)       # the cast codecs' wire
         acc = _widen(buf)
         if acc is buf and any(e.tensor is not None
                               and e.tensor.untyped_storage().data_ptr()
@@ -191,7 +329,7 @@ class NcclBackend(CollectiveBackend):
             self.comm.allreduce(acc)
         finally:
             self._act_end(entries)
-        buf = self.scale_buffer(_narrow(acc, dtype),
+        buf = self.scale_buffer(cast(_narrow(acc, buf.dtype), dtype),
                                 response.postscale_factor)
         self.unpack_fusion_buffer(buf, response, entries)
         return Status.ok()

@@ -1,10 +1,12 @@
 """Shared-memory data plane for same-host worlds.
 
 The port's copy of ``horovod_tpu/backend/shm.py`` (``ShmWorld``,
-``ShmBackend``) on CPU torch tensors, without the quantized codec legs,
-fault tolerance's heartbeat and its metrics counters (ROADMAP queue A item
-9(a), the rest).  The lockstep protocol, the chunk split and the
-accumulation order are the reference's, so the sums are bitwise equal.
+``ShmBackend`` with its cast and quantized codec legs) on CPU torch
+tensors, without fault tolerance's heartbeat and its metrics counters
+(ROADMAP queue A item 9(a), the rest).  The lockstep protocol, the chunk
+split and the accumulation order are the reference's, and the quantized
+legs run its numpy codec on numpy views of the regions, so the results
+are bitwise equal.
 
 The eager analogue of the reference's intra-node shared-memory paths —
 Gloo's shm transport and MPIHierarchicalAllgather's node-shared window
@@ -56,7 +58,8 @@ from ..common.message import Response, ResponseType
 from ..common.status import Status
 from ..common.tensor_queue import TensorTableEntry
 from .base import (CollectiveBackend, _rest, accum_dtype as _accum_dtype,
-                   add_, contiguous, dim0_row_bounds, is_device_response)
+                   add_, cast, contiguous, dim0_row_bounds,
+                   is_device_response)
 
 _HEADER = 4096          # one page: seq word + splits table + padding
 _SEQ_OFFSET = 0
@@ -359,6 +362,10 @@ class ShmBackend(CollectiveBackend):
     def __init__(self, world: ShmWorld) -> None:
         self.world = world
         self.ops_executed = 0   # which plane served an op (tests, smoke)
+        # The quantized legs' dispatch (HOROVOD_FUSED_KERNELS, read at
+        # the first quantized op) and their persistent scratch.
+        self.fused: bool | None = None
+        self._fk = None
         # TcpBackend delegate for alltoall payloads that exceed the
         # region capacity (set by core.init).
         self.tcp = None
@@ -369,8 +376,25 @@ class ShmBackend(CollectiveBackend):
             return False
         rt = response.response_type
         if rt == ResponseType.ALLREDUCE:
-            nbytes = sum(response.tensor_sizes) * \
-                element_size(response.tensor_type)
+            # The fused payload must fit one region; every input to the
+            # sizing comes from the response, so it is rank-symmetric
+            # whatever the codec.
+            n = sum(response.tensor_sizes)
+            codec = self.quantized_codec(response)
+            if codec is not None:
+                from ..compress import staged_nbytes
+                per_chunk, stage_total = staged_nbytes(
+                    n, self.world.size, codec,
+                    self.codec_block_size(response))
+                # Staged contribution chunks + the owner's requantized
+                # result chunk live in one region at once.
+                nbytes = stage_total + (max(per_chunk) if per_chunk
+                                        else 0)
+            else:
+                wire_dt = self.wire_cast_dtype(response)
+                itemsize = wire_dt.itemsize if wire_dt is not None \
+                    else element_size(response.tensor_type)
+                nbytes = n * itemsize
         elif rt == ResponseType.BROADCAST and len(entries) == 1:
             nbytes = response.tensor_sizes[0] * \
                 element_size(response.tensor_type)
@@ -424,7 +448,14 @@ class ShmBackend(CollectiveBackend):
                           t: int) -> Status:
         w = self.world
         rank, size = w.rank, w.size
-        dtype = to_torch(response.tensor_type)
+        result_dtype = to_torch(response.tensor_type)
+        codec = self.quantized_codec(response)
+        if codec is not None:
+            return self._allreduce_quantized(response, entries, t, codec)
+        # Cast codecs (fp16/bf16) stage and reduce in the wire dtype: the
+        # fp32 accumulation below already widens 16-bit wires, so this is
+        # the legacy cast compression with half the staged bytes.
+        dtype = self.wire_cast_dtype(response) or result_dtype
         itemsize = dtype.itemsize
         n = sum(response.tensor_sizes)
 
@@ -433,7 +464,7 @@ class ShmBackend(CollectiveBackend):
         my_region = _typed(w.data(rank), 0, n * itemsize, dtype)
         packed = self.pack_fusion_buffer(response, entries)
         packed = self.scale_buffer(packed, response.prescale_factor)
-        my_region.copy_(packed)
+        my_region.copy_(cast(packed, dtype))
         w.publish(3 * t + 1)
         nbytes = n * itemsize
 
@@ -443,6 +474,7 @@ class ShmBackend(CollectiveBackend):
             peer = _typed(w.data(1 - rank), 0, nbytes, dtype)
             out = self._full_sum(my_region, peer)
             w.publish(3 * t + 3)
+            out = cast(out, result_dtype)
             out = self.scale_buffer(out, response.postscale_factor)
             self.unpack_fusion_buffer(out, response, entries)
             self.ops_executed += 1
@@ -485,6 +517,98 @@ class ShmBackend(CollectiveBackend):
                                       rhi * itemsize, dtype)
         w.publish(3 * t + 3)
 
+        out = cast(out, result_dtype)
+        out = self.scale_buffer(out, response.postscale_factor)
+        self.unpack_fusion_buffer(out, response, entries)
+        self.ops_executed += 1
+        return Status.ok()
+
+    def _allreduce_quantized(self, response: Response,
+                             entries: list[TensorTableEntry],
+                             t: int, codec) -> Status:
+        """Quantized allreduce over the regions: the TCP plane's
+        owner-reduce (one input quantization, fp32 accumulation in rank
+        order, one requantization of the reduced chunk) in the 3-barrier
+        lockstep:
+
+          stage   quantized chunks, one per destination rank, at
+                  deterministic offsets;               publish 3t+1
+          reduce  my chunk: dequantize every rank's contribution
+                  (mine too) and sum in fp32, requantize once into the
+                  region's result area;                publish 3t+2
+          gather  the owners' requantized chunks, dequantized into a
+                  fresh private array;                 publish 3t+3
+
+        The regions carry about 1/4 (int8) or 1/8 (uint4) of the fp32
+        bytes, and the result is the TCP plane's bit for bit.  The fused
+        passes (``compress/fused.py``) and the per-chunk chain
+        (HOROVOD_FUSED_KERNELS=0) are bitwise equal."""
+        from ..compress import (chunk_bounds, dequantize, from_bytes,
+                                quantize, staged_nbytes, to_bytes)
+        w = self.world
+        rank, size = w.rank, w.size
+        block_size = self.codec_block_size(response)
+        n = sum(response.tensor_sizes)
+        per_chunk, stage_total = staged_nbytes(n, size, codec, block_size)
+        chunk_off = np.cumsum([0] + per_chunk).tolist()
+        bounds = chunk_bounds(n, size).tolist()
+        my_len = bounds[rank + 1] - bounds[rank]
+        lo = chunk_off[rank]
+        if self.fused is None:
+            from ..common import config
+            self.fused = bool(config.FUSED_KERNELS.get())
+        if self.fused and self._fk is None:
+            from ..compress.fused import FusedKernels
+            self._fk = FusedKernels()
+        fk = self._fk
+
+        def encode(x: np.ndarray, slot) -> np.ndarray:
+            if self.fused:
+                return fk.encode(x, codec, block_size, slot)
+            return np.frombuffer(to_bytes(quantize(x, codec, block_size)),
+                                 np.uint8)
+
+        w.wait_all(3 * t)
+        packed = self.pack_fusion_buffer(response, entries)
+        packed = self.scale_buffer(packed, response.prescale_factor)
+        x = contiguous(packed.float()).numpy()
+        region = w.data(rank).numpy()
+        for j in range(size):
+            wire = encode(x[bounds[j]:bounds[j + 1]], ("enc",))
+            region[chunk_off[j]:chunk_off[j] + wire.size] = wire
+        w.publish(3 * t + 1)
+
+        w.wait_all(3 * t + 1)
+        if self.fused:
+            acc = fk.f32(("acc",), my_len)
+            acc[:] = 0.0
+            for r in range(size):              # rank-order accumulate
+                fk.decode_add(w.data(r).numpy()[lo:lo + per_chunk[rank]],
+                              my_len, codec, block_size, acc, ("in",))
+        else:
+            acc = np.zeros(my_len, np.float32)
+            for r in range(size):
+                acc += dequantize(from_bytes(
+                    w.data(r).numpy()[lo:lo + per_chunk[rank]], my_len,
+                    codec, block_size))
+        reduced = encode(acc, ("red",))
+        region[stage_total:stage_total + reduced.size] = reduced
+        w.publish(3 * t + 2)
+
+        w.wait_all(3 * t + 2)
+        out = np.empty(n, np.float32)
+        for r in range(size):
+            raw = w.data(r).numpy()[stage_total:stage_total + per_chunk[r]]
+            part = out[bounds[r]:bounds[r + 1]]
+            if self.fused:
+                fk.decode_into(raw, part.size, codec, block_size, part,
+                               ("out",))
+            else:
+                part[:] = dequantize(from_bytes(raw, part.size, codec,
+                                                block_size))
+        w.publish(3 * t + 3)
+
+        out = cast(torch.from_numpy(out), to_torch(response.tensor_type))
         out = self.scale_buffer(out, response.postscale_factor)
         self.unpack_fusion_buffer(out, response, entries)
         self.ops_executed += 1

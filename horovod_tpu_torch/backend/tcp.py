@@ -2,11 +2,12 @@
 
 The port's copy of ``horovod_tpu/backend/tcp.py`` (``TcpCollectives`` with
 the ring, tree, rhd and torus allreduce schedules that ``HOROVOD_ALGO=auto``
-picks among, and ``TcpBackend``) on CPU torch tensors.  The codec legs
-(cast and quantized wires, the fused codec kernels) and Adasum are left
-out with the eager codecs (ROADMAP queue A item 9(a), the rest); the
-schedules and their sum order are the reference's, so the sums are
-bitwise equal.
+picks among, the cast and quantized codec legs, and ``TcpBackend`` with
+its Adasum branch) on CPU torch tensors.  The schedules and their sum
+order are the reference's, and the codec legs run the reference's numpy
+arithmetic on numpy views of the tensors' memory (``compress/quantize.py``
+and ``compress/fused.py``; torch casts only where numpy has no bf16), so
+the results are bitwise equal.
 
 Reference: horovod/common/ops/gloo_operations.{cc,h} (ring / halving-doubling
 CPU collectives).  Bulk payloads ride a dedicated full-mesh socket set
@@ -32,15 +33,21 @@ import torch
 
 from ..common import config
 from ..common.dtypes import to_torch
-from ..common.message import Response
+from ..common.message import Response, ResponseType
 from ..common.status import Status
 from ..common.tensor_queue import TensorTableEntry
 from ..runner.network import PeerMesh
 from .base import (CollectiveBackend, _rest, accum_dtype as _accum_dtype,
-                   add_, byte_view as _bv, contiguous, dim0_row_bounds,
+                   add_, byte_view as _bv, cast, contiguous, dim0_row_bounds,
                    is_device_response)
 
 _SEGMENT_BYTES = 256 * 1024
+
+
+def _nbv(arr: np.ndarray) -> memoryview:
+    """Flat byte view of a C-contiguous numpy array (a codec wire image
+    or an fp32 accumulator)."""
+    return memoryview(arr.reshape(-1).view(np.uint8))
 
 
 class TcpCollectives:
@@ -50,7 +57,8 @@ class TcpCollectives:
                  ring_order: list[int] | None = None,
                  torus: tuple[int, int] | None = None,
                  algo: str | None = None,
-                 tree_threshold: int | None = None) -> None:
+                 tree_threshold: int | None = None,
+                 fused: bool | None = None) -> None:
         self.mesh = mesh
         self.rank = mesh.rank
         self.size = mesh.size
@@ -79,12 +87,36 @@ class TcpCollectives:
         self.last_algo = "ring"
         # Whether the last allreduce ran the native C++ ring.
         self.last_native = False
+        # Single-pass codec passes (compress/fused.py) against the
+        # per-chunk chain of compress/quantize.py (HOROVOD_FUSED_KERNELS);
+        # bitwise equal either way.
+        self.fused = config.FUSED_KERNELS.get() if fused is None \
+            else bool(fused)
+        from ..compress.fused import FusedKernels
+        self._fk = FusedKernels()
         # Per-(peer, dtype) typed views over the channels' scratch
         # bytearrays (one cached view per channel instead of a fresh
         # wrapper per segment).
         self._seg_views: dict = {}
 
     # -- helpers --------------------------------------------------------
+    def _sendrecv(self, to_rank: int, payload: bytes,
+                  from_rank: int) -> bytearray:
+        """Concurrent send+recv, so pairwise exchanges cannot deadlock on
+        filled socket buffers: the send streams on the peer's sender lane
+        while this thread blocks in recv."""
+        self.mesh.send_async(to_rank, payload)
+        return self.mesh.recv(from_rank)
+
+    def _recv_scratch(self, frm: int) -> memoryview:
+        """Receive one framed message into the peer's reusable scratch;
+        the view is valid until the next receive from `frm`."""
+        nbytes = self.mesh.recv_begin(frm)
+        view = self.mesh.scratch(frm, nbytes)
+        if nbytes:
+            self.mesh.recv_raw_into(frm, view)
+        return view
+
     def _scratch_view(self, frm: int, view: memoryview,
                       dtype: torch.dtype) -> torch.Tensor:
         """Persistent typed tensor over the peer channel's scratch
@@ -400,6 +432,254 @@ class TcpCollectives:
         self.mesh.flush()
         return acc
 
+    # -- cast-codec allreduce -------------------------------------------
+    def cast_allreduce(self, buf: torch.Tensor,
+                       wire_dtype: torch.dtype) -> torch.Tensor:
+        """Allreduce with a narrow wire dtype (fp16/bf16) that halves the
+        socket bytes: each rank ships its wire-cast chunks to their
+        owners, owners accumulate in fp32 in rank order and round ONCE,
+        and the reduced chunks return in the wire dtype.  Small payloads
+        in worlds above two ranks take the binomial tree, bitwise equal
+        to the owner-reduce."""
+        if self.size == 1:
+            return buf
+        if self.size > 2 and self._select_algo(
+                buf.numel() * wire_dtype.itemsize) == "tree":
+            self.last_algo = "tree"
+            return self._cast_allreduce_tree(buf, wire_dtype)
+        self.last_algo = "ring"
+        if self.fused:
+            return self._cast_allreduce_fused(buf, wire_dtype)
+        return self._cast_allreduce_reference(buf, wire_dtype)
+
+    def _cast_return_leg(self, reduced: torch.Tensor, bounds,
+                         n: int) -> torch.Tensor:
+        """Send my reduced chunk to every peer and receive theirs
+        straight into their output slices."""
+        rank, size = self.rank, self.size
+        out = torch.empty(n, dtype=reduced.dtype)
+        out[bounds[rank]:bounds[rank + 1]] = reduced
+        payload = _bv(reduced)
+        for offset in range(1, size):
+            to = (rank + offset) % size
+            frm = (rank - offset) % size
+            self.mesh.send_async(to, payload)
+            self._recv_into(frm, out[bounds[frm]:bounds[frm + 1]])
+        self.mesh.flush()
+        return out
+
+    def _cast_allreduce_fused(self, buf: torch.Tensor,
+                              wire_dtype: torch.dtype) -> torch.Tensor:
+        """Every destination chunk is posted on the sender lanes up
+        front, then contributions are received in ascending rank order
+        and folded into the fp32 accumulator as they land
+        (``FusedKernels.cast_add``): the reference chain's rank-order
+        sum, without its per-peer allocations."""
+        from ..compress import chunk_bounds
+        n, rank, size = buf.numel(), self.rank, self.size
+        fk = self._fk
+        x = cast(contiguous(buf), wire_dtype)
+        bounds = chunk_bounds(n, size).tolist()
+        my_len = bounds[rank + 1] - bounds[rank]
+        for offset in range(1, size):
+            to = (rank + offset) % size
+            self.mesh.send_async(to, _bv(x[bounds[to]:bounds[to + 1]]))
+        acc = fk.f32(("cacc",), my_len)
+        acc[:] = 0.0
+        for j in range(size):                  # rank-order accumulate
+            view = _bv(x[bounds[rank]:bounds[rank + 1]]) if j == rank \
+                else self._recv_scratch(j)
+            fk.cast_add(view, wire_dtype, acc, ("cin",))
+        reduced = cast(torch.from_numpy(acc), wire_dtype)  # ONE rounding
+        return cast(self._cast_return_leg(reduced, bounds, n), buf.dtype)
+
+    def _cast_allreduce_reference(self, buf: torch.Tensor,
+                                  wire_dtype: torch.dtype) -> torch.Tensor:
+        """The per-chunk chain (HOROVOD_FUSED_KERNELS=0): each peer's
+        contribution widened as it arrives into a list, summed in rank
+        order at the end."""
+        from ..compress import chunk_bounds
+        n, rank, size = buf.numel(), self.rank, self.size
+        x = cast(contiguous(buf), wire_dtype)
+        bounds = chunk_bounds(n, size).tolist()
+        my_len = bounds[rank + 1] - bounds[rank]
+        contrib32: list = [None] * size
+        contrib32[rank] = x[bounds[rank]:bounds[rank + 1]].float()
+        for offset in range(1, size):
+            to = (rank + offset) % size
+            frm = (rank - offset) % size
+            self.mesh.send_async(to, _bv(x[bounds[to]:bounds[to + 1]]))
+            view = self._recv_scratch(frm)
+            contrib32[frm] = torch.frombuffer(
+                view, dtype=wire_dtype, count=my_len).float() \
+                if my_len else torch.zeros(0)
+        acc = torch.zeros(my_len)
+        for c in contrib32:                    # rank order
+            acc += c
+        reduced = cast(acc, wire_dtype)
+        return cast(self._cast_return_leg(reduced, bounds, n), buf.dtype)
+
+    # -- quantized allreduce --------------------------------------------
+    def quantized_allreduce(self, buf: torch.Tensor, codec,
+                            block_size: int) -> torch.Tensor:
+        """Block-quantized allreduce, the owner-reduce exchange:
+
+          1. quantize each destination chunk of my buffer on its own;
+          2. send the quantized chunks (scales + zero points + payload)
+             to their owners;
+          3. dequantize + sum in fp32 in rank order, my own contribution
+             dequantized too, so every rank reconstructs the same value;
+          4. requantize the reduced chunk ONCE and send it to every rank.
+
+        Wire bytes: 2(N-1)/N · the quantized size.  Small payloads in
+        worlds above two ranks take the tree when the chunks are
+        block-aligned (then its block stats equal the ring's) or the
+        tree is pinned.  Fused and per-chunk chains are bitwise equal."""
+        if self.size == 1:
+            return buf
+        aligned = buf.numel() % (self.size * block_size) == 0
+        if self.size > 2 and (aligned or self.algo == "tree") and \
+                self._select_algo(buf.numel() * 4) == "tree":
+            self.last_algo = "tree"
+            return self._quantized_allreduce_tree(buf, codec, block_size)
+        self.last_algo = "ring"
+        if self.fused:
+            return self._quantized_allreduce_fused(buf, codec, block_size)
+        return self._quantized_allreduce_reference(buf, codec, block_size)
+
+    def _quantized_allreduce_fused(self, buf: torch.Tensor, codec,
+                                   block_size: int) -> torch.Tensor:
+        """Requantize straight into persistent wire images, each posted
+        on its lane as soon as it is encoded; contributions are received
+        in ascending rank order and folded into the fp32 accumulator as
+        they land (``decode_add``); the return leg decodes straight into
+        the output slices."""
+        from ..compress import chunk_bounds
+        n, rank, size = buf.numel(), self.rank, self.size
+        fk = self._fk
+        x = contiguous(buf.float()).numpy()
+        bounds = chunk_bounds(n, size).tolist()
+        my_len = bounds[rank + 1] - bounds[rank]
+        for offset in range(1, size):          # encode k+1 overlaps wire k
+            to = (rank + offset) % size
+            self.mesh.send_async(
+                to, fk.encode(x[bounds[to]:bounds[to + 1]], codec,
+                              block_size, ("enc", to)))
+        my_wire = fk.encode(x[bounds[rank]:bounds[rank + 1]], codec,
+                            block_size, ("enc", rank))
+        acc = fk.f32(("qacc",), my_len)
+        acc[:] = 0.0
+        for j in range(size):                  # rank-order accumulate
+            view = my_wire if j == rank else self._recv_scratch(j)
+            fk.decode_add(view, my_len, codec, block_size, acc, ("qin",))
+        reduced = fk.encode(acc, codec, block_size, ("red",))
+
+        out = np.empty(n, np.float32)
+        fk.decode_into(reduced, my_len, codec, block_size,
+                       out[bounds[rank]:bounds[rank + 1]], ("qout",))
+        for offset in range(1, size):
+            to = (rank + offset) % size
+            frm = (rank - offset) % size
+            self.mesh.send_async(to, reduced)
+            view = self._recv_scratch(frm)
+            fk.decode_into(view, bounds[frm + 1] - bounds[frm], codec,
+                           block_size, out[bounds[frm]:bounds[frm + 1]],
+                           ("qout",))
+        self.mesh.flush()
+        return cast(torch.from_numpy(out), buf.dtype)
+
+    def _quantized_allreduce_reference(self, buf: torch.Tensor, codec,
+                                       block_size: int) -> torch.Tensor:
+        """The per-chunk chain (HOROVOD_FUSED_KERNELS=0): quantize and
+        to_bytes on the way out, from_bytes and dequantize and a deferred
+        rank-order sum on the way in."""
+        from ..compress import (chunk_bounds, dequantize, from_bytes,
+                                quantize, to_bytes)
+        n, rank, size = buf.numel(), self.rank, self.size
+        x = contiguous(buf.float()).numpy()
+        bounds = chunk_bounds(n, size).tolist()
+        my_chunks = [quantize(x[bounds[j]:bounds[j + 1]], codec, block_size)
+                     for j in range(size)]
+        my_len = bounds[rank + 1] - bounds[rank]
+        contrib32: list = [None] * size
+        contrib32[rank] = dequantize(my_chunks[rank])
+        for offset in range(1, size):
+            to = (rank + offset) % size
+            frm = (rank - offset) % size
+            self.mesh.send_async(to, to_bytes(my_chunks[to]))
+            view = self._recv_scratch(frm)
+            contrib32[frm] = dequantize(from_bytes(
+                np.frombuffer(view, np.uint8), my_len, codec, block_size))
+        acc = np.zeros(my_len, np.float32)
+        for c in contrib32:
+            acc += c
+        reduced = quantize(acc, codec, block_size)
+
+        out_parts: list = [None] * size
+        out_parts[rank] = dequantize(reduced)
+        payload = to_bytes(reduced)
+        for offset in range(1, size):
+            to = (rank + offset) % size
+            frm = (rank - offset) % size
+            self.mesh.send_async(to, payload)
+            view = self._recv_scratch(frm)
+            out_parts[frm] = dequantize(from_bytes(
+                np.frombuffer(view, np.uint8),
+                bounds[frm + 1] - bounds[frm], codec, block_size))
+        self.mesh.flush()
+        return cast(torch.from_numpy(np.concatenate(out_parts)), buf.dtype)
+
+    # -- small-tensor codec legs on the binomial tree -------------------
+    def _cast_allreduce_tree(self, buf: torch.Tensor,
+                             wire_dtype: torch.dtype) -> torch.Tensor:
+        """Whole-buffer wire-cast contributions gather to rank 0, the
+        root widens and accumulates all N in rank order in fp32 and
+        rounds ONCE, and the reduced image returns on the broadcast."""
+        n, size = buf.numel(), self.size
+        fk = self._fk
+        x = cast(contiguous(buf), wire_dtype)
+        item = n * wire_dtype.itemsize
+        block = self._tree_gather(_bv(x), item)
+        if block is not None:               # root: rank-order accumulate
+            acc = fk.f32(("tcacc",), n)
+            acc[:] = 0.0
+            mv = memoryview(block)
+            for j in range(size):
+                fk.cast_add(mv[j * item:(j + 1) * item], wire_dtype,
+                            acc, ("tcin",))
+            out = cast(torch.from_numpy(acc), wire_dtype)   # ONE rounding
+        else:
+            out = torch.empty(n, dtype=wire_dtype)
+        self._tree_bcast_into(_bv(out))
+        return cast(out, buf.dtype)
+
+    def _quantized_allreduce_tree(self, buf: torch.Tensor, codec,
+                                  block_size: int) -> torch.Tensor:
+        """Whole-buffer encoded contributions gather to rank 0, the root
+        dequantizes and accumulates all N in rank order in fp32 and
+        requantizes ONCE, and every rank decodes the broadcast image."""
+        n, size = buf.numel(), self.size
+        fk = self._fk
+        x = contiguous(buf.float()).numpy()
+        wire = fk.encode(x, codec, block_size, ("tqenc",))
+        item = wire.nbytes                  # deterministic in (n, codec)
+        block = self._tree_gather(_nbv(wire), item)
+        if block is not None:               # root: rank-order accumulate
+            acc = fk.f32(("tqacc",), n)
+            acc[:] = 0.0
+            mv = memoryview(block)
+            for j in range(size):
+                fk.decode_add(mv[j * item:(j + 1) * item], n, codec,
+                              block_size, acc, ("tqin",))
+            reduced = np.ascontiguousarray(
+                fk.encode(acc, codec, block_size, ("tqred",)))
+        else:
+            reduced = np.empty(item, np.uint8)
+        self._tree_bcast_into(_nbv(reduced))
+        out = np.empty(n, np.float32)
+        fk.decode_into(reduced, n, codec, block_size, out, ("tqout",))
+        return cast(torch.from_numpy(out), buf.dtype)
+
     # -- reduce-scatter -------------------------------------------------
     def reduce_scatter(self, buf: torch.Tensor,
                        bounds: list[int]) -> torch.Tensor:
@@ -528,12 +808,51 @@ class TcpBackend(CollectiveBackend):
                   entries: list[TensorTableEntry]) -> Status:
         buf = self.pack_fusion_buffer(response, entries)
         buf = self.scale_buffer(buf, response.prescale_factor)
-        self._act_start(entries, "TCP_RING_ALLREDUCE")
-        try:
-            buf = self.coll.allreduce(buf)
-        finally:
-            self._act_end(entries)
-        self.last_algo = self.coll.last_algo
+        dtype = buf.dtype
+        wire_dt = self.wire_cast_dtype(response)
+        codec = self.quantized_codec(response)
+        if response.response_type == ResponseType.ADASUM:
+            from ..ops.adasum import adasum_tcp
+            # Adasum is per tensor: a fused response runs VHDD per
+            # segment, so no dot product mixes two tensors.  The cast
+            # codecs shrink the payload; quantized codecs were refused
+            # at negotiation.
+            if wire_dt is not None:
+                buf = cast(buf, wire_dt)
+            self._act_start(entries, "TCP_ADASUM")
+            try:
+                offset, parts = 0, []
+                for n in response.tensor_sizes:
+                    parts.append(adasum_tcp(self.coll,
+                                            buf[offset:offset + n]))
+                    offset += n
+                buf = torch.cat(parts) if len(parts) > 1 else parts[0]
+            finally:
+                self._act_end(entries)
+            buf = cast(buf, dtype)
+            self.last_algo = "adasum"
+        elif codec is not None:
+            self._act_start(entries, "TCP_QUANTIZED_ALLREDUCE")
+            try:
+                buf = self.coll.quantized_allreduce(
+                    buf, codec, self.codec_block_size(response))
+            finally:
+                self._act_end(entries)
+            self.last_algo = self.coll.last_algo
+        elif wire_dt is not None:
+            self._act_start(entries, "TCP_CAST_ALLREDUCE")
+            try:
+                buf = self.coll.cast_allreduce(buf, wire_dt)
+            finally:
+                self._act_end(entries)
+            self.last_algo = self.coll.last_algo
+        else:
+            self._act_start(entries, "TCP_RING_ALLREDUCE")
+            try:
+                buf = self.coll.allreduce(buf)
+            finally:
+                self._act_end(entries)
+            self.last_algo = self.coll.last_algo
         buf = self.scale_buffer(buf, response.postscale_factor)
         self.unpack_fusion_buffer(buf, response, entries)
         return Status.ok()

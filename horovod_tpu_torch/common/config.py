@@ -213,14 +213,38 @@ XLA_OPERATIONS = Knob(
     "plane is HOROVOD_NCCL_OPERATIONS, and 1 here raises "
     "NotImplementedError.")
 
+HIERARCHICAL_ALLREDUCE = Knob(
+    "HOROVOD_HIERARCHICAL_ALLREDUCE", False, _parse_bool,
+    "Two-level allreduce on the host planes (backend/hierarchical.py): "
+    "reduce-scatter within a host, allreduce of the owned shard across "
+    "hosts, allgather within the host.  Needs the launcher's host-major "
+    "layout (or HOROVOD_TOPOLOGY=torus:RxC); otherwise every rank keeps "
+    "the flat path.")
+HIERARCHICAL_ALLGATHER = Knob(
+    "HOROVOD_HIERARCHICAL_ALLGATHER", False, _parse_bool,
+    "Two-level allgather on the host planes: a gather within each host, "
+    "then one exchange of whole host blocks across hosts.")
+COMPRESSION = Knob(
+    "HOROVOD_COMPRESSION", "none", str,
+    "Default wire codec for eager allreduces: none | fp16 | bf16 | int8 "
+    "| uint4.  The quantized codecs apply blockwise scale+zero-point "
+    "compression to floating tensors; integer tensors always ride "
+    "uncompressed.  A call's compression= argument overrides it.")
+COMPRESSION_BLOCK_SIZE = Knob(
+    "HOROVOD_COMPRESSION_BLOCK_SIZE", 256, int,
+    "Elements per quantization block for the int8/uint4 codecs (even for "
+    "uint4); 8 bytes of scale and zero point a block ride the wire.")
+FUSED_KERNELS = Knob(
+    "HOROVOD_FUSED_KERNELS", True, _parse_bool,
+    "Single-pass codec passes on the host planes' quantized and cast legs "
+    "(compress/fused.py, over the native qencode/qdecode): bitwise equal "
+    "to the per-chunk chain of compress/quantize.py, which 0 selects.")
+
 _REST_9A = "ROADMAP queue A item 9(a), the rest"
 
 # Eager knobs whose feature the port does not have yet: (knob, default,
 # parser, roadmap item).  A value other than the default raises at init.
 UNPORTED_EAGER_KNOBS = (
-    ("HOROVOD_HIERARCHICAL_ALLREDUCE", False, _parse_bool, _REST_9A),
-    ("HOROVOD_HIERARCHICAL_ALLGATHER", False, _parse_bool, _REST_9A),
-    ("HOROVOD_COMPRESSION", "none", str, _REST_9A),
     ("HOROVOD_NUM_STREAMS", 1, lambda v: max(int(v), 1), _REST_9A),
     ("HOROVOD_AUTOTUNE", False, _parse_bool, _REST_9A),
     ("HOROVOD_FINGERPRINT", "off", str, _REST_9A),

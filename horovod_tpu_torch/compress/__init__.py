@@ -2,15 +2,18 @@
 
 The port's own copy of ``horovod_tpu/compress/__init__.py``'s codec
 registry (``CompressionCodec``, ``QUANTIZED_CODECS``, ``CAST_CODECS``,
-``codec_from_name``, ``codec_name``, ``codec_levels``):
+``codec_from_name``, ``codec_name``, ``codec_levels``, and the knobs'
+``default_block_size`` and ``default_codec``):
 
   none         passthrough
   fp16 / bf16  wire-dtype cast
   int8         block-wise 8-bit affine quantization
   uint4        block-wise 4-bit affine quantization, two nibbles a byte
 
-``ops.py`` holds the block quantizer and the quantized all-reduce that
-``parallel/grad_sync.py`` runs.
+``quantize.py`` is the numpy block quantizer of the eager host planes and
+``fused.py`` its single-pass passes over the native ``qencode`` and
+``qdecode``; ``ops.py`` holds the torch block quantizer and the quantized
+all-reduce that ``parallel/grad_sync.py`` and the device plane run.
 """
 from __future__ import annotations
 
@@ -72,5 +75,26 @@ def codec_levels(codec: CompressionCodec) -> int:
     raise ValueError(f"codec {codec!r} is not a quantized codec")
 
 
-__all__ = ["CompressionCodec", "QUANTIZED_CODECS", "CAST_CODECS",
-           "codec_from_name", "codec_name", "codec_levels"]
+def default_block_size() -> int:
+    from ..common import config
+    return int(config.COMPRESSION_BLOCK_SIZE.get())
+
+
+def default_codec() -> CompressionCodec:
+    from ..common import config
+    return codec_from_name(config.COMPRESSION.get())
+
+
+from .quantize import (QuantizedBlocks, chunk_bounds, dequantize,  # noqa: E402
+                       from_bytes, num_blocks, payload_nbytes, quantize,
+                       roundtrip_error_bound, serialized_nbytes,
+                       staged_nbytes, to_bytes)
+
+__all__ = [
+    "CompressionCodec", "QUANTIZED_CODECS", "CAST_CODECS",
+    "codec_from_name", "codec_name", "codec_levels",
+    "default_block_size", "default_codec",
+    "QuantizedBlocks", "quantize", "dequantize", "to_bytes", "from_bytes",
+    "num_blocks", "payload_nbytes", "serialized_nbytes", "staged_nbytes",
+    "chunk_bounds", "roundtrip_error_bound",
+]

@@ -15,12 +15,15 @@ the device plane it raises.  Its enqueue records a CUDA event on the
 caller's stream, the background thread runs the card's work on a stream
 of its own after waiting on that event, and ``Handle.wait`` makes the
 caller's stream wait on the event recorded after the output was written
-(upstream Horovod's ready events).  Left out, each raising
-``NotImplementedError`` naming its ROADMAP item when asked for
-(``common/config.py`` ``check_eager_knobs``): the hierarchical plane, the
-eager codecs, Adasum, dispatch streams, the autotuner, fingerprints,
-fault tolerance and chaos, the metrics exporter and the flight recorder
-(item 9(a)'s rest), and elastic re-init (item 11).
+(upstream Horovod's ready events).  An allreduce carries its wire codec
+(the call's ``compression=``, else ``HOROVOD_COMPRESSION``) and Adasum
+as the reference's requests do; the hierarchical plane forms after the
+device plane under ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``ALLGATHER``.
+Left out, each raising ``NotImplementedError`` naming its ROADMAP item
+when asked for (``common/config.py`` ``check_eager_knobs``): dispatch
+streams, the autotuner, fingerprints, fault tolerance and chaos, the
+metrics exporter and the flight recorder (item 9(a)'s rest), and elastic
+re-init (item 11).
 
 Design: user threads enqueue TensorTableEntries + Requests; a single
 background thread runs the controller protocol every CycleTime ms, receives
@@ -55,7 +58,6 @@ from .common.tensor_queue import TensorQueue, TensorTableEntry
 from .common.timeline import Timeline
 
 JOIN_TENSOR_NAME = "__join__"
-_REST_9A = "ROADMAP queue A item 9(a), the rest"
 
 
 class Handle:
@@ -309,6 +311,15 @@ def init(*, rank: int | None = None, size: int | None = None,
             # FIRST frames on the ctrl mesh), recorded as trace metadata.
             clock_offset_us, clock_rtt_us = transport.estimate_clock_offset()
             _global.timeline.set_clock_sync(clock_offset_us, clock_rtt_us)
+            # The two-level host planes (upstream NCCLHierarchicalAllreduce,
+            # nccl_operations.cc:187-398): local and cross sub-meshes when
+            # the knobs are on.  After the device plane in the chain, so
+            # CUDA tensors keep the card.
+            hier = _hierarchical_backend(
+                rank, size, local_rank, local_size, cross_rank, cross_size,
+                topo, kv, epoch, timeout, shm_mode, shm_capacity)
+            if hier is not None:
+                backends.append(hier)
             # Topology-aware ring order + torus shape for the data plane;
             # identity order keeps the flat schedule.
             ring_order = topo.ring_order() if topo.kind != "flat" else None
@@ -354,6 +365,66 @@ def init(*, rank: int | None = None, size: int | None = None,
             _atexit_registered = True
         logger.debug("horovod_tpu_torch initialized: rank=%d size=%d",
                      rank, size)
+
+
+def _hierarchical_backend(rank, size, local_rank, local_size, cross_rank,
+                          cross_size, topo, kv, epoch, timeout, shm_mode,
+                          shm_capacity):
+    """The hierarchical plane of ``init``, or None.  Every rank makes the
+    same build-or-skip decision: a declared torus builds row and column
+    meshes (the knob is launcher-uniform); otherwise every rank publishes
+    whether its layout is the homogeneous host-major one and the plane
+    forms only when all of them say so."""
+    hier_ar = config.HIERARCHICAL_ALLREDUCE.get()
+    hier_ag = config.HIERARCHICAL_ALLGATHER.get()
+    if not (hier_ar or hier_ag):
+        return None
+    from .backend.hierarchical import HierarchicalTcpBackend
+    from .backend.tcp import TcpCollectives
+    from .runner.network import PeerMesh
+    if topo.kind == "torus":
+        # RS along the row, AR along the column, AG back along the row.
+        t_row, t_col = divmod(rank, topo.cols)
+        row_mesh = PeerMesh(t_col, topo.cols, kv,
+                            scope=f"htor{epoch}.r{t_row}", timeout=timeout)
+        col_mesh = PeerMesh(t_row, topo.rows, kv,
+                            scope=f"htor{epoch}.c{t_col}", timeout=timeout)
+        _global.resources.extend([row_mesh, col_mesh])
+        return HierarchicalTcpBackend(
+            TcpCollectives(row_mesh), TcpCollectives(col_mesh),
+            allreduce_on=hier_ar, allgather_on=hier_ag)
+    layout_ok = (local_size > 1 and cross_size > 1 and
+                 local_size * cross_size == size and
+                 rank == cross_rank * local_size + local_rank)
+    kv.put(f"hier{epoch}", f"ok:{rank}", b"1" if layout_ok else b"0")
+    if not all(kv.wait(f"hier{epoch}", f"ok:{r}", timeout) == b"1"
+               for r in range(size)):
+        logger.warning(
+            "hierarchical collectives requested but the rank layout is "
+            "not homogeneous host-major on every rank (here: rank=%d "
+            "local=%d/%d cross=%d/%d); using the flat path", rank,
+            local_rank, local_size, cross_rank, cross_size)
+        return None
+    local_mesh = PeerMesh(local_rank, local_size, kv,
+                          scope=f"hloc{epoch}.{cross_rank}", timeout=timeout)
+    cross_mesh = PeerMesh(cross_rank, cross_size, kv,
+                          scope=f"hcross{epoch}.{local_rank}", timeout=timeout)
+    _global.resources.extend([local_mesh, cross_mesh])
+    # The intra-host legs ride shm when the local ranks share a memory
+    # domain (a per-host decision: the cross legs are the same either way).
+    hier_shm = None
+    if shm_mode is not False:
+        from .backend.shm import ShmWorld
+        hier_shm = ShmWorld(local_rank, local_size, kv,
+                            scope=f"hshm{epoch}.{cross_rank}",
+                            capacity=shm_capacity, timeout=timeout)
+        if hier_shm.formed:
+            _global.resources.append(hier_shm)
+        else:
+            hier_shm = None
+    return HierarchicalTcpBackend(
+        TcpCollectives(local_mesh), TcpCollectives(cross_mesh),
+        allreduce_on=hier_ar, allgather_on=hier_ag, shm_local=hier_shm)
 
 
 def shutdown() -> None:
@@ -687,12 +758,26 @@ def _enqueue(entries: list[TensorTableEntry],
     return hid, handle
 
 
-def _check_codec(codec) -> None:
-    if codec is not None and str(getattr(codec, "name", codec)).lower() \
-            not in ("none", "0"):
-        raise NotImplementedError(
-            f"eager wire compression (compression={codec!r}) is "
-            f"{_REST_9A}")
+def _resolve_codec(codec) -> tuple[int, int]:
+    """(codec id, block size) for a Request: the call's argument, else
+    the HOROVOD_COMPRESSION knob.  (The reference's autotuner override
+    sits between the two; the port has no autotuner yet.)"""
+    from .compress import (QUANTIZED_CODECS, CompressionCodec,
+                           codec_from_name, default_block_size)
+    if codec is None:
+        codec = config.COMPRESSION.get()
+    c = codec_from_name(codec)
+    if c not in QUANTIZED_CODECS:
+        return int(c), 0
+    bs = default_block_size()
+    if bs <= 0:
+        raise ValueError(
+            f"HOROVOD_COMPRESSION_BLOCK_SIZE must be positive (got {bs})")
+    if c == CompressionCodec.UINT4 and bs % 2:
+        raise ValueError(
+            "uint4 compression requires an even "
+            f"HOROVOD_COMPRESSION_BLOCK_SIZE (got {bs})")
+    return int(c), int(bs)
 
 
 def enqueue_allreduce(name: str, tensor, *, op: str = "sum",
@@ -715,13 +800,12 @@ def enqueue_grouped_allreduce(names: Sequence[str], tensors: Sequence[Any], *,
                               register_group: bool = True,
                               codec=None) -> tuple[int, Handle]:
     st = _require_init()
-    if adasum:
-        raise NotImplementedError(f"Adasum on the eager planes is {_REST_9A}")
-    _check_codec(codec)
     if op == "average":
         postscale_factor = postscale_factor / st.size
     elif op != "sum":
         raise ValueError(f"Unknown allreduce op: {op}")
+    rtype = RequestType.ADASUM if adasum else RequestType.ALLREDUCE
+    codec_id, codec_bs = _resolve_codec(codec)
     arrs = [_as_tensor(t) for t in tensors]
     if len({a.device for a in arrs}) > 1:
         raise ValueError("a grouped allreduce takes its tensors on one "
@@ -733,11 +817,12 @@ def enqueue_grouped_allreduce(names: Sequence[str], tensors: Sequence[Any], *,
         entry = _entry(name, arr)
         entries.append(entry)
         requests.append(Request(
-            request_rank=st.rank, request_type=RequestType.ALLREDUCE,
+            request_rank=st.rank, request_type=rtype,
             tensor_type=from_any(arr.dtype), tensor_name=name,
             device=entry.device, tensor_shape=tuple(arr.shape),
             prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor))
+            postscale_factor=postscale_factor,
+            codec=codec_id, codec_block_size=codec_bs))
     return _enqueue(entries, requests)
 
 

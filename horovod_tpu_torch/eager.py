@@ -10,9 +10,11 @@ on the CPU or on this rank's card (``cuda:<local_rank>``); the result
 comes back on the input's device, in its dtype.  A CUDA tensor rides the
 NCCL device plane (``HOROVOD_NCCL_OPERATIONS``), or in a world of one
 stays on its card; it is never staged through the host, and in a world
-of more than one rank without the device plane it raises.
-``op=Adasum``, ``compression=`` and ``run`` raise
-``NotImplementedError`` (ROADMAP queue A items 9(a)'s rest and 12).
+of more than one rank without the device plane it raises.  An
+allreduce takes ``op=Adasum`` and a wire codec (``compression=``: a name,
+``none``/``fp16``/``bf16``/``int8``/``uint4``, or the binding's
+``Compression.int8``/``uint4``; default ``HOROVOD_COMPRESSION``).
+``run`` raises ``NotImplementedError`` (ROADMAP queue A item 12).
 
 Start a world with a ``RendezvousServer`` of ``runner.network`` and, in
 each rank's environment, ``HOROVOD_RANK``, ``HOROVOD_SIZE``,

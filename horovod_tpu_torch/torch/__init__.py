@@ -11,9 +11,9 @@ The counterpart of ``horovod_tpu/torch/`` (upstream Horovod's
 
 Tensors go to the core as they are: on the CPU they ride the TCP and shm
 planes, on this rank's card the NCCL device plane, and a CUDA tensor is
-never copied to the host.  Left out, each raising ``NotImplementedError``
-naming its ROADMAP item: the Adasum optimizer and the int8 and uint4
-compressors (queue A item 9(a), the rest) and ``elastic`` (item 11).
+never copied to the host.  ``DistributedOptimizer(op=Adasum)`` is the
+Adasum delta optimizer, and ``Compression.int8``/``uint4`` quantize on the
+planes.  Left out: ``elastic`` (ROADMAP queue A item 11).
 """
 from ..core import (cross_rank, cross_size, init, is_homogeneous,
                     is_initialized, local_rank, local_size, rank, shutdown,

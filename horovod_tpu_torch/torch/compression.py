@@ -3,14 +3,14 @@
 compression.py): ``compress(tensor) -> (compressed, ctx)`` casts a
 floating tensor to the wire dtype before the allreduce, ``decompress``
 casts it back.  ``fp16`` and ``bf16`` are torch casts, on the tensor's
-device.  The quantized wires ``int8`` and ``uint4`` are the eager codecs,
-ROADMAP queue A item 9(a)'s rest: they raise ``NotImplementedError``.
+device.  ``int8`` and ``uint4`` pass the tensor through unchanged and tag
+the allreduce with their ``wire_codec``: the planes quantize per fusion
+buffer (per-block scale and zero point, fp32 accumulation), so the
+quantized bytes are what cross the wire.
 """
 from __future__ import annotations
 
 import torch
-
-_REST_9A = "ROADMAP queue A item 9(a), the rest"
 
 
 class Compressor:
@@ -66,22 +66,23 @@ class BF16Compressor(_CastCompressor):
 
 
 class Int8Compressor(Compressor):
-    """The block-quantized int8 wire (the reference's runtime codec)."""
+    """Block-wise int8 wire quantization, done by the planes per fusion
+    buffer (block size: HOROVOD_COMPRESSION_BLOCK_SIZE); not composable
+    with op=Adasum."""
 
     wire_codec = "int8"
 
-    @classmethod
-    def compress(cls, tensor: torch.Tensor):
-        raise NotImplementedError(
-            f"Compression.{cls.wire_codec} (the eager codecs) is {_REST_9A}")
+    @staticmethod
+    def compress(tensor: torch.Tensor):
+        return tensor, None
 
-    @classmethod
-    def decompress(cls, tensor: torch.Tensor, ctx):
-        cls.compress(tensor)
+    @staticmethod
+    def decompress(tensor: torch.Tensor, ctx):
+        return tensor
 
 
 class Uint4Compressor(Int8Compressor):
-    """The 4-bit variant."""
+    """The 4-bit variant: about 1/8 of the fp32 wire bytes."""
 
     wire_codec = "uint4"
 

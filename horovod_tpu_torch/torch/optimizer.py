@@ -7,9 +7,10 @@ communication with the rest of the backward pass; ``synchronize()``
 drains the handles and installs the reduced gradients before ``step()``.
 Gradients on the card ride the NCCL device plane and stay there; hooks
 register only in a world of more than one rank, as in the reference, so
-at one rank the wrapped optimizer steps on the local gradients.
-``op=Adasum`` (the delta optimizer) and the int8 and uint4 compressors
-are ROADMAP queue A item 9(a)'s rest and raise ``NotImplementedError``.
+at one rank the wrapped optimizer steps on the local gradients.  The int8
+and uint4 compressors tag every allreduce with their wire codec, and
+``op=Adasum`` returns the delta optimizer (``_DistributedAdasumOptimizer``),
+whose combined delta stays on the parameter's device.
 """
 from __future__ import annotations
 
@@ -21,8 +22,6 @@ import torch
 from ..eager import Adasum, Average, Sum, size
 from .compression import Compression
 from .mpi_ops import allreduce_async, grouped_allreduce_async
-
-_REST_9A = "ROADMAP queue A item 9(a), the rest"
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -38,10 +37,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         # never consulted.
         super(self.__class__, self).__init__(params)
         self._compression = Compression.resolve(compression)
-        codec = getattr(self._compression, "wire_codec", None)
-        if codec is not None:
-            raise NotImplementedError(
-                f"Compression.{codec} (the eager codecs) is {_REST_9A}")
+        # The int8/uint4 markers leave the quantization to the planes;
+        # their wire_codec tag rides every allreduce this optimizer fires.
+        self._wire_codec = getattr(self._compression, "wire_codec", None)
         self.op = op
         self.gradient_predivide_factor = gradient_predivide_factor
         self.backward_passes_per_step = backward_passes_per_step
@@ -182,7 +180,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         prescale, postscale, op = self._scale_factors()
         handle = allreduce_async(tensor_compressed, name=name, op=op,
                                  prescale_factor=prescale,
-                                 postscale_factor=postscale)
+                                 postscale_factor=postscale,
+                                 compression=self._wire_codec)
         return handle, (tensor_compressed, ctx)
 
     def _grouped_allreduce_grad_async(self, ps):
@@ -193,7 +192,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         prescale, postscale, op = self._scale_factors()
         handle = grouped_allreduce_async(
             tensors, name=f"group.{name}", op=op,
-            prescale_factor=prescale, postscale_factor=postscale)
+            prescale_factor=prescale, postscale_factor=postscale,
+            compression=self._wire_codec)
         return handle, compressed
 
     # -- synchronize / step (reference: optimizer.py:249-332) --------------
@@ -274,6 +274,139 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return super(self.__class__, self).zero_grad(*args, **kwargs)
 
 
+class _DistributedAdasumOptimizer(torch.optim.Optimizer):
+    """The Adasum delta optimizer (upstream torch/optimizer.py:335-503).
+
+    Per parameter, per communication step: snapshot the starting value,
+    run the WRAPPED optimizer on that parameter alone (p becomes start -
+    lr·f(g)), send the parameter's delta through an Adasum allreduce,
+    then apply the combined delta to the starting point.  The parameter
+    is rolled back to its start until ``step()`` installs the combined
+    delta, so the model never sees a half-applied local update.  The
+    delta stays on the parameter's device: on the card it rides the
+    device plane's Adasum."""
+
+    def __init__(self, params, named_parameters=None,
+                 compression=Compression.none,
+                 backward_passes_per_step=1):
+        super(self.__class__, self).__init__(params)
+        self._compression = Compression.resolve(compression)
+        if getattr(self._compression, "wire_codec", None) in \
+                ("int8", "uint4"):
+            raise ValueError(
+                "op=Adasum does not compose with quantized compression "
+                "(int8/uint4); use none, fp16 or bf16.")
+        self.backward_passes_per_step = backward_passes_per_step
+
+        named_parameters = list(named_parameters or [])
+        if named_parameters:
+            if not all(isinstance(k, str) for k, _ in named_parameters):
+                raise ValueError(
+                    "named_parameters should be a sequence of (name, "
+                    "parameter) tuples")
+            all_param_ids = {id(v) for group in self.param_groups
+                             for v in group["params"]}
+            named_ids = {id(v) for _, v in named_parameters}
+            unnamed = all_param_ids - named_ids
+            if unnamed:
+                raise ValueError(
+                    f"{len(unnamed)} parameters were not named; name all "
+                    "parameters passed to DistributedOptimizer")
+            self._parameter_names = {v: k for k, v in named_parameters}
+        else:
+            self._parameter_names = {
+                v: f"adasum.noname.{i}.{j}"
+                for i, group in enumerate(self.param_groups)
+                for j, v in enumerate(group["params"])}
+
+        self._handles: dict = {}
+        self._grad_accs: list = []
+        self._requires_update: set = set()
+        self._allreduce_delay = {}
+        self._starting = {}
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.requires_grad:
+                    self._requires_update.add(p)
+                    self._allreduce_delay[p] = backward_passes_per_step
+                    self._starting[p] = torch.zeros_like(
+                        p, requires_grad=False)
+                    if size() > 1:
+                        acc = p.register_post_accumulate_grad_hook(
+                            self._make_hook(p))
+                        self._grad_accs.append(acc)
+
+    def _make_hook(self, p):
+        def hook(*_):
+            assert self._allreduce_delay[p] > 0
+            self._allreduce_delay[p] -= 1
+            if self._allreduce_delay[p] == 0:
+                self._handles[p] = self._delta_allreduce_async(p)
+        return hook
+
+    def _delta_allreduce_async(self, p):
+        """The wrapped optimizer's step on `p` alone, then an async
+        Adasum of the delta; `p` is rolled back to its start."""
+        name = self._parameter_names.get(p)
+        start = self._starting[p]
+        start.copy_(p.detach())
+
+        stashed = []
+        for group in self.param_groups:
+            stashed.append(group["params"])
+            group["params"] = [p] if any(p is v for v in group["params"]) \
+                else []
+        try:
+            super(self.__class__, self).step()
+        finally:
+            for params, group in zip(stashed, self.param_groups):
+                group["params"] = params
+
+        delta = p.detach() - start
+        p.data.copy_(start)
+        tensor_compressed, ctx = self._compression.compress(delta)
+        handle = allreduce_async(tensor_compressed, name=f"adasum.{name}",
+                                 op=Adasum)
+        return handle, (tensor_compressed, ctx)
+
+    def synchronize(self):
+        """No-op: Adasum's synchronization is part of step()."""
+
+    @contextmanager
+    def skip_synchronize(self):
+        raise AssertionError(
+            "Skipping synchronization is not supported when using the "
+            "Adasum optimizer.")
+
+    def step(self, closure=None):
+        loss = closure() if closure is not None else None
+        if size() <= 1:
+            super(self.__class__, self).step()
+            return loss
+        for p in self._requires_update - set(self._handles):
+            self._handles[p] = self._delta_allreduce_async(p)
+        for p, (handle, (tensor_compressed, ctx)) in \
+                list(self._handles.items()):
+            handle.wait().raise_if_error()
+            out = handle.outputs()[0].reshape(tensor_compressed.shape) \
+                .type(tensor_compressed.dtype)
+            delta = self._compression.decompress(out, ctx).type(p.dtype)
+            start = self._starting[p]
+            start.add_(delta.view_as(start))
+            p.data.copy_(start)
+            self._allreduce_delay[p] = self.backward_passes_per_step
+        self._handles.clear()
+        return loss
+
+    def zero_grad(self, *args, **kwargs):
+        if self._handles:
+            raise AssertionError(
+                "optimizer.zero_grad() was called after loss.backward() "
+                "but before optimizer.step() or optimizer.synchronize(). "
+                "This is prohibited as it can cause a race condition.")
+        return super(self.__class__, self).zero_grad(*args, **kwargs)
+
+
 def DistributedOptimizer(optimizer, named_parameters=None,
                          compression=Compression.none,
                          backward_passes_per_step=1,
@@ -286,12 +419,24 @@ def DistributedOptimizer(optimizer, named_parameters=None,
 
     The returned object is an instance of a dynamically created subclass
     of the input optimizer's class, so isinstance checks and LR schedulers
-    keep working.
+    keep working.  ``op=Adasum`` returns the delta-optimizer variant
+    (upstream torch/optimizer.py:335-503).
     """
     if op == Adasum:
-        raise NotImplementedError(
-            f"DistributedOptimizer(op=Adasum), the Adasum delta optimizer, "
-            f"is {_REST_9A}")
+        if gradient_predivide_factor != 1.0:
+            raise ValueError(
+                "gradient_predivide_factor is not supported with "
+                "op=Adasum (the delta, not the gradient, is reduced)")
+        if groups is not None:
+            raise ValueError("groups are not supported with op=Adasum")
+        cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
+                   dict(_DistributedAdasumOptimizer.__dict__))
+        obj = cls.__new__(cls)
+        _DistributedAdasumOptimizer.__init__(
+            obj, optimizer.param_groups, named_parameters, compression,
+            backward_passes_per_step)
+        obj.load_state_dict(optimizer.state_dict())
+        return obj
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     obj = cls.__new__(cls)

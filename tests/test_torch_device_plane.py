@@ -347,10 +347,12 @@ def test_host_planes_decline_device_responses():
     assert [tcp.enabled(r, []) for r in (device, host)] == [False, True]
     assert [plane.enabled(r, []) for r in (device, host)] == [True, False]
     assert not BasicBackend(2).enabled(device, [])
+    # Adasum of CUDA tensors is the device plane's (it runs the VHDD on
+    # the card); the host planes decline it as any device response.
     adasum = Response(response_type=ResponseType.ADASUM,
                       tensor_names=["t"], devices=[0, 1],
                       tensor_type=DataType.FLOAT32, tensor_sizes=[4])
-    assert not plane.enabled(adasum, [])
+    assert plane.enabled(adasum, []) and not tcp.enabled(adasum, [])
 
 
 def test_host_helpers_refuse_a_tensor_off_the_host():
