@@ -147,6 +147,45 @@ Phases, each printed as one JSON object on its own line:
    two or more cards, (b) and (c) also run across two ranks, one card
    each (``--reduce-card-worker``); with one the summary says so.
 
+12. runtime: the eager core's runtime half, one line a leg.  (a) The
+   card leg: gpt_small at full width (B=8, T=2048, bf16, flash
+   attention, AdamW(3e-4, wd 1e-4)) in a world of one on cuda:0, each
+   step's gradients through ``hvd.grouped_allreduce`` (Average) to the
+   basic plane on the card, 2 warm-up, 5 timed and 3 profiled steps
+   from the same seed under seven settings, each under a fresh
+   ``hvd.init()``: all off (``HOROVOD_FLIGHT=0``), the reference's
+   defaults (the flight recorder on), observed (``HOROVOD_METRICS=1``
+   with ``HOROVOD_METRICS_PORT``, ``HOROVOD_FINGERPRINT=strict``, a
+   timeline and a metrics dump; the exporter scraped once over
+   loopback), each of those three instruments alone, and tuned
+   (``HOROVOD_AUTOTUNE=1`` with a log, one warm-up window, one step a
+   sample, three Bayesian samples).  The profiled steps run under
+   ``_HostProfile``, which times the core's pieces (``_core_pieces``)
+   on whichever thread runs them; every step records the garbage
+   collector's passes, and each setting the threads alive, the heap's
+   tracked objects and each grouped allreduce's host ms.  A full
+   collection, timed, runs before each setting
+   (``CHIP_SMOKE_PRE_COLLECT=0`` skips it).  It prints step ms under
+   each setting, the flash launches a step (12 of each), the losses
+   (bitwise equal across the settings: an average over one rank is
+   exact), the collective bytes a step (equal to the gradients'
+   bytes), the collective latency and cycle-ms p50/p99, the cache hit
+   rate, the scrape's metric count, and the
+   autotuner's log rows and final (threshold, cycle).  (b) Host worlds
+   through ``--eager-worker`` job ``runtime`` (CUDA hidden) at 2 and 4
+   ranks on the native TCP ring: 16 MiB as 16 fp32 tensors of 1 MiB in
+   one cycle with fusion off at ``HOROVOD_NUM_STREAMS`` 1, 2 and 4 (ms,
+   GB/s, ``summary()``'s per-stream busy ms and utilization; the
+   outputs and ``_eager_check`` against numpy); the pipeline sweep
+   (``HOROVOD_AUTOTUNE_PIPELINE=1``), whose applied segment bytes,
+   streams and algorithm must be the same on every rank; and a
+   fingerprint divergence under ``strict`` (rank 1 submits another
+   shape under the same name): every rank must get the structured error
+   within seconds.  The system dumps the flight ring on the coordinator
+   only, as the reference does, and the dump's tail names the op; on
+   the other ranks the script dumps the ring itself (``rec.dump()``) to
+   show what it held, and checks that none of them dumped on its own.
+
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -161,6 +200,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import gc
 import json
 import math
 import os
@@ -1534,6 +1574,8 @@ def eager_worker(job: str, rank: int, size: int, port: int,
         result = _reduce_world(hvd, core, world, rank, size)
     elif job == "reduce-hier":
         result = _reduce_hier_world(hvd, core, world, rank, size)
+    elif job == "runtime":
+        result = _runtime_world(hvd, core, world, rank, size, outdir)
     else:
         result["planes"] = world("ladder", HOROVOD_SHM_OPERATIONS="0")
         result["ladder"] = _eager_ladder(hvd, core)
@@ -2770,6 +2812,524 @@ def _reduce_two_cards(problems: list[str]) -> dict:
     return {"ran": True, "ranks": 2, **res}
 
 
+# The runtime phase: the card leg's settings (name, environment over the
+# process's, with {dir} for a scratch directory), the host worlds' stream
+# counts and the autotuner's knobs, small enough to converge in a leg.
+RUNTIME_SETTINGS = (
+    ("off", {"HOROVOD_FLIGHT": "0"}),
+    ("defaults", {}),
+    ("observed", {"HOROVOD_METRICS": "1", "HOROVOD_METRICS_PORT": "{port}",
+                  "HOROVOD_FINGERPRINT": "strict",
+                  "HOROVOD_TIMELINE": "{dir}/timeline.json",
+                  "HOROVOD_METRICS_FILE": "{dir}/metrics.json"}),
+    # The observed setting's three instruments, each on alone.
+    ("metrics", {"HOROVOD_METRICS": "1", "HOROVOD_METRICS_PORT": "{port}"}),
+    ("strict", {"HOROVOD_FINGERPRINT": "strict"}),
+    ("timeline", {"HOROVOD_TIMELINE": "{dir}/timeline.json"}),
+    ("tuned", {"HOROVOD_AUTOTUNE": "1",
+               "HOROVOD_AUTOTUNE_LOG": "{dir}/autotune.csv",
+               "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+               "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "1",
+               "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "3"}),
+)
+RUNTIME_KNOBS = ("HOROVOD_FLIGHT", "HOROVOD_METRICS", "HOROVOD_METRICS_PORT",
+                 "HOROVOD_FINGERPRINT", "HOROVOD_TIMELINE",
+                 "HOROVOD_METRICS_FILE", "HOROVOD_AUTOTUNE",
+                 "HOROVOD_AUTOTUNE_LOG", "HOROVOD_AUTOTUNE_WARMUP_SAMPLES",
+                 "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE",
+                 "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES")
+RUNTIME_PROFILED_STEPS = 3              # after the timed steps
+# A full collection before each setting; CHIP_SMOKE_PRE_COLLECT=0 leaves
+# the earlier phases' garbage in the heap, to see what it costs.
+RUNTIME_PRE_COLLECT = os.environ.get("CHIP_SMOKE_PRE_COLLECT", "1") != "0"
+RUNTIME_STREAMS = (1, 2, 4)
+RUNTIME_TENSORS = 16                    # 16 MiB as 16 tensors of 1 MiB
+RUNTIME_TUNE_BURSTS = 40
+RUNTIME_FP_SECONDS = 10.0               # a divergence must not hang
+
+
+def _scrape(port: int) -> dict:
+    """One Prometheus scrape over loopback: every sample line must parse
+    as ``name{labels} value``."""
+    from urllib import request as urlrequest
+    with urlrequest.urlopen(f"http://127.0.0.1:{port}/metrics",
+                            timeout=30) as r:
+        text = r.read().decode()
+    samples = [ln for ln in text.splitlines()
+               if ln and not ln.startswith("#")]
+    bad = []
+    for ln in samples:
+        name, _, value = ln.rpartition(" ")
+        try:
+            float(value)
+        except ValueError:
+            bad.append(ln)
+        if not name or not name.startswith("horovod_"):
+            bad.append(ln)
+    families = {ln.split()[2] for ln in text.splitlines()
+                if ln.startswith("# TYPE ")}
+    return {"parsed": not bad and bool(samples), "samples": len(samples),
+            "metrics": len(families), "bad": bad[:3]}
+
+
+def _core_pieces():
+    """The eager core's functions the card leg times: (owner, attribute)
+    pairs, an owner being a module or a class (patched for every
+    instance)."""
+    from horovod_tpu_torch import core
+    from horovod_tpu_torch.analysis.fingerprint import FingerprintTracker
+    from horovod_tpu_torch.backend.base import CollectiveBackend
+    from horovod_tpu_torch.backend.basic import BasicBackend
+    from horovod_tpu_torch.common.controller import Controller
+    from horovod_tpu_torch.common.tensor_queue import TensorTableEntry
+    from horovod_tpu_torch.common.timeline import Timeline
+    from horovod_tpu_torch.telemetry.flight import FlightRecorder
+    from horovod_tpu_torch.telemetry.registry import MetricsRegistry
+    return ((core, "enqueue_grouped_allreduce"),
+            (Controller, "compute_response_list"),
+            (core, "_pop_entries"), (core, "_execute_response"),
+            (core, "_execute_on_card"),
+            (CollectiveBackend, "pack_fusion_buffer"),
+            (BasicBackend, "allreduce"),
+            (CollectiveBackend, "unpack_fusion_buffer"),
+            (TensorTableEntry, "finish"), (core, "_observe_collective"),
+            (MetricsRegistry, "histogram"), (MetricsRegistry, "counter"),
+            (FingerprintTracker, "fold"), (FingerprintTracker, "snapshot"),
+            (Controller, "_check_fingerprints"), (Timeline, "_emit"),
+            (FlightRecorder, "record"))
+
+
+class _HostProfile:
+    """Where the host's time goes in a setting's steps.  Over every step:
+    the garbage collector's passes (``gc.callbacks``: ms by generation
+    a step, and for each full pass its ms, objects collected and card
+    bytes freed).  Inside ``timing()``: the inclusive host ms and calls
+    a step of each of ``_core_pieces()``, by wrapping each (about a
+    microsecond a call), on whichever thread calls it."""
+
+    def __init__(self) -> None:
+        self.gc_step_ms: list[list[float]] = []
+        self.full_passes: list[dict] = []
+        self.pieces: dict[str, list] = {}
+        self._cur_gc = [0.0, 0.0, 0.0]
+        self._cur = {}
+        self._t_gc = 0.0
+        self._mem_gc = 0
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t_gc = time.perf_counter()
+            if info["generation"] == 2:
+                self._mem_gc = torch.cuda.memory_allocated()
+            return
+        ms = (time.perf_counter() - self._t_gc) * 1e3
+        self._cur_gc[info["generation"]] += ms
+        if info["generation"] == 2:
+            self.full_passes.append({
+                "step": len(self.gc_step_ms), "ms": ms,
+                "collected": info["collected"],
+                "card_bytes_freed":
+                    self._mem_gc - torch.cuda.memory_allocated()})
+
+    def __enter__(self) -> "_HostProfile":
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._on_gc)
+
+    def end_step(self) -> None:
+        self.gc_step_ms.append(self._cur_gc)
+        self._cur_gc = [0.0, 0.0, 0.0]
+        for key, v in self._cur.items():
+            self.pieces.setdefault(key, []).append(tuple(v))
+            v[:] = [0.0, 0]
+
+    @contextlib.contextmanager
+    def timing(self):
+        saved = []
+        for owner, attr in _core_pieces():
+            fn = getattr(owner, attr) if not isinstance(owner, type) \
+                else owner.__dict__[attr]
+            key = f"{getattr(owner, '__name__', owner)}.{attr}"
+            cur = self._cur.setdefault(key, [0.0, 0])
+
+            def timed(*args, _fn=fn, _cur=cur, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    _cur[0] += (time.perf_counter() - t0) * 1e3
+                    _cur[1] += 1
+
+            saved.append((owner, attr, fn))
+            setattr(owner, attr, timed)
+        try:
+            yield
+        finally:
+            for owner, attr, fn in saved:
+                setattr(owner, attr, fn)
+
+    def result(self) -> dict:
+        pieces = {k.replace("horovod_tpu_torch.", ""): {
+            "ms_a_step": statistics.mean(ms for ms, _ in v),
+            "calls_a_step": statistics.mean(n for _, n in v)}
+            for k, v in self.pieces.items()}
+        return {"gc_ms_by_step": self.gc_step_ms,
+                "gc_full_passes": self.full_passes, "pieces": pieces}
+
+
+def _runtime_card_setting(name: str, env: dict, cfg, batch,
+                          problems: list[str]) -> dict:
+    """One setting of leg (a): a fresh model, optimizer and world of
+    one; 2 + 5 + 3 steps with every gradient through the core, the last
+    three with the core's pieces timed."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import TransformerLM, core, telemetry
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import cross_entropy_loss
+    timed = WARMUP_STEPS + TIMED_STEPS
+    steps = timed + RUNTIME_PROFILED_STEPS
+    saved = {k: os.environ.pop(k, None) for k in RUNTIME_KNOBS}
+    out: dict = {"setting": name}
+    with tempfile.TemporaryDirectory(prefix="rt") as tmp:
+        port = _free_port()
+        os.environ.update({k: v.format(dir=tmp, port=port)
+                           for k, v in env.items()})
+        # A full collection first, so that the garbage of earlier phases
+        # and settings (models held in reference cycles) is not freed
+        # inside this setting's steps.
+        if RUNTIME_PRE_COLLECT:
+            mem, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+            collected = gc.collect()
+            out["pre_collect"] = {
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "collected": collected,
+                "card_bytes_freed": mem - torch.cuda.memory_allocated()}
+        try:
+            hvd.init()
+            st = core.global_state()
+            model = TransformerLM(cfg, seed=0)
+            params = [p for p in model.parameters() if p.requires_grad]
+            opt = torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)
+
+            allreduce_ms = []
+
+            def step():
+                loss = cross_entropy_loss(model(batch["input"], train=True),
+                                          batch["label"])
+                loss.backward()
+                t_ar = time.perf_counter()
+                grads = hvd.grouped_allreduce([p.grad for p in params],
+                                              op=hvd.Average, name="grads")
+                allreduce_ms.append((time.perf_counter() - t_ar) * 1e3)
+                for p, g in zip(params, grads):
+                    p.grad = g
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+                return loss
+
+            out["threads"] = sorted(t.name for t in threading.enumerate())
+            out["gc_objects"] = len(gc.get_objects())
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()             # the path starts
+            losses, step_ms = [], []
+
+            def timed_step():
+                t0 = time.perf_counter()
+                loss = step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss.item())
+
+            with _HostProfile() as profile:
+                for _ in range(timed):
+                    timed_step()
+                    profile.end_step()
+                with profile.timing():
+                    for _ in range(RUNTIME_PROFILED_STEPS):
+                        timed_step()
+                        profile.end_step()
+            launches = fa.launch_counts()        # ... and ends
+            grad_bytes = sum(p.numel() * p.element_size() for p in params)
+            out.update(
+                losses=losses, step_ms=step_ms,
+                timed_step_ms_mean=statistics.mean(
+                    step_ms[WARMUP_STEPS:timed]),
+                allreduce_host_ms=allreduce_ms,
+                profiled_step_ms_mean=statistics.mean(step_ms[timed:]),
+                host_profile=profile.result(),
+                launches=launches,
+                launches_per_step={k: v / steps
+                                   for k, v in launches.items()},
+                grad_bytes=grad_bytes, gradients=len(params),
+                flight=st.flight.enabled,
+                flight_events=len(st.flight.snapshot()))
+            for kname, c in launches.items():
+                if c != cfg.num_layers * steps:
+                    problems.append(f"runtime {name}: {kname} launched {c} "
+                                    f"times, not {cfg.num_layers} a step")
+            if name == "observed":
+                out.update(_runtime_observed(st, telemetry, steps,
+                                             grad_bytes, len(params),
+                                             problems))
+            if name == "tuned":
+                pm = st.parameter_manager
+                out["tuner_done"] = pm is not None and pm._done
+                out["applied"] = {
+                    "fusion_threshold": st.controller.tensor_fusion_threshold,
+                    "cycle_time_ms": st.cycle_time_ms}
+                if not out["tuner_done"]:
+                    problems.append("runtime tuned: the autotuner did not "
+                                    "converge within the leg")
+            del model, opt, params
+        finally:
+            hvd.shutdown()
+            for k in RUNTIME_KNOBS:
+                os.environ.pop(k, None)
+            os.environ.update({k: v for k, v in saved.items()
+                               if v is not None})
+            torch.cuda.empty_cache()
+        if name == "observed":
+            with open(os.path.join(tmp, "metrics.r0.json")) as f:
+                dump = json.load(f)
+            with open(os.path.join(tmp, "timeline.json")) as f:
+                text = f.read().strip()
+            if not text.endswith("]"):
+                text = text.rstrip(",\n") + "]"
+            events = json.loads(text)
+            out["metrics_dump_metrics"] = len(dump["metrics"])
+            out["timeline_events"] = len(events)
+            if not dump["metrics"] or not any(
+                    str(e.get("name", "")).startswith("NEGOTIATE")
+                    for e in events):
+                problems.append("runtime observed: empty metrics dump or "
+                                "timeline")
+        if name == "tuned":
+            with open(os.path.join(tmp, "autotune.csv")) as f:
+                out["autotune_log"] = f.read().splitlines()
+    return out
+
+
+def _runtime_observed(st, telemetry, steps: int, grad_bytes: int,
+                      n_grads: int, problems: list[str]) -> dict:
+    """The observed setting's readings, taken before ``shutdown``."""
+    from horovod_tpu_torch.telemetry import MetricsExporter
+    snap = telemetry.metrics().snapshot()["metrics"]
+
+    def hist(name):
+        e = next(e for e in snap if e["name"] == name)
+        return {"count": e["count"], "p50": e["p50"], "p99": e["p99"]}
+
+    collective = sum(e["value"] for e in snap
+                     if e["name"] == "horovod_collective_bytes_total")
+    exporter = next(r for r in st.resources
+                    if isinstance(r, MetricsExporter))
+    scrape = _scrape(exporter.port)
+    out = {"collective_bytes_per_step": collective / steps,
+           "collective_latency_ms": hist("horovod_collective_latency_ms"),
+           "cycle_ms": hist("horovod_controller_cycle_ms"),
+           "cache_hit_rate": telemetry.summary()["cache_hit_rate"],
+           "scrape": scrape, "exporter_port": exporter.port,
+           "fingerprint_seq": st.controller.fingerprint.seq}
+    if collective != grad_bytes * steps:
+        problems.append(f"runtime observed: {collective} collective bytes "
+                        f"over {steps} steps, not {grad_bytes} a step")
+    if not scrape["parsed"]:
+        problems.append(f"runtime observed: the scrape did not parse: "
+                        f"{scrape['bad']}")
+    if st.controller.fingerprint.seq != n_grads * steps:
+        problems.append("runtime observed: the fingerprint folded "
+                        f"{st.controller.fingerprint.seq} ops")
+    return out
+
+
+def _runtime_card(problems: list[str]) -> dict:
+    """Leg (a): the four settings, then the losses held to each other."""
+    from horovod_tpu_torch import gpt_small, synthetic_text_batch
+    cfg = gpt_small(attention="flash", max_seq_len=2048)
+    batch = synthetic_text_batch(8, 2048, cfg.vocab_size, seed=0)
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE"):
+        os.environ.pop(var, None)
+    legs = [_runtime_card_setting(name, env, cfg, batch, problems)
+            for name, env in RUNTIME_SETTINGS]
+    base = legs[0]["losses"]
+    for leg in legs[1:]:
+        leg["losses_bitwise_off"] = leg["losses"] == base
+        if not leg["losses_bitwise_off"]:
+            problems.append(f"runtime {leg['setting']}: losses differ from "
+                            f"the all-off setting's")
+    if not all(math.isfinite(x) for x in base) or base[-1] >= base[0]:
+        problems.append(f"runtime: losses {base} not finite and falling")
+    launches = {k: sum(leg["launches"][k] for leg in legs)
+                for k in legs[0]["launches"]}
+    out = {"phase": "runtime", "leg": "card", "ranks": 1, "batch": 8,
+           "seq": 2048, "optimizer": "AdamW(3e-4, wd 1e-4)",
+           "settings": legs, "launches": launches,
+           "step_ms_vs_off": {leg["setting"]: leg["timed_step_ms_mean"]
+                              / legs[0]["timed_step_ms_mean"]
+                              for leg in legs}}
+    emit(out)
+    return out
+
+
+def _runtime_world(hvd, core, world, rank: int, size: int,
+                   outdir: str) -> dict:
+    """One rank of leg (b): streams, the pipeline sweep and a fingerprint
+    divergence."""
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.telemetry import flight
+    out: dict = {"problems": []}
+    problems = out["problems"]
+    n = EAGER_BIG_BYTES // 4 // RUNTIME_TENSORS
+    xs = [torch.full((n,), float(rank + 1 + i))
+          for i in range(RUNTIME_TENSORS)]
+    want = [float(sum(r + 1 + i for r in range(size)))
+            for i in range(RUNTIME_TENSORS)]
+
+    def burst(tag):
+        hs = [hvd.allreduce_async(x, op=hvd.Sum, name=f"{tag}{i}")
+              for i, x in enumerate(xs)]
+        outs = [hvd.synchronize(h) for h in hs]
+        for i, o in enumerate(outs):
+            if not bool(o.eq(want[i]).all()):
+                problems.append(f"{tag}{i}: {o[:2].tolist()} not {want[i]}")
+        return outs
+
+    for streams in RUNTIME_STREAMS:
+        out[f"planes_s{streams}"] = world(
+            f"rt-s{streams}", HOROVOD_SHM_OPERATIONS="0",
+            HOROVOD_FUSION_THRESHOLD="0", HOROVOD_METRICS="1",
+            HOROVOD_NUM_STREAMS=str(streams))
+        st = core.global_state()
+        for _ in range(2):
+            burst("b")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            burst("b")
+        dt = time.perf_counter() - t0
+        native_ring = [c.last_native for c in st.tcp_collectives]
+        if streams == max(RUNTIME_STREAMS):
+            problems += _eager_check(hvd, rank, size)
+        summ = telemetry.summary()
+        moved = 5 * EAGER_BIG_BYTES * 2 * (size - 1) / size
+        out[f"streams{streams}"] = {
+            "ms": dt / 5 * 1e3, "gbyte_per_s": moved / dt / 1e9,
+            "active_streams": st.active_streams,
+            "dispatcher": st.stream_dispatcher is not None,
+            "stream_busy_ms": summ.get("stream_busy_ms"),
+            "stream_utilization": summ.get("stream_utilization"),
+            "native_ring": native_ring}
+        hvd.shutdown()
+
+    world("rt-tune", HOROVOD_SHM_OPERATIONS="0",
+          HOROVOD_NUM_STREAMS=str(max(RUNTIME_STREAMS)),
+          HOROVOD_AUTOTUNE="1", HOROVOD_AUTOTUNE_PIPELINE="1",
+          HOROVOD_AUTOTUNE_WARMUP_SAMPLES="1",
+          HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE="1",
+          HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES="3",
+          HOROVOD_AUTOTUNE_LOG=os.path.join(outdir, "autotune.csv"))
+    st = core.global_state()
+    t0 = time.perf_counter()
+    for _ in range(RUNTIME_TUNE_BURSTS):
+        burst("t")
+    out["tune_seconds"] = time.perf_counter() - t0
+    hvd.barrier()
+    hvd.barrier()
+    out["tuned"] = {
+        "segment_bytes": [c.segment_bytes for c in st.tcp_collectives],
+        "active_streams": st.active_streams,
+        "algo": [c.algo for c in st.tcp_collectives],
+        "tree_threshold": [c.tree_threshold for c in st.tcp_collectives],
+        "fused": [bool(c.fused) for c in st.tcp_collectives],
+        "fusion_threshold": st.controller.tensor_fusion_threshold,
+        "cycle_time_ms": st.cycle_time_ms}
+    if rank == 0:
+        out["tuner_done"] = st.parameter_manager._done
+        if not out["tuner_done"]:
+            problems.append("the pipeline sweep did not converge")
+    hvd.shutdown()
+    if rank == 0:
+        with open(os.path.join(outdir, "autotune.csv")) as f:
+            out["autotune_log"] = f.read().splitlines()
+
+    world("rt-fp", HOROVOD_SHM_OPERATIONS="0", HOROVOD_FINGERPRINT="strict",
+          HOROVOD_FLIGHT_FILE=os.path.join(outdir, "flight.json"))
+    hvd.allreduce(torch.ones(4), op=hvd.Sum, name="pre")
+    t0 = time.perf_counter()
+    try:
+        hvd.allreduce(torch.ones(3 if rank == 1 else 4), op=hvd.Sum,
+                      name="fp")
+        err = None
+        problems.append("the divergent allreduce returned")
+    except Exception as exc:  # noqa: BLE001 - the error is the record
+        err = f"{type(exc).__name__}: {exc}"
+    out["fp_seconds"] = time.perf_counter() - t0
+    out["fp_error"] = err
+    rec = flight.recorder()
+    out["fp_auto_dumps"] = rec.dumps
+    if rec.dumps == 0:
+        rec.dump(reason=err or "")
+    with open(rec.last_dump_path) as f:
+        dump = json.load(f)
+    tail = dump["events"][-1]
+    out["fp_dump"] = {"path": os.path.basename(rec.last_dump_path),
+                      "events": len(dump["events"]), "tail": tail}
+    names_op = tail["name"] == "fp" or "ALLREDUCE(fp," in tail["detail"]
+    if not names_op:
+        problems.append(f"flight dump tail does not name the op: {tail}")
+    if err is None or "Collective fingerprint divergence" not in err:
+        problems.append(f"divergence error: {err}")
+    if out["fp_seconds"] > RUNTIME_FP_SECONDS:
+        problems.append(f"the divergence took {out['fp_seconds']:.1f} s")
+    out["fp_after"] = hvd.allreduce(torch.ones(2), op=hvd.Sum,
+                                    name="after").tolist()
+    hvd.shutdown()
+    return out
+
+
+def phase_runtime() -> dict:
+    """The eager core's runtime half (see the module docstring)."""
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    card = _runtime_card(problems)
+    host = {}
+    with tempfile.TemporaryDirectory(prefix="runtime") as outdir:
+        for size in (2, 4):
+            sub = os.path.join(outdir, str(size))
+            os.makedirs(sub)
+            res = _eager_world("runtime", size, sub)
+            for r, rr in enumerate(res):
+                problems += [f"runtime {size} rank {r}: {p}"
+                             for p in rr["problems"]]
+            tuned = [rr["tuned"] for rr in res]
+            if any(t != tuned[0] for t in tuned):
+                problems.append(f"runtime {size}: ranks applied different "
+                                f"tuned values: {tuned}")
+            if any(rr["fp_auto_dumps"] != (1 if r == 0 else 0)
+                   for r, rr in enumerate(res)):
+                problems.append(f"runtime {size}: the coordinator did not "
+                                f"dump its ring on the divergence")
+            host[size] = res
+            emit({"phase": "runtime", "leg": f"host-{size}", "ranks": size,
+                  "payload_bytes": EAGER_BIG_BYTES,
+                  "tensors": RUNTIME_TENSORS,
+                  **{f"streams{s}": res[0][f"streams{s}"]
+                     for s in RUNTIME_STREAMS},
+                  "tuned": tuned[0], "tune_seconds": res[0]["tune_seconds"],
+                  "autotune_log": res[0]["autotune_log"],
+                  "fp_seconds": [rr["fp_seconds"] for rr in res],
+                  "fp_error": res[0]["fp_error"],
+                  "fp_dumps": [rr["fp_dump"] for rr in res],
+                  "native_calls": res[0]["native_calls"]})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "runtime", "leg": "summary", "seconds": seconds,
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": card["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -2793,7 +3353,7 @@ def main() -> int:
                   "train": phase_train, "serve": phase_serve,
                   "cnn": phase_cnn, "sync": phase_sync,
                   "eager": phase_eager, "binding": phase_binding,
-                  "reduce": phase_reduce}
+                  "reduce": phase_reduce, "runtime": phase_runtime}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -2806,12 +3366,14 @@ def main() -> int:
     phase_eager()
     binding = phase_binding()
     phase_reduce()
+    runtime = phase_runtime()
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": train["launches"][name],
          "cnn_launches": cnn["flash_launches"][name],
          "binding_launches": binding["launches"][name],
+         "runtime_launches": runtime["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -124,8 +124,15 @@ class CollectiveBackend(ABC):
     # Attached by core.init so ops can emit sub-activity spans
     # (MEMCPY_IN_FUSION_BUFFER / <PLANE>_<OP> / MEMCPY_OUT_FUSION_BUFFER).
     timeline = None
+    # Multi-stream dispatch contract (core._dispatch_cycle): True means
+    # independent responses may execute concurrently on per-stream
+    # instances of this backend, each over its own channel set.  Planes
+    # with process-global protocol state (shm lockstep, the NCCL group's
+    # program order on one device stream, the hierarchical sub-meshes)
+    # stay False and always run on stream 0.
+    stream_safe = False
     # Which dispatch stream this instance serves (annotates timeline
-    # activities).
+    # activities; per-stream instances are built by core.init).
     stream = 0
     # Algorithm used by the most recent collective on this instance.
     last_algo = "none"

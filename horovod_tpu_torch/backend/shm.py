@@ -2,8 +2,8 @@
 
 The port's copy of ``horovod_tpu/backend/shm.py`` (``ShmWorld``,
 ``ShmBackend`` with its cast and quantized codec legs) on CPU torch
-tensors, without fault tolerance's heartbeat and its metrics counters
-(ROADMAP queue A item 9(a), the rest).  The lockstep protocol, the chunk
+tensors, with its metrics counters, without fault tolerance's heartbeat
+(ROADMAP queue A item 11).  The lockstep protocol, the chunk
 split and the accumulation order are the reference's, and the quantized
 legs run its numpy codec on numpy views of the regions, so the results
 are bitwise equal.
@@ -362,6 +362,16 @@ class ShmBackend(CollectiveBackend):
     def __init__(self, world: ShmWorld) -> None:
         self.world = world
         self.ops_executed = 0   # which plane served an op (tests, smoke)
+        # Telemetry (no-op metrics when HOROVOD_METRICS=off): ops claimed
+        # by this plane and bytes staged through the shared region.
+        from ..telemetry import metrics as _tm_metrics
+        _tm = _tm_metrics()
+        self._m_ops = _tm.counter(
+            "horovod_shm_ops_total",
+            "Collectives executed on the shared-memory plane")
+        self._m_staged = _tm.counter(
+            "horovod_shm_staged_bytes_total",
+            "Payload bytes staged into /dev/shm regions")
         # The quantized legs' dispatch (HOROVOD_FUSED_KERNELS, read at
         # the first quantized op) and their persistent scratch.
         self.fused: bool | None = None
@@ -467,6 +477,8 @@ class ShmBackend(CollectiveBackend):
         my_region.copy_(cast(packed, dtype))
         w.publish(3 * t + 1)
         nbytes = n * itemsize
+        self._m_ops.inc()
+        self._m_staged.inc(nbytes)
 
         if size == 2:
             # Two ranks: one fused full-sum pass per rank (2 barriers).

@@ -14,8 +14,10 @@ CPU collectives).  Bulk payloads ride a dedicated full-mesh socket set
 (PeerMesh) so they never interleave with controller messages.  Sends are
 enqueued on the mesh's persistent per-peer sender lanes straight from the
 accumulator's memory, and receives land either directly in the destination
-buffer or in reusable scratch, consumed in 256 KiB slices
+buffer or in reusable scratch, consumed in HOROVOD_SEGMENT_BYTES slices
 (the same elementwise adds in the same order as one monolithic add).
+``TcpBackend`` is stream-safe: ``core.init`` builds one per dispatch
+stream, each over its own PeerMesh.
 
 Algorithms:
 - allreduce: ring reduce-scatter + ring allgather (bandwidth-optimal,
@@ -27,6 +29,8 @@ Algorithms:
 - alltoall: pairwise exchange over the sender lanes (cycle-deadlock free).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -40,8 +44,6 @@ from ..runner.network import PeerMesh
 from .base import (CollectiveBackend, _rest, accum_dtype as _accum_dtype,
                    add_, byte_view as _bv, cast, contiguous, dim0_row_bounds,
                    is_device_response)
-
-_SEGMENT_BYTES = 256 * 1024
 
 
 def _nbv(arr: np.ndarray) -> memoryview:
@@ -58,14 +60,16 @@ class TcpCollectives:
                  torus: tuple[int, int] | None = None,
                  algo: str | None = None,
                  tree_threshold: int | None = None,
-                 fused: bool | None = None) -> None:
+                 fused: bool | None = None,
+                 segment_bytes: int | None = None) -> None:
         self.mesh = mesh
         self.rank = mesh.rank
         self.size = mesh.size
         # Pipeline granularity for the segmented receive+accumulate (the
-        # reference's default of HOROVOD_SEGMENT_BYTES; the sums are the
-        # same at any value).
-        self.segment_bytes = _SEGMENT_BYTES
+        # autotuner may retune it through ResponseList.tuned_segment_bytes;
+        # the sums are the same at any value); 0 = monolithic receives.
+        self.segment_bytes = config.SEGMENT_BYTES.get() \
+            if segment_bytes is None else int(segment_bytes)
         # Topology-aware ring order (common/topology.py): a permutation
         # of ranks in ring-walk order; identity by default.
         if ring_order is not None:
@@ -98,6 +102,38 @@ class TcpCollectives:
         # bytearrays (one cached view per channel instead of a fresh
         # wrapper per segment).
         self._seg_views: dict = {}
+        # Segment-overlap efficiency (telemetry/): bytes whose accumulate
+        # overlapped the wire (segmented path) vs bytes that arrived
+        # monolithically.  No-op metrics when HOROVOD_METRICS=off.
+        from ..telemetry import metrics as _tm_metrics
+        _tm = _tm_metrics()
+        self._m_seg_bytes = _tm.counter(
+            "horovod_tcp_segmented_recv_bytes_total",
+            "Ring-chunk bytes consumed through the segmented "
+            "receive+accumulate (comm/compute overlapped)")
+        self._m_mono_bytes = _tm.counter(
+            "horovod_tcp_monolithic_recv_bytes_total",
+            "Ring-chunk bytes consumed in one monolithic receive "
+            "(chunk below segment size, or segmentation off)")
+        # Per-leg fused-vs-reference latency histograms of the codec legs.
+        self._tm_on = getattr(_tm, "enabled", False)
+        self._m_leg = {
+            (leg, fused): _tm.histogram(
+                "horovod_tcp_codec_leg_ms",
+                "Wall time of one codec-collective leg (gather = "
+                "contributions in + fp32 accumulate, return = reduced "
+                "chunks out), split by fused-kernel vs reference "
+                "dispatch",
+                labels={"leg": leg, "fused": "on" if fused else "off"})
+            for leg in ("gather", "return") for fused in (True, False)}
+
+    def _leg_start(self) -> float:
+        return time.perf_counter() if self._tm_on else 0.0
+
+    def _leg_end(self, leg: str, fused: bool, t0: float) -> None:
+        if self._tm_on:
+            self._m_leg[(leg, fused)].observe(
+                (time.perf_counter() - t0) * 1e3)
 
     # -- helpers --------------------------------------------------------
     def _sendrecv(self, to_rank: int, payload: bytes,
@@ -144,12 +180,14 @@ class TcpCollectives:
             return
         seg_elems = self.segment_bytes // itemsize
         total = acc_slice.numel()
-        if seg_elems >= total:
+        if seg_elems <= 0 or seg_elems >= total:
             view = self.mesh.scratch(frm, nbytes)
             self.mesh.recv_raw_into(frm, view)
             arr = self._scratch_view(frm, view, acc_slice.dtype)
             add_(acc_slice, arr[:total])
+            self._m_mono_bytes.inc(nbytes)
             return
+        self._m_seg_bytes.inc(nbytes)
         scratch = self.mesh.scratch(frm, seg_elems * itemsize)
         arr = self._scratch_view(frm, scratch, acc_slice.dtype)
         pos = 0
@@ -243,6 +281,9 @@ class TcpCollectives:
             with self.mesh._lock:
                 self.mesh.bytes_sent += sent
                 self.mesh.bytes_received += rcvd
+            if self.mesh._tm_on:   # per-peer attribution for the raw-fd ring
+                self.mesh._tm_count_sent(nxt, sent)
+                self.mesh._tm_count_recv(prv, rcvd)
             self.last_native = True
             return acc.to(buf.dtype)
 
@@ -481,6 +522,7 @@ class TcpCollectives:
         x = cast(contiguous(buf), wire_dtype)
         bounds = chunk_bounds(n, size).tolist()
         my_len = bounds[rank + 1] - bounds[rank]
+        t0 = self._leg_start()
         for offset in range(1, size):
             to = (rank + offset) % size
             self.mesh.send_async(to, _bv(x[bounds[to]:bounds[to + 1]]))
@@ -491,7 +533,11 @@ class TcpCollectives:
                 else self._recv_scratch(j)
             fk.cast_add(view, wire_dtype, acc, ("cin",))
         reduced = cast(torch.from_numpy(acc), wire_dtype)  # ONE rounding
-        return cast(self._cast_return_leg(reduced, bounds, n), buf.dtype)
+        self._leg_end("gather", True, t0)
+        t0 = self._leg_start()
+        out = self._cast_return_leg(reduced, bounds, n)
+        self._leg_end("return", True, t0)
+        return cast(out, buf.dtype)
 
     def _cast_allreduce_reference(self, buf: torch.Tensor,
                                   wire_dtype: torch.dtype) -> torch.Tensor:
@@ -503,6 +549,7 @@ class TcpCollectives:
         x = cast(contiguous(buf), wire_dtype)
         bounds = chunk_bounds(n, size).tolist()
         my_len = bounds[rank + 1] - bounds[rank]
+        t0 = self._leg_start()
         contrib32: list = [None] * size
         contrib32[rank] = x[bounds[rank]:bounds[rank + 1]].float()
         for offset in range(1, size):
@@ -517,7 +564,11 @@ class TcpCollectives:
         for c in contrib32:                    # rank order
             acc += c
         reduced = cast(acc, wire_dtype)
-        return cast(self._cast_return_leg(reduced, bounds, n), buf.dtype)
+        self._leg_end("gather", False, t0)
+        t0 = self._leg_start()
+        out = self._cast_return_leg(reduced, bounds, n)
+        self._leg_end("return", False, t0)
+        return cast(out, buf.dtype)
 
     # -- quantized allreduce --------------------------------------------
     def quantized_allreduce(self, buf: torch.Tensor, codec,
@@ -560,6 +611,7 @@ class TcpCollectives:
         x = contiguous(buf.float()).numpy()
         bounds = chunk_bounds(n, size).tolist()
         my_len = bounds[rank + 1] - bounds[rank]
+        t0 = self._leg_start()
         for offset in range(1, size):          # encode k+1 overlaps wire k
             to = (rank + offset) % size
             self.mesh.send_async(
@@ -573,7 +625,9 @@ class TcpCollectives:
             view = my_wire if j == rank else self._recv_scratch(j)
             fk.decode_add(view, my_len, codec, block_size, acc, ("qin",))
         reduced = fk.encode(acc, codec, block_size, ("red",))
+        self._leg_end("gather", True, t0)
 
+        t0 = self._leg_start()
         out = np.empty(n, np.float32)
         fk.decode_into(reduced, my_len, codec, block_size,
                        out[bounds[rank]:bounds[rank + 1]], ("qout",))
@@ -586,6 +640,7 @@ class TcpCollectives:
                            block_size, out[bounds[frm]:bounds[frm + 1]],
                            ("qout",))
         self.mesh.flush()
+        self._leg_end("return", True, t0)
         return cast(torch.from_numpy(out), buf.dtype)
 
     def _quantized_allreduce_reference(self, buf: torch.Tensor, codec,
@@ -598,6 +653,7 @@ class TcpCollectives:
         n, rank, size = buf.numel(), self.rank, self.size
         x = contiguous(buf.float()).numpy()
         bounds = chunk_bounds(n, size).tolist()
+        t0 = self._leg_start()
         my_chunks = [quantize(x[bounds[j]:bounds[j + 1]], codec, block_size)
                      for j in range(size)]
         my_len = bounds[rank + 1] - bounds[rank]
@@ -614,7 +670,9 @@ class TcpCollectives:
         for c in contrib32:
             acc += c
         reduced = quantize(acc, codec, block_size)
+        self._leg_end("gather", False, t0)
 
+        t0 = self._leg_start()
         out_parts: list = [None] * size
         out_parts[rank] = dequantize(reduced)
         payload = to_bytes(reduced)
@@ -627,6 +685,7 @@ class TcpCollectives:
                 np.frombuffer(view, np.uint8),
                 bounds[frm + 1] - bounds[frm], codec, block_size))
         self.mesh.flush()
+        self._leg_end("return", False, t0)
         return cast(torch.from_numpy(np.concatenate(out_parts)), buf.dtype)
 
     # -- small-tensor codec legs on the binomial tree -------------------
@@ -639,6 +698,7 @@ class TcpCollectives:
         fk = self._fk
         x = cast(contiguous(buf), wire_dtype)
         item = n * wire_dtype.itemsize
+        t0 = self._leg_start()
         block = self._tree_gather(_bv(x), item)
         if block is not None:               # root: rank-order accumulate
             acc = fk.f32(("tcacc",), n)
@@ -650,7 +710,10 @@ class TcpCollectives:
             out = cast(torch.from_numpy(acc), wire_dtype)   # ONE rounding
         else:
             out = torch.empty(n, dtype=wire_dtype)
+        self._leg_end("gather", self.fused, t0)
+        t0 = self._leg_start()
         self._tree_bcast_into(_bv(out))
+        self._leg_end("return", self.fused, t0)
         return cast(out, buf.dtype)
 
     def _quantized_allreduce_tree(self, buf: torch.Tensor, codec,
@@ -661,6 +724,7 @@ class TcpCollectives:
         n, size = buf.numel(), self.size
         fk = self._fk
         x = contiguous(buf.float()).numpy()
+        t0 = self._leg_start()
         wire = fk.encode(x, codec, block_size, ("tqenc",))
         item = wire.nbytes                  # deterministic in (n, codec)
         block = self._tree_gather(_nbv(wire), item)
@@ -675,9 +739,12 @@ class TcpCollectives:
                 fk.encode(acc, codec, block_size, ("tqred",)))
         else:
             reduced = np.empty(item, np.uint8)
+        self._leg_end("gather", self.fused, t0)
+        t0 = self._leg_start()
         self._tree_bcast_into(_nbv(reduced))
         out = np.empty(n, np.float32)
         fk.decode_into(reduced, n, codec, block_size, out, ("tqout",))
+        self._leg_end("return", self.fused, t0)
         return cast(torch.from_numpy(out), buf.dtype)
 
     # -- reduce-scatter -------------------------------------------------
@@ -796,6 +863,10 @@ class TcpBackend(CollectiveBackend):
     """CollectiveBackend adapter over TcpCollectives."""
 
     name = "tcp"
+    # Per-stream instances each own a dedicated PeerMesh channel set and
+    # fusion buffers, so independent responses execute concurrently
+    # without interleaving bytes on a shared socket.
+    stream_safe = True
 
     def __init__(self, collectives: TcpCollectives) -> None:
         self.coll = collectives

@@ -240,19 +240,123 @@ FUSED_KERNELS = Knob(
     "(compress/fused.py, over the native qencode/qdecode): bitwise equal "
     "to the per-chunk chain of compress/quantize.py, which 0 selects.")
 
-_REST_9A = "ROADMAP queue A item 9(a), the rest"
+SEGMENT_BYTES = Knob(
+    "HOROVOD_SEGMENT_BYTES", 256 * 1024, int,
+    "TCP ring pipeline segment: the receiver consumes each ring chunk in "
+    "segments of this many bytes, adding segment k while segment k+1 "
+    "streams in (the same sums in the same order).  0 disables "
+    "segmentation (one receive and add per chunk).  The autotuner's "
+    "pipeline sweep retunes it.")
+NUM_STREAMS = Knob(
+    "HOROVOD_NUM_STREAMS", 1, int,
+    "Parallel response-dispatch streams (upstream Horovod's "
+    "HOROVOD_NUM_NCCL_STREAMS): N worker threads run the independent "
+    "host-plane responses of one cycle at once, each over its own TCP "
+    "channel set.  Round-robin over the coordinator-ordered ResponseList, "
+    "the same on every rank; device-plane responses stay on stream 0.  "
+    "1 = serial dispatch on the background thread.")
+
+# --- Autotune (the reference's common/parameter_manager.py) -----------------
+AUTOTUNE = Knob(
+    "HOROVOD_AUTOTUNE", False, _parse_bool,
+    "Enable Bayesian autotuning of fusion threshold and cycle time.")
+AUTOTUNE_LOG = Knob(
+    "HOROVOD_AUTOTUNE_LOG", "", str,
+    "CSV file to log autotune samples to.")
+AUTOTUNE_WARMUP_SAMPLES = Knob(
+    "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", 3, int,
+    "Discarded warmup samples per autotune step.")
+AUTOTUNE_STEPS_PER_SAMPLE = Knob(
+    "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", 10, int,
+    "Training steps scored per autotune sample.")
+AUTOTUNE_BAYES_OPT_MAX_SAMPLES = Knob(
+    "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20, int,
+    "Max Bayesian-optimization samples before fixing parameters.")
+AUTOTUNE_GAUSSIAN_PROCESS_NOISE = Knob(
+    "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", 0.8, float,
+    "GP observation-noise hyperparameter (alpha).")
+AUTOTUNE_COMPRESSION = Knob(
+    "HOROVOD_AUTOTUNE_COMPRESSION", False, _parse_bool,
+    "Let the autotuner sweep wire codecs (none/fp16/int8) by measured "
+    "allreduce throughput and broadcast the winner to every rank.")
+AUTOTUNE_PIPELINE = Knob(
+    "HOROVOD_AUTOTUNE_PIPELINE", False, _parse_bool,
+    "Let the autotuner sweep the TCP pipeline (segment bytes x active "
+    "streams, bounded by HOROVOD_NUM_STREAMS), the fused codec passes "
+    "and the allreduce algorithm by measured allreduce throughput before "
+    "the Bayesian phase, broadcasting each winner to every rank.")
+
+# --- Collective fingerprinting (analysis/fingerprint.py) --------------------
+FINGERPRINT = Knob(
+    "HOROVOD_FINGERPRINT", "off", str,
+    "Runtime collective-symmetry fingerprinting: off | cycle (compare "
+    "rolling per-rank op fingerprints on every natural negotiation "
+    "cycle) | strict (force a negotiation every cycle, so divergence is "
+    "caught in response-cache steady state too).  Cross-rank divergence "
+    "becomes a structured ERROR naming the first divergent op instead of "
+    "a stall.")
+FINGERPRINT_WINDOW = Knob(
+    "HOROVOD_FINGERPRINT_WINDOW", 64, int,
+    "Ops of fingerprint history each rank ships with its RequestList; "
+    "divergences older than the window are reported as 'at or before' "
+    "the oldest commonly-visible op.")
+
+# --- Telemetry (telemetry/) -------------------------------------------------
+METRICS = Knob(
+    "HOROVOD_METRICS", False, _parse_bool,
+    "Per-rank metrics registry and cross-rank straggler aggregation "
+    "(on|off).  Off (the default) resolves every instrument to a shared "
+    "no-op metric.")
+METRICS_PORT = Knob(
+    "HOROVOD_METRICS_PORT", 0, int,
+    "Base port of the Prometheus text endpoint; rank r serves on port+r "
+    "(an ephemeral port if that one is taken).  0 disables the HTTP "
+    "server (the registry still records).")
+METRICS_FILE = Knob(
+    "HOROVOD_METRICS_FILE", "", str,
+    "Path of the shutdown JSON metrics dump; '{rank}' substitutes the "
+    "rank, otherwise '.r<rank>' goes before the extension.  Empty "
+    "disables the dump.")
+METRICS_BIND = Knob(
+    "HOROVOD_METRICS_BIND", "127.0.0.1", str,
+    "Bind address of the Prometheus endpoint; localhost by default "
+    "('' or 0.0.0.0 binds every interface).")
+METRICS_WINDOW = Knob(
+    "HOROVOD_METRICS_WINDOW", 32, int,
+    "Negotiated tensors per straggler-aggregation window: the "
+    "coordinator publishes min/mean/max/p99 cross-rank arrival lag and "
+    "names the slowest rank once per window.")
+STRAGGLER_THRESHOLD_MS = Knob(
+    "HOROVOD_STRAGGLER_THRESHOLD_MS", 5.0, float,
+    "Mean arrival lag (ms behind the fastest rank, per window) above "
+    "which the coordinator logs a straggler warning and sets the "
+    "straggler-rank gauge.")
+
+# --- Flight recorder (telemetry/flight.py) ----------------------------------
+FLIGHT = Knob(
+    "HOROVOD_FLIGHT", True, _parse_bool,
+    "Always-on flight recorder: a bounded ring of recent trace events per "
+    "rank (enqueue, dispatch, completion, failure conversions), dumped "
+    "as rank-stamped JSON when a structured failure fires (fingerprint "
+    "divergence, SIGTERM).  0: a shared no-op recorder and no signal "
+    "handler.")
+FLIGHT_EVENTS = Knob(
+    "HOROVOD_FLIGHT_EVENTS", 256, int,
+    "Ring capacity of the flight recorder.")
+FLIGHT_FILE = Knob(
+    "HOROVOD_FLIGHT_FILE", "horovod_flight.json", str,
+    "Path of the flight-recorder dump; '{rank}' substitutes, otherwise "
+    "'.r<rank>' goes before the extension.  Written only when a "
+    "structured failure fires.")
 
 # Eager knobs whose feature the port does not have yet: (knob, default,
 # parser, roadmap item).  A value other than the default raises at init.
 UNPORTED_EAGER_KNOBS = (
-    ("HOROVOD_NUM_STREAMS", 1, lambda v: max(int(v), 1), _REST_9A),
-    ("HOROVOD_AUTOTUNE", False, _parse_bool, _REST_9A),
-    ("HOROVOD_FINGERPRINT", "off", str, _REST_9A),
-    ("HOROVOD_SAN", False, _parse_bool, _REST_9A),
-    ("HOROVOD_FAULT_TOLERANCE", False, _parse_bool, _REST_9A),
-    ("HOROVOD_CHAOS", "", str, _REST_9A),
-    ("HOROVOD_METRICS", False, _parse_bool, _REST_9A),
-    ("HOROVOD_METRICS_PORT", 0, int, _REST_9A),
+    ("HOROVOD_SAN", False, _parse_bool,
+     "ROADMAP queue A item 11 (the SAN witness, after resilience)"),
+    ("HOROVOD_FAULT_TOLERANCE", False, _parse_bool,
+     "ROADMAP queue A item 11 (resilience)"),
+    ("HOROVOD_CHAOS", "", str, "ROADMAP queue A item 11 (resilience)"),
     ("HOROVOD_ELASTIC", False, _parse_bool,
      "ROADMAP queue A item 11 (elasticity)"),
 )
@@ -260,18 +364,13 @@ UNPORTED_EAGER_KNOBS = (
 
 def check_eager_knobs() -> None:
     """Raise NotImplementedError for an eager knob set to a feature the
-    port lacks.  ``HOROVOD_FLIGHT`` defaults to on in the reference; the
-    port has no flight recorder, so it runs without one when the knob is
-    unset and raises when it is set on explicitly."""
+    port lacks."""
     for name, default, parser, item in UNPORTED_EAGER_KNOBS:
         raw = os.environ.get(name, "")
         if raw.strip().lower() in ("", str(default).lower()):
             continue
         if parser(raw) != default:
             raise NotImplementedError(f"{name}={raw} is {item}")
-    if _parse_bool(os.environ.get("HOROVOD_FLIGHT", "")):
-        raise NotImplementedError(
-            f"HOROVOD_FLIGHT (the flight recorder) is {_REST_9A}")
     if parse_tristate(XLA_OPERATIONS.get()) is True:
         raise NotImplementedError(
             "HOROVOD_XLA_OPERATIONS=1 asks for the reference's XLA plane; "

@@ -1,10 +1,13 @@
 """Coordination protocol: which tensors are globally ready, fused how.
 
 The port's copy of ``horovod_tpu/common/controller.py`` (``Controller``,
-``LocalTransport``, ``compute_response_list``), without the collective
-fingerprint, the straggler and flight-recorder hooks, the metrics
-counters and the autotuner's proposals: those are ROADMAP queue A item
-9(a)'s rest.  Responses, cache bits and fusion are the reference's.
+``LocalTransport``, ``compute_response_list``): responses, cache bits and
+fusion, the collective fingerprint's fold and check (a divergence records
+and dumps the flight ring), the metrics counters and histograms with the
+coordinator's straggler aggregation, and the autotuner's
+``pending_tuned_*`` proposals with the negotiation they force.  Left out
+with fault tolerance (ROADMAP queue A item 11): the RanksFailedError
+conversion that poisons a cycle.
 
 The reference's own lineage: a rebuild of Horovod's Controller
 (reference: horovod/common/controller.{cc,h} — ComputeResponseList at
@@ -31,10 +34,12 @@ multi-process worlds over the DCN control plane.
 """
 from __future__ import annotations
 
+import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
 
 from . import config
+from ..analysis.fingerprint import FingerprintTracker, OpRecord
 from .dtypes import element_size
 from .group_table import GroupTable
 from .message import (Request, RequestList, RequestType, Response,
@@ -65,6 +70,9 @@ class _TensorCount:
     """Coordinator-side readiness record for one tensor name."""
     requests: dict[int, Request] = field(default_factory=dict)  # rank -> req
     arrival: int = 0   # order in which the tensor was first requested
+    # rank -> monotonic time its request arrived (telemetry straggler
+    # signal; only populated when HOROVOD_METRICS is on).
+    times: dict[int, float] = field(default_factory=dict)
 
 
 class Transport(ABC):
@@ -116,7 +124,8 @@ class Controller:
                  local_size: int = 1,
                  cross_rank: int = 0,
                  cross_size: int = 1,
-                 timeline=None) -> None:
+                 timeline=None,
+                 fingerprint: FingerprintTracker | None = None) -> None:
         self.rank = rank
         self.size = size
         self.local_rank = local_rank
@@ -129,6 +138,8 @@ class Controller:
         self.response_cache = response_cache if response_cache is not None \
             else ResponseCache(config.CACHE_CAPACITY.get())
         self.stall_inspector = stall_inspector or StallInspector()
+        self.fingerprint = fingerprint if fingerprint is not None \
+            else FingerprintTracker.from_config()
         self.timeline = timeline
         self.tensor_fusion_threshold = config.FUSION_THRESHOLD.get()
         self.disable_group_fusion = config.DISABLE_GROUP_FUSION.get()
@@ -145,13 +156,60 @@ class Controller:
         # This rank has called join() and is riding along with zero
         # stand-ins until everyone joins.
         self.local_joined = False
+        # Autotuner proposals awaiting broadcast (coordinator only).
+        self.pending_tuned_params: tuple[int, float] | None = None
+        self.pending_tuned_codec: int | None = None
+        # (segment_bytes, num_streams) TCP-pipeline proposal.
+        self.pending_tuned_pipeline: tuple[int, int] | None = None
+        # Fused-codec-pass proposal (0/1; compress/fused.py dispatch).
+        self.pending_tuned_fused: int | None = None
+        # (algo index, tree threshold bytes) allreduce-algorithm proposal
+        # (common/topology.ALGO_NAMES; backend/tcp.py selection).
+        self.pending_tuned_algo: tuple[int, int] | None = None
         # Last request params per tensor, for cache insertion on every rank.
         self._last_request_params: dict[str, Request] = {}
+
+        # Telemetry (HOROVOD_METRICS; telemetry/): controller-plane
+        # counters + the coordinator's cross-rank straggler aggregation.
+        # The Null registry makes every call below a no-op when off.
+        from ..telemetry import metrics as _tm_metrics
+        self.metrics = _tm_metrics()
+        self._m_cache_hit = self.metrics.counter(
+            "horovod_controller_cache_hit_total",
+            "Requests answered from the response cache at controller pop")
+        self._m_cache_miss = self.metrics.counter(
+            "horovod_controller_cache_miss_total",
+            "Requests that needed (re-)negotiation")
+        self._m_negotiations = self.metrics.counter(
+            "horovod_controller_negotiations_total",
+            "Full RequestList gather/broadcast cycles")
+        self._m_negotiation_ms = self.metrics.histogram(
+            "horovod_controller_negotiation_ms",
+            "Wall time of one gather+broadcast negotiation round")
+        self._m_sync_wait_ms = self.metrics.histogram(
+            "horovod_controller_sync_wait_ms",
+            "Wall time blocked in the per-cycle bitvector sync (a fast "
+            "rank's wait here is a slow peer's lag)")
+        self.straggler = None
+        if self.metrics.enabled and self.is_coordinator and size > 1:
+            from ..telemetry.straggler import StragglerAggregator
+            self.straggler = StragglerAggregator(size, self.metrics)
+        # Worker-side window accumulators for the RequestList tm_*
+        # snapshot (core's background loop feeds record_cycle).
+        self._tm_cycles = 0
+        self._tm_cycle_ms = 0.0
+        self._tm_sync_wait_ms = 0.0
+        # Within-round per-rank arrival times of the current gather.
+        self._gather_arrivals: dict[int, float] = {}
 
         # Distributed-trace cycle counter: advances once per
         # compute_response_list call.  Cycles are lockstep across ranks,
         # so a locally-incremented counter is identical on every rank.
         self._trace_cycle = 0
+        # Flight recorder (telemetry/flight.py): Null when HOROVOD_FLIGHT
+        # is off, so every hook below is one attribute test.
+        from ..telemetry import flight as _flight
+        self.flight = _flight.recorder()
 
     # ------------------------------------------------------------------
     @property
@@ -165,6 +223,13 @@ class Controller:
     def compute_response_list(self, shutdown_requested: bool = False) -> ResponseList:
         self._trace_cycle += 1
         message_queue = self.tensor_queue.pop_messages_from_queue()
+        if self.fingerprint.enabled:
+            # Fold every locally-submitted op into this rank's rolling
+            # fingerprint in submission order (fold() itself skips JOIN —
+            # rank-asymmetric by design — and requests re-popped after a
+            # cache-bit miss, which were already folded on first pop).
+            for req in message_queue:
+                self.fingerprint.fold(req)
         if self.timeline is not None:
             for req in message_queue:
                 self.timeline.negotiate_start(req.tensor_name,
@@ -211,6 +276,20 @@ class Controller:
                         coordinator.record_hit(pos)
                     else:
                         coordinator.record_invalid(pos)
+            if self.is_coordinator and (
+                    self.pending_tuned_params is not None
+                    or self.pending_tuned_codec is not None
+                    or self.pending_tuned_pipeline is not None
+                    or self.pending_tuned_fused is not None
+                    or self.pending_tuned_algo is not None):
+                # Force one negotiation cycle so autotuned parameters reach
+                # every rank even in cache steady state.
+                coordinator.uncached_in_queue = True
+            if self.fingerprint.strict:
+                # Strict mode: a negotiation heartbeat EVERY cycle, so
+                # fingerprints are compared in cache steady state too
+                # (which otherwise never ships RequestLists).
+                coordinator.uncached_in_queue = True
             for req in message_queue:
                 state = self.response_cache.cached(req)
                 if state == CacheState.HIT:
@@ -219,6 +298,7 @@ class Controller:
                     coordinator.record_hit(pos)
                     self._local_hits[req.tensor_name] = req
                     self.stall_inspector.record_cached_tensor(req.tensor_name)
+                    self._m_cache_hit.inc()
                 else:
                     if state == CacheState.INVALID:
                         pos = self.response_cache.peek_cache_position(
@@ -226,6 +306,7 @@ class Controller:
                         coordinator.record_invalid(pos)
                     coordinator.uncached_in_queue = True
                     uncached.append(req)
+                    self._m_cache_miss.inc()
             coordinator.shutdown = shutdown_requested
             self.stall_inspector.invalidate_stalled_cached_tensors(
                 coordinator, self.response_cache)
@@ -234,8 +315,13 @@ class Controller:
             # that keeps all ranks advancing together (reference:
             # controller.cc:751-776 CoordinateCacheAndState).
             and_word, or_word = coordinator.pack()
+            t0 = time.monotonic() if self.metrics.enabled else 0.0
             and_word, or_word = self.transport.bitwise_sync(and_word,
                                                             or_word)
+            if self.metrics.enabled:
+                wait_ms = (time.monotonic() - t0) * 1e3
+                self._m_sync_wait_ms.observe(wait_ms)
+                self._tm_sync_wait_ms += wait_ms
             coordinator.unpack(and_word, or_word)
 
             if coordinator.shutdown:
@@ -283,6 +369,8 @@ class Controller:
         if self.response_cache.enabled():
             for resp in response_list.responses:
                 self._maybe_cache(resp)
+        if response_list.tuned_fusion_threshold >= 0:
+            self.tensor_fusion_threshold = response_list.tuned_fusion_threshold
         return response_list
 
     # ------------------------------------------------------------------
@@ -340,6 +428,23 @@ class Controller:
         self.response_cache.put(resp, req)
 
     # ------------------------------------------------------------------
+    def record_cycle(self, cycle_ms: float) -> None:
+        """Fold one background-loop cycle's wall time into the window
+        snapshot the next negotiation ships (core's background loop calls
+        this only when metrics are on)."""
+        self._tm_cycles += 1
+        self._tm_cycle_ms += cycle_ms
+
+    def _attach_telemetry_snapshot(self, my_list: RequestList,
+                                   queue_depth: int) -> None:
+        my_list.tm_cycles = self._tm_cycles
+        my_list.tm_cycle_ms = self._tm_cycle_ms
+        my_list.tm_sync_wait_ms = self._tm_sync_wait_ms
+        my_list.tm_queue_depth = queue_depth
+        self._tm_cycles = 0
+        self._tm_cycle_ms = 0.0
+        self._tm_sync_wait_ms = 0.0
+
     def _negotiate(self, message_queue: list[Request],
                    shutdown_requested: bool,
                    trace_offset: int = 0) -> ResponseList:
@@ -347,9 +452,25 @@ class Controller:
             self._last_request_params[req.tensor_name] = req
         my_list = RequestList(requests=list(message_queue),
                               shutdown=shutdown_requested)
+        if self.fingerprint.enabled:
+            seq, digest, tail = self.fingerprint.snapshot()
+            my_list.fp_seq, my_list.fp_digest = seq, digest
+            my_list.fp_tail_seqs = [rec.seq for rec in tail]
+            my_list.fp_tail_digests = [rec.digest for rec in tail]
+            my_list.fp_tail_descs = [rec.descriptor for rec in tail]
+        tm_on = self.metrics.enabled
+        if tm_on:
+            self._attach_telemetry_snapshot(my_list, len(message_queue))
+            t_neg = time.monotonic()
         if self.is_coordinator:
             gathered = self.transport.gather_requests(my_list)
             assert gathered is not None
+            if self.straggler is not None:
+                self.straggler.observe_snapshots(gathered)
+                # Within-round arrival times from the transport (absent on
+                # LocalTransport; _handle_request then stamps on handle).
+                self._gather_arrivals = dict(getattr(
+                    self.transport, "last_gather_arrivals", {}) or {})
             shutdown = False
             for rank_list in gathered:
                 shutdown = shutdown or rank_list.shutdown
@@ -357,6 +478,11 @@ class Controller:
                     self._handle_request(req)
             responses = [self._construct_response(names)
                          for names in self._pop_ready_tensors()]
+            fp_error = self._check_fingerprints(gathered)
+            if fp_error is not None:
+                # The divergence error leads the list so every rank fails
+                # the divergent entries before executing anything else.
+                responses.insert(0, fp_error)
             join_resp = self._maybe_join_response()
             if join_resp is not None:
                 responses.append(join_resp)
@@ -364,6 +490,27 @@ class Controller:
             # heartbeat; shutdown_requested carries its verdict here.)
             response_list = ResponseList(responses=self.fuse_responses(responses),
                                          shutdown=shutdown)
+            if self.pending_tuned_params is not None:
+                threshold, cycle = self.pending_tuned_params
+                response_list.tuned_fusion_threshold = threshold
+                response_list.tuned_cycle_time_ms = cycle
+                self.pending_tuned_params = None
+            if self.pending_tuned_codec is not None:
+                response_list.tuned_codec = self.pending_tuned_codec
+                self.pending_tuned_codec = None
+            if self.pending_tuned_pipeline is not None:
+                segment, streams = self.pending_tuned_pipeline
+                response_list.tuned_segment_bytes = segment
+                response_list.tuned_num_streams = streams
+                self.pending_tuned_pipeline = None
+            if self.pending_tuned_fused is not None:
+                response_list.tuned_fused = self.pending_tuned_fused
+                self.pending_tuned_fused = None
+            if self.pending_tuned_algo is not None:
+                algo, tree_threshold = self.pending_tuned_algo
+                response_list.tuned_algo = algo
+                response_list.tuned_tree_threshold = tree_threshold
+                self.pending_tuned_algo = None
             # Coordinator-assigned trace ids ride the broadcast wire
             # (the fp_* pattern): seq is offset past this cycle's cached
             # hits, which every rank prepends in the same order.
@@ -379,11 +526,46 @@ class Controller:
                     self.joined_ranks.clear()
                     self.last_joined_rank = -1
                     self.local_joined = False
+        if tm_on:
+            self._m_negotiation_ms.observe(
+                (time.monotonic() - t_neg) * 1e3)
+            self._m_negotiations.inc()
         return response_list
 
     # ------------------------------------------------------------------
     # Coordinator internals
     # ------------------------------------------------------------------
+    def _check_fingerprints(self, gathered: list[RequestList]) -> Response | None:
+        """Compare the ranks' rolling collective fingerprints; divergence
+        becomes a structured ERROR naming the first divergent op — the
+        failure the per-tensor validation in _construct_single can never
+        see (it needs every rank to submit the SAME tensor name; ranks
+        submitting different ops entirely otherwise stall until the stall
+        inspector's warning or the job timeout)."""
+        if not self.fingerprint.enabled:
+            return None
+        divergence = self.fingerprint.check_gathered([
+            (rl.fp_seq, rl.fp_digest,
+             [OpRecord(s, d, t) for s, d, t in
+              zip(rl.fp_tail_seqs, rl.fp_tail_digests, rl.fp_tail_descs)])
+            for rl in gathered])
+        if divergence is None:
+            return None
+        if self.flight.enabled:
+            self.flight.record("fingerprint-divergence", "",
+                               detail=divergence.message()[:200])
+            self.flight.dump(reason=divergence.message())
+        names = divergence.tensor_names()
+        for name in names:
+            # Divergent tensors will never become globally ready: drop
+            # their readiness records so the stall inspector does not
+            # keep warning about an already-reported failure.
+            self._message_table.pop(name, None)
+            self.stall_inspector.remove_uncached_tensor(name)
+        return Response(response_type=ResponseType.ERROR,
+                        tensor_names=names,
+                        error_message=divergence.message())
+
     def _handle_request(self, req: Request) -> None:
         if req.request_type == RequestType.JOIN:
             self.joined_ranks.add(req.request_rank)
@@ -396,6 +578,9 @@ class Controller:
             self._arrival_counter += 1
             self._message_table[req.tensor_name] = rec
         rec.requests[req.request_rank] = req
+        if self.straggler is not None:
+            rec.times[req.request_rank] = self._gather_arrivals.get(
+                req.request_rank, time.monotonic())
         self.stall_inspector.record_uncached_tensor(req.tensor_name,
                                                     req.request_rank)
 
@@ -465,6 +650,11 @@ class Controller:
     def _construct_single(self, name: str) -> Response:
         rec = self._message_table.pop(name)
         self.stall_inspector.remove_uncached_tensor(name)
+        if self.straggler is not None and rec.times:
+            # The tensor just became globally ready: the spread of its
+            # request arrivals IS the negotiation skew, and the last
+            # arrival names the straggler (telemetry/straggler.py).
+            self.straggler.observe_tensor(rec.times)
         reqs = [rec.requests[r] for r in sorted(rec.requests)]
         first = reqs[0]
 
@@ -708,4 +898,9 @@ class Controller:
         self._local_hits.clear()
         self._last_request_params.clear()
         self.response_cache.clear()
+        self.fingerprint.reset()
+        self._tm_cycles = 0
+        self._tm_cycle_ms = 0.0
+        self._tm_sync_wait_ms = 0.0
+        self._gather_arrivals.clear()
         self._trace_cycle = 0

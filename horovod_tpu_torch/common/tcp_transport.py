@@ -2,7 +2,7 @@
 
 The port's copy of ``horovod_tpu/common/tcp_transport.py`` (``TcpTransport``
 with its clock-offset probe), without the statesync frame verbs and the
-poison frames of fault tolerance (ROADMAP queue A item 9(a), the rest):
+poison frames of fault tolerance (ROADMAP queue A item 11):
 a dead peer surfaces as the socket's ConnectionError, which ends the
 background loop, as in the reference with fault tolerance off.
 
@@ -47,6 +47,10 @@ class TcpTransport(Transport):
         # decodes on every peer and optional field groups stay
         # symmetric in a mixed-version world.
         self.features = mesh.negotiated_features
+        # Coordinator-side: monotonic arrival time of each rank's last
+        # gathered RequestList (telemetry straggler signal; the controller
+        # reads it via getattr so LocalTransport needs no counterpart).
+        self.last_gather_arrivals: dict[int, float] = {}
 
     def _mask_unnegotiated(self, request_list: RequestList):
         """The coordinator's own RequestList never crosses the wire, so
@@ -137,9 +141,12 @@ class TcpTransport(Transport):
             # Arrival-order drain; the result stays rank-indexed.
             lists: list[RequestList | None] = [None] * self.size
             lists[0] = self._mask_unnegotiated(request_list)
+            arrivals = {0: time.monotonic()}
             for peer, raw in self.mesh.recv_in_arrival_order(
                     range(1, self.size)):
+                arrivals[peer] = time.monotonic()
                 lists[peer] = RequestList.from_bytes(raw, self.features)
+            self.last_gather_arrivals = arrivals
             return lists
         self.mesh.send(0, request_list.to_bytes(self.features))
         return None

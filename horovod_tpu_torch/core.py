@@ -3,8 +3,8 @@
 The port's copy of ``horovod_tpu/core.py`` (``Handle``, ``HandleManager``,
 ``GlobalState``, ``init``, ``shutdown``, the rank/size getters,
 ``_background_loop``, ``_execute_response``, ``_enqueue`` and the
-``enqueue_*`` functions) on torch tensors: on the CPU, or on this rank's
-card (``cuda:<local_rank>``).  ``init`` forms the world in the
+``enqueue_*`` functions, ``StreamDispatcher``) on torch tensors: on the
+CPU, or on this rank's card (``cuda:<local_rank>``).  ``init`` forms the world in the
 reference's order: the rendezvous KV, the device plane (the NCCL group,
 where the reference forms its JAX world and XLA plane), the same-host
 shm plane, the control and data meshes, the clock-offset probe, the TCP
@@ -19,11 +19,25 @@ caller's stream wait on the event recorded after the output was written
 (the call's ``compression=``, else ``HOROVOD_COMPRESSION``) and Adasum
 as the reference's requests do; the hierarchical plane forms after the
 device plane under ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``ALLGATHER``.
-Left out, each raising ``NotImplementedError`` naming its ROADMAP item
-when asked for (``common/config.py`` ``check_eager_knobs``): dispatch
-streams, the autotuner, fingerprints, fault tolerance and chaos, the
-metrics exporter and the flight recorder (item 9(a)'s rest), and elastic
-re-init (item 11).
+
+The runtime around the cycle is the reference's too:
+``HOROVOD_NUM_STREAMS`` worker threads (``StreamDispatcher``) run one
+cycle's stream-safe host responses at once, each stream over a PeerMesh
+of its own (scope ``data<epoch>.s<k>``), while device responses stay on
+stream 0 and on the one device stream made at ``init``;
+``HOROVOD_AUTOTUNE`` runs the ``ParameterManager`` on the coordinator,
+whose tuned values every rank applies on the same cycle (the pipeline,
+fused and algorithm values before the cycle's dispatch, the cycle time
+and codec after it); ``HOROVOD_FINGERPRINT`` folds every request into the
+controller's tracker; ``HOROVOD_METRICS`` records into the process
+registry (per-collective latency, bytes and bus bandwidth, per-stream
+busy time, the cycle and fusion-fill histograms), served on
+``HOROVOD_METRICS_PORT + rank`` and dumped to ``HOROVOD_METRICS_FILE``
+at ``shutdown``; the flight recorder (``HOROVOD_FLIGHT``, on by default)
+records enqueue, dispatch and completion.  Left out, each raising
+``NotImplementedError`` naming its ROADMAP item when asked for
+(``common/config.py`` ``check_eager_knobs``): fault tolerance, chaos and
+the SAN witness, and elastic re-init (item 11).
 
 Design: user threads enqueue TensorTableEntries + Requests; a single
 background thread runs the controller protocol every CycleTime ms, receives
@@ -34,6 +48,7 @@ callbacks into Handle futures, never blocking the background thread.
 from __future__ import annotations
 
 import os
+import queue
 import threading
 import time
 import types
@@ -139,6 +154,69 @@ class HandleManager:
             self._handles.pop(hid, None)
 
 
+class StreamDispatcher:
+    """HOROVOD_NUM_STREAMS persistent worker threads executing the
+    independent responses of one cycle concurrently — the multi-stream
+    analogue of upstream Horovod's per-stream NCCL queues
+    (HOROVOD_NUM_NCCL_STREAMS).  Workers live for the whole run (no
+    per-cycle/per-response thread spawn); the background loop enqueues a
+    cycle's responses with their deterministic stream assignment and
+    blocks on the cycle latch, so the controller protocol still advances
+    one fully-executed cycle at a time.  The workers overlap where the
+    GIL is released: socket I/O, the native ring and torch ops."""
+
+    def __init__(self, num_streams: int) -> None:
+        self.num_streams = num_streams
+        self._queues: list[queue.Queue] = [queue.Queue()
+                                           for _ in range(num_streams)]
+        self._threads = [
+            threading.Thread(target=self._worker, args=(k,), daemon=True,
+                             name=f"hvd-stream-{k}")
+            for k in range(num_streams)]
+        for t in self._threads:
+            t.start()
+
+    def run_cycle(self, work: list[tuple[int, Any]]) -> None:
+        """Execute [(stream, thunk)] concurrently across the stream
+        workers; returns when every thunk finished."""
+        if not work:
+            return
+        remaining = len(work)
+        lock = threading.Lock()
+        done = threading.Event()
+
+        def _count_down() -> None:
+            nonlocal remaining
+            with lock:
+                remaining -= 1
+                if remaining == 0:
+                    done.set()
+
+        for stream, thunk in work:
+            self._queues[stream].put((thunk, _count_down))
+        done.wait()
+
+    def _worker(self, k: int) -> None:
+        q = self._queues[k]
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            thunk, count_down = item
+            try:
+                thunk()
+            except Exception as exc:  # noqa: BLE001 - entry.finish reports
+                logger.error("stream %d execution failed: %s", k, exc)
+            finally:
+                count_down()
+
+    def stop(self) -> None:
+        for q in self._queues:
+            q.put(None)
+        for t in self._threads:
+            t.join(timeout=5)
+
+
 @dataclass
 class GlobalState:
     rank: int = 0
@@ -154,11 +232,30 @@ class GlobalState:
     group_table: GroupTable = field(default_factory=GroupTable)
     controller: Controller | None = None
     op_manager: OperationManager | None = None
+    # Multi-stream response dispatch (HOROVOD_NUM_STREAMS): op_managers[k]
+    # is stream k's backend chain (stream 0 = the full chain above;
+    # streams 1.. carry per-stream TCP/basic instances over their own
+    # PeerMesh channel sets).  active_streams <= len(op_managers) is the
+    # runtime width (autotuner-adjustable through the ResponseList).
+    op_managers: list[OperationManager] = field(default_factory=list)
+    stream_dispatcher: StreamDispatcher | None = None
     tcp_collectives: list[Any] = field(default_factory=list)
+    active_streams: int = 1
     handle_manager: HandleManager = field(default_factory=HandleManager)
     timeline: Timeline | None = None
+    # Metrics registry (telemetry/; HOROVOD_METRICS).  Null when off so
+    # hot paths test one attribute and skip all instrumentation.
+    telemetry: Any = None
+    # Flight recorder (telemetry/flight.py; HOROVOD_FLIGHT).  Null when
+    # off; records a bounded ring of trace events and dumps it on every
+    # structured failure.
+    flight: Any = None
+    parameter_manager: Any = None
     cycle_time_ms: float = 1.0
     joined: bool = False
+    # Runtime default wire codec (autotuner override via the ResponseList
+    # tuned_codec field); None = honor HOROVOD_COMPRESSION.
+    codec_override: str | None = None
     # Resolved fabric layout (common/topology.Topology): drives the ring
     # order and the torus allreduce eligibility.
     topology: Any = None
@@ -215,6 +312,16 @@ def init(*, rank: int | None = None, size: int | None = None,
         cross_size = _resolve(cross_size, config.CROSS_SIZE, 1)
 
         configure_logging(rank)
+        # Telemetry registry BEFORE any mesh/controller construction —
+        # they cache metric handles from the configured registry.
+        from . import telemetry as _telemetry
+        _global.telemetry = _telemetry.configure(rank)
+        _global.flight = _telemetry.flight.configure(rank)
+        if _global.telemetry.enabled:
+            _global.telemetry.gauge(
+                "horovod_world_size",
+                "Live world size of this rank's world (set at every "
+                "init)").set(size)
         _global.rank, _global.size = rank, size
         _global.local_rank, _global.local_size = local_rank, local_size
         _global.cross_rank, _global.cross_size = cross_rank, cross_size
@@ -228,6 +335,10 @@ def init(*, rank: int | None = None, size: int | None = None,
         _global.tensor_queue.reset()
         _global.joined = False
         _global.tcp_collectives = []
+        _global.stream_dispatcher = None
+        _global.active_streams = 1
+        # A tuned codec belongs to the world that tuned it.
+        _global.codec_override = None
         from .parallel import multihost
         card = multihost.local_card(local_rank)
         _global.device_index = local_rank if card is None else card
@@ -241,6 +352,7 @@ def init(*, rank: int | None = None, size: int | None = None,
             mark_cycles=config.TIMELINE_MARK_CYCLES.get(), rank=rank)
 
         backends = []
+        stream_managers: list[OperationManager] = []
         epoch = os.environ.get("HOROVOD_RENDEZVOUS_EPOCH", "0")
         if size > 1:
             addr = rendezvous_addr or config.RENDEZVOUS_ADDR.get()
@@ -311,6 +423,9 @@ def init(*, rank: int | None = None, size: int | None = None,
             # FIRST frames on the ctrl mesh), recorded as trace metadata.
             clock_offset_us, clock_rtt_us = transport.estimate_clock_offset()
             _global.timeline.set_clock_sync(clock_offset_us, clock_rtt_us)
+            _global.flight.set_metadata(
+                rank=rank, size=size, clock_offset_us=clock_offset_us,
+                clock_rtt_us=clock_rtt_us)
             # The two-level host planes (upstream NCCLHierarchicalAllreduce,
             # nccl_operations.cc:187-398): local and cross sub-meshes when
             # the knobs are on.  After the device plane in the chain, so
@@ -333,11 +448,48 @@ def init(*, rank: int | None = None, size: int | None = None,
                 shm_backend.tcp = tcp_backend   # oversized-alltoall delegate
                 backends.append(shm_backend)
             backends.append(tcp_backend)
+            # Multi-stream response dispatch (HOROVOD_NUM_STREAMS): one
+            # more PeerMesh channel set + TCP backend chain per stream, so
+            # concurrent responses never interleave bytes on a shared
+            # socket and fusion staging buffers are per-stream.  Mesh
+            # formation is collective; the knob is launcher-set and the
+            # same on every rank.  The device plane gets no stream of its
+            # own: its responses ride stream 0.
+            num_streams = max(config.NUM_STREAMS.get(), 1)
+            for s in range(1, num_streams):
+                stream_mesh = PeerMesh(rank, size, kv,
+                                       scope=f"data{epoch}.s{s}",
+                                       timeout=timeout)
+                _global.resources.append(stream_mesh)
+                coll_s = TcpCollectives(stream_mesh,
+                                        ring_order=ring_order,
+                                        torus=torus_shape)
+                _global.tcp_collectives.append(coll_s)
+                tcp_s = TcpBackend(coll_s)
+                basic_s = BasicBackend(size)
+                tcp_s.stream = basic_s.stream = s
+                tcp_s.timeline = basic_s.timeline = _global.timeline
+                stream_managers.append(OperationManager([tcp_s, basic_s]))
+            _global.active_streams = num_streams
+            if num_streams > 1:
+                _global.stream_dispatcher = StreamDispatcher(num_streams)
         else:
             transport = LocalTransport()
             _global.timeline.set_clock_sync(0.0, 0.0)
+            _global.flight.set_metadata(rank=rank, size=size,
+                                        clock_offset_us=0.0,
+                                        clock_rtt_us=0.0)
         backends.append(BasicBackend(size))
+        if card is not None and (size == 1 or _global.device_plane):
+            # The one stream the card's collective work runs on, whichever
+            # thread runs it (the background thread or stream 0's worker).
+            _global.device_stream = torch.cuda.Stream(
+                torch.device("cuda", _global.device_index))
 
+        # Runtime collective-symmetry fingerprinting (HOROVOD_FINGERPRINT;
+        # analysis/fingerprint.py): divergent ranks get a structured error
+        # naming the first divergent op instead of a stall.
+        from .analysis.fingerprint import FingerprintTracker
         _global.controller = Controller(
             rank=rank, size=size, transport=transport,
             tensor_queue=_global.tensor_queue,
@@ -346,10 +498,22 @@ def init(*, rank: int | None = None, size: int | None = None,
             stall_inspector=StallInspector(),
             local_rank=local_rank, local_size=local_size,
             cross_rank=cross_rank, cross_size=cross_size,
-            timeline=_global.timeline)
+            timeline=_global.timeline,
+            fingerprint=FingerprintTracker.from_config())
         for backend in backends:
             backend.timeline = _global.timeline
         _global.op_manager = OperationManager(backends)
+        _global.op_managers = [_global.op_manager] + stream_managers
+
+        if config.AUTOTUNE.get():
+            from .common.parameter_manager import ParameterManager
+            _global.parameter_manager = ParameterManager(
+                _global.controller, rank == 0)
+
+        if _global.telemetry.enabled and config.METRICS_PORT.get() > 0:
+            from .telemetry import MetricsExporter
+            _global.resources.append(MetricsExporter(
+                _global.telemetry, rank, config.METRICS_PORT.get()))
 
         _global.background_thread = threading.Thread(
             target=_background_loop, daemon=True, name="hvd-background")
@@ -439,18 +603,37 @@ def shutdown() -> None:
         if not _global.initialized:
             return   # a concurrent shutdown won the race past the join
         _global.tensor_queue.finalize()
+        dispatcher = _global.stream_dispatcher
+        _global.stream_dispatcher = None
         timeline = _global.timeline
+        telemetry = _global.telemetry
         resources = list(_global.resources)
         _global.resources.clear()
         _global.controller = None
         _global.op_manager = None
+        _global.op_managers = []
         _global.tcp_collectives = []
+        _global.parameter_manager = None
+        _global.active_streams = 1
         _global.device_plane = False
         _global.device_stream = None
         _global.initialized = False
         _global.background_thread = None
+    # The teardown that can wait (stream-worker joins, the timeline
+    # writer, the metrics dump, channel closes) runs outside the lock.
+    if dispatcher is not None:
+        dispatcher.stop()
     if timeline is not None:
         timeline.stop()
+    if telemetry is not None and telemetry.enabled:
+        metrics_file = config.METRICS_FILE.get()
+        if metrics_file:
+            from .telemetry import dump_json
+            try:
+                dump_json(telemetry, metrics_file, _global.rank)
+            except OSError as exc:
+                logger.warning("telemetry: metrics dump to %s "
+                               "failed: %s", metrics_file, exc)
     for res in resources:
         try:
             res.close()
@@ -524,6 +707,20 @@ def stop_timeline() -> None:
 # ---------------------------------------------------------------------------
 def _background_loop() -> None:
     st = _global
+    tm = st.telemetry
+    tm_on = tm is not None and tm.enabled
+    if tm_on:
+        # Metric handles resolved once — the per-cycle cost is the update
+        # itself (one uncontended per-metric lock), nothing else.
+        m_cycle = tm.histogram(
+            "horovod_controller_cycle_ms",
+            "Background-loop cycle wall time (pop + sync + dispatch)")
+        m_qdepth = tm.gauge(
+            "horovod_controller_tensor_queue_depth",
+            "Pending tensor-table entries after dispatch")
+        m_fill = tm.histogram(
+            "horovod_fusion_fill_ratio",
+            "Fused-response payload bytes / fusion threshold")
     while True:
         t0 = time.monotonic()
         try:
@@ -536,8 +733,70 @@ def _background_loop() -> None:
         if st.timeline is not None:
             st.timeline.mark_cycle()
 
+        # Pipeline autotune parameters apply BEFORE this cycle's dispatch:
+        # they ride the identical broadcast ResponseList, so every rank
+        # flips segment size / stream width on the same cycle and the
+        # round-robin stream assignment below stays rank-symmetric.
+        if response_list.tuned_segment_bytes >= 0:
+            for coll in st.tcp_collectives:
+                coll.segment_bytes = response_list.tuned_segment_bytes
+        if response_list.tuned_num_streams > 0:
+            st.active_streams = min(response_list.tuned_num_streams,
+                                    max(len(st.op_managers), 1))
+        if response_list.tuned_fused >= 0:
+            # The fused codec passes flip on the same cycle on every rank
+            # (both settings are bitwise identical and frame-compatible);
+            # the shm plane carries the same dispatch attribute.
+            for coll in st.tcp_collectives:
+                coll.fused = bool(response_list.tuned_fused)
+            for mgr in st.op_managers:
+                for be in mgr.backends:
+                    if be.name == "shm":
+                        be.fused = bool(response_list.tuned_fused)
+        # Allreduce-algorithm autotune applies BEFORE dispatch for the
+        # same reason as the pipeline knobs: all ranks flip on the same
+        # broadcast cycle, so _select_algo stays rank-symmetric.
+        if response_list.tuned_algo >= 0:
+            from .common.topology import algo_name
+            for coll in st.tcp_collectives:
+                coll.algo = algo_name(response_list.tuned_algo)
+        if response_list.tuned_tree_threshold >= 0:
+            for coll in st.tcp_collectives:
+                coll.tree_threshold = response_list.tuned_tree_threshold
+
+        if st.stream_dispatcher is not None \
+                and len(response_list.responses) > 1:
+            _dispatch_cycle(st, response_list.responses)
+        else:
+            for response in response_list.responses:
+                _perform_operation(st, response)
+
+        total_bytes = 0
+        tensor_names: list[str] = []
+        fusion_threshold = st.controller.fusion_threshold_bytes() \
+            if tm_on else 0
         for response in response_list.responses:
-            _perform_operation(st, response)
+            if response.response_type in (ResponseType.ALLREDUCE,
+                                          ResponseType.ADASUM):
+                from .common.dtypes import element_size
+                resp_bytes = sum(response.tensor_sizes) * \
+                    element_size(response.tensor_type)
+                total_bytes += resp_bytes
+                tensor_names.extend(response.tensor_names)
+                if tm_on and fusion_threshold > 0 and \
+                        len(response.tensor_names) > 1:
+                    m_fill.observe(resp_bytes / fusion_threshold)
+
+        # Autotune: the coordinator scores the window and proposes new
+        # parameters; every rank applies them from the ResponseList.
+        if response_list.tuned_cycle_time_ms > 0:
+            st.cycle_time_ms = response_list.tuned_cycle_time_ms
+        if response_list.tuned_codec >= 0:
+            from .compress import CompressionCodec, codec_name
+            st.codec_override = codec_name(
+                CompressionCodec(response_list.tuned_codec))
+        if st.parameter_manager is not None:
+            st.parameter_manager.observe(tensor_names, total_bytes)
 
         if response_list.shutdown:
             # Flip the visible flag: ranks that never submitted anything
@@ -547,6 +806,10 @@ def _background_loop() -> None:
             return
 
         elapsed = time.monotonic() - t0
+        if tm_on:
+            m_cycle.observe(elapsed * 1e3)
+            st.controller.record_cycle(elapsed * 1e3)
+            m_qdepth.set(st.tensor_queue.size())
         timeline = st.timeline
         if timeline is not None and timeline.enabled \
                 and response_list.responses:
@@ -604,25 +867,48 @@ def _pop_entries(st: GlobalState,
 
 
 def _execute_response(st: GlobalState, response: Response,
-                      entries: list[TensorTableEntry]) -> None:
-    """Execute one response on the backend chain and finish its
-    entries."""
+                      entries: list[TensorTableEntry],
+                      stream: int = 0) -> None:
+    """Execute one response on stream `stream`'s backend chain and finish
+    its entries (runs on the background thread when streams == 1, on a
+    stream worker otherwise)."""
     timeline = st.timeline
     trace = response.trace_id()
     if timeline is not None and timeline.enabled:
         for e in entries:
             timeline.activity_start(e.tensor_name,
                                     response.response_type.name,
-                                    stream=0, trace=trace)
+                                    stream=stream, trace=trace)
+    fl = st.flight
+    fl_on = fl is not None and fl.enabled
+    if fl_on:
+        head = response.tensor_names[0] if response.tensor_names else ""
+        fl.record("dispatch", head, trace=trace,
+                  detail=f"{response.response_type.name.lower()}"
+                         f" x{len(entries)} stream={stream}")
     if response.response_type == ResponseType.ERROR:
         status = Status.precondition_error(response.error_message)
     else:
+        tm = st.telemetry
+        tm_on = tm is not None and tm.enabled
         try:
+            manager = st.op_managers[stream]
+            if tm_on:
+                backend = manager.resolve(response, entries)
+                plane = backend.name if backend is not None else "none"
+                t0 = time.monotonic()
             card = _card_of(st, response, entries)
             if card is None:
-                status = st.op_manager.execute_operation(response, entries)
+                status = manager.execute_operation(response, entries)
             else:
-                status = _execute_on_card(st, card, response, entries)
+                status = _execute_on_card(st, card, manager, response,
+                                          entries)
+            if tm_on:
+                algo = getattr(backend, "last_algo", "none") \
+                    if backend is not None else "none"
+                _observe_collective(tm, response, plane, stream,
+                                    (time.monotonic() - t0) * 1e3, algo,
+                                    st)
         except Exception as exc:  # noqa: BLE001 - backend failure
             logger.error("collective execution failed: %s", exc)
             status = Status.unknown_error(str(exc))
@@ -630,6 +916,11 @@ def _execute_response(st: GlobalState, response: Response,
     if timeline is not None and timeline.enabled:
         for e in entries:
             timeline.activity_end(e.tensor_name)
+
+    if fl_on:
+        fl.record("done" if status.ok_p() else "error", head,
+                  trace=trace,
+                  detail="" if status.ok_p() else status.reason[:200])
 
     # Release explicit groups everywhere — the coordinator deregisters
     # during response construction; worker ranks would leak one group
@@ -642,6 +933,61 @@ def _execute_response(st: GlobalState, response: Response,
         # Close the enqueue->callback spans AFTER the callbacks ran.
         for e in entries:
             timeline.queue_end(e.tensor_name, trace=trace)
+
+
+def _observe_collective(tm, response: Response, plane: str, stream: int,
+                        latency_ms: float, algo: str = "none",
+                        st: GlobalState | None = None) -> None:
+    """Per-plane/per-codec collective latency+bytes, per-stream busy
+    time, and the bus-bandwidth observation (registry lookups are dict
+    hits; metric objects are cached by the registry itself)."""
+    from .common.dtypes import element_size
+    from .compress import CompressionCodec, codec_name
+    from .telemetry import perfmodel
+    op = response.response_type.name.lower()
+    codec = codec_name(CompressionCodec(response.codec))
+    nbytes = sum(response.tensor_sizes) * element_size(response.tensor_type)
+    tm.histogram(
+        "horovod_collective_latency_ms",
+        "End-to-end latency of one executed response, by data plane, "
+        "op, wire codec and collective algorithm",
+        labels={"plane": plane, "op": op, "codec": codec, "algo": algo}
+    ).observe(latency_ms)
+    tm.counter(
+        "horovod_collective_algo_total",
+        "Executed responses by collective algorithm (ring / tree / rhd "
+        "/ torus / hierarchical / ... — the per-size selection verdict)",
+        labels={"algo": algo}).inc(1)
+    tm.counter(
+        "horovod_collective_bytes_total",
+        "Uncompressed payload bytes of executed responses (allgather "
+        "counts per-rank first dims as elements)",
+        labels={"plane": plane, "op": op}).inc(nbytes)
+    tm.counter(
+        "horovod_stream_busy_ms_total",
+        "Cumulative execution time on each dispatch stream",
+        labels={"stream": str(stream)}).inc(latency_ms)
+    # Bus bandwidth per (plane, op, codec, algo, size-bucket) — the
+    # nccl-tests normalization, comparable across algorithms and world
+    # sizes.
+    size = st.size if st is not None else 1
+    if size > 1 and nbytes > 0 and latency_ms > 0.0:
+        busbw = perfmodel.busbw_mbps(op, nbytes, latency_ms, size)
+        bucket = perfmodel.size_bucket(nbytes)
+        tm.histogram(
+            "horovod_collective_busbw_mbps",
+            "Bus bandwidth of one executed collective (busbw = algbw x "
+            "op factor, MB/s) by data plane, op, wire codec, algorithm "
+            "and payload size bucket (telemetry/perfmodel.py)",
+            labels={"plane": plane, "op": op, "codec": codec,
+                    "algo": algo, "size_bucket": bucket}
+        ).observe(busbw)
+        peak = tm.gauge(
+            "horovod_collective_busbw_peak_mbps",
+            "Best bus bandwidth any collective demonstrated on this "
+            "rank's data planes")
+        if busbw > peak.value:
+            peak.set(busbw)
 
 
 def _card_of(st: GlobalState, response: Response,
@@ -657,14 +1003,16 @@ def _card_of(st: GlobalState, response: Response,
 
 
 def _execute_on_card(st: GlobalState, card: torch.device,
-                     response: Response,
+                     manager: OperationManager, response: Response,
                      entries: list[TensorTableEntry]) -> Status:
-    """Run a response on the background thread's stream: after the
-    inputs' ready events, and record the event the callers wait on."""
+    """Run a response on the rank's device stream, made at ``init``:
+    after the inputs' ready events, and record the event the callers
+    wait on.  Device responses ride stream 0 (the device plane is not
+    stream-safe), but a cycle of one response runs on the background
+    thread and a longer one on stream 0's worker, so the thread sets the
+    rank's card before it touches CUDA."""
     stream = st.device_stream
-    if stream is None:
-        torch.cuda.set_device(card)
-        stream = st.device_stream = torch.cuda.Stream(card)
+    torch.cuda.set_device(card)
     with torch.cuda.stream(stream):
         for e in entries:
             if e.ready_event is not None:
@@ -672,7 +1020,7 @@ def _execute_on_card(st: GlobalState, card: torch.device,
             if e.tensor is not None:
                 # The caller may drop its input before the card reads it.
                 e.tensor.record_stream(stream)
-        status = st.op_manager.execute_operation(response, entries)
+        status = manager.execute_operation(response, entries)
         done = torch.cuda.Event()
         done.record(stream)
     for e in entries:
@@ -685,7 +1033,39 @@ def _perform_operation(st: GlobalState, response: Response) -> None:
     if response.response_type == ResponseType.JOIN:
         _perform_join(st, response)
         return
-    _execute_response(st, response, _pop_entries(st, response))
+    _execute_response(st, response, _pop_entries(st, response), stream=0)
+
+
+def _dispatch_cycle(st: GlobalState, responses: list[Response]) -> None:
+    """Multi-stream dispatch of one cycle's responses.
+
+    Stream assignment is round-robin over the coordinator-ordered
+    ResponseList, counting only stream-safe responses — both the order
+    and each response's resolved backend are identical on every rank
+    (enabled() checks are rank-symmetric by contract), so rank R's
+    stream-k worker exchanges bytes exactly with every peer's stream-k
+    worker.  Responses whose plane keeps process-global protocol state
+    (shm lockstep, the NCCL device plane, the hierarchical sub-meshes)
+    all ride stream 0, preserving their relative execution order."""
+    work: list[tuple[int, Any]] = []
+    rr = 0
+    for response in responses:
+        if response.response_type == ResponseType.JOIN:
+            _perform_join(st, response)
+            continue
+        entries = _pop_entries(st, response)
+        stream = 0
+        if response.response_type != ResponseType.ERROR:
+            backend = st.op_managers[0].resolve(response, entries)
+            if backend is not None and backend.stream_safe:
+                stream = rr % max(st.active_streams, 1)
+                rr += 1
+
+        def _thunk(response=response, entries=entries, stream=stream):
+            _execute_response(st, response, entries, stream=stream)
+
+        work.append((stream, _thunk))
+    st.stream_dispatcher.run_cycle(work)
 
 
 # ---------------------------------------------------------------------------
@@ -742,9 +1122,12 @@ def _enqueue(entries: list[TensorTableEntry],
     # background loop may finish an entry before this thread runs again.
     timeline = st.timeline
     tl_on = timeline is not None and timeline.enabled
-    if tl_on:
-        for e in entries:
+    fl = st.flight
+    for e in entries:
+        if tl_on:
             timeline.queue_start(e.tensor_name)
+        if fl is not None and fl.enabled:
+            fl.record("enqueue", e.tensor_name)
     status = st.tensor_queue.add_to_tensor_queue_multi(entries, requests)
     if not status.ok_p():
         # Fail synchronously (duplicate name / shut down).
@@ -759,11 +1142,12 @@ def _enqueue(entries: list[TensorTableEntry],
 
 
 def _resolve_codec(codec) -> tuple[int, int]:
-    """(codec id, block size) for a Request: the call's argument, else
-    the HOROVOD_COMPRESSION knob.  (The reference's autotuner override
-    sits between the two; the port has no autotuner yet.)"""
+    """(codec id, block size) for a Request: explicit argument beats the
+    autotuner's runtime override beats the HOROVOD_COMPRESSION knob."""
     from .compress import (QUANTIZED_CODECS, CompressionCodec,
                            codec_from_name, default_block_size)
+    if codec is None:
+        codec = _global.codec_override
     if codec is None:
         codec = config.COMPRESSION.get()
     c = codec_from_name(codec)

@@ -3,11 +3,11 @@
 The port's copy of ``horovod_tpu/runner/network.py``: the framing helpers,
 the rendezvous KV (``RendezvousServer``, its HTTP handler,
 ``RendezvousClient``) and the peer sockets (``_PeerChannel``,
-``PeerMesh``).  Left out, each ROADMAP queue A item 9(a)'s rest or 12:
-fault tolerance and chaos (the deadline-bounded socket waits), the
-metrics counters, the write-ahead-logged replica set
-(``HOROVOD_RENDEZVOUS_WAL_DIR``) and NIC selection
-(``HOROVOD_GLOO_IFACE``).
+``PeerMesh``), with the metrics counters (per-peer wire bytes, the send
+queue's depth, the KV verbs' latency).  Left out: fault tolerance and
+chaos (the deadline-bounded socket waits; ROADMAP queue A item 11), the
+write-ahead-logged replica set (``HOROVOD_RENDEZVOUS_WAL_DIR``) and NIC
+selection (``HOROVOD_GLOO_IFACE``; item 12).
 
 Reference analogues: horovod/common/gloo/http_store.cc (KV client),
 horovod/runner/http/http_server.py:35-241 (rendezvous KV server), and the
@@ -391,6 +391,29 @@ class RendezvousClient:
             self._endpoints = self.parse_endpoints(addr, port)
         self._active = 0
         self.timeout = timeout
+        # Per-verb latency histograms, bound lazily to the live registry
+        # (telemetry may be configured after the client is built).
+        self._lat: dict[str, object] = {}
+        self._lat_reg = None
+
+    def _observe_latency(self, verb: str, start: float) -> None:
+        """Record one verb's wall time (retries + failover included) on
+        ``horovod_rendezvous_kv_latency_ms{verb}``."""
+        from ..telemetry import metrics
+        tm = metrics()
+        if not tm.enabled:
+            return
+        if self._lat_reg is not tm:
+            self._lat = {}
+            self._lat_reg = tm
+        hist = self._lat.get(verb)
+        if hist is None:
+            hist = tm.histogram(
+                "horovod_rendezvous_kv_latency_ms",
+                "Client-observed rendezvous KV verb latency, failover "
+                "retries included", labels={"verb": verb})
+            self._lat[verb] = hist
+        hist.observe((time.monotonic() - start) * 1e3)
 
     @staticmethod
     def parse_endpoints(addr: str, port: int | None) -> list[str]:
@@ -448,6 +471,8 @@ class RendezvousClient:
             deadline = time.monotonic() + self.timeout
         if attempt_timeout is None:
             attempt_timeout = min(self.timeout, _ATTEMPT_TIMEOUT_S)
+        verb = verb or method.lower()
+        start = time.monotonic()
         attempt = 0
         last_exc: Exception | None = None
         while True:
@@ -458,9 +483,12 @@ class RendezvousClient:
             try:
                 with urlrequest.urlopen(
                         req, timeout=attempt_timeout) as resp:
-                    return resp.read()
+                    body = resp.read()
+                self._observe_latency(verb, start)
+                return body
             except urlerror.HTTPError as e:
                 if e.code == 404:
+                    self._observe_latency(verb, start)
                     return None
                 if e.code not in (409, 503):
                     raise
@@ -765,6 +793,20 @@ class PeerMesh:
         # (tests/test_compress.py) and PERFORMANCE.md numbers come from.
         self.bytes_sent = 0
         self.bytes_received = 0
+        # Telemetry (HOROVOD_METRICS): per-peer wire counters + send-queue
+        # depth, labelled by mesh scope so control/data/stream meshes stay
+        # distinguishable.  Null registry when off — per-call cost is one
+        # attribute test on _tm_on.
+        from ..telemetry import metrics as _tm_metrics
+        self._tm = _tm_metrics()
+        self._tm_on = self._tm.enabled
+        self._tm_sent: dict[int, object] = {}
+        self._tm_recv: dict[int, object] = {}
+        self._tm_qdepth = self._tm.histogram(
+            "horovod_tcp_send_queue_depth",
+            "Outbound frames queued on a peer's persistent sender lane "
+            "at enqueue time", labels={"mesh": scope}) if self._tm_on \
+            else None
         # Versioned wire handshake (HELLO{proto_version, feature_bits},
         # exchanged on every pair socket at formation): the mesh-wide
         # negotiated schema is the min proto / AND of feature bits over
@@ -860,6 +902,14 @@ class PeerMesh:
         self.negotiated_proto = proto
         self.negotiated_features = feats
         self.peer_protos = {p: h[0] for p, h in peer_hellos.items()}
+        if self._tm_on:
+            for peer, (peer_proto, _pf) in sorted(peer_hellos.items()):
+                self._tm.gauge(
+                    "horovod_wire_proto_version",
+                    "Wire protocol version the peer advertised at "
+                    "channel establishment",
+                    labels={"mesh": self.scope,
+                            "peer": str(peer)}).set(peer_proto)
 
     @staticmethod
     def _advertised_host() -> str:
@@ -880,14 +930,41 @@ class PeerMesh:
         with self._lock:
             self.bytes_received += nbytes
 
+    # -- per-peer telemetry counters (lazily created per peer) ----------
+    def _tm_peer(self, table: dict, name: str, peer: int):
+        c = table.get(peer)
+        if c is None:
+            c = self._tm.counter(
+                name, "Payload bytes on the wire by peer rank "
+                "(framing excluded)",
+                labels={"mesh": self.scope, "peer": str(peer)})
+            table[peer] = c
+        return c
+
+    def _tm_count_sent(self, peer: int, nbytes: int) -> None:
+        self._tm_peer(self._tm_sent,
+                      "horovod_tcp_bytes_sent_total", peer).inc(nbytes)
+
+    def _tm_count_recv(self, peer: int, nbytes: int) -> None:
+        self._tm_peer(self._tm_recv,
+                      "horovod_tcp_bytes_received_total", peer).inc(nbytes)
+
     def send(self, peer: int, payload: bytes) -> None:
         self._count_sent(self._channels[peer].send_sync(payload))
+        if self._tm_on:
+            self._tm_count_sent(peer, len(payload))
 
     def send_async(self, peer: int, payload) -> None:
         """Enqueue a framed message on the peer's persistent sender lane
         (counted by the lane on completion).  Zero-copy: the payload
         buffer must stay unmutated until `flush()`."""
-        self._channels[peer].send_async(payload)
+        ch = self._channels[peer]
+        ch.send_async(payload)
+        if self._tm_on:
+            # Depth AFTER the put: what's now waiting on the lane.
+            if ch._queue is not None:
+                self._tm_qdepth.observe(ch._queue.qsize())
+            self._tm_count_sent(peer, _as_byte_view(payload).nbytes)
 
     def recv(self, peer: int) -> bytearray:
         """Receive one framed message, allocated fresh."""
@@ -900,6 +977,8 @@ class PeerMesh:
             if n:
                 ch.recv_exact_into(memoryview(data))
         self._count_received(len(data))
+        if self._tm_on:
+            self._tm_count_recv(peer, len(data))
         return data
 
     # -- zero-copy receive surface (bulk data plane) --------------------
@@ -908,6 +987,8 @@ class PeerMesh:
         the caller must now consume via recv_raw_into/scratch."""
         n = self._channels[peer].recv_begin()
         self._count_received(n)
+        if self._tm_on:
+            self._tm_count_recv(peer, n)
         return n
 
     def recv_raw_into(self, peer: int, view: memoryview) -> None:

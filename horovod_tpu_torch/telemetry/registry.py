@@ -1,15 +1,18 @@
-"""Metrics registry: counters, gauges and log2 histograms.
+"""Lock-light per-rank metrics registry: counters, gauges, log2 histograms.
 
-The port's own copy of ``horovod_tpu/telemetry/registry.py``'s metric
-types and registry, which serving needs as control state: admission reads
-its live step-time estimate from a histogram's quantile, and the paged
-pool's counters back ``kv_stats()``.  Each metric owns one uncontended
-lock taken only for its own update; lookup takes the registry's lock and
-is meant for init time.  Histograms are fixed arrays of 64 log2 buckets.
+The port's own copy of ``horovod_tpu/telemetry/registry.py``.  Serving
+keeps control state in it (admission reads its live step-time estimate
+from a histogram's quantile, and the paged pool's counters back
+``kv_stats()``); the eager core records into the process registry of
+``telemetry.metrics()`` under ``HOROVOD_METRICS``.
 
-Not ported here (ROADMAP queue A item 12): the process-wide registry
-behind ``HOROVOD_METRICS``, its no-op stand-in, Prometheus rendering and
-the exporters.
+- **Lock-light.**  Each metric owns one uncontended ``threading.Lock``
+  taken only for its own update; lookup takes the registry's lock and is
+  meant for init time (hot paths hold the metric object).
+- **Zero cost when off.**  ``HOROVOD_METRICS=off`` (the default) yields a
+  :class:`NullRegistry` whose metrics are one shared no-op object.
+- **Bounded.**  Histograms are fixed arrays of 64 log2 buckets, so a
+  snapshot or a scrape never grows with the run's length.
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ import math
 import threading
 
 # Histogram buckets: bucket k holds observations in (2^(k-1+_LOW), 2^(k+_LOW)]
-# with everything below 2^_LOW in bucket 0; the bounds run from about 1e-6
-# to 1.7e13, wide enough for ms, bytes and ratios alike.
+# with everything below 2^_LOW in bucket 0.  _LOW=-20 puts the smallest
+# bound near 1e-6 (sub-microsecond) and the largest near 1.7e13 (bytes of
+# a 17 TB transfer / ms of a 544-year stall) — wide enough for every unit
+# this tree observes (ms, bytes, ratios).
 _NBUCKETS = 64
 _LOW = -20
 
@@ -113,6 +118,23 @@ class Histogram:
     def mean(self) -> float:
         return self._sum / self._count if self._count else 0.0
 
+    def percentile(self, p: float) -> float:
+        """Approximate percentile: the upper bound of the bucket holding
+        the p-quantile observation (log2 resolution — factor-of-two
+        accuracy, which is what "where did the milliseconds go" needs)."""
+        with self._lock:
+            count = self._count
+            buckets = list(self._buckets)
+        if count == 0:
+            return 0.0
+        target = p / 100.0 * count
+        cum = 0
+        for i, n in enumerate(buckets):
+            cum += n
+            if cum >= target:
+                return bucket_upper_bound(i)
+        return bucket_upper_bound(_NBUCKETS - 1)
+
     def quantile(self, q: float) -> float:
         """Interpolated quantile, ``q`` in [0, 1]: geometric (log-space)
         interpolation within the log2 bucket holding the q-th
@@ -149,13 +171,55 @@ class Histogram:
                 for i, n in enumerate(self._buckets) if n]
 
 
+class _NullMetric:
+    """Shared no-op stand-in for every metric type when metrics are off."""
+
+    __slots__ = ()
+    name = ""
+    labels: dict[str, str] = {}
+    value = 0.0
+    count = 0
+    sum = 0.0
+    mean = 0.0
+
+    def inc(self, value: float = 1.0) -> None:
+        pass
+
+    def set(self, value: float) -> None:
+        pass
+
+    def observe(self, value: float) -> None:
+        pass
+
+    def percentile(self, p: float) -> float:
+        return 0.0
+
+    def quantile(self, q: float) -> float:
+        return 0.0
+
+    def nonzero_buckets(self):
+        return []
+
+
+NULL_METRIC = _NullMetric()
+
+
 def _label_key(labels: dict[str, str] | None) -> tuple:
     return tuple(sorted((labels or {}).items()))
 
 
+def _format_labels(labels: dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
 class MetricsRegistry:
-    """A registry of metrics by name and labels; each serving object
-    that keeps metrics owns one unless it is handed one."""
+    """A registry of metrics by name and labels: the process one of
+    ``telemetry.configure``, or one a serving object owns."""
+
+    enabled = True
 
     def __init__(self, rank: int = 0) -> None:
         self.rank = rank
@@ -193,8 +257,44 @@ class MetricsRegistry:
             return sorted(self._metrics.items(), key=lambda kv: kv[0])
 
     # -- exposition ------------------------------------------------------
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        out: list[str] = []
+        seen_header: set[str] = set()
+        for (name, _), m in self._sorted_metrics():
+            kind = {Counter: "counter", Gauge: "gauge",
+                    Histogram: "histogram"}[type(m)]
+            if name not in seen_header:
+                seen_header.add(name)
+                help_ = self._help.get(name, "")
+                if help_:
+                    out.append(f"# HELP {name} {help_}")
+                out.append(f"# TYPE {name} {kind}")
+            if isinstance(m, Histogram):
+                cum = 0
+                for bound, n in m.nonzero_buckets():
+                    cum += n
+                    lab = _format_labels({**m.labels, "le": f"{bound:g}"})
+                    out.append(f"{name}_bucket{lab} {cum}")
+                lab = _format_labels({**m.labels, "le": "+Inf"})
+                out.append(f"{name}_bucket{lab} {m.count}")
+                base = _format_labels(m.labels)
+                out.append(f"{name}_sum{base} {m.sum:g}")
+                out.append(f"{name}_count{base} {m.count}")
+                # Interpolated p50/p99 as summary-style series: serving
+                # SLO dashboards and training step times read the same
+                # quantile path (Histogram.quantile).
+                for q in (0.5, 0.99):
+                    lab = _format_labels({**m.labels, "quantile": f"{q:g}"})
+                    out.append(f"{name}{lab} {m.quantile(q):g}")
+            else:
+                out.append(
+                    f"{name}{_format_labels(m.labels)} {m.value:g}")
+        return "\n".join(out) + "\n"
+
     def snapshot(self) -> dict:
-        """JSON-able dump of every metric."""
+        """JSON-able dump of every metric (the HOROVOD_METRICS_FILE
+        payload)."""
         metrics = []
         for (name, _), m in self._sorted_metrics():
             entry: dict = {"name": name, "labels": m.labels}
@@ -214,3 +314,32 @@ class MetricsRegistry:
                 entry["buckets"] = [[b, n] for b, n in m.nonzero_buckets()]
             metrics.append(entry)
         return {"rank": self.rank, "metrics": metrics}
+
+
+class NullRegistry:
+    """HOROVOD_METRICS=off: every lookup returns the shared no-op metric —
+    the hot path sees no new locks, syscalls, or allocations."""
+
+    enabled = False
+    rank = -1
+
+    def counter(self, name: str, help: str = "",
+                labels: dict[str, str] | None = None):
+        return NULL_METRIC
+
+    def gauge(self, name: str, help: str = "",
+              labels: dict[str, str] | None = None):
+        return NULL_METRIC
+
+    def histogram(self, name: str, help: str = "",
+                  labels: dict[str, str] | None = None):
+        return NULL_METRIC
+
+    def render_prometheus(self) -> str:
+        return ""
+
+    def snapshot(self) -> dict:
+        return {"rank": self.rank, "metrics": []}
+
+
+NULL_REGISTRY = NullRegistry()

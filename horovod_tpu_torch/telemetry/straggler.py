@@ -1,0 +1,173 @@
+"""Coordinator-side cross-rank straggler aggregation.
+
+The port's own copy of ``horovod_tpu/telemetry/straggler.py``.
+
+A pod-scale training study (arxiv 1909.09756) observes that
+at scale the dominant performance failure is a *straggler rank* — one
+rank arriving late at every synchronization point — which no single-rank
+trace can reveal.  The stall inspector only fires after 60 s of total
+silence; this module surfaces millisecond-scale skew continuously.
+
+Two signals, both riding the existing negotiation protocol (no extra
+collectives, no extra sockets):
+
+1. **Per-tensor readiness lag** (coordinator-only): when the coordinator
+   pops a globally-ready tensor, the spread between the first and last
+   rank's request arrival is that tensor's negotiation skew, and the
+   last-arriving rank is its straggler.  Aggregated over a window of
+   ``HOROVOD_METRICS_WINDOW`` released tensors into min/mean/max/p99
+   gauges; a rank whose mean lag exceeds
+   ``HOROVOD_STRAGGLER_THRESHOLD_MS`` is named in a structured warning
+   and a gauge — long before it would ever trip the stall inspector.
+
+2. **Per-rank self-reported snapshots** (bounded: four scalars) ride each
+   worker's RequestList (message.py ``tm_*`` fields): cycle count, summed
+   cycle wall time, summed control-plane sync wait, and queue depth.  The
+   coordinator re-exports them as per-rank gauges so a scrape of rank 0
+   shows the whole world's controller health.
+
+Visibility caveat: readiness lag is
+observed when tensors *negotiate*.  In response-cache steady state the
+control plane ships only bitvectors; skew then surfaces on the next
+natural negotiation (new tensor, cache invalidation, autotune heartbeat)
+or every cycle under ``HOROVOD_FINGERPRINT=strict``.
+"""
+from __future__ import annotations
+
+from ..common import config
+from ..common.logging import logger
+
+
+class StragglerAggregator:
+    """Windowed cross-rank negotiation-skew statistics (coordinator)."""
+
+    def __init__(self, size: int, registry, window: int | None = None,
+                 threshold_ms: float | None = None) -> None:
+        self.size = size
+        self.registry = registry
+        self.window = int(window if window is not None
+                          else config.METRICS_WINDOW.get())
+        if self.window <= 0:
+            self.window = 1
+        self.threshold_ms = float(
+            threshold_ms if threshold_ms is not None
+            else config.STRAGGLER_THRESHOLD_MS.get())
+        # Exposed for tests and for the structured warning.
+        self.last_straggler = -1
+        self.last_skew_ms = 0.0
+        self.windows_completed = 0
+        # Window accumulators.
+        self._lag_sum = [0.0] * size
+        self._lag_count = [0] * size
+        self._lag_samples: list[float] = []
+        self._tensors_seen = 0
+        # Gauges (created once; labels stat= keeps one metric family).
+        g = registry.gauge
+        self._g_stats = {
+            stat: g("horovod_controller_negotiation_lag_ms",
+                    "Cross-rank request-arrival lag per window "
+                    "(ms behind the first-arriving rank)",
+                    labels={"stat": stat})
+            for stat in ("min", "mean", "max", "p99")}
+        self._g_rank = g("horovod_controller_straggler_rank",
+                         "Rank with the highest mean negotiation lag in "
+                         "the last window (-1 = none)")
+        self._g_lag = g("horovod_controller_straggler_lag_ms",
+                        "Mean lag of the straggler rank in the last "
+                        "window, ms behind the fastest rank")
+        self._c_windows = registry.counter(
+            "horovod_controller_straggler_windows_total",
+            "Windows whose straggler exceeded "
+            "HOROVOD_STRAGGLER_THRESHOLD_MS")
+        self._g_rank.set(-1.0)
+        self._rank_gauges: dict[tuple[str, int], object] = {}
+
+    # -- signal 1: per-tensor readiness lag ------------------------------
+    def observe_tensor(self, arrival_times: dict[int, float]) -> None:
+        """``arrival_times``: rank -> monotonic time the coordinator saw
+        that rank's request for one now-ready tensor."""
+        if len(arrival_times) < 2:
+            return
+        first = min(arrival_times.values())
+        for rank, t in arrival_times.items():
+            lag_ms = (t - first) * 1e3
+            if 0 <= rank < self.size:
+                self._lag_sum[rank] += lag_ms
+                self._lag_count[rank] += 1
+            self._lag_samples.append(lag_ms)
+        self._tensors_seen += 1
+        if self._tensors_seen >= self.window:
+            self._finalize_window()
+
+    def _finalize_window(self) -> None:
+        samples = self._lag_samples
+        samples.sort()
+        n = len(samples)
+        if n:
+            stats = {
+                "min": samples[0],
+                "mean": sum(samples) / n,
+                "max": samples[-1],
+                "p99": samples[min(n - 1, int(0.99 * (n - 1)))],
+            }
+            for stat, gauge in self._g_stats.items():
+                gauge.set(stats[stat])
+        means = [self._lag_sum[r] / self._lag_count[r]
+                 if self._lag_count[r] else 0.0 for r in range(self.size)]
+        straggler = max(range(self.size), key=lambda r: means[r])
+        skew = means[straggler] - min(means)
+        self.windows_completed += 1
+        if skew > self.threshold_ms:
+            self.last_straggler = straggler
+            self.last_skew_ms = skew
+            self._g_rank.set(float(straggler))
+            self._g_lag.set(skew)
+            self._c_windows.inc()
+            logger.warning(
+                "telemetry: rank %d is the slowest rank this window — its "
+                "collective submissions arrive %.1f ms (mean) behind the "
+                "fastest rank over %d negotiated tensors (window lag "
+                "min/mean/max/p99 = %.1f/%.1f/%.1f/%.1f ms). A persistent "
+                "straggler caps the whole pod at its pace (arxiv "
+                "1909.09756); profile that rank (input pipeline, host "
+                "contention, thermal throttle).",
+                straggler, skew, self._tensors_seen,
+                stats["min"], stats["mean"], stats["max"], stats["p99"])
+        else:
+            self._g_rank.set(-1.0)
+            self._g_lag.set(skew)
+        self._lag_sum = [0.0] * self.size
+        self._lag_count = [0] * self.size
+        self._lag_samples = []
+        self._tensors_seen = 0
+
+    # -- signal 2: per-rank self-reported snapshots ----------------------
+    def _rank_gauge(self, family: str, rank: int, help_: str):
+        key = (family, rank)
+        g = self._rank_gauges.get(key)
+        if g is None:
+            g = self.registry.gauge(family, help_,
+                                    labels={"rank": str(rank)})
+            self._rank_gauges[key] = g
+        return g
+
+    def observe_snapshots(self, gathered) -> None:
+        """Fold the tm_* snapshot fields of every rank's RequestList
+        (index = rank) into per-rank gauges."""
+        for rank, rl in enumerate(gathered):
+            if rl is None or rl.tm_cycles <= 0:
+                continue
+            cycles = rl.tm_cycles
+            self._rank_gauge(
+                "horovod_rank_cycle_ms", rank,
+                "Per-rank mean background-cycle wall time over the last "
+                "reported window").set(rl.tm_cycle_ms / cycles)
+            self._rank_gauge(
+                "horovod_rank_sync_wait_ms", rank,
+                "Per-rank mean control-plane sync wait per cycle (a "
+                "straggler's peers wait; the straggler itself does "
+                "not)").set(rl.tm_sync_wait_ms / cycles)
+            self._rank_gauge(
+                "horovod_rank_queue_depth", rank,
+                "Per-rank tensor-queue depth at its last negotiation"
+            ).set(float(rl.tm_queue_depth))

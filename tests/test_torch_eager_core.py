@@ -441,16 +441,10 @@ def test_world_of_one_scales_integers_like_the_reference(solo):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("HOROVOD_NUM_STREAMS", "2"),
-    ("HOROVOD_AUTOTUNE", "1"),
-    ("HOROVOD_FINGERPRINT", "cycle"),
     ("HOROVOD_SAN", "1"),
     ("HOROVOD_FAULT_TOLERANCE", "1"),
     ("HOROVOD_CHAOS", "kill:rank=1"),
-    ("HOROVOD_METRICS", "on"),
-    ("HOROVOD_METRICS_PORT", "9100"),
     ("HOROVOD_ELASTIC", "1"),
-    ("HOROVOD_FLIGHT", "1"),
     ("HOROVOD_XLA_OPERATIONS", "1"),
 ])
 def test_unported_knobs_raise(monkeypatch, knob, value):
@@ -458,6 +452,127 @@ def test_unported_knobs_raise(monkeypatch, knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         hvd.init()
     assert not hvd.is_initialized()
+
+
+_STREAMS_RANK = """
+import sys, torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import core
+hvd.init()
+st = core.global_state()
+out = hvd.allreduce(torch.ones(3), op=hvd.Sum, name="s")
+print(st.stream_dispatcher is not None, st.stream_dispatcher.num_streams,
+      len(st.op_managers), st.active_streams, out.tolist())
+hvd.shutdown()
+"""
+
+
+def _streams_world_of_two() -> list[str]:
+    """Two ranks at HOROVOD_NUM_STREAMS=2 (a world of one has no
+    dispatcher, in the reference too); each prints what it formed."""
+    import subprocess
+    import sys
+
+    from horovod_tpu_torch.runner.network import RendezvousServer
+    server = RendezvousServer()
+    port = server.start()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    env.update(HOROVOD_SIZE="2", HOROVOD_NUM_STREAMS="2",
+               HOROVOD_SHM_OPERATIONS="0",
+               HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+               HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+               HOROVOD_RENDEZVOUS_EPOCH=f"streams{time.time_ns()}",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.dirname(os.path.dirname(__file__)),
+                    env.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, "-c", _STREAMS_RANK],
+                              env=dict(env, HOROVOD_RANK=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        server.stop()
+    assert all(p.returncode == 0 for p in procs), outs
+    return [o.strip().splitlines()[-1] for o in outs]
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("HOROVOD_NUM_STREAMS", "2"),
+    ("HOROVOD_AUTOTUNE", "1"),
+    ("HOROVOD_FINGERPRINT", "cycle"),
+    ("HOROVOD_METRICS", "on"),
+    ("HOROVOD_METRICS_PORT", "0"),
+    ("HOROVOD_FLIGHT", "1"),
+])
+def test_runtime_knobs_are_live(monkeypatch, knob, value):
+    """Each runtime knob the port once refused now inits, runs an
+    allreduce and shows its feature working: a stream dispatcher, an
+    active autotuner, a folding fingerprint tracker, a recording metrics
+    registry, a bound exporter that answers a scrape, a recording flight
+    ring."""
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    if knob == "HOROVOD_NUM_STREAMS":
+        for line in _streams_world_of_two():
+            assert line == "True 2 2 2 [2.0, 2.0, 2.0]", line
+        return
+    from horovod_tpu_torch import core, telemetry
+    if knob == "HOROVOD_METRICS_PORT":
+        # The exporter serves when the registry records: a free port.
+        from horovod_tpu_torch.runner.network import free_port
+        value = str(free_port())
+        monkeypatch.setenv("HOROVOD_METRICS", "1")
+    monkeypatch.setenv(knob, value)
+    hvd.init()
+    try:
+        st = core.global_state()
+        out = hvd.allreduce(torch.arange(4.0), op=hvd.Sum, name="live")
+        assert out.tolist() == [0.0, 1.0, 2.0, 3.0]
+        if knob == "HOROVOD_AUTOTUNE":
+            pm = st.parameter_manager
+            assert pm is not None and pm._active and not pm._done
+            assert pm._steps >= 1 or pm._warmup_left < 3
+        elif knob == "HOROVOD_FINGERPRINT":
+            fp = st.controller.fingerprint
+            assert fp.enabled and not fp.strict and fp.seq == 1
+            assert fp.snapshot()[2][0].descriptor == \
+                "ALLREDUCE|live|FLOAT32|4|0/0"
+        elif knob == "HOROVOD_METRICS":
+            assert st.telemetry.enabled and telemetry.metrics() is \
+                st.telemetry
+            snap = {(m["name"], tuple(sorted(m["labels"].items()))): m
+                    for m in st.telemetry.snapshot()["metrics"]}
+            assert snap[("horovod_basic_ops_total", ())]["value"] == 1.0
+            key = ("horovod_collective_bytes_total",
+                   (("op", "allreduce"), ("plane", "basic")))
+            assert snap[key]["value"] == 16.0
+        elif knob == "HOROVOD_METRICS_PORT":
+            from urllib import request as urlrequest
+            from horovod_tpu_torch.telemetry import MetricsExporter
+            ex = next(r for r in st.resources
+                      if isinstance(r, MetricsExporter))
+            assert ex.port == int(value)
+            with urlrequest.urlopen(
+                    f"http://127.0.0.1:{ex.port}/metrics", timeout=10) as r:
+                text = r.read().decode()
+            assert "horovod_basic_ops_total 1\n" in text
+        else:
+            kinds = [(e["kind"], e["name"])
+                     for e in st.flight.snapshot()]
+            assert st.flight.enabled
+            assert kinds[-3:] == [("enqueue", "live"), ("dispatch", "live"),
+                                  ("done", "live")]
+    finally:
+        hvd.shutdown()
+    if knob == "HOROVOD_METRICS_PORT":
+        assert not any(t.name == "hvd-metrics"
+                       for t in threading.enumerate())
 
 
 def test_defaults_of_unported_knobs_do_not_raise(monkeypatch, solo):

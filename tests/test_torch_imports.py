@@ -30,7 +30,11 @@ for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
             "runner.network", "core", "eager", "backend.nccl",
             "parallel.multihost", "torch", "torch.mpi_ops",
             "torch.optimizer", "torch.functions", "torch.compression",
-            "torch.sync_batch_norm"):
+            "torch.sync_batch_norm", "telemetry", "telemetry.exporter",
+            "telemetry.flight", "telemetry.straggler", "telemetry.perfmodel",
+            "analysis.fingerprint", "common.parameter_manager",
+            "common.optim.gaussian_process",
+            "common.optim.bayesian_optimization"):
     assert "horovod_tpu_torch." + sub in new, sub
 bad = [m for m in new
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
@@ -50,8 +54,9 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 57            # every module: the eager core,
-    # the device plane and the torch binding too
+    assert int(count) >= 67            # every module: the eager core,
+    # the device plane, the torch binding and the runtime's telemetry,
+    # fingerprint and autotuner too
     assert bad == "BAD []", bad
 
 

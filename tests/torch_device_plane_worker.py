@@ -14,7 +14,9 @@ world (the TCP ring) and runs the same collectives on the same inputs
 through ``hvd``, and probes the refusals: one name on the CPU on one rank
 and on a card on another, and a card's request with no device plane.
 Last, every rank is made to see the same one card: no plane forms.
-Outputs go to ``plane_<rank>.pkl`` as (dtype, shape, bytes).
+Outputs go to ``plane_<rank>.pkl`` as (dtype, shape, bytes).  With a
+fifth argument ``streams`` the rank runs ``run_streams`` alone and writes
+``streams_<rank>.pkl``.
 """
 import os
 import pickle
@@ -275,10 +277,96 @@ def run_one_card(hvd, rank: int, size: int, records: dict) -> None:
         os.environ.pop("HOROVOD_NCCL_OPERATIONS", None)
 
 
+def run_streams(rank: int, size: int, port: int, records: dict) -> None:
+    """``HOROVOD_NUM_STREAMS=2`` with the device plane in the chain: the
+    process group over gloo, and ``NcclBackend`` put at the head of
+    stream 0's chain by hand (``init`` forms it only on cards).  Rounds
+    of device responses (requests that say the tensor is on this rank's
+    card; the tensor is a CPU stand-in) and host allreduces go in at
+    once; the device plane must run only on the background thread or
+    stream 0's worker, the TCP plane on any stream."""
+    import threading
+
+    from horovod_tpu_torch import core
+    from horovod_tpu_torch.backend.nccl import NcclBackend, NcclCommunicator
+    from horovod_tpu_torch.common.dtypes import DataType
+    from horovod_tpu_torch.common.message import Request, RequestType
+    from horovod_tpu_torch.common.tensor_queue import TensorTableEntry
+    from horovod_tpu_torch.parallel import multihost
+    from horovod_tpu_torch.runner.network import RendezvousClient
+    kv = RendezvousClient("127.0.0.1", port, 60.0)
+    os.environ["HOROVOD_RENDEZVOUS_EPOCH"] = f"streampg{size}"
+    assert multihost.init_process_group(rank, size, kv=kv, backend="gloo",
+                                        timeout=60.0)
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+                      HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+                      HOROVOD_RENDEZVOUS_EPOCH=f"streams{size}",
+                      HOROVOD_SHM_OPERATIONS="0", HOROVOD_NUM_STREAMS="2",
+                      HOROVOD_FUSION_THRESHOLD="0")
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    ran: dict[str, set] = {"device": set(), "host": set()}
+    try:
+        st = core.global_state()
+        plane = NcclBackend(NcclCommunicator(device="cpu"))
+        st.op_managers[0]._backends.insert(0, plane)
+
+        def watch(backend, kind):
+            execute = backend.execute
+
+            def wrapped(response, entries):
+                ran[kind].add(threading.current_thread().name)
+                return execute(response, entries)
+            backend.execute = wrapped
+
+        watch(plane, "device")
+        for mgr in st.op_managers:
+            for b in mgr.backends:
+                if b.name == "tcp":
+                    watch(b, "host")
+        for rnd in range(4):
+            handles = []
+            for i in range(6):
+                name = f"dev{rnd}.{i}"
+                e = TensorTableEntry(tensor_name=name,
+                                     tensor=torch.full((5,), rank + i + 1.0),
+                                     device=rank)
+                r = Request(request_rank=rank,
+                            request_type=RequestType.ALLREDUCE,
+                            tensor_type=DataType.FLOAT32, tensor_name=name,
+                            device=rank, tensor_shape=(5,))
+                handles.append((i, True, core._enqueue([e], [r])[1]))
+                handles.append((i, False, hvd.allreduce_async(
+                    torch.full((7,), rank + i + 1.0), op=hvd.Sum,
+                    name=f"host{rnd}.{i}")))
+            for i, device, h in handles:
+                want = sum(r + i + 1.0 for r in range(size))
+                if device:
+                    h.wait(60).raise_if_error()
+                    out = h.entries[0].output
+                else:
+                    out = hvd.synchronize(h)
+                assert out.eq(want).all(), (i, out)
+        records["streams/threads"] = ("threads", sorted(ran["device"]),
+                                      sorted(ran["host"]))
+        records["streams/plane"] = ("plane", plane.stream_safe,
+                                    st.active_streams)
+    finally:
+        hvd.shutdown()
+        multihost.shutdown()
+
+
 def main() -> int:
     rank, size, port = (int(a) for a in sys.argv[1:4])
     outdir = sys.argv[4]
     torch.set_num_threads(1)
+    if sys.argv[5:] == ["streams"]:
+        records: dict[str, tuple] = {}
+        run_streams(rank, size, port, records)
+        with open(os.path.join(outdir, f"streams_{rank}.pkl"), "wb") as f:
+            pickle.dump(records, f)
+        return 0
     from horovod_tpu_torch.parallel import multihost
     from horovod_tpu_torch.runner.network import RendezvousClient
 

@@ -15,8 +15,15 @@ import os
 import pickle
 import sys
 import time
+import zlib
 
 import numpy as np
+
+def draw(key: str, rank: int, n, scale: float = 2.0) -> np.ndarray:
+    """Normal values of shape ``n`` from a seed of the key and rank."""
+    rng = np.random.default_rng([zlib.crc32(key.encode()), rank])
+    return rng.standard_normal(n) * scale
+
 
 INT_DTYPES = ["int8", "uint8", "int32", "int64"]
 FLOAT_DTYPES = ["float16", "bfloat16", "float32", "float64"]

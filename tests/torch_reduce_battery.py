@@ -18,11 +18,11 @@ import os
 import pickle
 import subprocess
 import sys
-import zlib
 
 import numpy as np
 
-from torch_eager_battery import Recorder
+import torch_runtime_battery as runtime
+from torch_eager_battery import Recorder, draw
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "torch_reduce_worker.py")
@@ -52,6 +52,7 @@ SUITES = {
         "htorus": dict(_TCP, HOROVOD_TOPOLOGY="torus:2x2"),
         "hflat": {},
     },
+    "runtime": runtime.PHASES,
 }
 
 
@@ -69,12 +70,6 @@ def layout_env(suite: str, phase: str, rank: int, size: int) -> dict:
             "HOROVOD_CROSS_SIZE": str(size // 2),
             "HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
             "HOROVOD_HIERARCHICAL_ALLGATHER": "1"}
-
-
-def draw(key: str, rank: int, n, scale: float = 2.0) -> np.ndarray:
-    """Normal values of shape ``n`` from a seed of the key and rank."""
-    rng = np.random.default_rng([zlib.crc32(key.encode()), rank])
-    return rng.standard_normal(n) * scale
 
 
 def _backend(global_state, name: str):
@@ -224,17 +219,36 @@ def battery_hier(R: Recorder, st) -> None:
         "int", hier is not None and hier.shm_local is not None)
 
 
+# Each suite's battery by phase, and what a suite reads after a phase's
+# hvd.shutdown() (none but the runtime suite's).
+BATTERIES = {
+    "codecs": dict.fromkeys(SUITES["codecs"], battery_codecs),
+    "adasum": {"tcp": battery_adasum, "odd": battery_adasum_odd},
+    "hier": dict.fromkeys(SUITES["hier"], battery_hier),
+    "runtime": runtime.BATTERIES,
+}
+FINISH = {"runtime": runtime.finish_phase}
+
+
+def _no_finish(R: Recorder, phase: str, outdir: str, side: str) -> None:
+    pass
+
+
 def run_suite(side, hvd, core, suite: str, rank: int, size: int,
               outdir: str) -> int:
-    """Every phase of one suite on this rank; writes the records."""
+    """Every phase of one suite on this rank; writes the records.  A
+    phase's environment may name ``{outdir}`` and ``{side}``."""
     records: dict[str, tuple] = {}
     base_env = dict(os.environ)
+    # A world of three ranks runs Adasum's refusal alone.
     phases = {"odd": {}} if suite == "adasum" and size == 3 \
         else SUITES[suite]
+    finish = FINISH.get(suite, _no_finish)
     for phase, env in phases.items():
         os.environ.clear()
         os.environ.update(base_env)
-        os.environ.update(env)
+        os.environ.update({k: v.format(outdir=outdir, side=side.name)
+                           for k, v in env.items()})
         os.environ.update(layout_env(suite, phase, rank, size))
         os.environ["HOROVOD_RENDEZVOUS_EPOCH"] = \
             f"{base_env.get('HOROVOD_RENDEZVOUS_EPOCH', 'w')}.{phase}"
@@ -243,12 +257,10 @@ def run_suite(side, hvd, core, suite: str, rank: int, size: int,
         R = Recorder(side, hvd, rank, size, phase)
         R.records[f"{phase}/planes"] = (
             "planes", [b.name for b in st.op_manager.backends])
-        battery = {"codecs": battery_codecs, "hier": battery_hier,
-                   "adasum": battery_adasum_odd if size == 3
-                   else battery_adasum}[suite]
-        battery(R, st)
-        records.update(R.records)
+        BATTERIES[suite][phase](R, st)
         hvd.shutdown()
+        finish(R, phase, outdir, side.name)
+        records.update(R.records)
     with open(os.path.join(outdir, f"{side.name}_{rank}.pkl"), "wb") as f:
         pickle.dump(records, f)
     return 0

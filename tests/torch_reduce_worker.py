@@ -3,7 +3,7 @@
 
 ``side`` is ``port`` (``horovod_tpu_torch`` on CPU torch tensors) or
 ``ref`` (the JAX package's eager API on numpy arrays); ``suite`` is one
-of ``tests/torch_reduce_battery.py``'s (codecs, adasum, hier).  Writes
+of ``tests/torch_reduce_battery.py``'s (codecs, adasum, hier, runtime).  Writes
 ``<side>_<rank>.pkl`` into ``outdir``.
 """
 import os
