@@ -31,8 +31,10 @@ Phases, each printed as one JSON object on its own line:
    remat legs, each block checkpointed under ``remat_policy`` "full" and
    "dots": step ms, peak memory, losses and launches (the forward 24 a
    step, dq and dK/dV 12);
-6. serve: the port's serving path, ``ReplicaExecutor`` through
-   ``queue.submit`` and ``serve_loop`` on gpt_small at full width (12
+6. serve: the port's serving path, ``ReplicaExecutor`` in a world of one
+   of the eager core (``hvd.init()``; its plan and completions exchanges
+   run through ``hvd.broadcast_object`` and ``hvd.allgather_object``),
+   through ``queue.submit`` and ``serve_loop`` on gpt_small at full width (12
    layers, d_model 768, vocab 50304, max_seq 1024), one line a leg:
    fp32 dense and paged legs in which every generated token must be a
    near-argmax (within 1e-3) of the model's full forward over prompt and
@@ -185,6 +187,30 @@ Phases, each printed as one JSON object on its own line:
    only, as the reference does, and the dump's tail names the op; on
    the other ranks the script dumps the ring itself (``rec.dump()``) to
    show what it held, and checks that none of them dumped on its own.
+
+13. resilience: the eager core's failure half, one line a leg.  (a) A
+   serving world of two ranks through ``--eager-worker rserve-<leg>``,
+   both ``ReplicaExecutor(device="cuda")`` on the one card (the TCP
+   plane: no NCCL plane forms on one card, shm is off), the serve
+   phase's timed workload (32 requests, 64-512 prompt tokens, 64 new,
+   max_batch 8, dense) on gpt_small in fp32, with
+   ``HOROVOD_FAULT_TOLERANCE`` off and then on (``HOROVOD_FAULT_TIMEOUT``
+   5 s): tokens/s, step_ms p50/p99, the exchanges' host ms a step, the
+   threads alive, 32/32 served and every token within 1e-3 of the full
+   forward's argmax.  (b) A kill: ``HOROVOD_CHAOS=kill`` of rank 1 at
+   step 20's completions allgather, requests in flight: rank 0's
+   ``serve_loop`` must raise ``RanksFailedError`` naming rank 1 under 2 x
+   5 s after the kill (rank 1 stamps the moment), and rank 0's flight
+   dump's last dispatch names a ``serve.*.g0`` op.  (c) A freeze of rank
+   1 for 30 s at step 10's allgather under a 2.5 s SLO: the heartbeat
+   goes on beating, so rank 0 must convert at the in-flight deadline
+   (under it plus one poll interval, and under the fault timeout), and
+   one fault window later rank 1 must still be a suspect, not confirmed
+   dead.  (d) The reference's four batteries on the host planes
+   (``tests/torch_resilience_worker.py``, CPU tensors, CUDA hidden): a
+   kill at 4 ranks (``RanksFailedError`` naming rank 2 on every
+   survivor), the retry at 4 (exact after a rebuild), a freeze at 2 and
+   the off mode at 2, each time to the error printed.
 
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
@@ -917,6 +943,7 @@ def _serve_profile(model_cfg, steps: int = 8) -> dict:
 
 def phase_serve() -> dict:
     """The port's serving path on gpt_small (see the module docstring)."""
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch import TransformerLM, gpt_small
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.serving import loadgen
@@ -924,6 +951,9 @@ def phase_serve() -> dict:
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
     problems = []
+    # The executor's world is hvd's: a world of one, whose exchanges run
+    # through the eager core.  The loadgen leg's hvd.shutdown() ends it.
+    hvd.init()
 
     # 1. fp32 legs, each token held against the full forward.
     cfg32 = gpt_small(dtype=torch.float32)
@@ -961,9 +991,13 @@ def phase_serve() -> dict:
                 for r in timed[False]["streams"])
     for paged in (False, True):
         line = timed[paged]["line"]
+        # PR 4 recorded 30-42 ms a step here with the exchanges outside
+        # the core; the difference is what the core's four negotiated
+        # collectives a step cost.
         emit({"phase": "serve", "leg": "timed", **line,
               "streams_dense_vs_paged_equal": agree,
-              "streams": len(timed[False]["streams"])})
+              "streams": len(timed[False]["streams"]),
+              "pr4_step_ms_recorded": [30, 42]})
         if line["served"] != SERVE_TIMED["requests"]:
             problems.append(f"bf16 {'paged' if paged else 'dense'} leg "
                             f"served {line['served']}")
@@ -1576,6 +1610,8 @@ def eager_worker(job: str, rank: int, size: int, port: int,
         result = _reduce_hier_world(hvd, core, world, rank, size)
     elif job == "runtime":
         result = _runtime_world(hvd, core, world, rank, size, outdir)
+    elif job.startswith("rserve-"):
+        result = _resilience_serve_rank(hvd, world, rank, outdir, job[7:])
     else:
         result["planes"] = world("ladder", HOROVOD_SHM_OPERATIONS="0")
         result["ladder"] = _eager_ladder(hvd, core)
@@ -1588,9 +1624,13 @@ def eager_worker(job: str, rank: int, size: int, port: int,
 
 
 def _eager_world(job: str, size: int, outdir: str,
-                 hide_cuda: bool = True) -> list[dict]:
+                 hide_cuda: bool = True,
+                 expected_rcs: dict | None = None) -> list[dict | None]:
     """Spawn one world of ``size`` ranks against the port's own
-    RendezvousServer; every rank within EAGER_WORLD_TIMEOUT."""
+    RendezvousServer; every rank within EAGER_WORLD_TIMEOUT, with exit
+    code 0 unless ``expected_rcs`` names another (a rank expected to die
+    reports nothing: its entry is None)."""
+    expected_rcs = expected_rcs or {}
     from horovod_tpu_torch.runner.network import RendezvousServer
     server = RendezvousServer()
     port = server.start()
@@ -1612,7 +1652,7 @@ def _eager_world(job: str, size: int, outdir: str,
                 p.kill()
                 out, _ = p.communicate()
                 failures.append(f"rank {r} timed out")
-            if p.returncode != 0:
+            if p.returncode != expected_rcs.get(r, 0):
                 failures.append(f"rank {r} rc={p.returncode}: "
                                 + out.decode(errors="replace")[-2000:])
     finally:
@@ -1624,6 +1664,9 @@ def _eager_world(job: str, size: int, outdir: str,
         raise RuntimeError(f"eager {job} world: " + "; ".join(failures))
     results = []
     for r in range(size):
+        if expected_rcs.get(r, 0) != 0:
+            results.append(None)
+            continue
         with open(os.path.join(outdir, f"{job}_{r}.json")) as f:
             results.append(json.load(f))
     return results
@@ -3330,6 +3373,357 @@ def phase_runtime() -> dict:
     return {"seconds": seconds, "launches": card["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# resilience: the eager core's failure half
+# ---------------------------------------------------------------------------
+RES_FAULT_TIMEOUT = 5.0
+# The serving world runs the serve phase's timed workload (32 requests,
+# 64-512 prompt tokens, 64 new, max_batch 8, dense) on gpt_small in fp32,
+# so that the serve phase's near-argmax check holds every served token.
+# Collective 0 is the barrier before the requests; then a serve step
+# makes four (the plan broadcast's size and data, the completions
+# allgather's size and data): step s's allgather starts at collective
+# 4s+3 and is named serve.done.g0.<s+1>.  Both faults land on one, which
+# both ranks have negotiated, so rank 0 waits in the data plane on rank
+# 1's bytes, under the op's deadline, with requests in flight.  (A fault
+# on the plan broadcast would leave rank 0, its root, waiting in the next
+# negotiation instead, which no request deadline bounds.)
+RES_SERVE = SERVE_TIMED
+RES_KILL_OP = 1 + 4 * 20 + 2
+RES_FREEZE_OP = 1 + 4 * 10 + 2
+RES_FREEZE_MS = 30000
+RES_FREEZE_SLO_MS = 2500.0
+# (leg, environment, rank 1's exit code).
+RES_SERVE_LEGS = (
+    ("off", {}, 0),
+    ("on", {"HOROVOD_FAULT_TOLERANCE": "1"}, 0),
+    ("kill", {"HOROVOD_FAULT_TOLERANCE": "1",
+              "HOROVOD_CHAOS": f"kill:rank=1,op={RES_KILL_OP},sig=9"}, -9),
+    ("freeze", {"HOROVOD_FAULT_TOLERANCE": "1",
+                "HOROVOD_CHAOS": f"freeze:rank=1,op={RES_FREEZE_OP},"
+                                 f"ms={RES_FREEZE_MS}"}, 0),
+)
+# The host batteries of tests/torch_resilience_worker.py (CPU tensors,
+# CUDA hidden; its FAULT_TIMEOUT): (battery, ranks, expected exit codes,
+# the verdict every surviving rank prints; in the freeze only rank 0).
+RES_HOST_FAULT_TIMEOUT = 3.0
+RES_HOST_BATTERIES = (
+    ("kill", 4, {2: -9}, "RanksFailedError("),
+    ("retry", 4, {}, "retry converged after"),
+    ("freeze", 2, {}, "wedged peer converted"),
+    ("off", 2, {}, "off mode clean"),
+)
+
+
+def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
+                           leg: str) -> dict:
+    """One rank of a serving world on the card (``--eager-worker
+    rserve-<leg>``): gpt_small in fp32 through ``ReplicaExecutor``, the
+    exchanges timed, the chaos fault's moment stamped by rank 1, and the
+    error that ends rank 0's loop with the deadline it ran under."""
+    from horovod_tpu_torch import TransformerLM, gpt_small, resilience
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    from horovod_tpu_torch.telemetry import flight
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = dict(next(e for name, e, _ in RES_SERVE_LEGS if name == leg),
+               HOROVOD_SHM_OPERATIONS="0",
+               HOROVOD_FAULT_TIMEOUT=str(RES_FAULT_TIMEOUT),
+               HOROVOD_FLIGHT_FILE=os.path.join(outdir, f"flight-{leg}.json"))
+    out: dict = {"planes": world(f"rserve-{leg}", **env)}
+    chaos = resilience.chaos.active()
+    if chaos is not None and rank == 1:
+        # Stamp the moment the fault fires (wall clock, one host), just
+        # before the engine kills or freezes this rank.
+        fire_op = RES_KILL_OP if leg == "kill" else RES_FREEZE_OP
+        on_response = chaos.on_response
+
+        def stamped(names):
+            if chaos._op_index == fire_op:
+                with open(os.path.join(outdir, f"{leg}-fault-time"),
+                          "w") as f:
+                    f.write(repr(time.time()))
+            return on_response(names)
+        chaos.on_response = stamped
+    cfg32 = gpt_small(dtype=torch.float32)
+    ref = TransformerLM(cfg32, seed=0)
+    cfg = dict(RES_SERVE["cfg"])
+    if leg == "freeze":
+        cfg["slo_ms"] = RES_FREEZE_SLO_MS
+    ex = ReplicaExecutor(ServeConfig(model_cfg=cfg32, **cfg),
+                         params=ref.state_dict(), device="cuda")
+    fa.reset_launch_counts()
+    streams, rid_prompt, exch_ms = {}, {}, []
+    state = {"plan_ms": 0.0, "where": None, "call": None}
+    plan_x, done_x = ex._exchange_plan, ex._exchange_completions
+    collect = ex._collect_completions
+
+    def plan_exchange(plan):
+        state["where"] = "plan"
+        t0 = time.perf_counter()
+        plan = plan_x(plan)
+        state["plan_ms"] = (time.perf_counter() - t0) * 1e3
+        for a in plan.assign:
+            if a.replica == ex.group:
+                rid_prompt[a.rid] = list(a.tokens)
+        return plan
+
+    def done_exchange():
+        state["where"] = "done"
+        state["call"] = (time.monotonic(), ex._inflight_deadline())
+        t0 = time.perf_counter()
+        done = done_x()
+        exch_ms.append(state["plan_ms"] + (time.perf_counter() - t0) * 1e3)
+        return done
+
+    def record():
+        for sl in ex.slots:
+            if sl is not None and sl.remaining == 0:
+                streams[sl.rid] = list(sl.generated)
+        collect()
+    ex._exchange_plan = plan_exchange
+    ex._exchange_completions = done_exchange
+    ex._collect_completions = record
+    # Both ranks are built: the requests' deadlines start from here.
+    hvd.barrier()
+    if rank == 0:
+        prompts = _prompt_pool(RES_SERVE, cfg32.vocab_size)
+        for i in range(RES_SERVE["requests"]):
+            ex.stats["offered"] += 1
+            ex.queue.submit(prompts[i % len(prompts)], RES_SERVE["max_new"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    err = None
+    try:
+        ex.serve_loop(stop_when=lambda: True)
+    except hvd.HorovodInternalError as e:
+        err = e
+    t_err, t_err_mono = time.time(), time.monotonic()
+    torch.cuda.synchronize()
+    step = ex.admission._m_step
+    out.update(
+        leg=leg, wall_s=time.perf_counter() - t0, steps=ex._step,
+        tokens=sum(len(g) for g in streams.values()),
+        served=ex.stats["served"], offered=ex.stats["offered"],
+        step_ms={"p50": step.quantile(0.5), "p99": step.quantile(0.99),
+                 "count": step.count},
+        exchange_host_ms_per_step={
+            "mean": statistics.fmean(exch_ms) if exch_ms else None,
+            "p50": statistics.median(exch_ms) if exch_ms else None,
+            "steps": len(exch_ms)},
+        threads=sorted(t.name for t in threading.enumerate()),
+        monitor=resilience.active_state() is not None,
+        poll_s=getattr(resilience.active_state(), "poll_interval", None),
+        chaos=chaos is not None,
+        flash_launches=sum(fa.launch_counts().values()),
+        error=None)
+    if err is not None:
+        t_call, deadline = state["call"] or (None, None)
+        out["error"] = {
+            "type": type(err).__name__, "text": str(err)[:300],
+            "failed_ranks": sorted(getattr(err, "failed_ranks", ())),
+            "op": getattr(err, "op", ""), "phase": getattr(err, "phase", ""),
+            "wall_time": t_err, "in_exchange": state["where"],
+            "waited_s": None if t_call is None else t_err_mono - t_call,
+            "deadline_s": None if deadline is None else deadline - t_call,
+            "inflight": len(ex.inflight_rids())}
+    if err is None:
+        out["check"] = _near_argmax(ref, streams, rid_prompt)
+    elif rank == 0:
+        rec = flight.recorder()
+        events = []
+        for _ in range(40):     # the other conversion may be rewriting it
+            try:
+                with open(rec.last_dump_path) as f:
+                    events = json.load(f)["events"]
+                break
+            except (TypeError, OSError, ValueError):
+                time.sleep(0.05)
+        dispatched = [ev["name"] for ev in events
+                      if ev["kind"] == "dispatch"]
+        out["flight"] = {"dumps": rec.dumps, "path": rec.last_dump_path,
+                         "last_dispatch": dispatched[-1] if dispatched
+                         else None,
+                         "tail": [[ev["kind"], ev["name"]]
+                                  for ev in events[-6:]]}
+        res = resilience.active_state()
+        if leg == "freeze" and res is not None:
+            # Past one more fault window the frozen rank's heartbeat
+            # thread must still be beating: suspect, never confirmed.
+            time.sleep(RES_FAULT_TIMEOUT + 1.0)
+            out["after_window"] = {
+                "failed": sorted(res.failed_ranks()),
+                "confirmed_dead": sorted(
+                    res.monitor.confirmed_failed_ranks())}
+    ex.close()
+    hvd.shutdown()
+    return out
+
+
+def _resilience_serve(problems: list[str]) -> dict:
+    """Leg (a), (b) and (c): the 2-rank serving world on the one card,
+    fault tolerance off and on, then a kill and a freeze."""
+    legs = {}
+    with tempfile.TemporaryDirectory(prefix="rserve") as outdir:
+        for leg, _, rc1 in RES_SERVE_LEGS:
+            r0, r1 = _eager_world(f"rserve-{leg}", 2, outdir,
+                                  hide_cuda=False, expected_rcs={1: rc1})
+            stamp = os.path.join(outdir, f"{leg}-fault-time")
+            fault_at = None
+            if os.path.exists(stamp):
+                with open(stamp) as f:
+                    fault_at = float(f.read())
+            line = {"phase": "resilience", "leg": f"serve-{leg}",
+                    "ranks": 2, "planes": r0["planes"],
+                    "served": r0["served"], "offered": r0["offered"],
+                    "steps": r0["steps"], "wall_s": r0["wall_s"],
+                    "tokens": r0["tokens"] + (r1["tokens"] if r1 else 0),
+                    "step_ms": r0["step_ms"],
+                    "exchange_host_ms_per_step":
+                        r0["exchange_host_ms_per_step"],
+                    "threads": r0["threads"], "monitor": r0["monitor"],
+                    "poll_s": r0["poll_s"], "chaos": r0["chaos"],
+                    "flash_launches": r0["flash_launches"]}
+            line["tokens_per_s"] = line["tokens"] / r0["wall_s"]
+            if r0.get("check") is not None:
+                line["check"] = {f"rank{r}": rr["check"] for r, rr
+                                 in enumerate((r0, r1)) if rr}
+            err = r0["error"]
+            if err is not None:
+                line["error"] = err
+                line["fault_to_error_s"] = None if fault_at is None \
+                    else err["wall_time"] - fault_at
+                line["flight"] = r0.get("flight")
+                line["after_window"] = r0.get("after_window")
+                line["rank1_error"] = r1["error"] if r1 else None
+            emit(line)
+            legs[leg] = line
+            tag = f"resilience serve-{leg}"
+            if "nccl" in line["planes"] or "shm" in line["planes"]:
+                problems.append(f"{tag}: planes {line['planes']}")
+            if line["flash_launches"]:
+                problems.append(f"{tag}: flash launched while serving")
+            if leg in ("off", "on"):
+                if line["served"] != RES_SERVE["requests"] or err:
+                    problems.append(f"{tag}: served {line['served']} of "
+                                    f"{RES_SERVE['requests']}, error {err}")
+                for rank, chk in line.get("check", {}).items():
+                    if chk["beyond_tolerance"]:
+                        problems.append(f"{tag} {rank}: tokens beyond "
+                                        f"{NEAR_ARGMAX} of the full "
+                                        f"forward's argmax: "
+                                        f"{chk['beyond_tolerance']}")
+                hb = any("heartbeat" in t for t in line["threads"])
+                if hb != (leg == "on") or line["monitor"] != (leg == "on"):
+                    problems.append(f"{tag}: monitor {line['monitor']}, "
+                                    f"threads {line['threads']}")
+                continue
+            if err is None or err["type"] != "RanksFailedError" \
+                    or err["failed_ranks"] != [1]:
+                problems.append(f"{tag}: rank 0's error {err}")
+                continue
+            last = (line["flight"] or {}).get("last_dispatch") or ""
+            if not last.startswith(("serve.plan.g0.", "serve.done.g0.")):
+                problems.append(f"{tag}: flight tail {line['flight']}")
+            if leg == "kill":
+                took = line["fault_to_error_s"]
+                if took is None or not took < 2 * RES_FAULT_TIMEOUT:
+                    problems.append(f"{tag}: kill to error {took} s")
+            else:
+                # A wait converts at its first poll past the op's budget,
+                # floored at two polls (ResilienceState.op_timeout).
+                poll = r0["poll_s"]
+                bound = max(err["deadline_s"] or 0.0, 2 * poll) + poll
+                if err["in_exchange"] != "done" \
+                        or err["deadline_s"] is None \
+                        or not err["waited_s"] < bound \
+                        or not err["waited_s"] < RES_FAULT_TIMEOUT:
+                    problems.append(
+                        f"{tag}: converted after {err['waited_s']} s in "
+                        f"{err['in_exchange']} (deadline "
+                        f"{err['deadline_s']} s, bound {bound} s)")
+                after = line["after_window"] or {}
+                if 1 in after.get("confirmed_dead", [1]):
+                    problems.append(f"{tag}: the frozen rank was "
+                                    f"declared dead: {after}")
+                if line["rank1_error"] is None:
+                    problems.append(f"{tag}: the thawed rank saw no error")
+    on, off = legs["on"]["step_ms"]["p50"], legs["off"]["step_ms"]["p50"]
+    return {"on_over_off_step_p50": on / off if off else None,
+            "tokens_per_s": {k: legs[k]["tokens_per_s"]
+                             for k in ("off", "on")}}
+
+
+def _resilience_host(problems: list[str]) -> dict:
+    """Leg (d): the reference's four batteries on the port's host planes
+    (tests/torch_resilience_worker.py; CPU tensors, CUDA hidden)."""
+    from horovod_tpu_torch.runner.network import RendezvousServer
+    here = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(here, "tests", "torch_resilience_worker.py")
+    times = {}
+    for battery, size, rcs, verdict in RES_HOST_BATTERIES:
+        server = RendezvousServer()
+        port = server.start()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("HOROVOD_")}
+        env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (here, env.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="rhost") as outdir:
+            procs = [subprocess.Popen(
+                [sys.executable, worker, battery, str(r), str(size),
+                 str(port), outdir], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for r in range(size)]
+            outs = []
+            try:
+                for r, p in enumerate(procs):
+                    try:
+                        o, _ = p.communicate(timeout=EAGER_WORLD_TIMEOUT)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        o, _ = p.communicate()
+                    outs.append(o)
+                    if p.returncode != rcs.get(r, 0):
+                        problems.append(f"resilience host-{battery} rank "
+                                        f"{r} rc={p.returncode}: "
+                                        f"{o[-1500:]}")
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                server.stop()
+        judged = [0] if battery == "freeze" else \
+            [r for r in range(len(outs)) if rcs.get(r, 0) == 0]
+        lines = [next((ln for ln in outs[r].splitlines() if verdict in ln),
+                      None) for r in judged]
+        if None in lines:
+            problems.append(f"resilience host-{battery}: no verdict "
+                            f"{[o[-400:] for o in outs]}")
+        took = [float(ln.split(" in ")[1].split("s")[0]) for ln in lines
+                if ln and battery in ("kill", "freeze")]
+        times[battery] = took
+        emit({"phase": "resilience", "leg": f"host-{battery}",
+              "ranks": size, "fault_timeout_s": RES_HOST_FAULT_TIMEOUT,
+              "seconds_to_error": took, "verdicts": lines,
+              "wall_s": time.perf_counter() - t0})
+    return times
+
+
+def phase_resilience() -> dict:
+    """The eager core's failure half (see the module docstring)."""
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    serve = _resilience_serve(problems)
+    host = _resilience_host(problems)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "resilience", "leg": "summary", "seconds": seconds,
+          **serve, "host_seconds_to_error": host, "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -3353,7 +3747,8 @@ def main() -> int:
                   "train": phase_train, "serve": phase_serve,
                   "cnn": phase_cnn, "sync": phase_sync,
                   "eager": phase_eager, "binding": phase_binding,
-                  "reduce": phase_reduce, "runtime": phase_runtime}
+                  "reduce": phase_reduce, "runtime": phase_runtime,
+                  "resilience": phase_resilience}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -3367,6 +3762,7 @@ def main() -> int:
     binding = phase_binding()
     phase_reduce()
     runtime = phase_runtime()
+    phase_resilience()
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,

@@ -2,11 +2,14 @@
 
 The port's copy of ``horovod_tpu/backend/shm.py`` (``ShmWorld``,
 ``ShmBackend`` with its cast and quantized codec legs) on CPU torch
-tensors, with its metrics counters, without fault tolerance's heartbeat
-(ROADMAP queue A item 11).  The lockstep protocol, the chunk
-split and the accumulation order are the reference's, and the quantized
-legs run its numpy codec on numpy views of the regions, so the results
-are bitwise equal.
+tensors, with its metrics counters and fault tolerance's lockstep
+deadline.  The lockstep protocol, the chunk split and the accumulation
+order are the reference's, and the quantized legs run its numpy codec on
+numpy views of the regions, so the results are bitwise equal.  One
+difference: under fault tolerance each barrier reads its deadline from
+the op's ``ResilienceState.op_timeout()`` when it starts, so a serving
+request's deadline (``deadline_scope``) bounds this plane's waits too;
+the reference fixes the deadline when the world forms.
 
 The eager analogue of the reference's intra-node shared-memory paths —
 Gloo's shm transport and MPIHierarchicalAllgather's node-shared window
@@ -52,11 +55,13 @@ import time
 import numpy as np
 import torch
 
+from ..common import config
 from ..common.dtypes import element_size, to_torch
 from ..common.exceptions import RanksFailedError
 from ..common.message import Response, ResponseType
 from ..common.status import Status
 from ..common.tensor_queue import TensorTableEntry
+from ..resilience.context import active_state, current_op
 from .base import (CollectiveBackend, _rest, accum_dtype as _accum_dtype,
                    add_, cast, contiguous, dim0_row_bounds,
                    is_device_response)
@@ -77,9 +82,6 @@ _MAX_SPLITS = (_HEADER - _SPLITS_OFFSET) // 8
 # barriers beyond it (data that will never arrive).  The whole host then
 # declines shm unanimously at the next op via ``poison_seen``.
 _POISON = 1 << 62
-# Inter-op barrier deadline (the reference's default of
-# HOROVOD_SHM_BARRIER_TIMEOUT_SECONDS, a knob the port does not read).
-_BARRIER_TIMEOUT_S = 600.0
 
 
 def _boot_fingerprint() -> str:
@@ -146,10 +148,18 @@ class ShmWorld:
         self.size = size
         self.capacity = capacity
         self.timeout = timeout
-        # Inter-op barrier deadline is deliberately MUCH larger than the
-        # formation timeout: a live-but-slow peer must not kill training —
-        # the 0.5 s PID-liveness poll is the fail-fast path for death.
-        self.barrier_timeout = _BARRIER_TIMEOUT_S
+        # Resilience (HOROVOD_FAULT_TOLERANCE): when on, the lockstep
+        # barrier deadline derives from the per-op ResilienceState (one
+        # fault window, or a propagated request deadline) instead of
+        # HOROVOD_SHM_BARRIER_TIMEOUT_SECONDS, and the liveness poll
+        # additionally consults the heartbeat monitor so a WEDGED peer
+        # (PID alive, collective abandoned) is detected too.
+        self._res = active_state()
+        # Inter-op barrier deadline with fault tolerance off: deliberately
+        # MUCH larger than the formation timeout — a live-but-slow peer
+        # must not kill training; the 0.5 s PID-liveness poll is the
+        # fail-fast path for death.
+        self.barrier_timeout = config.SHM_BARRIER_TIMEOUT_SECONDS.get()
         self._maps: list[mmap.mmap | None] = [None] * size
         self._seqs: list[np.ndarray | None] = [None] * size
         self._splits: list[np.ndarray | None] = [None] * size
@@ -277,7 +287,8 @@ class ShmWorld:
 
     def wait_all(self, target: int) -> None:
         start = time.monotonic()
-        deadline = start + self.barrier_timeout
+        deadline = start + (self.barrier_timeout if self._res is None
+                            else self._res.op_timeout())
         next_liveness = start + 0.5
         while True:
             seqs = [int(s[0]) for s in self._seqs]  # type: ignore[index]
@@ -300,18 +311,19 @@ class ShmWorld:
                     try:
                         os.kill(pid, 0)
                     except OSError:
+                        self._peer_died(r, pid)
+                if self._res is not None:
+                    # Heartbeat-declared failures (a peer wedged with its
+                    # PID alive, or a death another rank witnessed first)
+                    # convert this barrier too — same detection window as
+                    # the socket planes.
+                    failed = self._res.failed_ranks()
+                    if failed:
+                        self.poison()
                         raise RanksFailedError(
-                            frozenset({r}), phase="shm_barrier",
-                            message=f"shm peer rank {r} (pid {pid}) died")
+                            failed, op=current_op(), phase="shm_barrier")
                 if now > deadline:
-                    lagging = sorted(
-                        r for r, s in enumerate(seqs)
-                        if r != self.rank
-                        and (s - _POISON if s >= _POISON else s) < target)
-                    raise TimeoutError(
-                        f"shm barrier target {target} not reached within "
-                        f"{self.barrier_timeout}s (lagging ranks: "
-                        f"{lagging})")
+                    self._barrier_deadline(target, seqs, deadline - start)
             # Yield-spin briefly, then really sleep (escalating to 1 ms)
             # so a peer sharing our core gets whole quanta.
             waited = now - start
@@ -319,6 +331,41 @@ class ShmWorld:
                 time.sleep(0)
             else:
                 time.sleep(min(max(waited / 4, 0.0004), 0.001))
+
+    def _peer_died(self, r: int, pid: int) -> None:
+        """PID-liveness verdict: always a RanksFailedError (a
+        ConnectionError subclass, so pre-resilience handlers keep
+        working); with fault tolerance on the death is also published to
+        the liveness table so distant ranks attribute their own stalls to
+        rank `r` within one poll."""
+        if self._res is not None:
+            self._res.mark_failed(r, f"shm peer pid {pid} died")
+        raise RanksFailedError(
+            frozenset({r}), op=current_op(), phase="shm_barrier",
+            message=f"shm peer rank {r} (pid {pid}) died")
+
+    def _barrier_deadline(self, target: int, seqs: list[int],
+                          timeout: float) -> None:
+        """Deadline expiry: attribute the stall to the ranks still below
+        the barrier target instead of a bare timeout (with resilience
+        off this keeps the historical TimeoutError type)."""
+        lagging = sorted(
+            r for r, s in enumerate(seqs)
+            if r != self.rank
+            and (s - _POISON if s >= _POISON else s) < target)
+        if self._res is None:
+            raise TimeoutError(
+                f"shm barrier target {target} not reached within "
+                f"{timeout:g}s (lagging ranks: {lagging})")
+        for r in lagging:
+            self._res.mark_failed(
+                r, f"shm barrier target {target} missed for "
+                   f"{timeout:g}s", confirmed=False)
+        raise RanksFailedError(
+            frozenset(lagging), op=current_op(), phase="shm_barrier",
+            message=f"shm barrier target {target} not reached within "
+                    f"{timeout:g}s; lagging ranks {lagging} are alive "
+                    f"but absent from the collective (wedged).")
 
     def data(self, r: int) -> torch.Tensor:
         return self._datas[r]   # type: ignore[return-value]
@@ -567,7 +614,6 @@ class ShmBackend(CollectiveBackend):
         my_len = bounds[rank + 1] - bounds[rank]
         lo = chunk_off[rank]
         if self.fused is None:
-            from ..common import config
             self.fused = bool(config.FUSED_KERNELS.get())
         if self.fused and self._fk is None:
             from ..compress.fused import FusedKernels

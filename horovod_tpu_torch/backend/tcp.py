@@ -263,12 +263,20 @@ class TcpCollectives:
 
         # Native C++ ring (same schedule, GIL released).  It writes the
         # raw fds directly, so queued frames from a previous op's final
-        # leg must drain first.
+        # leg must drain first.  EXCLUDED under fault tolerance/chaos:
+        # the C loop blocks on raw fds (it cannot honor the per-op
+        # deadline, and the resilience socket timeouts put the fds in
+        # non-blocking mode), and chaos send hooks never see its
+        # traffic — the deadline-bounded Python ring is the resilient
+        # path.
         from .. import native
         self.mesh.flush()
-        if native.ring_allreduce(self.mesh._socks[nxt].fileno(),
-                                 self.mesh._socks[prv].fileno(),
-                                 acc, pos, size):
+        native_ok = (self.mesh._resilience is None
+                     and self.mesh._chaos is None)
+        if native_ok and \
+                native.ring_allreduce(self.mesh._socks[nxt].fileno(),
+                                      self.mesh._socks[prv].fileno(),
+                                      acc, pos, size):
             # Account the native ring's known volume so the mesh byte
             # counters stay truthful (2(N-1) chunk sends per rank).
             itemsize = acc.element_size()

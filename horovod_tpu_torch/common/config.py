@@ -349,14 +349,57 @@ FLIGHT_FILE = Knob(
     "'.r<rank>' goes before the extension.  Written only when a "
     "structured failure fires.")
 
+# --- Resilience (resilience/) -----------------------------------------------
+FAULT_TOLERANCE = Knob(
+    "HOROVOD_FAULT_TOLERANCE", False, _parse_bool,
+    "Failure detection + deadline-bounded collectives: heartbeats over "
+    "the rendezvous liveness table, socket-level deadlines on every "
+    "blocking collective wait, and structured RanksFailedError instead "
+    "of a hang when a peer dies or wedges.  Off (the default) keeps "
+    "every hot path byte-identical to the pre-resilience behavior: no "
+    "monitor thread, no socket timeouts, no per-recv branches beyond "
+    "one None test.")
+FAULT_TIMEOUT = Knob(
+    "HOROVOD_FAULT_TIMEOUT", 30.0, float,
+    "Failure-detection window in seconds: a peer whose heartbeat stops "
+    "advancing for this long is declared failed, and a blocking "
+    "collective wait that exceeds it raises RanksFailedError naming the "
+    "unresponsive peer.  Also the default per-op deadline of the "
+    "ResilienceContext.")
+ON_FAILURE = Knob(
+    "HOROVOD_ON_FAILURE", "raise", str,
+    "Recovery policy applied by resilience.run_with_recovery when a "
+    "collective raises RanksFailedError: raise (safe default) | retry "
+    "(re-run an idempotent eager collective with exponential backoff "
+    "over rebuilt channels, only while every rank is still live) | "
+    "shrink (hand the surviving-rank set to the elastic driver for a "
+    "world-resize and blacklist the dead host).")
+FAULT_RETRIES = Knob(
+    "HOROVOD_FAULT_RETRIES", 3, int,
+    "Maximum retry attempts under HOROVOD_ON_FAILURE=retry.")
+FAULT_BACKOFF_SECONDS = Knob(
+    "HOROVOD_FAULT_BACKOFF_SECONDS", 0.5, float,
+    "Base of the exponential retry backoff (attempt k sleeps "
+    "base * 2**k seconds).")
+CHAOS = Knob(
+    "HOROVOD_CHAOS", "", str,
+    "Deterministic fault-injection spec (resilience/chaos.py): "
+    "';'-separated actions 'kind:key=val,...' — kill/freeze/fail at a "
+    "global collective index, delay/drop/dup a specific peer-channel "
+    "send.  Empty (the default) installs nothing.  See "
+    "docs/resilience.md for the grammar.")
+SHM_BARRIER_TIMEOUT_SECONDS = Knob(
+    "HOROVOD_SHM_BARRIER_TIMEOUT_SECONDS", 600.0, float,
+    "Timeout of the shared-memory plane's 3-phase lockstep barrier; a "
+    "rank missing past it aborts the op with a structured error naming "
+    "the lagging rank instead of spinning forever.")
+
 # Eager knobs whose feature the port does not have yet: (knob, default,
 # parser, roadmap item).  A value other than the default raises at init.
 UNPORTED_EAGER_KNOBS = (
     ("HOROVOD_SAN", False, _parse_bool,
-     "ROADMAP queue A item 11 (the SAN witness, after resilience)"),
-    ("HOROVOD_FAULT_TOLERANCE", False, _parse_bool,
-     "ROADMAP queue A item 11 (resilience)"),
-    ("HOROVOD_CHAOS", "", str, "ROADMAP queue A item 11 (resilience)"),
+     "ROADMAP queue A item 9(d) (the SAN witness, with item 12's static "
+     "lock graph)"),
     ("HOROVOD_ELASTIC", False, _parse_bool,
      "ROADMAP queue A item 11 (elasticity)"),
 )

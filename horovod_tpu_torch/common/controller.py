@@ -5,9 +5,9 @@ The port's copy of ``horovod_tpu/common/controller.py`` (``Controller``,
 fusion, the collective fingerprint's fold and check (a divergence records
 and dumps the flight ring), the metrics counters and histograms with the
 coordinator's straggler aggregation, and the autotuner's
-``pending_tuned_*`` proposals with the negotiation they force.  Left out
-with fault tolerance (ROADMAP queue A item 11): the RanksFailedError
-conversion that poisons a cycle.
+``pending_tuned_*`` proposals with the negotiation they force, and fault
+tolerance's conversion of a RanksFailedError raised by a gather or drain
+into the structured ERROR that poisons the cycle.
 
 The reference's own lineage: a rebuild of Horovod's Controller
 (reference: horovod/common/controller.{cc,h} — ComputeResponseList at
@@ -41,6 +41,7 @@ from dataclasses import dataclass, field
 from . import config
 from ..analysis.fingerprint import FingerprintTracker, OpRecord
 from .dtypes import element_size
+from .exceptions import RanksFailedError
 from .group_table import GroupTable
 from .message import (Request, RequestList, RequestType, Response,
                       ResponseList, ResponseType)
@@ -316,8 +317,11 @@ class Controller:
             # controller.cc:751-776 CoordinateCacheAndState).
             and_word, or_word = coordinator.pack()
             t0 = time.monotonic() if self.metrics.enabled else 0.0
-            and_word, or_word = self.transport.bitwise_sync(and_word,
-                                                            or_word)
+            try:
+                and_word, or_word = self.transport.bitwise_sync(and_word,
+                                                                or_word)
+            except RanksFailedError as exc:
+                return self._poison_response_list(exc)
             if self.metrics.enabled:
                 wait_ms = (time.monotonic() - t0) * 1e3
                 self._m_sync_wait_ms.observe(wait_ms)
@@ -363,6 +367,12 @@ class Controller:
 
         response_list = self._negotiate(message_queue, shutdown_requested,
                                         trace_offset=len(fused_cached))
+        if self._is_poison(response_list):
+            # World poisoned mid-negotiation (resilience/): drop this
+            # cycle's cached hits — their data-plane execution would
+            # block on the dead rank; the poison ERROR already names
+            # every pending tensor, so no waiter is left hanging.
+            return response_list
         response_list.responses = fused_cached + response_list.responses
         self._stamp_trace_ids(response_list)
 
@@ -372,6 +382,41 @@ class Controller:
         if response_list.tuned_fusion_threshold >= 0:
             self.tensor_fusion_threshold = response_list.tuned_fusion_threshold
         return response_list
+
+    def _poison_response_list(self, exc: RanksFailedError) -> ResponseList:
+        """Convert a detected rank failure into the structured-ERROR
+        shutdown every rank performs locally: one ERROR response naming
+        EVERY tensor still pending in the local table (so each blocked
+        Handle raises RanksFailedError rather than hanging or getting a
+        generic abort), plus the shutdown flag.  Rank-local tensor naming
+        is safe here precisely because ERROR responses never touch a
+        data plane — nothing about this list has to match across ranks.
+        The coordinator's transport has already poison-broadcast the
+        same failure to all survivors, so the whole world converges
+        within one detection window."""
+        names = sorted(set(self.tensor_queue.pending_names()))
+        for name in names:
+            self._message_table.pop(name, None)
+            self.stall_inspector.remove_uncached_tensor(name)
+        if self.flight.enabled:
+            # Every structured failure ships the last N trace events:
+            # the dump's tail names the op the world died inside.
+            self.flight.record("ranks-failed", exc.op,
+                               detail=exc.to_wire()[:200])
+            self.flight.dump(reason=exc.to_wire())
+        return ResponseList(
+            responses=[Response(response_type=ResponseType.ERROR,
+                                tensor_names=names,
+                                error_message=exc.to_wire())],
+            shutdown=True)
+
+    @staticmethod
+    def _is_poison(response_list: ResponseList) -> bool:
+        return (response_list.shutdown and bool(response_list.responses)
+                and response_list.responses[0].response_type
+                == ResponseType.ERROR
+                and RanksFailedError.matches(
+                    response_list.responses[0].error_message))
 
     # ------------------------------------------------------------------
     def _stamp_trace_ids(self, response_list: ResponseList) -> ResponseList:
@@ -463,7 +508,12 @@ class Controller:
             self._attach_telemetry_snapshot(my_list, len(message_queue))
             t_neg = time.monotonic()
         if self.is_coordinator:
-            gathered = self.transport.gather_requests(my_list)
+            try:
+                gathered = self.transport.gather_requests(my_list)
+            except RanksFailedError as exc:
+                # The transport has already poison-broadcast to the
+                # survivors; this is the coordinator's local half.
+                return self._poison_response_list(exc)
             assert gathered is not None
             if self.straggler is not None:
                 self.straggler.observe_snapshots(gathered)
@@ -517,10 +567,18 @@ class Controller:
             for i, resp in enumerate(response_list.responses):
                 resp.trace_cycle = self._trace_cycle
                 resp.trace_seq = trace_offset + i
-            self.transport.broadcast_responses(response_list)
+            try:
+                self.transport.broadcast_responses(response_list)
+            except RanksFailedError as exc:
+                return self._poison_response_list(exc)
         else:
-            self.transport.gather_requests(my_list)
-            response_list = self.transport.broadcast_responses(None)
+            try:
+                self.transport.gather_requests(my_list)
+                response_list = self.transport.broadcast_responses(None)
+            except RanksFailedError as exc:
+                # Local detection (coordinator dead/unreachable) or a
+                # received poison frame: same structured local shutdown.
+                return self._poison_response_list(exc)
             for resp in response_list.responses:
                 if resp.response_type == ResponseType.JOIN:
                     self.joined_ranks.clear()

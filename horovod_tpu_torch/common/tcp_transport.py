@@ -1,10 +1,10 @@
 """Controller transport over TCP sockets — the Gloo-controller equivalent.
 
 The port's copy of ``horovod_tpu/common/tcp_transport.py`` (``TcpTransport``
-with its clock-offset probe), without the statesync frame verbs and the
-poison frames of fault tolerance (ROADMAP queue A item 11):
-a dead peer surfaces as the socket's ConnectionError, which ends the
-background loop, as in the reference with fault tolerance off.
+with its clock-offset probe and the poison frames of fault tolerance:
+``POISON_MAGIC``, ``check_poison``, ``broadcast_poison`` and the
+coordinator's drains that poison the survivors on a detected failure),
+without the statesync frame verbs (ROADMAP queue A item 11).
 
 Reference: horovod/common/gloo/gloo_controller.cc:35-199 — the same
 coordination protocol as MPI (request gather to rank 0, response broadcast,
@@ -18,10 +18,31 @@ import struct
 import time
 
 from .controller import Transport
+from .exceptions import RanksFailedError
+from .logging import logger
 from .message import RequestList, ResponseList
 from ..runner.network import PeerMesh
 
 _WORDLEN = struct.Struct(">I")
+
+# Poison/abort frame (resilience/): when the coordinator's bounded drain
+# detects a dead or deadline-missing rank it broadcasts this frame to
+# every surviving peer, whatever recv state that peer is blocked in
+# (bitwise reply, ResponseList broadcast, barrier release) — the leading
+# 0xff byte cannot open any legitimate control frame (bitwise payloads
+# start with a 4-byte big-endian length <= 2^24, Request/ResponseList
+# bytes with a bool), so one prefix test per control recv suffices.
+# The payload is the RanksFailedError wire form, riding the same
+# structured-ERROR path the fingerprint divergence errors use.
+POISON_MAGIC = b"\xffHVDPOISON\xff"
+
+
+def check_poison(raw) -> None:
+    """Raise the carried RanksFailedError when `raw` is a poison frame."""
+    if raw[:len(POISON_MAGIC)] == POISON_MAGIC:
+        raise RanksFailedError.from_wire(
+            bytes(raw[len(POISON_MAGIC):]).decode(errors="replace"))
+
 
 def _pack_words(and_word: int, or_word: int) -> bytes:
     a = and_word.to_bytes((max(and_word.bit_length(), 1) + 7) // 8, "big")
@@ -77,6 +98,32 @@ class TcpTransport(Transport):
         return dataclasses.replace(request_list, **kw) if kw \
             else request_list
 
+    # -- poison broadcast (resilience/) ----------------------------------
+    def broadcast_poison(self, exc: RanksFailedError) -> None:
+        """Best-effort abort frame to every surviving peer: whatever
+        control recv each is blocked in, its next frame is this one, so
+        ALL ranks raise RanksFailedError within one detection window
+        instead of deadlocking behind the dead rank."""
+        payload = POISON_MAGIC + exc.to_wire().encode()
+        for peer in range(self.size):
+            if peer == self.rank or peer in exc.failed_ranks:
+                continue
+            try:
+                self.mesh.send(peer, payload)
+            except Exception:  # noqa: BLE001 - peer may be gone too
+                logger.debug("poison frame to rank %d undeliverable",
+                             peer, exc_info=True)
+
+    def _drain_or_poison(self, gen):
+        """Run a coordinator-side arrival-order drain; on a detected
+        rank failure, poison the survivors BEFORE re-raising so the
+        whole world converts the hang into the same structured error."""
+        try:
+            yield from gen
+        except RanksFailedError as exc:
+            self.broadcast_poison(exc)
+            raise
+
     # -- clock-offset probes (cross-rank trace stitching) ---------------
     def estimate_clock_offset(self, rounds: int = 5) -> tuple[float, float]:
         """Estimate this rank's monotonic-clock offset against the
@@ -106,6 +153,7 @@ class TcpTransport(Transport):
             self.mesh.send(0, b"\x01")
             raw = self.mesh.recv(0)
             t1 = time.monotonic()
+            check_poison(raw)
             (tc,) = struct.unpack("<d", bytes(raw))
             rtt = t1 - t0
             if rtt < best_rtt:
@@ -121,8 +169,8 @@ class TcpTransport(Transport):
             # Drain peers in ARRIVAL order (selectors), not rank order:
             # AND/OR are commutative, and one slow rank does not stall
             # the reads of every faster rank queued behind it.
-            for _, raw in self.mesh.recv_in_arrival_order(
-                    range(1, self.size)):
+            for _, raw in self._drain_or_poison(
+                    self.mesh.recv_in_arrival_order(range(1, self.size))):
                 a, o = _unpack_words(raw)
                 and_word &= a
                 or_word |= o
@@ -131,7 +179,9 @@ class TcpTransport(Transport):
                 self.mesh.send(peer, payload)
             return and_word, or_word
         self.mesh.send(0, _pack_words(and_word, or_word))
-        return _unpack_words(self.mesh.recv(0))
+        raw = self.mesh.recv(0)
+        check_poison(raw)
+        return _unpack_words(raw)
 
     # -- RequestList gather (reference: gloo_controller.cc allgatherv) ---
     def gather_requests(self, request_list: RequestList):
@@ -142,8 +192,8 @@ class TcpTransport(Transport):
             lists: list[RequestList | None] = [None] * self.size
             lists[0] = self._mask_unnegotiated(request_list)
             arrivals = {0: time.monotonic()}
-            for peer, raw in self.mesh.recv_in_arrival_order(
-                    range(1, self.size)):
+            for peer, raw in self._drain_or_poison(
+                    self.mesh.recv_in_arrival_order(range(1, self.size))):
                 arrivals[peer] = time.monotonic()
                 lists[peer] = RequestList.from_bytes(raw, self.features)
             self.last_gather_arrivals = arrivals
@@ -157,19 +207,31 @@ class TcpTransport(Transport):
             return response_list
         if self.rank == 0:
             payload = response_list.to_bytes(self.features)
+            failure: RanksFailedError | None = None
             for peer in range(1, self.size):
-                self.mesh.send(peer, payload)
+                try:
+                    self.mesh.send(peer, payload)
+                except RanksFailedError as exc:
+                    # Keep delivering to the SURVIVORS — a peer they can
+                    # still hear from must not strand them — then poison.
+                    failure = exc
+            if failure is not None:
+                self.broadcast_poison(failure)
+                raise failure
             return response_list
-        return ResponseList.from_bytes(self.mesh.recv(0), self.features)
+        raw = self.mesh.recv(0)
+        check_poison(raw)
+        return ResponseList.from_bytes(raw, self.features)
 
     def barrier(self) -> None:
         if self.size == 1:
             return
         if self.rank == 0:
-            for _ in self.mesh.recv_in_arrival_order(range(1, self.size)):
+            for _ in self._drain_or_poison(
+                    self.mesh.recv_in_arrival_order(range(1, self.size))):
                 pass
             for peer in range(1, self.size):
                 self.mesh.send(peer, b"\x01")
         else:
             self.mesh.send(0, b"\x01")
-            self.mesh.recv(0)
+            check_poison(self.mesh.recv(0))

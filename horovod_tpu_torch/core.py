@@ -34,10 +34,17 @@ registry (per-collective latency, bytes and bus bandwidth, per-stream
 busy time, the cycle and fusion-fill histograms), served on
 ``HOROVOD_METRICS_PORT + rank`` and dumped to ``HOROVOD_METRICS_FILE``
 at ``shutdown``; the flight recorder (``HOROVOD_FLIGHT``, on by default)
-records enqueue, dispatch and completion.  Left out, each raising
-``NotImplementedError`` naming its ROADMAP item when asked for
-(``common/config.py`` ``check_eager_knobs``): fault tolerance, chaos and
-the SAN witness, and elastic re-init (item 11).
+records enqueue, dispatch and completion.  The failure half is the
+reference's too: ``HOROVOD_FAULT_TOLERANCE`` starts the heartbeat monitor
+(``resilience/``) before any mesh forms, every transport wait is
+deadline-bounded, a response runs under ``op_scope`` with the tightest
+deadline its entries carry (``deadline_scope`` at enqueue), and each
+conversion to ``RanksFailedError`` dumps the flight ring;
+``HOROVOD_CHAOS`` fires its response actions on the ordered ResponseList
+before dispatch.  Left out, each raising ``NotImplementedError`` naming
+its ROADMAP item when asked for (``common/config.py``
+``check_eager_knobs``): the SAN witness (item 9(d)) and elastic re-init
+(item 11).
 
 Design: user threads enqueue TensorTableEntries + Requests; a single
 background thread runs the controller protocol every CycleTime ms, receives
@@ -57,11 +64,13 @@ from typing import Any, Sequence
 
 import torch
 
+from . import resilience
 from .backend.base import OperationManager, is_device_response
 from .backend.basic import BasicBackend
 from .common import config
 from .common.controller import Controller, LocalTransport
 from .common.dtypes import from_any
+from .common.exceptions import RanksFailedError
 from .common.group_table import GroupTable
 from .common.logging import configure as configure_logging
 from .common.logging import logger
@@ -71,6 +80,7 @@ from .common.stall_inspector import StallInspector
 from .common.status import Status
 from .common.tensor_queue import TensorQueue, TensorTableEntry
 from .common.timeline import Timeline
+from .resilience.context import op_scope, pending_deadline
 
 JOIN_TENSOR_NAME = "__join__"
 
@@ -250,6 +260,10 @@ class GlobalState:
     # off; records a bounded ring of trace events and dumps it on every
     # structured failure.
     flight: Any = None
+    # Chaos engine (resilience/chaos.py; HOROVOD_CHAOS).  None when off;
+    # survives shutdown/re-init so consumed counts persist across a
+    # retry's rebuild.
+    chaos: Any = None
     parameter_manager: Any = None
     cycle_time_ms: float = 1.0
     joined: bool = False
@@ -369,6 +383,12 @@ def init(*, rank: int | None = None, size: int | None = None,
 
             timeout = config.GLOO_TIMEOUT_SECONDS.get()
             kv = RendezvousClient(addr, port, timeout)
+            # Resilience BEFORE any mesh/shm formation: every PeerMesh
+            # and ShmWorld captures the process ResilienceState (and the
+            # chaos engine) at construction.  None when
+            # HOROVOD_FAULT_TOLERANCE is off — the zero-overhead mode.
+            _global.chaos = resilience.chaos.configure(rank)
+            resilience.configure(rank, size, kv, epoch)
             # The device plane first (the reference forms its JAX world
             # and puts the XLA plane first here): the NCCL group over the
             # rendezvous KV, once every rank offers a card of its own.
@@ -475,6 +495,7 @@ def init(*, rank: int | None = None, size: int | None = None,
                 _global.stream_dispatcher = StreamDispatcher(num_streams)
         else:
             transport = LocalTransport()
+            _global.chaos = resilience.chaos.configure(rank)
             _global.timeline.set_clock_sync(0.0, 0.0)
             _global.flight.set_metadata(rank=rank, size=size,
                                         clock_offset_us=0.0,
@@ -639,6 +660,7 @@ def shutdown() -> None:
             res.close()
         except Exception:  # noqa: BLE001 - best-effort cleanup
             pass
+    resilience.shutdown()   # stop the heartbeat monitor (if any)
 
 
 def reinit_world(*, rank: int, size: int, epoch: str) -> None:
@@ -763,6 +785,28 @@ def _background_loop() -> None:
         if response_list.tuned_tree_threshold >= 0:
             for coll in st.tcp_collectives:
                 coll.tree_threshold = response_list.tuned_tree_threshold
+
+        # Chaos harness (HOROVOD_CHAOS): deterministic response-level
+        # fault injection fires HERE, on the coordinator-ordered
+        # ResponseList — the global collective index is identical on
+        # every rank, so a kill/freeze/fail at index N is replayable and
+        # (for rank=*) rank-symmetric.
+        if st.chaos is not None:
+            for i, response in enumerate(response_list.responses):
+                if response.response_type in (ResponseType.JOIN,
+                                              ResponseType.ERROR):
+                    continue
+                if st.chaos.on_response(response.tensor_names) == "fail":
+                    # REPLACE, never mutate: the original Response object
+                    # may be held by the response cache, and an in-place
+                    # flip to ERROR would poison every later cache hit.
+                    response_list.responses[i] = Response(
+                        response_type=ResponseType.ERROR,
+                        tensor_names=list(response.tensor_names),
+                        error_message=(
+                            "chaos: injected collective failure "
+                            f"(HOROVOD_CHAOS, tensors "
+                            f"{response.tensor_names})"))
 
         if st.stream_dispatcher is not None \
                 and len(response_list.responses) > 1:
@@ -891,18 +935,31 @@ def _execute_response(st: GlobalState, response: Response,
     else:
         tm = st.telemetry
         tm_on = tm is not None and tm.enabled
+        res = resilience.active_state()
         try:
             manager = st.op_managers[stream]
             if tm_on:
                 backend = manager.resolve(response, entries)
                 plane = backend.name if backend is not None else "none"
                 t0 = time.monotonic()
-            card = _card_of(st, response, entries)
-            if card is None:
-                status = manager.execute_operation(response, entries)
+            if res is not None:
+                # Label the blocking waits below for failure attribution
+                # (RanksFailedError.op); off mode skips the string build.
+                # The tightest propagated request deadline of the fused
+                # entries bounds every transport wait of this op
+                # (resilience.deadline_scope -> entry.deadline).
+                deadlines = [e.deadline for e in entries
+                             if e.deadline is not None]
+                with op_scope(f"{response.response_type.name.lower()}"
+                              f"({response.tensor_names[0]}"
+                              f"{'…' if len(response.tensor_names) > 1 else ''})"
+                              if response.tensor_names else
+                              response.response_type.name.lower(),
+                              deadline=min(deadlines) if deadlines
+                              else None):
+                    status = _execute_on(st, manager, response, entries)
             else:
-                status = _execute_on_card(st, card, manager, response,
-                                          entries)
+                status = _execute_on(st, manager, response, entries)
             if tm_on:
                 algo = getattr(backend, "last_algo", "none") \
                     if backend is not None else "none"
@@ -912,6 +969,13 @@ def _execute_response(st: GlobalState, response: Response,
         except Exception as exc:  # noqa: BLE001 - backend failure
             logger.error("collective execution failed: %s", exc)
             status = Status.unknown_error(str(exc))
+            if fl_on and isinstance(exc, RanksFailedError):
+                # A data-plane wait converted a dead/wedged peer into
+                # the structured error: ship the evidence — the dump's
+                # tail is the "dispatch" event of this in-flight op.
+                fl.record("ranks-failed", head, trace=trace,
+                          detail=str(exc)[:200])
+                fl.dump(reason=str(exc))
 
     if timeline is not None and timeline.enabled:
         for e in entries:
@@ -933,6 +997,16 @@ def _execute_response(st: GlobalState, response: Response,
         # Close the enqueue->callback spans AFTER the callbacks ran.
         for e in entries:
             timeline.queue_end(e.tensor_name, trace=trace)
+
+
+def _execute_on(st: GlobalState, manager: OperationManager,
+                response: Response,
+                entries: list[TensorTableEntry]) -> Status:
+    """Run a response on the host planes, or on its card."""
+    card = _card_of(st, response, entries)
+    if card is None:
+        return manager.execute_operation(response, entries)
+    return _execute_on_card(st, card, manager, response, entries)
 
 
 def _observe_collective(tm, response: Response, plane: str, stream: int,
@@ -1123,7 +1197,13 @@ def _enqueue(entries: list[TensorTableEntry],
     timeline = st.timeline
     tl_on = timeline is not None and timeline.enabled
     fl = st.flight
+    # Per-request deadline propagation (serving SLOs): the enqueuing
+    # thread's deadline_scope rides the entries to the dispatch thread,
+    # which re-raises it through op_scope around the transport waits.
+    deadline = pending_deadline()
     for e in entries:
+        if deadline is not None:
+            e.deadline = deadline
         if tl_on:
             timeline.queue_start(e.tensor_name)
         if fl is not None and fl.enabled:

@@ -14,7 +14,11 @@ of more than one rank without the device plane it raises.  An
 allreduce takes ``op=Adasum`` and a wire codec (``compression=``: a name,
 ``none``/``fp16``/``bf16``/``int8``/``uint4``, or the binding's
 ``Compression.int8``/``uint4``; default ``HOROVOD_COMPRESSION``).
-``run`` raises ``NotImplementedError`` (ROADMAP queue A item 12).
+``run_with_recovery`` runs an idempotent collective under
+``HOROVOD_ON_FAILURE`` (raise, or retry over rebuilt channels; shrink is
+ROADMAP queue A item 11), and a dead or wedged peer surfaces as
+``RanksFailedError`` under ``HOROVOD_FAULT_TOLERANCE``.  ``run`` raises
+``NotImplementedError`` (item 12).
 
 Start a world with a ``RendezvousServer`` of ``runner.network`` and, in
 each rank's environment, ``HOROVOD_RANK``, ``HOROVOD_SIZE``,
@@ -47,7 +51,8 @@ __all__ = [
     "grouped_allreduce_async", "allgather", "allgather_async", "broadcast",
     "broadcast_async", "alltoall", "alltoall_async", "reducescatter",
     "reducescatter_async", "synchronize", "poll", "barrier", "join",
-    "broadcast_object", "allgather_object", "run", "tcp_built",
+    "broadcast_object", "allgather_object", "run", "run_with_recovery",
+    "tcp_built",
     "gloo_built", "nccl_built", "mpi_built", "mpi_enabled",
     "mpi_threads_supported", "xla_built"]
 
@@ -56,6 +61,15 @@ def run(*args, **kwargs):
     """Programmatic N-worker launch (reference: horovod_tpu.run)."""
     raise NotImplementedError("run (the launcher) is ROADMAP queue A "
                               "item 12")
+
+
+def run_with_recovery(fn, *, policy=None, max_retries=None,
+                      base_backoff=None):
+    """Run an idempotent eager collective under HOROVOD_ON_FAILURE
+    (raise | retry-with-rebuilt-channels; shrink raises)."""
+    from .resilience import run_with_recovery as _rwr
+    return _rwr(fn, policy=policy, max_retries=max_retries,
+                base_backoff=base_backoff)
 
 
 # --- Reduce-op markers (reference: horovod/common/basics.py) ----------------

@@ -4,10 +4,11 @@ The port's copy of ``horovod_tpu/runner/network.py``: the framing helpers,
 the rendezvous KV (``RendezvousServer``, its HTTP handler,
 ``RendezvousClient``) and the peer sockets (``_PeerChannel``,
 ``PeerMesh``), with the metrics counters (per-peer wire bytes, the send
-queue's depth, the KV verbs' latency).  Left out: fault tolerance and
-chaos (the deadline-bounded socket waits; ROADMAP queue A item 11), the
-write-ahead-logged replica set (``HOROVOD_RENDEZVOUS_WAL_DIR``) and NIC
-selection (``HOROVOD_GLOO_IFACE``; item 12).
+queue's depth, the KV verbs' latency), and under fault tolerance the
+deadline-bounded socket waits and the chaos send hooks (resilience/).
+Left out: the write-ahead-logged replica set
+(``HOROVOD_RENDEZVOUS_WAL_DIR``) and NIC selection
+(``HOROVOD_GLOO_IFACE``; ROADMAP queue A item 12).
 
 Reference analogues: horovod/common/gloo/http_store.cc (KV client),
 horovod/runner/http/http_server.py:35-241 (rendezvous KV server), and the
@@ -53,6 +54,18 @@ _CLOSE_JOIN_GRACE = 10.0
 # one or two sends in flight per peer; the bound only exists so a runaway
 # producer backpressures instead of buffering unbounded payload refs.
 _SEND_QUEUE_DEPTH = 8
+
+
+def _resilience_state():
+    """The process ResilienceState, or None (zero-overhead off mode).
+    Late import: resilience/ sits above the transport layer."""
+    from ..resilience import active_state
+    return active_state()
+
+
+def _chaos_engine():
+    from ..resilience import chaos
+    return chaos.active()
 
 
 def send_msg(sock: socket.socket, payload: bytes) -> None:
@@ -638,9 +651,10 @@ class _PeerChannel:
     """
 
     __slots__ = ("sock", "peer", "_queue", "_sender", "_error",
-                 "_scratch", "_hdr", "_on_sent")
+                 "_scratch", "_hdr", "_on_sent", "_res")
 
-    def __init__(self, sock: socket.socket, peer: int, on_sent) -> None:
+    def __init__(self, sock: socket.socket, peer: int, on_sent,
+                 resilience=None) -> None:
         self.sock = sock
         self.peer = peer
         self._queue: queue.Queue | None = None
@@ -649,6 +663,23 @@ class _PeerChannel:
         self._scratch = bytearray(0)
         self._hdr = bytearray(4)
         self._on_sent = on_sent    # bytes counter callback (mesh-level)
+        # Resilience (HOROVOD_FAULT_TOLERANCE): a non-None state installs
+        # a short socket timeout so every blocking wait on this channel
+        # becomes a deadline-bounded poll loop — between slices the state
+        # raises RanksFailedError on peer death or per-op deadline expiry
+        # instead of blocking forever.  None = the exact pre-resilience
+        # syscall pattern (zero-overhead off mode).
+        self._res = resilience
+        if resilience is not None:
+            self.sock.settimeout(resilience.poll_interval)
+
+    def _dead(self, exc: BaseException) -> BaseException:
+        """Latch a failure on the channel: later sends/recvs raise it
+        immediately instead of re-waiting out a deadline on a stream
+        that is already known broken (and possibly desynced)."""
+        if self._error is None:
+            self._error = exc
+        return exc
 
     # -- sending ----------------------------------------------------------
     def send_async(self, payload) -> None:
@@ -675,8 +706,38 @@ class _PeerChannel:
             self.send_async(view)
             self.flush()
             return 0
-        send_msg_gather(self.sock, view)
+        self._send_gather(view)
         return view.nbytes
+
+    def _send_gather(self, view: memoryview) -> None:
+        """Framed scatter-gather send, deadline-bounded when resilience
+        is on: a sendmsg stalled on a wedged peer's zero-window socket
+        polls in slices and raises RanksFailedError at the op deadline
+        instead of blocking the lane forever (progress resets the clock —
+        the deadline bounds silence, not transfer time)."""
+        if self._res is None:
+            send_msg_gather(self.sock, view)
+            return
+        n = view.nbytes
+        hdr = _LEN.pack(n)
+        sent = 0
+        start = time.monotonic()
+        while sent < 4 + n:
+            try:
+                if sent == 0:
+                    sent += self.sock.sendmsg([hdr, view])
+                elif sent < 4:
+                    sent += self.sock.send(memoryview(hdr)[sent:])
+                else:
+                    sent += self.sock.send(view[sent - 4:])
+            except TimeoutError:
+                self._res.check(self.peer, time.monotonic() - start,
+                                "send")
+                continue
+            except (ConnectionResetError, BrokenPipeError) as e:
+                raise self._dead(self._res.peer_connection_lost(
+                    self.peer, "send", str(e))) from e
+            start = time.monotonic()
 
     def _send_loop(self) -> None:
         while True:
@@ -684,7 +745,7 @@ class _PeerChannel:
             try:
                 if view is None:
                     return
-                send_msg_gather(self.sock, view)
+                self._send_gather(view)
                 self._on_sent(view.nbytes)
             except BaseException as e:  # noqa: BLE001 - surfaced to caller
                 if self._error is None:
@@ -699,7 +760,10 @@ class _PeerChannel:
 
     def flush(self) -> None:
         """Block until every queued frame has been handed to the kernel
-        (the pre-channel code's per-step join gave the same guarantee)."""
+        (the pre-channel code's per-step join gave the same guarantee).
+        Bounded indirectly: under fault tolerance every send the lane
+        drains is itself deadline-bounded, so the join below terminates
+        within one op deadline of a peer failure."""
         if self._queue is not None:
             self._queue.join()
         if self._error is not None:
@@ -708,11 +772,31 @@ class _PeerChannel:
     # -- receiving --------------------------------------------------------
     def recv_exact_into(self, view: memoryview) -> None:
         got, n = 0, view.nbytes
+        if self._res is None:   # zero-overhead off mode: original loop
+            while got < n:
+                r = self.sock.recv_into(view[got:], n - got)
+                if r == 0:
+                    raise ConnectionError("socket closed mid-message")
+                got += r
+            return
+        start = time.monotonic()
         while got < n:
-            r = self.sock.recv_into(view[got:], n - got)
+            try:
+                r = self.sock.recv_into(view[got:], n - got)
+            except TimeoutError:
+                # check() raises RanksFailedError on peer death or op-
+                # deadline expiry; otherwise keep polling.
+                self._res.check(self.peer, time.monotonic() - start,
+                                "recv")
+                continue
+            except (ConnectionResetError, BrokenPipeError) as e:
+                raise self._dead(self._res.peer_connection_lost(
+                    self.peer, "recv", str(e))) from e
             if r == 0:
-                raise ConnectionError("socket closed mid-message")
+                raise self._dead(self._res.peer_connection_lost(
+                    self.peer, "recv", "socket closed mid-message"))
             got += r
+            start = time.monotonic()   # progress: deadline bounds silence
 
     def recv_begin(self) -> int:
         """Read one frame header; the next `nbytes` on the wire are the
@@ -781,10 +865,18 @@ class PeerMesh:
     """
 
     def __init__(self, rank: int, size: int, kv: RendezvousClient,
-                 scope: str = "mesh", timeout: float = 30.0) -> None:
+                 scope: str = "mesh", timeout: float = 30.0,
+                 resilience=None) -> None:
         self.rank = rank
         self.size = size
         self.scope = scope
+        # Resilience (HOROVOD_FAULT_TOLERANCE) + chaos (HOROVOD_CHAOS):
+        # captured at formation.  Both None in the default off mode, so
+        # the per-call cost is one attribute test; tests may inject a
+        # private ResilienceState (the process default is rank-global).
+        self._resilience = resilience if resilience is not None \
+            else _resilience_state()
+        self._chaos = _chaos_engine()
         self._socks: dict[int, socket.socket] = {}
         self._channels: dict[int, _PeerChannel] = {}
         self._lock = threading.Lock()
@@ -888,7 +980,8 @@ class PeerMesh:
         self._negotiate_wire(peer_hellos)
         for peer, sock in self._socks.items():
             self._channels[peer] = _PeerChannel(sock, peer,
-                                                self._count_sent)
+                                                self._count_sent,
+                                                resilience=self._resilience)
 
     def _negotiate_wire(self, peer_hellos: dict) -> None:
         """Fold every peer's HELLO into the mesh-wide negotiated wire
@@ -950,6 +1043,12 @@ class PeerMesh:
                       "horovod_tcp_bytes_received_total", peer).inc(nbytes)
 
     def send(self, peer: int, payload: bytes) -> None:
+        if self._chaos is not None:
+            act = self._chaos.on_send(self.scope, peer)
+            if act == "drop":
+                return
+            if act == "dup":
+                self._count_sent(self._channels[peer].send_sync(payload))
         self._count_sent(self._channels[peer].send_sync(payload))
         if self._tm_on:
             self._tm_count_sent(peer, len(payload))
@@ -959,6 +1058,12 @@ class PeerMesh:
         (counted by the lane on completion).  Zero-copy: the payload
         buffer must stay unmutated until `flush()`."""
         ch = self._channels[peer]
+        if self._chaos is not None:
+            act = self._chaos.on_send(self.scope, peer)
+            if act == "drop":
+                return
+            if act == "dup":
+                ch.send_async(payload)
         ch.send_async(payload)
         if self._tm_on:
             # Depth AFTER the put: what's now waiting on the lane.
@@ -967,7 +1072,10 @@ class PeerMesh:
             self._tm_count_sent(peer, _as_byte_view(payload).nbytes)
 
     def recv(self, peer: int) -> bytearray:
-        """Receive one framed message, allocated fresh."""
+        """Receive one framed message, allocated fresh.  Routed through
+        the peer channel so the wait is deadline-bounded under fault
+        tolerance (the channel falls back to the original blocking loop
+        when resilience is off)."""
         ch = self._channels.get(peer)
         if ch is None:   # size-1 mesh / pre-channel peer: legacy path
             data = recv_msg(self._socks[peer])
@@ -1009,15 +1117,28 @@ class PeerMesh:
         remaining = set(peers)
         if not remaining:
             return
+        res = self._resilience
         with selectors.DefaultSelector() as sel:
             for p in remaining:
                 sel.register(self._socks[p], selectors.EVENT_READ, p)
+            start = time.monotonic()
             while remaining:
-                for key, _ in sel.select(None):
+                events = sel.select(None if res is None
+                                    else res.poll_interval)
+                if not events:
+                    if res is not None:
+                        # Deadline-bounded drain: a silent slice checks
+                        # the liveness table and the op deadline,
+                        # attributed to the still-missing peers.
+                        res.check(min(remaining),
+                                  time.monotonic() - start, "gather")
+                    continue
+                for key, _ in events:
                     peer = key.data
                     sel.unregister(key.fileobj)
                     remaining.discard(peer)
                     yield peer, self.recv(peer)
+                start = time.monotonic()
 
     def flush(self, peer: int | None = None) -> None:
         """Wait until queued sends (to `peer`, or everyone) reached the

@@ -16,11 +16,15 @@ capacity planner actually needs, next to the training benches:
   load.
 
 The JSON report lands in ``--output`` (default ``SERVE_r{rank}.json``,
-``{rank}`` substitutes); it runs one replica on the card unless
-``--device cpu``.  Not ported: chaos (``HOROVOD_CHAOS``) and the elastic
-shrink and grow it drives, the statesync wiring (ROADMAP queue A item
-11) and the fleet weights accounting (item 12), which the report names
-as not ported.
+``{rank}`` substitutes).  It calls ``hvd.init()`` before it builds the
+executor, so it serves in whatever eager world the environment describes
+(a world of one without the rendezvous variables), each replica on its
+card unless ``--device cpu``, and ``hvd.shutdown()`` at the end.  Not
+ported: the elastic shrink and grow the reference's report records
+(under chaos a failed rank raises ``RanksFailedError`` out of the serve
+loop instead), the statesync wiring (ROADMAP queue A item 11) and the
+fleet weights accounting (item 12), which the report names as not
+ported.
 """
 from __future__ import annotations
 
@@ -162,6 +166,8 @@ def write_report(report: dict, output: str, rank: int) -> str:
 
 
 def run(args: argparse.Namespace) -> dict:
+    from .. import eager as hvd
+    hvd.init()
     overrides = {}
     if args.max_batch:
         overrides["max_batch"] = args.max_batch
@@ -173,23 +179,26 @@ def run(args: argparse.Namespace) -> dict:
                                device=args.device)
     done = threading.Event()
     t0 = time.monotonic()
-    rng = random.Random(args.seed)
-    times = arrival_times(rng, args.requests, args.duration, args.rate,
-                          args.profile)
-    ingress = threading.Thread(
-        target=drive_ingress, daemon=True, name="serve-ingress",
-        args=(executor, times, rng),
-        kwargs=dict(prompt_tokens=args.prompt_tokens,
-                    max_new_tokens=args.max_new_tokens,
-                    slo_ms=args.slo_ms, done=done,
-                    prompt_pool=args.prompt_pool))
-    ingress.start()
+    ingress = None
+    if executor.rank == executor.front:
+        rng = random.Random(args.seed)
+        times = arrival_times(rng, args.requests, args.duration,
+                              args.rate, args.profile)
+        ingress = threading.Thread(
+            target=drive_ingress, daemon=True, name="serve-ingress",
+            args=(executor, times, rng),
+            kwargs=dict(prompt_tokens=args.prompt_tokens,
+                        max_new_tokens=args.max_new_tokens,
+                        slo_ms=args.slo_ms, done=done,
+                        prompt_pool=args.prompt_pool))
+        ingress.start()
     try:
         executor.serve_loop(stop_when=done.is_set)
     finally:
         # drive_ingress sets `done` as its last act, so by the time
         # serve_loop returned it is at most one submit away from exit.
-        ingress.join(timeout=10.0)
+        if ingress is not None:
+            ingress.join(timeout=10.0)
     wall = time.monotonic() - t0
     report = build_report(
         executor, offered=executor.stats["offered"], wall_s=wall,
@@ -203,11 +212,13 @@ def run(args: argparse.Namespace) -> dict:
                    "paged": executor.cfg.paged,
                    "seed": args.seed})
     path = write_report(report, args.output, executor.rank)
-    print(json.dumps({k: report[k] for k in
-                      ("served", "shed", "expired", "goodput_rps",
-                       "latency_ms", "world")}, sort_keys=True))
-    print(f"loadgen: report written to {path}")
+    if executor.rank == executor.front:
+        print(json.dumps({k: report[k] for k in
+                          ("served", "shed", "expired", "goodput_rps",
+                           "latency_ms", "world")}, sort_keys=True))
+        print(f"loadgen: report written to {path}")
     executor.close()
+    hvd.shutdown()
     return report
 
 
@@ -215,7 +226,7 @@ def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.serving.loadgen",
         description="Open-loop Poisson load harness for the serving "
-                    "subsystem, on one replica.")
+                    "subsystem.")
     parser.add_argument("--requests", type=int, default=64,
                         help="max requests to offer")
     parser.add_argument("--duration", type=float, default=5.0,

@@ -18,11 +18,18 @@
 - Completions ride back on an all-gather each step, so the front end
   frees slots and records latencies without a side channel.
 
-The exchanges are ``torch.distributed.broadcast_object_list`` and
-``all_gather_object`` on the process group the executor is given; with
-none it is a world of one and both are the identity.  (The reference
-calls its eager core, ``hvd.broadcast_object``; the port's is ROADMAP
-queue A item 9.)
+The serving world is the eager core's: ``hvd.init()`` comes before the
+executor, which takes its rank and size from ``hvd``.  The plan and the
+completions move through ``hvd.broadcast_object`` and
+``hvd.allgather_object`` under the reference's names
+(``serve.plan.g0.<step>``, ``serve.done.g0.<step>``; the names feed the
+collective fingerprints), in a world of one too, and each runs under
+``deadline_scope`` of the earliest in-flight request's deadline: under
+``HOROVOD_FAULT_TOLERANCE`` a dead peer converts at once into
+``RanksFailedError``, and a wedged one at that deadline while the
+exchange's op runs (a wait in the negotiation before it, which no
+request deadline bounds, converts at ``HOROVOD_FAULT_TIMEOUT``, as in
+the reference).
 
 The model runs on the card unless ``device="cpu"``.  Every call that
 writes the KV cache runs under ``torch.inference_mode()``.  Token, block
@@ -35,10 +42,11 @@ disaggregated prefill (``prefill_ranks > 0``, the kvstream mesh; items 8
 and 11), fleet weight swaps (``attach_fleet``) and
 ``join_serving_world`` (items 11 and 12), the statesync grow
 (``attach_statesync``, item 11).  Also not ported: the elastic shrink on
-``RanksFailedError`` (item 11; a failed collective raises out of
-``serve_loop``), per-request deadline scopes on the exchanges (item 11;
-they wait as long as the process group's timeout allows) and the serve
-MFU gauges (``_note_perf``, item 12).
+``RanksFailedError`` (item 11).  Where the reference's survivors converge
+on the confirmed-dead set, re-form the world without it and resume, the
+port's ``serve_loop`` lets the ``RanksFailedError`` propagate, and so
+the exchange names keep generation 0.  The serve MFU gauges
+(``_note_perf``) are item 12.
 """
 from __future__ import annotations
 
@@ -48,7 +56,6 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..common import config
 from ..common.device import resolve_device
@@ -147,26 +154,22 @@ class ReplicaExecutor:
 
     ``params`` is a state dict of the port's ``TransformerLM``; without
     one the weights are drawn from ``cfg.seed`` with a
-    ``torch.Generator``, the same on every rank of one device type.
-    ``group`` is a ``torch.distributed`` process group (None: a world of
-    one)."""
+    ``torch.Generator``, the same on every rank of one device type.  The
+    rank and world size are ``hvd``'s, so ``hvd.init()`` comes first."""
 
     def __init__(self, serve_cfg: ServeConfig | None = None,
                  params: dict | None = None, *,
-                 device: str | torch.device | None = None,
-                 group=None) -> None:
+                 device: str | torch.device | None = None) -> None:
+        from .. import eager as hvd
         self.cfg = serve_cfg or ServeConfig.from_env()
         if self.cfg.prefill_ranks > 0:
             raise NotImplementedError(
                 "disaggregated prefill (prefill_ranks > 0, the kvstream "
                 "mesh) is ROADMAP queue A items 8 and 11")
         self.device = resolve_device(device)
-        self.process_group = group
-        if group is None:
-            self.rank, self.size = 0, 1
-        else:
-            self.rank = dist.get_rank(group)
-            self.size = dist.get_world_size(group)
+        self.hvd = hvd
+        self.rank = hvd.rank()
+        self.size = hvd.size()
         self.front = 0
         self._step = 0
         self._stop_requested = False
@@ -334,15 +337,20 @@ class ReplicaExecutor:
             self.stats["expired"] += 1
         return plan
 
+    def _inflight_deadline(self) -> float | None:
+        """The earliest in-flight request's deadline: it bounds this
+        step's exchanges (``deadline_scope``)."""
+        deadlines = [s.deadline for s in self.slots if s is not None]
+        return min(deadlines) if deadlines else None
+
     def _exchange_plan(self, plan: BatchPlan | None) -> BatchPlan:
         """The front's plan on every rank: the broadcast is the
         schedule."""
-        if self.process_group is None:
-            return plan
-        box = [plan]
-        dist.broadcast_object_list(box, group=self.process_group,
-                                   group_src=self.front)
-        return box[0]
+        from ..resilience import deadline_scope
+        with deadline_scope(self._inflight_deadline()):
+            return self.hvd.broadcast_object(
+                plan, root_rank=self.front,
+                name=f"serve.plan.g0.{self._step}")
 
     def _apply_plan(self, plan: BatchPlan) -> None:
         now = time.monotonic()
@@ -535,13 +543,11 @@ class ReplicaExecutor:
 
     def _exchange_completions(self) -> list[dict]:
         """Every rank's new completions, on every rank."""
+        from ..resilience import deadline_scope
         mine = {"done": list(self._unreported)}
-        if self.process_group is None:
-            per_rank = [mine]
-        else:
-            per_rank = [None] * self.size
-            dist.all_gather_object(per_rank, mine,
-                                   group=self.process_group)
+        with deadline_scope(self._inflight_deadline()):
+            per_rank = self.hvd.allgather_object(
+                mine, name=f"serve.done.g0.{self._step}")
         self._unreported.clear()       # acknowledged by the exchange
         return [rec for p in per_rank for rec in p["done"]]
 

@@ -17,11 +17,13 @@ the shared :data:`NULL_FLIGHT` no-op recorder, no SIGTERM handler is
 installed, and the process's threads are the same either way (the
 recorder never owns a thread).
 
-Dump triggers in the port: a fingerprint-divergence structured ERROR
-(``Controller._check_fingerprints``, on the coordinator), and SIGTERM
-(preemption notice), chained in front of any existing handler.  The
-reference's other triggers (the RanksFailedError conversions of fault
-tolerance) come with resilience, ROADMAP queue A item 11.
+Dump triggers, as in the reference: a fingerprint-divergence structured
+ERROR (``Controller._check_fingerprints``, on the coordinator), every
+RanksFailedError conversion of fault tolerance (the controller's poisoned
+cycle and a data-plane wait in ``core._execute_response``; the
+``ResilienceState`` records its ``mark-failed`` and ``deadline-convert``
+observations into the ring first), and SIGTERM (preemption notice),
+chained in front of any existing handler.
 """
 from __future__ import annotations
 

@@ -163,6 +163,7 @@ def test_gpt_tiny_serves_dense_and_paged_alike():
     streams, and no flash kernel runs on the serving path."""
     import random
 
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
 
     rng = random.Random(7)
@@ -170,6 +171,7 @@ def test_gpt_tiny_serves_dense_and_paged_alike():
                for _ in range(4)]
     fa.reset_launch_counts()
     streams = {}
+    hvd.init(rank=0, size=1)           # the executor's world is hvd's
     for paged in (False, True):
         ex = ReplicaExecutor(ServeConfig(max_batch=2, token_budget=64,
                                          max_seq=64, slo_ms=60000.0,
@@ -192,6 +194,7 @@ def test_gpt_tiny_serves_dense_and_paged_alike():
             assert kv["active"] == 0 and kv["prefix_hits"] > 0, kv
         streams[paged] = got
         ex.close()
+    hvd.shutdown()
     assert streams[False] == streams[True]
     assert sum(fa.launch_counts().values()) == 0
 

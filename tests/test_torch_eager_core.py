@@ -442,8 +442,6 @@ def test_world_of_one_scales_integers_like_the_reference(solo):
 
 @pytest.mark.parametrize("knob,value", [
     ("HOROVOD_SAN", "1"),
-    ("HOROVOD_FAULT_TOLERANCE", "1"),
-    ("HOROVOD_CHAOS", "kill:rank=1"),
     ("HOROVOD_ELASTIC", "1"),
     ("HOROVOD_XLA_OPERATIONS", "1"),
 ])
@@ -452,6 +450,36 @@ def test_unported_knobs_raise(monkeypatch, knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         hvd.init()
     assert not hvd.is_initialized()
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("HOROVOD_FAULT_TOLERANCE", "1"),
+    ("HOROVOD_CHAOS", "fail:op=0,count=1"),
+])
+def test_failure_knobs_are_live(monkeypatch, knob, value):
+    """The fault-tolerance knobs the port once refused now init.  In a
+    world of one, fault tolerance forms no monitor (as in the
+    reference); a chaos ``fail`` turns the first collective into the
+    structured error and the next runs clean from the response cache."""
+    from horovod_tpu_torch import core, resilience
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv(knob, value)
+    hvd.init()
+    try:
+        if knob == "HOROVOD_CHAOS":
+            assert core.global_state().chaos is resilience.chaos.active()
+            with pytest.raises(hvd.HorovodInternalError, match="chaos"):
+                hvd.allreduce(torch.ones(4), op=hvd.Sum, name="cf")
+        else:
+            assert resilience.active_state() is None
+        for _ in range(3):
+            out = hvd.allreduce(torch.ones(4), op=hvd.Sum, name="cf")
+            assert out.tolist() == [1.0] * 4
+    finally:
+        hvd.shutdown()
+        monkeypatch.delenv(knob)
+        resilience.chaos.configure(0)
 
 
 _STREAMS_RANK = """

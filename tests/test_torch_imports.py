@@ -34,7 +34,9 @@ for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
             "telemetry.flight", "telemetry.straggler", "telemetry.perfmodel",
             "analysis.fingerprint", "common.parameter_manager",
             "common.optim.gaussian_process",
-            "common.optim.bayesian_optimization"):
+            "common.optim.bayesian_optimization", "resilience",
+            "resilience.context", "resilience.heartbeat",
+            "resilience.chaos", "resilience.policy"):
     assert "horovod_tpu_torch." + sub in new, sub
 bad = [m for m in new
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
@@ -54,9 +56,9 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 67            # every module: the eager core,
-    # the device plane, the torch binding and the runtime's telemetry,
-    # fingerprint and autotuner too
+    assert int(count) >= 72            # every module: the eager core,
+    # the device plane, the torch binding, the runtime's telemetry,
+    # fingerprint and autotuner and the failure half's resilience too
     assert bad == "BAD []", bad
 
 
@@ -132,8 +134,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
     assert flash_attention(q, q, q, device="cpu").shape == q.shape
     assert synthetic_text_batch(1, 8, device="cpu")["input"].device.type \
         == "cpu"
-    replica = ReplicaExecutor(ServeConfig(max_seq=32), device="cpu")
-    assert replica.model.device.type == "cpu"
+    import horovod_tpu_torch as hvd
+    hvd.init(rank=0, size=1)           # the executor's world is hvd's
+    try:
+        replica = ReplicaExecutor(ServeConfig(max_seq=32), device="cpu")
+        assert replica.model.device.type == "cpu"
+    finally:
+        hvd.shutdown()
     assert ResNet18(num_filters=8, device="cpu").head.weight.device.type \
         == "cpu"
     assert synthetic_image_batch(1, 8, device="cpu")["image"].device.type \

@@ -9,8 +9,16 @@
   prompts, dense and paged, give the same token streams up to the first
   token whose logits (the JAX model's full forward) have a top-2 margin
   below 1e-3; the test reports any such cut.  The paged census holds.
-- Two ranks on gloo: the plan broadcast keeps both in step, the front
-  serves every request, and each rank's streams match a one-rank run.
+- Two ranks of the port's eager core (``hvd.init()`` against the port's
+  rendezvous server; the plan and completions ride ``hvd.broadcast_object``
+  and ``hvd.allgather_object``): the plan broadcast keeps both in step,
+  the front serves every request, and each rank's streams match a
+  one-rank run.  Under fault tolerance a chaos SIGKILL of rank 1
+  mid-serve makes rank 0's ``serve_loop`` raise ``RanksFailedError``
+  naming rank 1 within twice the fault timeout.
+
+The port's executor takes its rank and size from ``hvd``, so every port
+executor here is built after ``hvd.init()`` (a world of one in-process).
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import dataclasses
 import json
 import os
 import random
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -330,8 +339,18 @@ def jax_replica_runs():
     return runs
 
 
+@pytest.fixture(autouse=True)
+def _port_world_down():
+    """The port's world of one, if a test started it, ends with it."""
+    yield
+    import horovod_tpu_torch as thvd
+    thvd.shutdown()
+
+
 def _port_executor(params=None, **kw):
+    import horovod_tpu_torch as thvd
     from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    thvd.init(rank=0, size=1)
     state = None if params is None else convert.params_from_flax(
         params, ttr.gpt_tiny())
     return ReplicaExecutor(ServeConfig.from_env(**_cfg_kwargs(**kw)),
@@ -442,20 +461,26 @@ def test_loadgen_report_schema_matches_reference(tmp_path):
     assert set(report) == ref_keys
 
 
-# --- two ranks on gloo -------------------------------------------------------
+# --- two ranks of the eager core ---------------------------------------------
 GLOO_N, GLOO_MAX_NEW = 10, 5
+KILL_FAULT_TIMEOUT = 3.0
 
 
-def test_two_rank_gloo_serving(tmp_path):
-    prompts = _prompts(13, n=5)
-    spec = dict(prompts=prompts, n=GLOO_N, max_new=GLOO_MAX_NEW,
-                cfg=_cfg_kwargs(group_size=1))
+def _serve_world(tmp_path, spec: dict, expected_rcs=None) -> list[dict]:
+    """Two ``torch_serve_worker.py`` ranks against one of the port's
+    rendezvous servers; each rank's exit code (0 unless ``expected_rcs``
+    says otherwise) and its OUT.json, where it wrote one."""
+    from horovod_tpu_torch.runner.network import RendezvousServer
     (tmp_path / "spec.json").write_text(json.dumps(spec))
-    env = dict(os.environ)
+    server = RendezvousServer()
+    port = server.start()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    env["HOROVOD_FLIGHT_FILE"] = str(tmp_path / "flight.json")
     procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), "2", str(tmp_path / "store"),
+        [sys.executable, str(WORKER), str(r), "2", str(port),
          str(tmp_path / "spec.json"), str(tmp_path / f"out{r}.json")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
@@ -465,10 +490,22 @@ def test_two_rank_gloo_serving(tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log
-    outs = [json.loads((tmp_path / f"out{r}.json").read_text())
+        server.stop()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == (expected_rcs or {}).get(r, 0), log
+    return [json.loads((tmp_path / f"out{r}.json").read_text())
+            if (tmp_path / f"out{r}.json").exists() else None
             for r in range(2)]
+
+
+def test_two_rank_gloo_serving(tmp_path):
+    """Two ranks of the eager core serve in step (the name is from when
+    the exchanges rode a gloo process group)."""
+    prompts = _prompts(13, n=5)
+    outs = _serve_world(tmp_path, dict(
+        prompts=prompts, n=GLOO_N, max_new=GLOO_MAX_NEW,
+        cfg=_cfg_kwargs(group_size=1), epoch="serve2"))
+    assert outs[0]["failure"] is None and outs[1]["failure"] is None
     # In step: the same plans and step count on both ranks.
     assert outs[0]["plans"] == outs[1]["plans"]
     assert outs[0]["steps"] == outs[1]["steps"]
@@ -489,6 +526,29 @@ def test_two_rank_gloo_serving(tmp_path):
     got = {int(k): v for out in outs for k, v in out["streams"].items()}
     _assert_streams_agree(got, want, rids, params, "gloo")
     solo.close()
+
+
+def test_two_rank_serving_chaos_kill(tmp_path):
+    """Fault tolerance on, chaos SIGKILLs rank 1 at collective 11 (the
+    completions exchange's data allgather of serve step 2, four
+    collectives a step) with requests in flight: rank 0's serve_loop
+    raises RanksFailedError naming rank 1 within twice the fault
+    timeout."""
+    outs = _serve_world(tmp_path, dict(
+        prompts=_prompts(13, n=5), n=GLOO_N, max_new=GLOO_MAX_NEW,
+        cfg=_cfg_kwargs(group_size=1), epoch="servekill",
+        env={"HOROVOD_FAULT_TOLERANCE": "1",
+             "HOROVOD_FAULT_TIMEOUT": str(KILL_FAULT_TIMEOUT),
+             "HOROVOD_CHAOS": "kill:rank=1,op=11,sig=9"}),
+        expected_rcs={1: -signal.SIGKILL})
+    failure = outs[0]["failure"]
+    assert failure is not None, outs[0]
+    assert failure["failed_ranks"] == [1], failure
+    assert failure["op"].startswith("allgather(serve.done.g0.3"), failure
+    assert failure["seconds"] < 2 * KILL_FAULT_TIMEOUT, failure
+    assert failure["inflight"] > 0, failure
+    assert outs[0]["served"] < GLOO_N
+    assert outs[1] is None                      # killed before its report
 
 
 # Both packages' bf16 runs under 6 pytest-xdist workers took 40 s

@@ -1,43 +1,59 @@
-"""One rank of a gloo world serving with the port's ``ReplicaExecutor``.
+"""One rank of a port eager world serving with ``ReplicaExecutor``.
 
-    python torch_serve_worker.py RANK WORLD STORE_FILE SPEC.json OUT.json
+    python torch_serve_worker.py RANK WORLD RENDEZVOUS_PORT SPEC.json OUT.json
 
 ``SPEC.json`` holds ``cfg`` (``ServeConfig`` keyword arguments),
-``prompts``, ``n`` and ``max_new``: the front end (rank 0) submits ``n``
-requests cycling through the prompts, and every rank serves until the
-front end has drained.  The rank writes to ``OUT.json`` the plans it
-executed (each a list of ``[rid, replica]``), its step count, the
-streams its replica group generated, and the front's ``offered`` and
-``served``.  It imports torch and the port only.
+``prompts``, ``n``, ``max_new`` and ``env`` (extra ``HOROVOD_*``
+settings: fault tolerance and chaos for the kill case): the rank calls
+``hvd.init()`` against the port's rendezvous server, the front end (rank
+0) submits ``n`` requests cycling through the prompts, and every rank
+serves until the front end has drained.  The rank writes to ``OUT.json``
+the plans it executed (each a list of ``[rid, replica]``), its step
+count, the streams its replica group generated, the front's ``offered``
+and ``served``, and the ``RanksFailedError`` that ended its loop, if one
+did (failed ranks, op, phase and seconds from the last completed
+exchange to the error).  It imports torch and the port only.
 """
 from __future__ import annotations
 
-import datetime
 import json
+import os
 import sys
+import time
 
-import torch.distributed as dist
-
-from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+import torch
 
 
-def main(rank: int, world: int, store: str, spec_path: str,
+def main(rank: int, world: int, port: int, spec_path: str,
          out: str) -> None:
     with open(spec_path) as f:
         spec = json.load(f)
-    dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=120))
+    torch.set_num_threads(1)
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(world),
+                      HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+                      HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+                      HOROVOD_RENDEZVOUS_EPOCH=spec.get("epoch", "serve"),
+                      **spec.get("env", {}))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    hvd.init()
     try:
-        ex = ReplicaExecutor(ServeConfig(**spec["cfg"]), device="cpu",
-                             group=dist.group.WORLD)
+        ex = ReplicaExecutor(ServeConfig(**spec["cfg"]), device="cpu")
         plans, streams = [], {}
         exchange, collect = ex._exchange_plan, ex._collect_completions
+        gather = ex._exchange_completions
+        last_exchange = [time.monotonic()]
 
         def record_plan(plan):
             plan = exchange(plan)
+            last_exchange[0] = time.monotonic()
             plans.append([[a.rid, a.replica] for a in plan.assign])
             return plan
+
+        def record_gather():
+            done = gather()
+            last_exchange[0] = time.monotonic()
+            return done
 
         def record_streams():
             for s in ex.slots:
@@ -45,24 +61,30 @@ def main(rank: int, world: int, store: str, spec_path: str,
                     streams[s.rid] = list(s.generated)
             collect()
         ex._exchange_plan = record_plan
+        ex._exchange_completions = record_gather
         ex._collect_completions = record_streams
         if rank == ex.front:
             for i in range(spec["n"]):
                 ex.stats["offered"] += 1
                 ex.queue.submit(spec["prompts"][i % len(spec["prompts"])],
                                 spec["max_new"])
-        ex.serve_loop(stop_when=lambda: True)
+        failure = None
+        try:
+            ex.serve_loop(stop_when=lambda: True)
+        except hvd.RanksFailedError as e:
+            failure = {"failed_ranks": sorted(e.failed_ranks), "op": e.op,
+                       "phase": e.phase,
+                       "seconds": time.monotonic() - last_exchange[0],
+                       "inflight": len(ex.inflight_rids())}
         with open(out, "w") as f:
             json.dump({"plans": plans, "steps": ex._step,
                        "streams": streams, "offered": ex.stats["offered"],
-                       "served": ex.stats["served"]}, f)
+                       "served": ex.stats["served"], "failure": failure}, f)
         ex.close()
-        # The loop's last collective is the front's stop broadcast; let
-        # every rank finish it before the group is torn down.
-        dist.barrier()
     finally:
-        dist.destroy_process_group()
+        hvd.shutdown()
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+         *sys.argv[4:6])
