@@ -212,6 +212,40 @@ Phases, each printed as one JSON object on its own line:
    survivor), the retry at 4 (exact after a rebuild), a freeze at 2 and
    the off mode at 2, each time to the error printed.
 
+14. elastic: the launcher and elastic training, one line a leg.  (a)
+   ``python -m horovod_tpu_torch.runner.launch -np 1 -H localhost:1``
+   starts ``chip_smoke.py --launch-worker static``: ``hvd.init()`` from
+   the launcher's environment, then gpt_small at full width through
+   ``DistributedOptimizer(AdamW(3e-4, wd 1e-4), compression=bf16)`` on
+   cuda:0 as the binding phase trains it (2 warm-up and 5 timed steps):
+   launch to the end of the first step, the mean step beside the binding
+   phase's, the flash launches a step (12 of each).  (b) The elastic
+   launcher (``--min-np 1 --max-np 1 -H localhost:1``) starts
+   ``--launch-worker elastic``: gpt_small under ``hvd.elastic.run`` over
+   ``TorchState(model, optimizer, step=0)``, 8 steps on 8 seeded
+   batches, a commit after each, every step's gradients through the core
+   as one grouped allreduce on the bf16 wire (``_exchange_grads``: the
+   hooks' work at more ranks).  Twice: unbroken, with the chaos engine
+   armed but never firing, which gives the response index ``k`` of step
+   4's exchange and, from 8 more steps in the same process without the
+   elastic loop, the spread of two unbroken runs; then under
+   ``HOROVOD_CHAOS=fail:op=<k>,rank=*``: the exchange fails, the loop
+   restores step 3's commit, shuts the core down, re-rendezvouses
+   through the driver at epoch 2, syncs (``broadcast_parameters``,
+   ``broadcast_optimizer_state``) and resumes.  The losses of steps 1-8
+   and the parameters after step 8 (a SHA-256 of their bytes) must equal
+   the unbroken run's bit for bit (within the unbroken spread if two
+   unbroken runs differ), and every forward/backward pass launch each
+   flash kernel 12 times: commit ms and bytes, restore ms, fault to the
+   end of the first resumed step, the re-rendezvous, the epochs.  (c)
+   The host scenarios of ``tests/test_torch_elastic_integration.py``
+   (``tests/torch_elastic_worker.py`` ``run_scenario``: happy, a node
+   failure, a grow through a discovery script, ``HOROVOD_ON_FAILURE=
+   shrink`` with a chaos kill at 3 ranks, ``hvd.run`` under the driver;
+   CPU tensors, CUDA hidden), the five worlds at once, beside (b)'s
+   unbroken run: each world's wall time and its fault to recovery.  Any
+   leg that fails fails the phase.
+
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -2345,7 +2379,8 @@ def phase_binding() -> dict:
           "problems": problems})
     if problems:
         raise RuntimeError("; ".join(problems))
-    return {"seconds": seconds, "launches": loop["launches"]}
+    return {"seconds": seconds, "launches": loop["launches"],
+            "timed_step_ms_mean": loop["timed_step_ms_mean"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3724,6 +3759,480 @@ def phase_resilience() -> dict:
     return {"seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# elastic: the launcher and elastic training on the card and on the host
+# ---------------------------------------------------------------------------
+ELASTIC_STEPS = 8
+ELASTIC_FAIL_STEP = 4
+ELASTIC_WORLD_TIMEOUT = 300.0
+# A response index no run reaches: arms the chaos engine (whose count
+# the unbroken run reads) without ever firing.
+ELASTIC_NEVER = 10 ** 9
+
+
+def _gpt_user_setup(hvd):
+    """gpt_small at full width with the binding phase's optimizer:
+    ``DistributedOptimizer(AdamW(3e-4, wd 1e-4))`` on the bf16 wire."""
+    from horovod_tpu_torch import TransformerLM, gpt_small
+    cfg = gpt_small(attention="flash", max_seq_len=2048)
+    model = TransformerLM(cfg, seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.bf16)
+    return cfg, model, opt
+
+
+def _exchange_grads(opt, params) -> None:
+    """The gradients through the core as one grouped allreduce on the
+    bf16 wire, installed as the optimizer's hooks install them in a world
+    of more ranks (in a world of one no hook registers): at one rank the
+    basic plane on the card, so every step has a gradient allreduce for
+    the chaos engine to fail."""
+    handle, ctxs = opt._grouped_allreduce_grad_async(params)
+    handle.wait().raise_if_error()
+    for p, (compressed, ctx), out in zip(params, ctxs, handle.outputs()):
+        opt._install_grad(p, compressed, ctx, out)
+
+
+def _params_digest(model) -> str:
+    import hashlib
+    digest = hashlib.sha256()
+    for name, t in sorted(model.state_dict().items()):
+        digest.update(name.encode())
+        digest.update(t.detach().contiguous().view(torch.uint8).cpu()
+                      .numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _tensors(obj):
+    """Every tensor in a nest of dicts, lists and tuples."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def _tensor_bytes(obj) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(obj))
+
+
+def _launch_static(outdir: str) -> dict:
+    """Leg (a)'s worker: ``hvd.init()`` from the launcher's environment,
+    then gpt_small through ``DistributedOptimizer`` as ``phase_binding``
+    trains it (2 warm-up and 5 timed steps on one batch)."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import synthetic_text_batch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    hvd.init()
+    launcher_env = {k: os.environ.get(k) for k in (
+        "HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+        "HOROVOD_HOSTNAME", "HOROVOD_HOST_IDS",
+        "HOROVOD_GLOO_RENDEZVOUS_ADDR")}
+    try:
+        cfg, model, opt = _gpt_user_setup(hvd)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
+        batch = synthetic_text_batch(8, 2048, cfg.vocab_size, seed=0)
+        steps = WARMUP_STEPS + TIMED_STEPS
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()                 # the main path starts
+        losses, step_ms, t_first = [], [], None
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = cross_entropy_loss(model(batch["input"], train=True),
+                                      batch["label"])
+            loss.backward()
+            opt.step()
+            opt.zero_grad()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+            if t_first is None:
+                t_first = time.time()
+        launches = fa.launch_counts()            # ... and ends
+        return {"rank": hvd.rank(), "size": hvd.size(),
+                "launcher_env": launcher_env, "t_first_step": t_first,
+                "losses": losses, "step_ms": step_ms, "steps": steps,
+                "launches": launches}
+    finally:
+        hvd.shutdown()
+
+
+def _launch_elastic(outdir: str) -> dict:
+    """Leg (b)'s worker: gpt_small under ``hvd.elastic.run`` over
+    ``TorchState(model, optimizer, step=0)``, a commit after each of 8
+    steps, every step's gradients through the core
+    (``_exchange_grads``); then, in the unbroken run, the same 8 steps
+    again without the elastic loop (the spread of two unbroken runs)."""
+    import horovod_tpu_torch.torch as hvd
+    import horovod_tpu_torch.torch.elastic  # noqa: F401 - hvd.elastic
+    from horovod_tpu_torch import core, resilience, synthetic_text_batch
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import multihost
+    from horovod_tpu_torch.training import cross_entropy_loss
+    run_module = sys.modules["horovod_tpu_torch.elastic.run"]
+    manager = sys.modules["horovod_tpu_torch.elastic.worker"] \
+        .notification_manager
+
+    # The optimizer needs the world's size: take the first assignment
+    # from the driver before hvd.init, as the programmatic bootstrap does.
+    manager.init()
+    assignment = manager.get_assignment(0)
+    if assignment is None:
+        raise RuntimeError("the driver left this slot out of the world")
+    run_module._apply_assignment(assignment)
+    hvd.init()
+    cfg, model, opt = _gpt_user_setup(hvd)
+    params = [p for p in model.parameters() if p.requires_grad]
+    batches = [synthetic_text_batch(8, 2048, cfg.vocab_size, seed=s)
+               for s in range(ELASTIC_STEPS + 1)]
+    rec = {"losses": {}, "step_ms": {}, "op_at_step": {}, "commit_ms": [],
+           "restore_ms": [], "faults": [], "resets": [], "resumed": [],
+           "epochs": [os.environ["HOROVOD_RENDEZVOUS_EPOCH"]],
+           "process_group": [multihost.is_initialized()],
+           "forward_backward": 0}
+
+    def one_step(s: int) -> float:
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(
+            model(batches[s]["input"], train=True), batches[s]["label"])
+        loss.backward()
+        rec["forward_backward"] += 1
+        try:
+            _exchange_grads(opt, params)
+        except HorovodInternalError:
+            rec["faults"].append((s, time.time()))
+            raise
+        opt.step()
+        value = loss.item()
+        rec["step_ms"][s] = (time.perf_counter() - t0) * 1e3
+        return value
+
+    class State(hvd.elastic.TorchState):
+        def restore(self):
+            t0 = time.perf_counter()
+            super().restore()
+            torch.cuda.synchronize()
+            rec["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["restored_at"] = time.time()
+
+    @hvd.elastic.run
+    def train(state):
+        while state.step < ELASTIC_STEPS:
+            s = state.step + 1
+            engine = resilience.chaos.active()
+            rec["op_at_step"][s] = None if engine is None \
+                else engine._op_index
+            rec["losses"][s] = one_step(s)
+            if len(rec["resumed"]) < len(rec["resets"]):
+                rec["resumed"].append(time.time())
+            state.step = s
+            t0 = time.perf_counter()
+            state.commit()
+            torch.cuda.synchronize()
+            rec["commit_ms"].append((time.perf_counter() - t0) * 1e3)
+        return state.step
+
+    def on_reset():
+        rec["resets"].append(time.time())
+        rec["epochs"].append(os.environ["HOROVOD_RENDEZVOUS_EPOCH"])
+        rec["process_group"].append(multihost.is_initialized())
+
+    state = State(model, opt, step=0)
+    state.register_reset_callbacks([on_reset])
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()                     # the main path starts
+    rec["final_step"] = train(state)
+    rec["launches"] = fa.launch_counts()         # ... and ends
+    # What the last commit holds: the model's and AdamW's state, deep
+    # copies on the card (the `step` scalars on the host).
+    saved = [h._saved_state for h in state._handlers.values()]
+    rec["commit_bytes"] = _tensor_bytes(saved)
+    rec["commit_bytes_on_card"] = sum(
+        _tensor_bytes(t) for t in _tensors(saved) if t.is_cuda)
+    rec["digest"] = _params_digest(model)
+    rec["rank"], rec["size"] = hvd.rank(), hvd.size()
+    # The re-initialised core runs the card's work on a stream of its
+    # own again (made at init in a world of one on the card).
+    rec["device_stream"] = core.global_state().device_stream is not None
+    if os.environ.get("CHIP_SMOKE_ELASTIC_SPREAD") == "1":
+        # The same 8 steps again, from the same seed, without the
+        # elastic loop: the spread of two unbroken runs.
+        del state, opt, model, params
+        torch.cuda.empty_cache()
+        cfg, model, opt = _gpt_user_setup(hvd)
+        params = [p for p in model.parameters() if p.requires_grad]
+        rec["again"] = {s: one_step(s)
+                        for s in range(1, ELASTIC_STEPS + 1)}
+        rec["again_digest"] = _params_digest(model)
+    hvd.shutdown()
+    return rec
+
+
+def launch_worker(mode: str, outdir: str) -> int:
+    """``chip_smoke.py --launch-worker static|elastic OUTDIR``: the
+    process the launcher starts on the card; its record goes to
+    ``OUTDIR/<mode>.json``.  No card: exit 3."""
+    if not torch.cuda.is_available():
+        print("launch worker: no CUDA device", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    rec = (_launch_static if mode == "static" else _launch_elastic)(outdir)
+    rec["device"] = torch.cuda.get_device_name(0)
+    with open(os.path.join(outdir, f"{mode}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _launcher_run(argv: list[str], env_extra: dict) -> tuple[int, str]:
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    env.update(PYTHONPATH=os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH")) if p), **env_extra)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *argv],
+        env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=ELASTIC_WORLD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        return -9, out
+    return proc.returncode, out
+
+
+def _elastic_card_leg(outdir: str, chaos: str, spread: bool
+                      ) -> tuple[int, str, dict]:
+    argv = ["--min-np", "1", "--max-np", "1", "-H", "localhost:1",
+            "--elastic-timeout", "120", sys.executable,
+            os.path.abspath(__file__), "--launch-worker", "elastic", outdir]
+    rc, out = _launcher_run(argv, {
+        "HOROVOD_CHAOS": chaos,
+        "CHIP_SMOKE_ELASTIC_SPREAD": "1" if spread else "0"})
+    path = os.path.join(outdir, "elastic.json")
+    rec = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            rec = json.load(f)
+        rec["losses"] = {int(k): v for k, v in rec["losses"].items()}
+        rec["op_at_step"] = {int(k): v for k, v in
+                             rec["op_at_step"].items()}
+    return rc, out, rec
+
+
+def phase_elastic(binding: dict | None = None) -> dict:
+    """The launcher and elastic training (see the module docstring)."""
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    steps = WARMUP_STEPS + TIMED_STEPS
+    per_step = 12                                # gpt_small's layers
+    root = tempfile.mkdtemp(prefix="elastic")
+    launches: dict[str, dict] = {}
+
+    # (a) the static launcher, a world of one on the card.
+    out_a = os.path.join(root, "static")
+    os.makedirs(out_a)
+    t_launch = time.time()
+    rc, text = _launcher_run(
+        ["-np", "1", "-H", "localhost:1", sys.executable,
+         os.path.abspath(__file__), "--launch-worker", "static", out_a], {})
+    wall_a = time.time() - t_launch
+    static = {}
+    if rc != 0 or not os.path.exists(os.path.join(out_a, "static.json")):
+        problems.append(f"elastic (a): launcher rc {rc}: {text[-3000:]}")
+    else:
+        with open(os.path.join(out_a, "static.json")) as f:
+            static = json.load(f)
+        launches["static"] = static["launches"]
+        mean_ms = statistics.mean(static["step_ms"][WARMUP_STEPS:])
+        emit({"phase": "elastic", "leg": "static-launch",
+              "command": "horovodrun-tpu-torch -np 1 -H localhost:1",
+              "worker_rc": rc, "wall_s": wall_a,
+              "launch_to_first_step_s": static["t_first_step"] - t_launch,
+              "timed_step_ms_mean": mean_ms,
+              "binding_timed_step_ms_mean":
+                  None if binding is None else
+                  binding.get("timed_step_ms_mean"),
+              "losses": static["losses"],
+              "launches_per_step": {n: c / steps for n, c in
+                                    static["launches"].items()},
+              "launcher_env": static["launcher_env"],
+              "device": static["device"]})
+        if (static["rank"], static["size"]) != (0, 1):
+            problems.append(f"elastic (a): rank/size "
+                            f"{static['rank']}/{static['size']}")
+        if not all(math.isfinite(x) for x in static["losses"]) or \
+                not static["losses"][-1] < static["losses"][0]:
+            problems.append(f"elastic (a): losses {static['losses']}")
+        for name, c in static["launches"].items():
+            if c != per_step * steps:
+                problems.append(f"elastic (a): {name} launched {c} times, "
+                                f"not {per_step} a step")
+
+    # (c) the host worlds start here and run beside (b)'s unbroken run:
+    # the five scenarios of the integration tests through the launcher,
+    # CPU tensors, CUDA hidden, all at once (their start-up, imports
+    # mostly, sets their time), so each wall time is under the others'
+    # load and the card worker's.  The chaos run waits for them to end.
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_elastic_worker as worlds
+    from concurrent.futures import ThreadPoolExecutor
+
+    def scenario(name):
+        out = os.path.join(root, f"host-{name}")
+        os.makedirs(out)
+        return worlds.run_scenario(name, out)
+
+    t_host = time.perf_counter()
+    pool = ThreadPoolExecutor(len(worlds.SCENARIOS))
+    futures = [pool.submit(scenario, name) for name in worlds.SCENARIOS]
+
+    # (b) the elastic launcher, a world of one on the card: an unbroken
+    # run (the chaos engine armed, never firing, to read the response
+    # index of step 4's exchange), then the same run with that response
+    # failed once.
+    out_u = os.path.join(root, "unbroken")
+    out_c = os.path.join(root, "chaos")
+    os.makedirs(out_u)
+    os.makedirs(out_c)
+    t0 = time.time()
+    rc_u, text_u, unbroken = _elastic_card_leg(
+        out_u, f"fail:op={ELASTIC_NEVER},rank=*", spread=True)
+    wall_u = time.time() - t0
+    results = [f.result() for f in futures]
+    pool.shutdown()
+    host = {"wall_s": time.perf_counter() - t_host}
+    for name, res in zip(worlds.SCENARIOS, results):
+        host[name] = {"seconds": res["seconds"],
+                      "fault_to_recovery_s": res["fault_to_recovery_s"]}
+        emit({"phase": "elastic", "leg": f"host-{name}",
+              "wall_s": res["seconds"], "concurrent_worlds":
+                  len(worlds.SCENARIOS),
+              "fault_to_recovery_s": res["fault_to_recovery_s"],
+              "markers": res.get("markers"), "problems": res["problems"]})
+        problems += res["problems"]
+
+    if rc_u != 0 or not unbroken:
+        problems.append(f"elastic (b) unbroken: rc {rc_u}: {text_u[-3000:]}")
+    else:
+        k = unbroken["op_at_step"][ELASTIC_FAIL_STEP]
+        t0 = time.time()
+        rc_c, text_c, broken = _elastic_card_leg(
+            out_c, f"fail:op={k},rank=*", spread=False)
+        wall_c = time.time() - t0
+        if rc_c != 0 or not broken:
+            problems.append(f"elastic (b) chaos: rc {rc_c}: "
+                            f"{text_c[-3000:]}")
+        else:
+            launches["elastic"] = broken["launches"]
+            launches["elastic_unbroken"] = unbroken["launches"]
+            ref_losses = [unbroken["losses"][s]
+                          for s in range(1, ELASTIC_STEPS + 1)]
+            got_losses = [broken["losses"][s]
+                          for s in range(1, ELASTIC_STEPS + 1)]
+            again = [unbroken["again"][str(s)]
+                     for s in range(1, ELASTIC_STEPS + 1)]
+            spread = max(abs(a - b) for a, b in zip(ref_losses, again))
+            diff = max(abs(a - b) for a, b in zip(ref_losses, got_losses))
+            fault = broken["faults"][0] if broken["faults"] else None
+            restored_at = broken.get("restored_at")
+            emit({"phase": "elastic", "leg": "elastic-card",
+                  "command": "horovodrun-tpu-torch --min-np 1 --max-np 1 "
+                             "-H localhost:1",
+                  "chaos": f"fail:op={k},rank=*", "fail_step": fault and
+                  fault[0], "wall_s": [wall_u, wall_c],
+                  "losses_unbroken": ref_losses, "losses": got_losses,
+                  "losses_again_unbroken": again,
+                  "losses_bitwise_equal": got_losses == ref_losses,
+                  "loss_max_abs_diff": diff,
+                  "unbroken_spread": spread,
+                  "params_bitwise_equal":
+                      broken["digest"] == unbroken["digest"],
+                  "params_unbroken_runs_equal":
+                      unbroken["digest"] == unbroken["again_digest"],
+                  "commit_ms": broken["commit_ms"],
+                  "commit_ms_median": statistics.median(
+                      broken["commit_ms"]),
+                  "commit_bytes": broken["commit_bytes"],
+                  "commit_bytes_on_card": broken["commit_bytes_on_card"],
+                  "restore_ms": broken["restore_ms"],
+                  "fault_to_first_resumed_step_s":
+                      broken["resumed"][0] - fault[1]
+                      if fault and broken["resumed"] else None,
+                  "re_rendezvous_s":
+                      broken["resets"][0] - restored_at
+                      if broken["resets"] and restored_at else None,
+                  "epochs": broken["epochs"],
+                  "process_group_formed": broken["process_group"],
+                  "device_stream_after_reinit": broken["device_stream"],
+                  "step_ms": broken["step_ms"],
+                  "step_ms_unbroken": unbroken["step_ms"],
+                  "forward_backward_passes": broken["forward_backward"],
+                  "launches_per_pass": {
+                      n: c / broken["forward_backward"]
+                      for n, c in broken["launches"].items()},
+                  "device": broken["device"]})
+            if not all(math.isfinite(x) for x in got_losses):
+                problems.append(f"elastic (b): losses {got_losses}")
+            if fault is None or fault[0] != ELASTIC_FAIL_STEP:
+                problems.append(f"elastic (b): the fault hit "
+                                f"{broken['faults']}, not step "
+                                f"{ELASTIC_FAIL_STEP}")
+            if len(broken["resets"]) != 1 or \
+                    len(broken["restore_ms"]) != 1:
+                problems.append(f"elastic (b): {len(broken['resets'])} "
+                                f"re-rendezvous, {len(broken['restore_ms'])}"
+                                f" restores")
+            if broken["final_step"] != ELASTIC_STEPS:
+                problems.append(f"elastic (b): ended at step "
+                                f"{broken['final_step']}")
+            # Bitwise, unless two unbroken runs differ (then within their
+            # spread, and PERF.md names the op).
+            exact = unbroken["digest"] == unbroken["again_digest"] and \
+                ref_losses == again
+            if exact and (got_losses != ref_losses or
+                          broken["digest"] != unbroken["digest"]):
+                problems.append("elastic (b): the restored run's losses or "
+                                "parameters differ from the unbroken run's")
+            if not exact and diff > spread:
+                problems.append(f"elastic (b): loss difference {diff} over "
+                                f"the unbroken spread {spread}")
+            passes = broken["forward_backward"]
+            if passes != ELASTIC_STEPS + 1:
+                problems.append(f"elastic (b): {passes} forward/backward "
+                                f"passes, not {ELASTIC_STEPS + 1}")
+            for leg, rec, n in (("chaos", broken, passes),
+                                ("unbroken", unbroken, ELASTIC_STEPS)):
+                for name, c in rec["launches"].items():
+                    if c != per_step * n:
+                        problems.append(f"elastic (b) {leg}: {name} "
+                                        f"launched {c} times in {n} "
+                                        f"passes")
+
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "elastic", "leg": "summary", "seconds": seconds,
+          "host": host, "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": {
+        name: {leg: counts[name] for leg, counts in launches.items()}
+        for name in REPLACES}}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -3732,6 +4241,8 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--reduce-card-worker":
         rank, port, outdir = sys.argv[2:5]
         return reduce_card_worker(int(rank), int(port), outdir)
+    if len(sys.argv) > 1 and sys.argv[1] == "--launch-worker":
+        return launch_worker(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -3748,7 +4259,7 @@ def main() -> int:
                   "cnn": phase_cnn, "sync": phase_sync,
                   "eager": phase_eager, "binding": phase_binding,
                   "reduce": phase_reduce, "runtime": phase_runtime,
-                  "resilience": phase_resilience}
+                  "resilience": phase_resilience, "elastic": phase_elastic}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -3763,6 +4274,7 @@ def main() -> int:
     phase_reduce()
     runtime = phase_runtime()
     phase_resilience()
+    elastic = phase_elastic(binding)
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -3770,6 +4282,7 @@ def main() -> int:
          "cnn_launches": cnn["flash_launches"][name],
          "binding_launches": binding["launches"][name],
          "runtime_launches": runtime["launches"][name],
+         "elastic_launches": elastic["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -8,6 +8,8 @@ which ride the NCCL device plane and never the host;
 ``horovod_tpu_torch.torch`` is the torch binding on top of it
 (``DistributedOptimizer``, ``broadcast_parameters``, ``SyncBatchNorm``).
 """
+__version__ = "0.1.0"
+
 from . import eager, models, parallel, serving, training
 from .eager import *  # noqa: F401,F403 - the Horovod API at package level
 from .models import (VGG, VGG16, VGG19, InceptionV3, ResNet, ResNet18,

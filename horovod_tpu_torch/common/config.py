@@ -135,6 +135,14 @@ LOCAL_RANK = Knob("HOROVOD_LOCAL_RANK", -1, int, "Rank within this host.")
 LOCAL_SIZE = Knob("HOROVOD_LOCAL_SIZE", -1, int, "Ranks on this host.")
 CROSS_RANK = Knob("HOROVOD_CROSS_RANK", -1, int, "Host index.")
 CROSS_SIZE = Knob("HOROVOD_CROSS_SIZE", -1, int, "Number of hosts.")
+HOSTNAME = Knob("HOROVOD_HOSTNAME", "", str, "Assigned hostname.")
+HOST_IDS = Knob(
+    "HOROVOD_HOST_IDS", "", str,
+    "World-wide rank-to-host-index map as comma-separated ints "
+    "(\"0,0,1,1\"), set by the launcher from the slot layout so topology "
+    "resolution can group ring orders by host even when the layout is "
+    "not homogeneous host-major (elastic re-assignments, uneven slots "
+    "per host).")
 RENDEZVOUS_ADDR = Knob(
     "HOROVOD_GLOO_RENDEZVOUS_ADDR", "", str,
     "Rendezvous KV-store host (control plane over TCP).")
@@ -143,6 +151,11 @@ RENDEZVOUS_PORT = Knob(
 GLOO_TIMEOUT_SECONDS = Knob(
     "HOROVOD_GLOO_TIMEOUT_SECONDS", 30.0, float,
     "Control-plane connect/recv timeout.")
+RENDEZVOUS_REPLICAS = Knob(
+    "HOROVOD_RENDEZVOUS_REPLICAS", 0, int,
+    "Standby rendezvous replicas beside the primary.  Not ported (ROADMAP "
+    "queue A item 12): a value above 0 makes the launcher raise "
+    "NotImplementedError.")
 RENDEZVOUS_WAL_DIR = Knob(
     "HOROVOD_RENDEZVOUS_WAL_DIR", "", str,
     "Directory of the rendezvous write-ahead log.  Not ported (ROADMAP "
@@ -350,6 +363,11 @@ FLIGHT_FILE = Knob(
     "structured failure fires.")
 
 # --- Resilience (resilience/) -----------------------------------------------
+AUTOSCALE = Knob(
+    "HOROVOD_AUTOSCALE", False, _parse_bool,
+    "The elastic driver's autoscale controller.  Not ported (ROADMAP "
+    "queue A item 11, statesync): on, the elastic launcher raises "
+    "NotImplementedError.")
 FAULT_TOLERANCE = Knob(
     "HOROVOD_FAULT_TOLERANCE", False, _parse_bool,
     "Failure detection + deadline-bounded collectives: heartbeats over "
@@ -400,8 +418,6 @@ UNPORTED_EAGER_KNOBS = (
     ("HOROVOD_SAN", False, _parse_bool,
      "ROADMAP queue A item 9(d) (the SAN witness, with item 12's static "
      "lock graph)"),
-    ("HOROVOD_ELASTIC", False, _parse_bool,
-     "ROADMAP queue A item 11 (elasticity)"),
 )
 
 

@@ -1,9 +1,8 @@
 """Topology discovery and neighbor-preferring ring construction.
 
-The port's copy of ``horovod_tpu/common/topology.py``, without the
-explicit rank-to-host map (``HOROVOD_HOST_IDS``) that the reference's
-launcher and elastic driver set; it comes with them (ROADMAP queue A items
-11 and 12).
+The port's copy of ``horovod_tpu/common/topology.py``, with the explicit
+rank-to-host map (``HOROVOD_HOST_IDS``) that the launcher and the elastic
+driver set.
 
 Reference: arXiv:1909.09756 (MLPerf on TPU-v3 pods) — the interconnect is
 a 2-D torus of hosts×chips, and collective schedules that walk physical
@@ -66,6 +65,10 @@ class Topology:
     rows: int = 0                 # torus only
     cols: int = 0                 # torus only
     local_size: int = 1           # host only (slots per host)
+    # Optional explicit rank->host map (elastic driver slots); when
+    # present it overrides the homogeneous host-major assumption for the
+    # host ring order.  A tuple so the dataclass stays hashable.
+    hosts: tuple[int, ...] | None = None
 
     # -- validity ------------------------------------------------------
     def valid(self) -> bool:
@@ -94,8 +97,15 @@ class Topology:
                     else range(self.cols - 1, -1, -1)
                 order.extend(r * self.cols + c for c in cols)
             return order
-        # host: the launcher's homogeneous host-major assignment
-        # (rank == host * local_size + slot) is already host-grouped.
+        if self.kind == "host":
+            if self.hosts is not None and len(self.hosts) == self.size:
+                # Explicit slot map (elastic driver): stable sort keeps
+                # ranks ordered within each host.
+                return sorted(range(self.size),
+                              key=lambda r: (self.hosts[r], r))
+            # Launcher's homogeneous host-major assignment
+            # (rank == host * local_size + slot) is already host-grouped.
+            return list(range(self.size))
         return list(range(self.size))
 
     # -- hierarchy -----------------------------------------------------
@@ -118,7 +128,8 @@ class Topology:
 
 
 def parse(spec: str, *, size: int, local_size: int = 1,
-          cross_size: int = 1) -> Topology:
+          cross_size: int = 1,
+          hosts: tuple[int, ...] | None = None) -> Topology:
     """Build a Topology from a HOROVOD_TOPOLOGY spec string.
 
     Invalid specs degrade to flat with a warning rather than raising:
@@ -139,7 +150,8 @@ def parse(spec: str, *, size: int, local_size: int = 1,
                        "using flat", spec, size)
         return Topology(size=size)
     if spec == "host":
-        topo = Topology(size=size, kind="host", local_size=local_size)
+        topo = Topology(size=size, kind="host", local_size=local_size,
+                        hosts=hosts)
         if topo.valid() and local_size > 1:
             return topo
         logger.warning("HOROVOD_TOPOLOGY=host but the env describes no "
@@ -152,15 +164,24 @@ def parse(spec: str, *, size: int, local_size: int = 1,
         if local_size > 1 and cross_size > 1 and \
                 local_size * cross_size == size:
             return Topology(size=size, kind="host",
-                            local_size=local_size)
+                            local_size=local_size, hosts=hosts)
+        # Uneven multi-host layout with an explicit rank→host map
+        # (HOROVOD_HOST_IDS): group the ring by host anyway.  local_size
+        # is pinned to 1 — NOT the per-rank env value, which varies
+        # across hosts here and would give ranks diverging Topologies —
+        # so the level ladder stays [size] (hierarchy needs homogeneity)
+        # while ring_order still clusters each host's slots.
+        if hosts is not None and len(hosts) == size and \
+                1 < len(set(hosts)) < size:
+            return Topology(size=size, kind="host", hosts=hosts)
         return Topology(size=size)
     if spec != "flat":
         logger.warning("unknown HOROVOD_TOPOLOGY=%r; using flat", spec)
     return Topology(size=size)
 
 
-def resolve(size: int, local_size: int = 1,
-            cross_size: int = 1) -> Topology:
+def resolve(size: int, local_size: int = 1, cross_size: int = 1,
+            hosts: tuple[int, ...] | None = None) -> Topology:
     """Topology for this world from the HOROVOD_TOPOLOGY knob."""
     return parse(config.TOPOLOGY.get(), size=size, local_size=local_size,
-                 cross_size=cross_size)
+                 cross_size=cross_size, hosts=hosts)

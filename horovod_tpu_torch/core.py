@@ -41,10 +41,14 @@ deadline-bounded, a response runs under ``op_scope`` with the tightest
 deadline its entries carry (``deadline_scope`` at enqueue), and each
 conversion to ``RanksFailedError`` dumps the flight ring;
 ``HOROVOD_CHAOS`` fires its response actions on the ordered ResponseList
-before dispatch.  Left out, each raising ``NotImplementedError`` naming
-its ROADMAP item when asked for (``common/config.py``
-``check_eager_knobs``): the SAN witness (item 9(d)) and elastic re-init
-(item 11).
+before dispatch.  ``reinit_world`` re-forms the world under a new
+rendezvous epoch, rank and size (the elastic transition; under
+``HOROVOD_ELASTIC`` the launcher's elastic driver hands them out): every
+mesh, shm region, heartbeat table and the NCCL group's store key on the
+epoch, and ``shutdown`` destroys the NCCL group, so the next epoch forms
+it anew.  Left out, raising ``NotImplementedError`` naming its ROADMAP
+item when asked for (``common/config.py`` ``check_eager_knobs``): the SAN
+witness (item 9(d)).
 
 Design: user threads enqueue TensorTableEntries + Requests; a single
 background thread runs the controller protocol every CycleTime ms, receives
@@ -342,7 +346,21 @@ def init(*, rank: int | None = None, size: int | None = None,
         # Fabric layout (HOROVOD_TOPOLOGY; common/topology.py): the knob is
         # launcher-uniform, so every rank resolves the same Topology.
         from .common import topology as _topology
-        topo = _topology.resolve(size, local_size, cross_size)
+        # The launcher exports the full rank→host-index map (hosts.py
+        # host_ids_env) for layouts that break the homogeneous host-major
+        # assumption behind local/cross-size auto-detection; a map whose
+        # length doesn't match the world (stale env across an elastic
+        # resize) is ignored rather than trusted.
+        host_ids = config.HOST_IDS.get()
+        hosts = None
+        if host_ids:
+            try:
+                parsed = tuple(int(x) for x in host_ids.split(","))
+            except ValueError:
+                parsed = ()
+            if len(parsed) == size:
+                hosts = parsed
+        topo = _topology.resolve(size, local_size, cross_size, hosts=hosts)
         _global.topology = topo
         _global.cycle_time_ms = config.CYCLE_TIME.get()
         _global.shutdown_requested = False
@@ -664,9 +682,18 @@ def shutdown() -> None:
 
 
 def reinit_world(*, rank: int, size: int, epoch: str) -> None:
-    """The elastic re-init primitive: not ported."""
-    raise NotImplementedError(
-        "reinit_world (elastic re-formation) is ROADMAP queue A item 11")
+    """Tear the world down and re-form it under a new rendezvous epoch
+    with a (possibly) different rank/size — the elastic transition
+    primitive (reference: ``horovod_tpu/core.py`` ``reinit_world``).
+    Every mesh/shm/heartbeat scope and the NCCL group's store key on the
+    epoch, so no stale state from the previous membership is ever
+    touched; the env writes make the new identity survive any later
+    env-driven re-init."""
+    shutdown()
+    os.environ["HOROVOD_RENDEZVOUS_EPOCH"] = epoch
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    init()
 
 
 def is_initialized() -> bool:

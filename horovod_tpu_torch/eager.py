@@ -15,15 +15,15 @@ allreduce takes ``op=Adasum`` and a wire codec (``compression=``: a name,
 ``none``/``fp16``/``bf16``/``int8``/``uint4``, or the binding's
 ``Compression.int8``/``uint4``; default ``HOROVOD_COMPRESSION``).
 ``run_with_recovery`` runs an idempotent collective under
-``HOROVOD_ON_FAILURE`` (raise, or retry over rebuilt channels; shrink is
-ROADMAP queue A item 11), and a dead or wedged peer surfaces as
-``RanksFailedError`` under ``HOROVOD_FAULT_TOLERANCE``.  ``run`` raises
-``NotImplementedError`` (item 12).
+``HOROVOD_ON_FAILURE`` (raise; retry over rebuilt channels; shrink, which
+re-raises for the surrounding ``hvd.elastic.run``), and a dead or wedged
+peer surfaces as ``RanksFailedError`` under ``HOROVOD_FAULT_TOLERANCE``.
 
-Start a world with a ``RendezvousServer`` of ``runner.network`` and, in
-each rank's environment, ``HOROVOD_RANK``, ``HOROVOD_SIZE``,
-``HOROVOD_GLOO_RENDEZVOUS_ADDR`` and ``HOROVOD_GLOO_RENDEZVOUS_PORT``;
-then ``hvd.init()``.
+Start a world with the launcher, ``horovodrun-tpu-torch -np 2 python
+train.py`` (``runner/launch.py``; ``--min-np``/``--max-np`` and
+``--host-discovery-script`` start the elastic driver), or from Python
+with ``hvd.run(fn, np=2)`` (``runner/run_api.py``); each rank then calls
+``hvd.init()``.
 """
 from __future__ import annotations
 
@@ -57,16 +57,27 @@ __all__ = [
     "mpi_threads_supported", "xla_built"]
 
 
-def run(*args, **kwargs):
-    """Programmatic N-worker launch (reference: horovod_tpu.run)."""
-    raise NotImplementedError("run (the launcher) is ROADMAP queue A "
-                              "item 12")
+def run(func, args=(), kwargs=None, np=None, hosts=None, env=None,
+        use_gloo=True, start_timeout=120.0, min_np=None, max_np=None,
+        host_discovery_script=None, reset_limit=None,
+        elastic_timeout=None, slots=None):
+    """Run ``func(*args, **kwargs)`` on ``np`` worker processes (or on
+    the slots of ``hosts``) and return the results by rank; with
+    ``min_np``/``max_np``/``host_discovery_script`` under the elastic
+    driver, keyed by final rank (reference: ``horovod_tpu.run``)."""
+    from .runner.run_api import run as _run
+    return _run(func, args=args, kwargs=kwargs, np=np, hosts=hosts,
+                env=env, use_gloo=use_gloo, start_timeout=start_timeout,
+                min_np=min_np, max_np=max_np,
+                host_discovery_script=host_discovery_script,
+                reset_limit=reset_limit, elastic_timeout=elastic_timeout,
+                slots=slots)
 
 
 def run_with_recovery(fn, *, policy=None, max_retries=None,
                       base_backoff=None):
     """Run an idempotent eager collective under HOROVOD_ON_FAILURE
-    (raise | retry-with-rebuilt-channels; shrink raises)."""
+    (raise | retry-with-rebuilt-channels | shrink-via-elastic)."""
     from .resilience import run_with_recovery as _rwr
     return _rwr(fn, policy=policy, max_retries=max_retries,
                 base_backoff=base_backoff)

@@ -10,6 +10,8 @@ has offered a card of its own (``agree_on_cards``): the group the device plane
 (``backend/nccl.py``) runs its collectives on, and the one
 ``parallel.build_mesh`` finds afterwards, as the reference's SPMD step
 finds the JAX world.  ``backend="gloo"`` forms the same group on the CPU.
+``kv_barrier`` is the reference's barrier over the rendezvous KV (no
+collective), across the ranks of the group formed here.
 
 ``make_global_batch`` is SPMD and stays out.
 """
@@ -27,6 +29,9 @@ logger = logging.getLogger(__name__)
 
 _lock = threading.Lock()
 _initialized_here = False
+# (rank, size, kv, epoch) of the group formed here, for kv_barrier.
+_world: tuple | None = None
+_barrier_seq = 0
 
 _STORE_SCOPE = "ncclstore"
 _CARD_SCOPE = "ncclcard"
@@ -47,7 +52,7 @@ def init_process_group(rank: int, size: int, kv: Any,
     calls ``torch.distributed.init_process_group``, NCCL on
     ``cuda:<card>``.  A world of one forms nothing.
     """
-    global _initialized_here
+    global _initialized_here, _world, _barrier_seq
     with _lock:
         if _initialized_here or size <= 1:
             return _initialized_here
@@ -75,13 +80,18 @@ def init_process_group(rank: int, size: int, kv: Any,
         logger.debug("init_process_group rank=%d size=%d backend=%s",
                      rank, size, backend)
         dist.init_process_group(**kwargs)
+        _world = (rank, size, kv, epoch)
+        # Every member of the (possibly re-formed elastic) world starts
+        # the barrier sequence from zero — a survivor carrying its old
+        # counter would wait on keys no newcomer ever writes.
+        _barrier_seq = 0
         _initialized_here = True
         return True
 
 
 def shutdown() -> None:
     """Destroy the group formed here (a no-op when none was)."""
-    global _initialized_here
+    global _initialized_here, _world
     with _lock:
         if not _initialized_here:
             return
@@ -89,6 +99,75 @@ def shutdown() -> None:
         if dist.is_initialized():
             dist.destroy_process_group()
         _initialized_here = False
+        _world = None
+
+
+def kv_barrier(tag: str, timeout: float = 300.0) -> None:
+    """Rendezvous-KV barrier across the world — pure HTTP, NO collective
+    (reference: ``horovod_tpu/parallel/multihost.py`` ``kv_barrier``).
+    No-op outside a multi-process world.
+
+    SYMMETRIC-CALL CONTRACT: every rank must call kv_barrier the same
+    number of times, in the same order — keys are derived from an
+    implicit per-process sequence counter, so an asymmetric extra call
+    on one rank permanently misaligns every later barrier.  A timeout
+    therefore means ONE of two distinct faults, and the raised error
+    carries enough state (rank/tag/seq/waited-on key) to tell them
+    apart: a dead or wedged peer (its key for THIS seq never appears),
+    or a seq mismatch (the peer is alive but publishing under a
+    different sequence number)."""
+    global _barrier_seq
+    if not _initialized_here or _world is None:
+        return
+    rank, size, kv, epoch = _world
+    if kv is None or size <= 1:
+        return
+    with _lock:
+        _barrier_seq += 1
+        seq = _barrier_seq
+    key = f"{epoch}:{tag}:{seq}"
+    kv.put("barrier", f"{key}:{rank}", b"1")
+    for r in range(size):
+        try:
+            kv.wait("barrier", f"{key}:{r}", timeout)
+        except TimeoutError as exc:
+            raise TimeoutError(
+                _barrier_timeout_diagnosis(kv, key, rank, size, tag, seq,
+                                           timeout)) from exc
+
+
+def _barrier_timeout_diagnosis(kv, key: str, rank: int, size: int,
+                               tag: str, seq: int,
+                               timeout: float) -> str:
+    """Name WHICH ranks are missing from the barrier (one probe per
+    rank), cross-checked against the resilience liveness table when
+    fault tolerance is on."""
+    missing: list[int] = []
+    for r in range(size):
+        try:
+            if kv.get("barrier", f"{key}:{r}") is None:
+                missing.append(r)
+        except Exception:  # noqa: BLE001 - KV gone: report what we know
+            missing.append(r)
+    dead: list[int] = []
+    try:
+        from ..resilience import active_state
+        state = active_state()
+        if state is not None:
+            dead = sorted(set(missing) & state.failed_ranks())
+    except Exception:  # noqa: BLE001 - diagnosis must never mask the timeout
+        pass
+    verdict = (f"rank(s) {dead} are DEAD/unreachable per the liveness "
+               f"table — elastic recovery or HOROVOD_ON_FAILURE applies."
+               if dead else
+               "all missing ranks still heartbeat (or fault tolerance is "
+               "off): either they are wedged/slow, or the barrier "
+               "sequence numbers have diverged — every rank must call "
+               "kv_barrier symmetrically (same count, same order).")
+    return (f"kv_barrier timeout: rank {rank}/{size} waited {timeout}s on "
+            f"tag={tag!r} seq={seq}; missing ranks: "
+            f"{missing or '<none — raced to completion>'} "
+            f"(keys barrier/{key}:<r>). {verdict}")
 
 
 def local_card(local_rank: int) -> int | None:

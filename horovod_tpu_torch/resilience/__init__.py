@@ -10,8 +10,9 @@ The port's copy of ``horovod_tpu/resilience/``:
   attributed error every survivor raises instead of deadlocking when a
   peer dies, becomes unreachable, or misses a collective deadline.
 - :func:`run_with_recovery` — applies ``HOROVOD_ON_FAILURE`` (raise |
-  retry-with-rebuilt-channels; shrink raises ``NotImplementedError``,
-  ROADMAP queue A item 11).
+  retry-with-rebuilt-channels | shrink, which re-raises for the
+  surrounding ``hvd.elastic.run``); :func:`apply_shrink` is the elastic
+  driver's half of shrink.
 - :mod:`.chaos` — ``HOROVOD_CHAOS`` deterministic fault injection
   (kill/freeze/fail/preempt at a collective index, delay/drop/dup a
   specific peer-channel send), seeded and replayable.
@@ -26,10 +27,12 @@ from . import chaos
 from .context import (ResilienceState, active_state, configure, current_op,
                       current_op_deadline, deadline_scope, op_scope,
                       pending_deadline, shutdown)
-from .policy import converge_confirmed_dead, rebuild_world, run_with_recovery
+from .policy import (apply_shrink, converge_confirmed_dead, rebuild_world,
+                     run_with_recovery)
 
 __all__ = [
-    "RanksFailedError", "ResilienceState", "active_state", "chaos",
+    "RanksFailedError", "ResilienceState", "active_state", "apply_shrink",
+    "chaos",
     "configure", "converge_confirmed_dead", "current_op",
     "current_op_deadline", "deadline_scope", "op_scope",
     "pending_deadline", "rebuild_world", "run_with_recovery", "shutdown",

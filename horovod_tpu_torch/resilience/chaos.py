@@ -30,7 +30,9 @@ Response-level actions (fired by the background loop before dispatch;
   to self at the global collective index and keep running (the flight
   recorder's chained SIGTERM handler dumps the ring; the reference's
   preemption grace path is ROADMAP queue A item 11).  Like every spec,
-  ``rank=`` names the LAUNCH-TIME rank.
+  ``rank=`` names the LAUNCH-TIME rank, and the engine with its counts
+  survives the re-init of a retry or an elastic re-rendezvous
+  (``configure``).
 - ``coordkill:at=5[,rank=0]`` and ``coordpause:at=5,ms=800[,rank=0]``
   — SIGKILL, or SIGSTOP then SIGCONT, the rendezvous primary (the
   reference's control-plane failover shapes; not armed in the port).

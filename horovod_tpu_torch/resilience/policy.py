@@ -2,11 +2,11 @@
 RanksFailedError (``HOROVOD_ON_FAILURE=raise|shrink|retry``).
 
 The port's copy of ``horovod_tpu/resilience/policy.py``
-(``run_with_recovery`` with ``raise`` and ``retry``, ``_retry_epoch``,
-``rebuild_world``, ``converge_confirmed_dead``).  ``shrink`` needs the
-elastic driver and raises ``NotImplementedError`` (ROADMAP queue A item
-11); the rebuild does not wait for a control-plane failover, since the
-port's rendezvous has no replica set (item 12).
+(``run_with_recovery`` with ``raise``, ``retry`` and ``shrink``,
+``_retry_epoch``, ``rebuild_world``, ``converge_confirmed_dead``,
+``apply_shrink``).  The rebuild does not wait for a control-plane
+failover, since the port's rendezvous has no replica set (ROADMAP queue A
+item 12).
 
 - ``raise`` (default): propagate — the safe behavior for fixed-size
   jobs, and what a surrounding elastic loop (``hvd.elastic.run``) needs
@@ -19,8 +19,14 @@ port's rendezvous has no replica set (item 12).
   then the collective re-runs.  Exponential backoff between attempts;
   ranks the liveness monitor confirms DEAD are never retried over
   (a dead rank cannot rejoin a fixed-size world — that is shrink's job).
-- ``shrink``: hand the surviving-rank set to the elastic driver (not
-  ported).
+- ``shrink``: hand the surviving-rank set to the elastic driver: the
+  dead ranks' hosts are blacklisted (reference: horovod/runner/elastic/
+  driver.py host blacklist) and the next rendezvous round forms on the
+  survivors.  Inside ``hvd.elastic.run`` this happens by re-raising —
+  RanksFailedError IS a HorovodInternalError, so the elastic loop's
+  restore + re-rendezvous path fires; :func:`apply_shrink` is the
+  driver-side half that records the failures and lets the round resolve
+  at the smaller world size.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from ..common.exceptions import HorovodInternalError, RanksFailedError
 from ..common.logging import logger
 from . import context as _context
 
-__all__ = ["converge_confirmed_dead", "rebuild_world",
+__all__ = ["apply_shrink", "converge_confirmed_dead", "rebuild_world",
            "run_with_recovery"]
 
 # Attempts taken by the most recent run_with_recovery call (observability
@@ -69,10 +75,6 @@ def run_with_recovery(fn, *, policy: str | None = None,
     if policy not in ("raise", "retry", "shrink"):
         raise ValueError(f"HOROVOD_ON_FAILURE must be raise|shrink|retry "
                          f"(got {policy!r})")
-    if policy == "shrink":
-        raise NotImplementedError(
-            "HOROVOD_ON_FAILURE=shrink needs the elastic driver, which is "
-            "ROADMAP queue A item 11")
     retries = config.FAULT_RETRIES.get() if max_retries is None \
         else int(max_retries)
     backoff = config.FAULT_BACKOFF_SECONDS.get() if base_backoff is None \
@@ -85,7 +87,11 @@ def run_with_recovery(fn, *, policy: str | None = None,
             return result
         except HorovodInternalError as exc:
             last_attempts = attempt + 1
-            if policy == "raise":
+            if policy in ("raise", "shrink"):
+                # shrink: the surrounding elastic loop owns the resize —
+                # RanksFailedError is a HorovodInternalError, so
+                # hvd.elastic.run restores state and re-rendezvouses on
+                # the post-blacklist host set (see apply_shrink).
                 raise
             if attempt >= retries:
                 logger.error("resilience: giving up after %d retry "
@@ -97,7 +103,8 @@ def run_with_recovery(fn, *, policy: str | None = None,
                 if dead:
                     logger.error(
                         "resilience: not retrying — rank(s) %s are "
-                        "confirmed dead (retry cannot resize the world)",
+                        "confirmed dead (retry cannot resize the world; "
+                        "use HOROVOD_ON_FAILURE=shrink under elastic)",
                         sorted(dead))
                     raise
             delay = backoff * (2 ** attempt)
@@ -142,3 +149,23 @@ def converge_confirmed_dead(exc: RanksFailedError) -> frozenset[int]:
     if confirmed:
         return confirmed
     raise exc                          # alive-but-wedged: not shrinkable
+
+
+def apply_shrink(driver, failed_ranks) -> dict[int, str]:
+    """Driver-side shrink: blacklist every failed rank's host and record
+    the slot failures so the current rendezvous round can resolve and
+    :meth:`ElasticDriver.resume` re-forms the world on the survivors.
+    Returns {failed rank: host} for logging/telemetry."""
+    slots = driver.rank_to_slot()
+    shrunk: dict[int, str] = {}
+    for r in sorted(set(failed_ranks)):
+        slot = slots.get(r)
+        if slot is None:
+            continue
+        shrunk[r] = slot.hostname
+        driver.record_failure(slot.hostname, slot.local_rank)
+    if shrunk:
+        logger.warning("resilience: shrink — blacklisted %s; elastic "
+                       "driver will resume on the survivors",
+                       {r: h for r, h in shrunk.items()})
+    return shrunk

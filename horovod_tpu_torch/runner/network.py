@@ -6,9 +6,9 @@ the rendezvous KV (``RendezvousServer``, its HTTP handler,
 ``PeerMesh``), with the metrics counters (per-peer wire bytes, the send
 queue's depth, the KV verbs' latency), and under fault tolerance the
 deadline-bounded socket waits and the chaos send hooks (resilience/).
+``HOROVOD_GLOO_IFACE`` pins the NIC peers dial (``driver_service.py``).
 Left out: the write-ahead-logged replica set
-(``HOROVOD_RENDEZVOUS_WAL_DIR``) and NIC selection
-(``HOROVOD_GLOO_IFACE``; ROADMAP queue A item 12).
+(``HOROVOD_RENDEZVOUS_WAL_DIR``; ROADMAP queue A item 12).
 
 Reference analogues: horovod/common/gloo/http_store.cc (KV client),
 horovod/runner/http/http_server.py:35-241 (rendezvous KV server), and the
@@ -1009,10 +1009,10 @@ class PeerMesh:
         """Address peers dial: HOROVOD_GLOO_IFACE pins the NIC when set
         (reference: gloo_context.cc reads the same variable to select the
         Gloo transport device); otherwise the hostname's address."""
-        if os.environ.get("HOROVOD_GLOO_IFACE"):
-            raise NotImplementedError(
-                "HOROVOD_GLOO_IFACE (NIC selection through the launcher's "
-                "driver service) is ROADMAP queue A item 12")
+        iface = os.environ.get("HOROVOD_GLOO_IFACE")
+        if iface:
+            from .driver_service import candidate_addresses
+            return candidate_addresses(iface)[0]
         return socket.gethostbyname(socket.gethostname())
 
     def _count_sent(self, nbytes: int) -> None:

@@ -13,7 +13,8 @@ Tensors go to the core as they are: on the CPU they ride the TCP and shm
 planes, on this rank's card the NCCL device plane, and a CUDA tensor is
 never copied to the host.  ``DistributedOptimizer(op=Adasum)`` is the
 Adasum delta optimizer, and ``Compression.int8``/``uint4`` quantize on the
-planes.  Left out: ``elastic`` (ROADMAP queue A item 11).
+planes.  ``horovod_tpu_torch.torch.elastic`` holds ``TorchState`` for
+``hvd.elastic.run``.
 """
 from ..core import (cross_rank, cross_size, init, is_homogeneous,
                     is_initialized, local_rank, local_size, rank, shutdown,

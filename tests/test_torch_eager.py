@@ -42,6 +42,8 @@ def _run_world(side: str, size: int, outdir: str, failures: list) -> None:
                 "HOROVOD_GLOO_RENDEZVOUS_ADDR", "HOROVOD_TIMELINE"):
         env.pop(var, None)
     env["HOROVOD_RENDEZVOUS_EPOCH"] = f"{side}{size}"
+    # One compute thread a rank: the worlds share the host's cores.
+    env.update(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, _WORKERS[side], str(r), str(size), str(port),
          outdir], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)

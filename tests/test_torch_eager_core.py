@@ -442,7 +442,6 @@ def test_world_of_one_scales_integers_like_the_reference(solo):
 
 @pytest.mark.parametrize("knob,value", [
     ("HOROVOD_SAN", "1"),
-    ("HOROVOD_ELASTIC", "1"),
     ("HOROVOD_XLA_OPERATIONS", "1"),
 ])
 def test_unported_knobs_raise(monkeypatch, knob, value):
@@ -455,10 +454,11 @@ def test_unported_knobs_raise(monkeypatch, knob, value):
 @pytest.mark.parametrize("knob,value", [
     ("HOROVOD_FAULT_TOLERANCE", "1"),
     ("HOROVOD_CHAOS", "fail:op=0,count=1"),
+    ("HOROVOD_ELASTIC", "1"),
 ])
 def test_failure_knobs_are_live(monkeypatch, knob, value):
-    """The fault-tolerance knobs the port once refused now init.  In a
-    world of one, fault tolerance forms no monitor (as in the
+    """The fault-tolerance and elastic knobs the port once refused now
+    init.  In a world of one, fault tolerance forms no monitor (as in the
     reference); a chaos ``fail`` turns the first collective into the
     structured error and the next runs clean from the response cache."""
     from horovod_tpu_torch import core, resilience
@@ -621,14 +621,15 @@ def test_unported_calls_raise(solo):
     assert solo.allreduce(x, op=solo.Adasum).tolist() == [1.0] * 3
     assert solo.allreduce(x, compression="int8").tolist() == [1.0] * 3
     for call in (lambda: solo.allreduce(x, op=solo.Min),
-                 lambda: solo.allreduce(x, op=solo.Max),
-                 lambda: solo.run(print),
-                 lambda: hvd.core.reinit_world(rank=0, size=1, epoch="1")):
+                 lambda: solo.allreduce(x, op=solo.Max)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    from horovod_tpu_torch.runner.launch import launch_mpi, parse_args
     from horovod_tpu_torch.runner.network import RendezvousServer
     with pytest.raises(NotImplementedError, match="item 12"):
         RendezvousServer(wal_dir="/nonexistent")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        launch_mpi(parse_args(["true"]), ["true"])
     with pytest.raises(TypeError):
         solo.allreduce(np.ones(3))
     assert not solo.nccl_built() and solo.tcp_built() and solo.gloo_built()

@@ -11,7 +11,8 @@ the CPU.
   loopback KV, and ``run_with_recovery``'s raise, retry, give-up and
   confirmed-dead paths.
 - The port's own: the knobs' defaults against the reference registry,
-  what still raises (``shrink``, ``coordkill``/``coordpause``), and the
+  ``shrink``'s re-raise, what still raises (``coordkill``/
+  ``coordpause``), and the
   bounded waits of a two-rank ``PeerMesh`` in threads.
 - Process batteries (``tests/torch_resilience_worker.py``), one world at
   a time with one compute thread a rank: a chaos SIGKILL at 4 ranks, the
@@ -542,8 +543,23 @@ def test_recovery_refuses_confirmed_dead(policy_side, monkeypatch):
 
 
 def test_shrink_policy_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpolicy.run_with_recovery(lambda: None, policy="shrink")
+    """``shrink`` is ported (it was refused naming ROADMAP item 11): as
+    in the reference, it runs ``fn`` and re-raises a failure for the
+    surrounding ``hvd.elastic.run``, and never rebuilds the world."""
+    assert tpolicy.run_with_recovery(lambda: 5, policy="shrink") == 5
+    for pol, exc_type in ((jpolicy, JRanksFailed),
+                          (tpolicy, RanksFailedError)):
+        calls = []
+
+        def fn():
+            calls.append(1)
+            raise exc_type({2})
+
+        with pytest.raises(exc_type) as info:
+            pol.run_with_recovery(fn, policy="shrink", max_retries=5,
+                                  base_backoff=0.01)
+        assert info.value.failed_ranks == frozenset({2})
+        assert calls == [1] and pol.last_attempts == 1
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from horovod_tpu_torch.models.resnet import BottleneckBlock, ResNet
 
 
 def main(rank: int, world: int, store: str, inputs: str, out: str) -> None:
+    torch.set_num_threads(1)
     data = np.load(inputs)
     cfg = json.loads(str(data["config"]))
     dist.init_process_group("gloo", init_method=f"file://{store}",

@@ -37,4 +37,5 @@ class PortSide:
 
 
 if __name__ == "__main__":
+    torch.set_num_threads(1)
     sys.exit(battery.worker_main(PortSide, hvd, core))

@@ -41,6 +41,8 @@ def run_gloo_world(tmp_path, world: int, sets: dict, jobs: list,
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    # One compute thread a rank: the worlds share the host's cores.
+    env.update(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, str(WORKER), str(r), str(world),
          str(tmp_path / "store"), str(tmp_path / "inputs.npz"),

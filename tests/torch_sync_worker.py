@@ -58,6 +58,7 @@ def _layouts(spec):
 
 
 def main(rank: int, world: int, store: str, inputs: str, out: str) -> None:
+    torch.set_num_threads(1)
     data = np.load(inputs)
     jobs = json.loads(str(data["jobs"]))
     sets = json.loads(str(data["sets"]))
