@@ -246,6 +246,34 @@ Phases, each printed as one JSON object on its own line:
    unbroken run: each world's wall time and its fault to recovery.  Any
    leg that fails fails the phase.
 
+15. parallel: sequence and expert parallelism, one line a leg, gpt_small
+   at full width (bf16, the bf16 wire, AdamW(3e-4, wd 1e-4), 2 warm-up
+   and 3 timed steps a leg) over a one-rank NCCL group on a mesh of
+   ``build_mesh(sp=1)``, each leg's step ms, peak memory, losses and
+   flash launches.  (a) ``attention="ulysses"`` (B=8, T=2048) beside
+   ``attention="flash"`` on the same batch: the losses must be bitwise
+   equal and each flash kernel launch 12 times a step through
+   ``_bthd_attn_adapter``.  (b) ``attention="ring"`` (local attention in
+   fp32) beside ``attention="dense"`` at B=2 (fp32 scores at B=8 would
+   need about 60 GB): losses within ``PARALLEL_LOSS_TOL``, no flash
+   launch.  (c) ``moe_experts=8`` with flash attention (B=4, T=1024) in
+   the manual and the pure-GSPMD step: finite, falling and bitwise equal
+   losses, 12 launches of each kernel a step; and one fp32 MoE layer at
+   gpt_small's width on the card against the same weights on the CPU
+   (1e-4 of max|ref|).  (d) With n >= 2 cards, ``--parallel-card-worker``
+   ranks, one a card over NCCL: (a) and (b) at sp=n (each rank its
+   sequence chunk, sync over sp) and (c) at ep=n in the pure-GSPMD step
+   (each rank its row block), losses equal on every rank and within
+   ``PARALLEL_LOSS_TOL`` of the one-card legs'; on one card the line
+   says "not run"; with cards, (c)'s pure-GSPMD step also runs with
+   every block checkpointed (``remat``) at ep=n.  (e) (c)'s pure-GSPMD
+   step with every block checkpointed, under each remat policy: every
+   block call, the recompute on autograd's device thread included, runs
+   inside the step's global view, flash_fwd launches 24 times a step and
+   the backward kernels 12, and the losses lie within
+   ``PARALLEL_LOSS_TOL`` of (c)'s.  The kernels line's
+   ``parallel_launches`` are leg (a)'s.
+
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -259,6 +287,7 @@ prints neither the kernels line nor the last line.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import gc
 import json
@@ -4233,6 +4262,333 @@ def phase_elastic(binding: dict | None = None) -> dict:
         for name in REPLACES}}
 
 
+# The parallel phase: gpt_small's legs (warm-up, timed steps), the ring
+# leg's batch (fp32 scores at B=8 would need about 60 GB), the MoE legs'
+# batch and experts, and the loss tolerance of legs against their
+# references in bf16.
+PARALLEL_STEPS = (2, 3)
+PARALLEL_RING_BATCH = 2
+PARALLEL_MOE = dict(batch=4, seq=1024, experts=8)
+PARALLEL_LOSS_TOL = 5e-2
+PARALLEL_MOE_CHECK_REL = 1e-4
+PARALLEL_WORLD_TIMEOUT = 600.0
+
+
+def _parallel_train(cfg, batch: dict, mesh, sync_kw: dict | None = None,
+                    batch_spec=None, on_model=None) -> dict:
+    """``Trainer.step`` on a model of ``cfg`` (seed 0) with AdamW(3e-4,
+    wd 1e-4) and the bf16 wire: losses, step ms, peak memory and the
+    flash launches of the warm-up and timed steps.  ``on_model(model)``
+    runs once the model is built."""
+    from horovod_tpu_torch import GradSyncConfig, Trainer, TransformerLM
+    from horovod_tpu_torch.ops import flash_attention as fa
+    model = TransformerLM(cfg, seed=0)
+    if on_model is not None:
+        on_model(model)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    sync = GradSyncConfig(**{"op": "average", "compression": "bf16",
+                             **(sync_kw or {})})
+    trainer = Trainer(model, opt, mesh, sync=sync, batch_spec=batch_spec)
+    state = trainer.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()                 # the leg's path starts
+    losses, step_ms = [], []
+    steps = sum(PARALLEL_STEPS)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = fa.launch_counts()            # ... and ends
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "losses": losses, "step_ms": step_ms,
+           "timed_step_ms_mean":
+               statistics.mean(step_ms[PARALLEL_STEPS[0]:]),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "launches_per_step": {n: c / steps for n, c in launches.items()}}
+    del trainer, state, opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_checks(leg: str, out: dict, per_step: int | dict
+                     ) -> list[str]:
+    """Finite, falling losses and ``per_step`` launches of each flash
+    kernel a step (one count for all, or one a kernel)."""
+    problems = []
+    losses = out["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"parallel ({leg}): a loss is not finite")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"parallel ({leg}): the loss did not fall")
+    steps = sum(PARALLEL_STEPS)
+    for name, c in out["launches"].items():
+        want = per_step[name] if isinstance(per_step, dict) else per_step
+        if c != want * steps:
+            problems.append(f"parallel ({leg}): {name} launched {c} times "
+                            f"in {steps} steps, not {want} a step")
+    return problems
+
+
+def _remat_launches(layers: int) -> dict:
+    """Flash launches a step with every block checkpointed: the forward
+    runs again in the backward, under either policy."""
+    return {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers}
+
+
+def _view_recorder(model, record: dict) -> None:
+    """Count the block calls that ran outside the Trainer's global view,
+    and those that ran on another thread than this one (autograd's
+    device thread, where a checkpointed block recomputes)."""
+    from horovod_tpu_torch.parallel.mesh import current_global_batch
+    main = threading.get_ident()
+    record.update(calls=0, outside_view=0, other_thread=0)
+
+    def hook(module, args):
+        record["calls"] += 1
+        record["outside_view"] += current_global_batch() is None
+        record["other_thread"] += threading.get_ident() != main
+    for block in model.layers:
+        block.register_forward_pre_hook(hook)
+
+
+def _max_loss_diff(a: list[float], b: list[float]) -> float:
+    return max(abs(x - y) for x, y in zip(a, b))
+
+
+def _moe_layer_check() -> dict:
+    """One fp32 MoE layer at gpt_small's width on the card against the
+    same weights and tokens on the CPU (TF32 is off)."""
+    from horovod_tpu_torch.models.moe import MoEMLP
+    gen = torch.Generator().manual_seed(7)
+    layer = MoEMLP(768, num_experts=PARALLEL_MOE["experts"], d_ff=3072,
+                   device=torch.device("cpu"))
+    layer.router.reset_parameters(gen)
+    layer.reset_parameters(gen)
+    x = torch.randn(2, 256, 768, generator=gen)
+    with torch.no_grad():
+        ref = layer(x)
+        card = layer.to("cuda")(x.cuda()).cpu()
+    err = (card - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    return {"tokens": 512, "max_abs_err": err, "max_abs_ref": scale,
+            "tol": PARALLEL_MOE_CHECK_REL * scale,
+            "ok": err <= PARALLEL_MOE_CHECK_REL * scale}
+
+
+def _parallel_one_card(problems: list[str]) -> dict:
+    """Legs (a)-(c) over a one-rank NCCL group on card 0."""
+    from horovod_tpu_torch import build_mesh, gpt_small, synthetic_text_batch
+    legs: dict[str, dict] = {}
+    with _one_rank_nccl():
+        mesh = build_mesh(sp=1)
+        vocab = 50304
+        # (a) Ulysses at sp=1 against flash on the same batch.
+        batch = synthetic_text_batch(8, 2048, vocab, seed=0)
+        for name, attention in (("flash", "flash"), ("ulysses", "ulysses")):
+            cfg = gpt_small(attention=attention, max_seq_len=2048, mesh=mesh)
+            legs[name] = _parallel_train(cfg, batch, mesh)
+            legs[name].update(batch=8, seq=2048)
+            problems += _parallel_checks(name, legs[name], cfg.num_layers)
+        legs["ulysses"]["losses_bitwise_equal_flash"] = \
+            legs["ulysses"]["losses"] == legs["flash"]["losses"]
+        if not legs["ulysses"]["losses_bitwise_equal_flash"]:
+            problems.append("parallel (a): Ulysses at sp=1 and flash give "
+                            "other losses")
+        # (b) the ring at sp=1 (local attention, fp32) against dense.
+        batch = synthetic_text_batch(PARALLEL_RING_BATCH, 2048, vocab,
+                                     seed=1)
+        for name, attention in (("dense", "dense"), ("ring", "ring")):
+            cfg = gpt_small(attention=attention, max_seq_len=2048, mesh=mesh)
+            legs[name] = _parallel_train(cfg, batch, mesh)
+            legs[name].update(batch=PARALLEL_RING_BATCH, seq=2048)
+            problems += _parallel_checks(name, legs[name], 0)
+        diff = _max_loss_diff(legs["ring"]["losses"], legs["dense"]["losses"])
+        legs["ring"]["loss_max_abs_diff_dense"] = diff
+        if diff > PARALLEL_LOSS_TOL:
+            problems.append(f"parallel (b): ring and dense losses differ by "
+                            f"{diff}")
+        # (c) MoE in the manual and the pure-GSPMD step.
+        moe = PARALLEL_MOE
+        batch = synthetic_text_batch(moe["batch"], moe["seq"], vocab,
+                                     seed=2)
+        cfg = gpt_small(attention="flash", max_seq_len=moe["seq"],
+                        moe_experts=moe["experts"], mesh=mesh)
+        for name, sync_kw in (("moe-manual", None),
+                              ("moe-gspmd", {"axes": ()})):
+            legs[name] = _parallel_train(cfg, batch, mesh, sync_kw)
+            legs[name].update(batch=moe["batch"], seq=moe["seq"],
+                              experts=moe["experts"])
+            problems += _parallel_checks(name, legs[name], cfg.num_layers)
+        legs["moe-gspmd"]["losses_bitwise_equal_manual"] = \
+            legs["moe-gspmd"]["losses"] == legs["moe-manual"]["losses"]
+        if not legs["moe-gspmd"]["losses_bitwise_equal_manual"]:
+            problems.append("parallel (c): the manual and pure-GSPMD MoE "
+                            "steps differ at one rank")
+        # (e) (c)'s pure-GSPMD step with every block checkpointed: each
+        # recompute must run in the step's global view.
+        for policy in REMAT_POLICIES:
+            name, record = f"moe-gspmd-remat-{policy}", {}
+            rcfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+            legs[name] = _parallel_train(
+                rcfg, batch, mesh, {"axes": ()},
+                on_model=lambda m, r=record: _view_recorder(m, r))
+            legs[name].update(batch=moe["batch"], seq=moe["seq"],
+                              experts=moe["experts"], block_calls=record)
+            problems += _parallel_checks(name, legs[name],
+                                         _remat_launches(cfg.num_layers))
+            want = 2 * cfg.num_layers * sum(PARALLEL_STEPS)
+            if record["calls"] != want or record["outside_view"]:
+                problems.append(f"parallel (e) {name}: {record} block "
+                                f"calls, not {want} all inside the view")
+            diff = _max_loss_diff(legs[name]["losses"],
+                                  legs["moe-gspmd"]["losses"])
+            legs[name]["loss_max_abs_diff_no_remat"] = diff
+            if diff > PARALLEL_LOSS_TOL:
+                problems.append(f"parallel (e) {name}: losses {diff} from "
+                                f"(c)'s")
+    legs["moe-layer"] = _moe_layer_check()
+    if not legs["moe-layer"]["ok"]:
+        problems.append(f"parallel (c): the fp32 MoE layer on the card is "
+                        f"{legs['moe-layer']['max_abs_err']} from the CPU's")
+    torch.cuda.empty_cache()
+    return legs
+
+
+def parallel_card_worker(rank: int, n: int, port: int, outdir: str) -> int:
+    """One rank of leg (d), on card ``rank`` over NCCL: Ulysses and the
+    ring at sp=n (each rank its sequence chunk, sync over sp), MoE at
+    ep=n in the pure-GSPMD step (each rank its row block), without and
+    with every block checkpointed."""
+    import torch.distributed as dist
+    from horovod_tpu_torch import build_mesh, gpt_small, synthetic_text_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    store = dist.TCPStore("127.0.0.1", port, n, is_master=rank == 0,
+                          timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group("nccl", store=store, rank=rank, world_size=n,
+                            device_id=torch.device("cuda", rank))
+    out = {}
+    try:
+        vocab = 50304
+        for name, attention, b, seed in (
+                ("ulysses", "ulysses", 8, 0),
+                ("ring", "ring", PARALLEL_RING_BATCH, 1)):
+            mesh = build_mesh(sp=n)
+            full = synthetic_text_batch(b, 2048, vocab, seed=seed)
+            c = 2048 // n
+            batch = {k: v[:, rank * c:(rank + 1) * c].contiguous()
+                     for k, v in full.items()}
+            cfg = gpt_small(attention=attention, max_seq_len=2048, mesh=mesh)
+            out[name] = _parallel_train(cfg, batch, mesh,
+                                        {"axes": ("dp", "sp")},
+                                        batch_spec=("dp", "sp"))
+        moe = PARALLEL_MOE
+        mesh = build_mesh(ep=n)
+        full = synthetic_text_batch(moe["batch"], moe["seq"], vocab, seed=2)
+        rows = moe["batch"] // n
+        batch = {k: v[rank * rows:(rank + 1) * rows] for k, v in full.items()}
+        cfg = gpt_small(attention="flash", max_seq_len=moe["seq"],
+                        moe_experts=moe["experts"], mesh=mesh)
+        out["moe-gspmd"] = _parallel_train(cfg, batch, mesh, {"axes": ()},
+                                           batch_spec=("ep",))
+        out["moe-gspmd-remat-full"] = _parallel_train(
+            dataclasses.replace(cfg, remat=True), batch, mesh, {"axes": ()},
+            batch_spec=("ep",))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _parallel_cards(legs: dict, problems: list[str]) -> dict:
+    """Leg (d): with n >= 2 cards, one process a card over NCCL, the
+    losses against the one-card legs'."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        return {"not_run": f"the machine shows {n} card"}
+    if 12 % n or PARALLEL_MOE["batch"] % n or PARALLEL_MOE["experts"] % n:
+        return {"not_run": f"{n} cards do not divide the heads, the MoE "
+                           f"batch and the experts"}
+    outdir = tempfile.mkdtemp(prefix="parallel")
+    port = _free_port()
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--parallel-card-worker", str(r), str(n),
+         str(port), outdir], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for r in range(n)]
+    t0 = time.perf_counter()
+    texts = []
+    for p in procs:
+        try:
+            texts.append(p.communicate(timeout=PARALLEL_WORLD_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            texts.append(p.communicate()[0])
+    result = {"cards": n, "wall_s": time.perf_counter() - t0}
+    if any(p.returncode != 0 for p in procs):
+        problems.append("parallel (d): " + " | ".join(
+            t[-2000:] for p, t in zip(procs, texts) if p.returncode != 0))
+        return result
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for name, per_step in (("ulysses", 12), ("ring", 0), ("moe-gspmd", 12),
+                           ("moe-gspmd-remat-full", _remat_launches(12))):
+        one = legs[name]
+        rec = {"losses": ranks[0][name]["losses"],
+               "timed_step_ms_mean": [x[name]["timed_step_ms_mean"]
+                                      for x in ranks],
+               "peak_memory_bytes": [x[name]["peak_memory_bytes"]
+                                     for x in ranks],
+               "launches_per_step": ranks[0][name]["launches_per_step"],
+               "loss_max_abs_diff_one_card":
+                   _max_loss_diff(ranks[0][name]["losses"], one["losses"])}
+        result[name] = rec
+        if any(x[name]["losses"] != rec["losses"] for x in ranks):
+            problems.append(f"parallel (d) {name}: the ranks' losses differ")
+        if rec["loss_max_abs_diff_one_card"] > PARALLEL_LOSS_TOL:
+            problems.append(f"parallel (d) {name}: losses "
+                            f"{rec['loss_max_abs_diff_one_card']} from the "
+                            f"one-card leg's")
+        problems += _parallel_checks(f"d {name}", ranks[0][name], per_step)
+    return result
+
+
+def phase_parallel(train: dict | None = None) -> dict:
+    """Sequence and expert parallelism on the card (see the module's
+    docstring)."""
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    legs = _parallel_one_card(problems)
+    for name, leg in legs.items():
+        emit({"phase": "parallel", "leg": name, **leg})
+    cards = _parallel_cards(legs, problems)
+    emit({"phase": "parallel", "leg": "cards", **cards})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "parallel", "leg": "summary", "seconds": seconds,
+          "train_timed_step_ms_mean": None if train is None
+          else train["timed_step_ms_mean"],
+          "step_ms": {name: leg["timed_step_ms_mean"]
+                      for name, leg in legs.items()
+                      if "timed_step_ms_mean" in leg},
+          "peak_memory_bytes": {name: leg["peak_memory_bytes"]
+                                for name, leg in legs.items()
+                                if "peak_memory_bytes" in leg},
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": legs["ulysses"]["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -4243,6 +4599,9 @@ def main() -> int:
         return reduce_card_worker(int(rank), int(port), outdir)
     if len(sys.argv) > 1 and sys.argv[1] == "--launch-worker":
         return launch_worker(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-card-worker":
+        rank, n, port, outdir = sys.argv[2:6]
+        return parallel_card_worker(int(rank), int(n), int(port), outdir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -4259,7 +4618,8 @@ def main() -> int:
                   "cnn": phase_cnn, "sync": phase_sync,
                   "eager": phase_eager, "binding": phase_binding,
                   "reduce": phase_reduce, "runtime": phase_runtime,
-                  "resilience": phase_resilience, "elastic": phase_elastic}
+                  "resilience": phase_resilience, "elastic": phase_elastic,
+                  "parallel": phase_parallel}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -4275,6 +4635,7 @@ def main() -> int:
     runtime = phase_runtime()
     phase_resilience()
     elastic = phase_elastic(binding)
+    parallel = phase_parallel(train)
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -4283,6 +4644,7 @@ def main() -> int:
          "binding_launches": binding["launches"][name],
          "runtime_launches": runtime["launches"][name],
          "elastic_launches": elastic["launches"][name],
+         "parallel_launches": parallel["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -12,11 +12,12 @@ __version__ = "0.1.0"
 
 from . import eager, models, parallel, serving, training
 from .eager import *  # noqa: F401,F403 - the Horovod API at package level
-from .models import (VGG, VGG16, VGG19, InceptionV3, ResNet, ResNet18,
-                     ResNet34, ResNet50, ResNet101, ResNet152,
+from .models import (VGG, VGG16, VGG19, InceptionV3, MoEMLP, ResNet,
+                     ResNet18, ResNet34, ResNet50, ResNet101, ResNet152,
                      TransformerConfig, TransformerLM, gpt_small, gpt_tiny)
 from .ops.flash_attention import flash_attention, flash_attention_with_lse
-from .parallel import GradSyncConfig, MeshSpec, build_mesh, sync_gradients
+from .parallel import (GradSyncConfig, MeshSpec, build_mesh, pipeline_apply,
+                       ring_attention, sync_gradients, ulysses_attention)
 from .serving import (AdmissionController, Assignment, BatchPlan,
                       ContinuousBatcher, KVBlockPool, ReplicaExecutor,
                       RequestQueue, ServeConfig, ServeRequest)
@@ -26,9 +27,10 @@ from .training import (Trainer, TrainState, synthetic_image_batch,
 __all__ = ["eager", "models", "parallel", "serving", "training",
            "TransformerConfig", "TransformerLM", "gpt_small", "gpt_tiny",
            "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
-           "ResNet152", "VGG", "VGG16", "VGG19", "InceptionV3",
+           "ResNet152", "VGG", "VGG16", "VGG19", "InceptionV3", "MoEMLP",
            "flash_attention", "flash_attention_with_lse", "GradSyncConfig",
-           "MeshSpec", "build_mesh", "sync_gradients", "Trainer",
+           "MeshSpec", "build_mesh", "sync_gradients", "pipeline_apply",
+           "ring_attention", "ulysses_attention", "Trainer",
            "TrainState", "synthetic_text_batch", "synthetic_image_batch",
            "AdmissionController", "Assignment", "BatchPlan",
            "ContinuousBatcher", "KVBlockPool", "ReplicaExecutor",

@@ -5,7 +5,10 @@ The flax model (``horovod_tpu/models/transformer.py``) stores
 - ``embed/embedding``                  ``[vocab, d_model]``
 - ``layer_i/attn/w{q,k,v}/kernel``     ``[d_model, H, D]`` (DenseGeneral)
 - ``layer_i/attn/wo/kernel``           ``[H, D, d_model]`` (DenseGeneral)
-- ``layer_i/mlp/{gate,up,down}/kernel`` ``[in, out]`` (Dense)
+- ``layer_i/mlp/{gate,up,down}/kernel`` ``[in, out]`` (Dense), or with
+  ``moe_experts > 0`` ``layer_i/moe/router/kernel`` ``[d_model, E]``
+  (Dense) and ``layer_i/moe/{wi,wo}`` ``[E, D, F]``/``[E, F, D]`` (the
+  port keeps those two in flax's shape)
 - ``layer_i/{attn,mlp}_norm/scale``, ``final_norm/scale``  ``[d_model]``
 - ``lm_head/kernel``                   ``[d_model, vocab]``
 
@@ -85,6 +88,12 @@ def _leaves(cfg: TransformerConfig) -> list[_Leaf]:
         for name in ("wq", "wk", "wv"):
             leaves.append((f"{t}.attn.{name}.weight",
                            (f, "attn", name, "kernel"), *qkv()))
+        if cfg.moe_experts > 0:
+            leaves += [(f"{t}.moe.router.weight",
+                        (f, "moe", "router", "kernel"), *dense()),
+                       (f"{t}.moe.wi", (f, "moe", "wi"), _same, _same),
+                       (f"{t}.moe.wo", (f, "moe", "wo"), _same, _same)]
+            continue
         for name in ("gate", "up", "down"):
             leaves.append((f"{t}.mlp.{name}.weight",
                            (f, "mlp", name, "kernel"), *dense()))

@@ -9,8 +9,22 @@ Same configuration, presets and mixed-precision rules as the flax model:
   stay in ``dtype``;
 - RMSNorm computes in fp32 and casts after multiplying by its fp32 scale;
 - RoPE uses global positions and the split-halves rotation;
-- attention is ``"dense"`` (``mha_reference``) or ``"flash"`` (the CUDA
-  kernels of ``ops/flash_attention.py``);
+- attention is ``"dense"`` (``mha_reference``), ``"flash"`` (the CUDA
+  kernels of ``ops/flash_attention.py``), ``"ring"`` (``parallel/
+  ring_attention.py``, plain torch in fp32) or ``"ulysses"``
+  (``parallel/ulysses.py``, whose head shard runs
+  ``_bthd_attn_adapter``: the CUDA flash kernels on the card,
+  ``mha_reference`` on the CPU, as the reference runs flash on the TPU
+  and dense attention elsewhere).  Ring and Ulysses shard the sequence
+  over ``cfg.mesh``'s ``sp`` axis: a model's tokens are this rank's
+  sequence chunk and RoPE takes global positions (the ``sp`` coordinate
+  times the chunk length, plus the position in the chunk), as inside the
+  reference's manual region.  Inside ``parallel.mesh.global_batch`` (the
+  Trainer's pure-GSPMD step) every ``sp`` rank holds the whole sequence,
+  as the reference's model does there: attention runs on this rank's
+  chunk and gathers the sequence back;
+- ``moe_experts > 0`` puts ``models/moe.py``'s ``MoEMLP`` in each block's
+  place of the MLP, its experts over ``cfg.mesh``'s ``ep`` axis;
 - with ``decode=True`` attention runs over a KV cache passed to the
   forward: a dense ``KVCache`` or, with ``paged=True``, a
   ``PagedKVCache`` addressed through block tables.  Decode attention is
@@ -24,12 +38,11 @@ flax tree.  Initialisation draws from flax's default distributions with a
 ``torch.Generator``.
 
 The port covers the training forward and KV-cache decoding (dense and
-paged; ``prefill``, ``decode_step``, ``paged_apply``, ``paged_copy_block``).
+paged; ``prefill``, ``decode_step``, ``paged_apply``, ``paged_copy_block``;
+MoE blocks included, ring and Ulysses refused as in the reference).
 ``remat=True`` checkpoints each block; ``remat_policy="dots"`` keeps the
 products' outputs as ``jax.checkpoint_policies.checkpoint_dots`` does and
 recomputes the rest of the block in the backward.
-Sequence parallelism (ring/ulysses) and MoE raise ``NotImplementedError``
-naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ import contextlib
 import dataclasses
 import math
 import threading
+from functools import partial
 from typing import Any
 
 import torch
@@ -46,7 +60,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..common.device import resolve_device
 from ..ops.flash_attention import NEG_INF, flash_attention, mha_reference
+from ..parallel.collectives import allgather
+from ..parallel.mesh import (axis_size, current_global_batch,
+                             global_batch)
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
 from .layers import Dense
+from .moe import MoEMLP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +80,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16         # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
-    attention: str = "dense"          # dense | flash (ring | ulysses later)
+    attention: str = "dense"          # dense | flash | ring | ulysses
     causal: bool = True
     remat: bool = False               # checkpoint each block
     remat_policy: str = "full"        # full | dots
@@ -69,6 +89,9 @@ class TransformerConfig:
     block_q_bwd: int | None = None
     block_k_bwd: int | None = None
     flash_interpret: bool = False     # JAX-only knob; must stay False here
+    # Sequence and expert parallelism: a parallel.mesh.Mesh with "sp" and
+    # "ep" axes.  batch_spec is the reference's (which mesh axes the batch
+    # dim is sharded over); the port's model reads its rows as given.
     mesh: Any = None
     sp_axis: str = "sp"
     batch_spec: Any = None
@@ -93,28 +116,24 @@ class TransformerConfig:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise NotImplementedError for what the port does not cover yet, and
-    ValueError for what the reference refuses too."""
-    if cfg.decode and cfg.attention in ("ring", "ulysses"):
-        raise ValueError(
-            "cfg.decode is incompatible with sequence-parallel attention "
-            f"('{cfg.attention}'): the KV cache is a whole-sequence "
-            "structure")
-    unported = [
-        (cfg.attention in ("ring", "ulysses"),
-         f"attention={cfg.attention!r} is ROADMAP queue A item 10 "
-         "(sequence parallelism)"),
-        (cfg.moe_experts > 0,
-         "moe_experts > 0 is ROADMAP queue A item 10 (expert parallelism)"),
-        (cfg.flash_interpret,
-         "flash_interpret runs Pallas kernels interpreted; the port's "
-         "CPU path is device='cpu'"),
-    ]
-    for unsupported, what in unported:
-        if unsupported:
-            raise NotImplementedError(what)
+    """Raise ValueError for what the reference refuses, and
+    NotImplementedError for its JAX-only knob."""
+    if cfg.flash_interpret:
+        raise NotImplementedError(
+            "flash_interpret runs Pallas kernels interpreted; the port's "
+            "CPU path is device='cpu'")
     if cfg.attention not in ("dense", "flash", "ring", "ulysses"):
         raise ValueError(f"Unknown attention impl: {cfg.attention}")
+    if cfg.attention in ("ring", "ulysses"):
+        if cfg.decode:
+            raise ValueError(
+                "cfg.decode is incompatible with sequence-parallel attention "
+                f"('{cfg.attention}'): the KV cache is a whole-sequence "
+                "structure")
+        if cfg.mesh is None:
+            raise ValueError(
+                f"attention='{cfg.attention}' needs cfg.mesh to shard the "
+                f"sequence over axis '{cfg.sp_axis}'")
     if cfg.paged and cfg.decode and cfg.kv_pool_blocks <= 0:
         raise ValueError("cfg.paged needs kv_pool_blocks > 0 (the per-layer "
                          "block pool size)")
@@ -156,6 +175,14 @@ def _taping(kept: list, recording: bool):
         yield
     finally:
         _TAPE.kept, _TAPE.recording, _TAPE.pos = prev
+
+
+def _in_view(view):
+    """Re-enter ``view``, a forward's ``current_global_batch()``, for a
+    checkpointed block's recompute.  The view is this thread's, and on
+    the card autograd runs a CUDA backward on a device thread of its own,
+    where the recompute would otherwise see none."""
+    return contextlib.nullcontext() if view is None else global_batch(*view)
 
 
 def _take() -> torch.Tensor:
@@ -247,7 +274,7 @@ class _CheckpointDots(torch.autograd.Function):
         kept: list[torch.Tensor] = []
         with _taping(kept, recording=True):
             y = block(x)
-        ctx.block = block
+        ctx.block, ctx.view = block, current_global_batch()
         ctx.save_for_backward(x, *kept)
         return y
 
@@ -258,7 +285,8 @@ class _CheckpointDots(torch.autograd.Function):
         wanted = [i for i, need in enumerate(ctx.needs_input_grad[2:])
                   if need]
         x = x.detach().requires_grad_(ctx.needs_input_grad[1])
-        with torch.enable_grad(), _taping(kept, recording=False):
+        with torch.enable_grad(), _taping(kept, recording=False), \
+                _in_view(ctx.view):
             y = ctx.block(x)
             assert _TAPE.pos == len(kept), (_TAPE.pos, len(kept))
         inputs = ([x] if x.requires_grad else []) + [params[i]
@@ -345,6 +373,11 @@ class Attention(nn.Module):
             out = self._decode_attend(q, k, v, cache, layer)
         else:
             positions = torch.arange(t, device=x.device)
+            if cfg.attention in ("ring", "ulysses") \
+                    and current_global_batch() is None:
+                # The tokens are a sequence chunk: global positions.
+                positions = positions \
+                    + cfg.mesh.axis_index(cfg.sp_axis) * t
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
             if cfg.attention == "flash":
@@ -354,9 +387,11 @@ class Attention(nn.Module):
                                       block_q_bwd=cfg.block_q_bwd,
                                       block_k_bwd=cfg.block_k_bwd,
                                       device=x.device)
-            else:
+            elif cfg.attention == "dense":
                 out = mha_reference(q, k, v, causal=cfg.causal,
                                     einsum=_einsum)
+            else:
+                out = _sequence_parallel(cfg, q, k, v)
         return _dense(self.wo, out.to(cfg.dtype).reshape(b, t, -1))
 
     def _decode_attend(self, q: torch.Tensor, k: torch.Tensor,
@@ -436,6 +471,43 @@ class Attention(nn.Module):
         return _cache_attention(q, k_seq, v_seq, mask)
 
 
+def _bthd_attn_adapter(q, k, v, causal=False, sm_scale=None, *,
+                       cfg: TransformerConfig):
+    """Full-sequence attention inside Ulysses' head shard: the CUDA flash
+    kernels on the card, dense attention on the CPU."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               block_q=cfg.block_q, block_k=cfg.block_k,
+                               block_q_bwd=cfg.block_q_bwd,
+                               block_k_bwd=cfg.block_k_bwd, device=q.device)
+    return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+def _sequence_parallel(cfg: TransformerConfig, q: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Ring or Ulysses attention over ``cfg.mesh``'s ``sp`` axis.  Outside
+    ``global_batch`` q, k and v are this rank's sequence chunk; inside it
+    they hold the whole sequence, and the chunk's result is gathered back
+    over ``sp``."""
+    mesh = cfg.mesh
+    n = axis_size(mesh, cfg.sp_axis)
+    group = mesh.axis_group(cfg.sp_axis) if n > 1 else None
+    if cfg.attention == "ring":
+        inner = partial(ring_attention, group=group, causal=cfg.causal,
+                        axis_size=n)
+    else:
+        inner = partial(ulysses_attention, group=group, causal=cfg.causal,
+                        axis_size=n,
+                        attn_fn=partial(_bthd_attn_adapter, cfg=cfg))
+    if n == 1 or current_global_batch() is None:
+        return inner(q, k, v)
+    c = q.shape[1] // n
+    i = mesh.axis_index(cfg.sp_axis)
+    out = inner(*(x[:, i * c:(i + 1) * c] for x in (q, k, v)))
+    return allgather(out.transpose(0, 1).contiguous(),
+                     group).transpose(0, 1)
+
+
 def _cache_attention(q: torch.Tensor, keys: torch.Tensor,
                      values: torch.Tensor, mask: torch.Tensor
                      ) -> torch.Tensor:
@@ -471,14 +543,23 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(cfg.d_model, *norm, device=device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.d_model, *norm, device=device)
-        self.mlp = MLP(cfg, device)
+        if cfg.moe_experts > 0:
+            self.moe = MoEMLP(cfg.d_model, num_experts=cfg.moe_experts,
+                              d_ff=cfg.ff_dim,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                              ep_mesh=cfg.mesh, ep_axis=cfg.ep_axis,
+                              device=device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
                 block_tables=None, cursors=None, lengths=None
                 ) -> torch.Tensor:
         x = x + self.attn(self.attn_norm(x), cache, layer, block_tables,
                           cursors, lengths)
-        return x + self.mlp(self.mlp_norm(x))
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return x + ffn(self.mlp_norm(x))
 
 
 class TransformerLM(nn.Module):
@@ -511,13 +592,13 @@ class TransformerLM(nn.Module):
         return self.embed.weight.device
 
     def init_parameters(self, generator: torch.Generator) -> None:
-        """flax's defaults: Embed normal(0, 1/sqrt(d_model)), Dense
-        lecun_normal, RMSNorm ones."""
+        """flax's defaults: Embed normal(0, 1/sqrt(d_model)), Dense and
+        the experts' leaves lecun_normal, RMSNorm ones."""
         with torch.no_grad():
             self.embed.weight.normal_(0.0, self.cfg.d_model ** -0.5,
                                       generator=generator)
         for module in self.modules():
-            if isinstance(module, Dense):
+            if isinstance(module, (Dense, MoEMLP)):
                 module.reset_parameters(generator)
             elif isinstance(module, RMSNorm):
                 module.reset_parameters()
@@ -542,7 +623,11 @@ class TransformerLM(nn.Module):
             if cache is not None:
                 x = block(x, cache, i, block_tables, cursors, lengths)
             elif cfg.remat and train and torch.is_grad_enabled():
-                x = (checkpoint(block, x, use_reentrant=False)
+                # The recompute re-enters this forward's global view.
+                view = current_global_batch()
+                x = (checkpoint(block, x, use_reentrant=False,
+                                context_fn=lambda: (contextlib.nullcontext(),
+                                                    _in_view(view)))
                      if cfg.remat_policy == "full" else
                      _CheckpointDots.apply(block, x, *block.parameters()))
             else:

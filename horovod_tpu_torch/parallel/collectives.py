@@ -1,4 +1,4 @@
-"""Collectives over the data axes: ``torch.distributed`` calls.
+"""Collectives over the mesh axes: ``torch.distributed`` calls.
 
 The counterpart of ``horovod_tpu/parallel/collectives.py``.  Where the
 reference names mesh axes, the port names process groups: ``group`` is
@@ -8,6 +8,14 @@ each collective is the reference's multi-axis one: a reduction runs
 group after group, a scatter splits the outermost axis first and a
 gather stacks the innermost first, so that shard ``i`` of a tiled result
 belongs to the rank whose row-major index over the axes is ``i``.
+
+``allgather``, ``alltoall``, ``broadcast`` and ``ppermute`` are
+differentiable as JAX's are: the backward of each is the adjoint of its
+forward over the whole group (a gather's is the summed scatter, a tiled
+all-to-all's the swapped all-to-all, a broadcast's the sum handed to the
+root, a permutation's the inverse permutation).  A backward that runs a
+collective must run on every rank of the group in the same order, so the
+autograd graphs around them must have the same shape on every rank.
 
 A reduction runs in the tensor's own dtype, as the reference's
 psum/pmean do, so a 16-bit wire reduces in 16 bits.  With no initialised
@@ -101,10 +109,7 @@ def reduce_scatter(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
     return x
 
 
-def allgather(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0, in rank order."""
-    if not _initialized():
-        return x
+def _allgather(x: torch.Tensor, group: Groups) -> torch.Tensor:
     for g in reversed(group_list(group)):
         out = x.new_empty((x.shape[0] * dist.get_world_size(g),)
                           + x.shape[1:])
@@ -113,22 +118,153 @@ def allgather(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
     return x
 
 
-def alltoall(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
-    """Split dim 0 into one block per rank and exchange: block ``p`` of
-    the result is rank ``p``'s block for this rank."""
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _allgather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.group), None
+
+
+def allgather(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0, in rank order.
+    Differentiable: the backward sums the gradients over the ranks and
+    hands each rank its block."""
+    if not _initialized():
+        return x
+    return _AllGather.apply(x, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The reference's tiled ``lax.all_to_all`` over one group: split
+    ``split_axis`` into one block per rank, send block ``p`` to rank
+    ``p``, concatenate the received blocks along ``concat_axis`` in rank
+    order."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = group, split_axis, concat_axis
+        n = dist.get_world_size(group)
+        send = torch.stack(x.chunk(n, split_axis)).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return torch.cat(recv.unbind(0), concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return (_AllToAll.apply(g, group, concat_axis, split_axis), None,
+                None, None)
+
+
+def alltoall(x: torch.Tensor, group: Groups = None, split_axis: int = 0,
+             concat_axis: int = 0) -> torch.Tensor:
+    """Split ``split_axis`` into one block per rank and exchange: block
+    ``p`` of the result along ``concat_axis`` is rank ``p``'s block for
+    this rank (the reference's tiled ``alltoall``, ``split_axis`` and
+    ``concat_axis`` as there).  Over a sequence of groups it splits and
+    concatenates dim 0 only: dim 0 is viewed as one axis per group, each
+    exchanged over its group in turn.  Differentiable."""
     if not _initialized():
         return x
     groups = group_list(group)
+    if len(groups) == 1:
+        return _AllToAll.apply(x, groups[0], split_axis % x.dim(),
+                               concat_axis % x.dim())
+    if split_axis or concat_axis:
+        raise ValueError("an all-to-all over several groups exchanges "
+                         "blocks of dim 0 only")
     sizes = [dist.get_world_size(g) for g in groups]
     y = x.reshape(*sizes, x.shape[0] // math.prod(sizes), *x.shape[1:])
-    # One exchange per axis: each swaps that axis' coordinate of a block
-    # from "destination" to "source".
     for i, g in enumerate(groups):
-        send = y.movedim(i, 0).contiguous()
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=g)
-        y = recv.movedim(0, i)
+        y = _AllToAll.apply(y, g, i, i)
     return y.reshape(x.shape)
+
+
+def _global_rank(group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, root):
+        ctx.args = group, root
+        out = x.detach().clone().contiguous()
+        dist.broadcast(out, src=_global_rank(group, root), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        group, root = ctx.args
+        total = g.contiguous().clone()
+        dist.all_reduce(total, group=group)
+        if dist.get_rank(group) != root:
+            total = torch.zeros_like(total)
+        return total, None, None
+
+
+def broadcast(x: torch.Tensor, group: dist.ProcessGroup | None = None,
+              root: int = 0) -> torch.Tensor:
+    """Every rank takes ``root``'s ``x`` (the reference's masked psum).
+    Differentiable: the root's gradient is the sum of every rank's, the
+    others' zero."""
+    if not _initialized():
+        return x
+    return _Broadcast.apply(x, group, root)
+
+
+def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
+    me = dist.get_rank(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for d in dst:
+        if d == me:
+            out.copy_(x)
+        else:
+            ops.append(dist.P2POp(dist.isend, x, _global_rank(group, d),
+                                  group))
+    for s in src:
+        if s != me:
+            ops.append(dist.P2POp(dist.irecv, out, _global_rank(group, s),
+                                  group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.args = group, perm
+        return _ppermute(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, perm = ctx.args
+        return (_PPermute.apply(g, group, tuple((d, s) for s, d in perm)),
+                None, None)
+
+
+def ppermute(x: torch.Tensor, group: dist.ProcessGroup | None,
+             perm: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """Point-to-point exchange over ``group``: for every pair ``(i, j)``
+    of ``perm`` (group ranks) rank ``i``'s ``x`` becomes rank ``j``'s
+    result; a rank that receives nothing gets zeros.  Differentiable: the
+    backward runs the inverse permutation."""
+    if not _initialized():
+        return x
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if len({s for s, _ in perm}) != len(perm) \
+            or len({d for _, d in perm}) != len(perm):
+        raise ValueError(f"ppermute takes a permutation, got {perm}")
+    return _PPermute.apply(x, group, perm)
 
 
 def adasum_allreduce(x: torch.Tensor, group: Groups = None,

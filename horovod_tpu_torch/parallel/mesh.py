@@ -1,18 +1,26 @@
-"""The device mesh of the port: a data-parallel axis over a process group.
+"""The device mesh of the port: named axes over a process group.
 
 The counterpart of ``horovod_tpu/parallel/mesh.py``.  ``MeshSpec`` keeps
 the same axes (``pp dp fsdp ep sp tp``, outermost first) and the same
-``dp=-1`` rule; this slice builds meshes whose only axis larger than one
-is ``dp``.  The ``dp`` axis is the ranks of a ``torch.distributed``
+``dp=-1`` rule.  The mesh's ranks are those of a ``torch.distributed``
 process group (the default group unless one is given); a world of one
-needs no group at all.  Each rank drives one card.  ``axis_groups``
-forms one subgroup per axis of a data mesh (``dp`` and ``fsdp``) for the
-gradient sync's multi-axis reductions.
+needs no group at all.  Each rank drives one card.
+
+Ranks lie row-major over ``DEFAULT_AXES``, as the reference's CPU meshes
+lay out their devices (``np.asarray(devices).reshape(shape)``): with
+``dp=2, sp=2`` rank ``r`` has ``dp`` coordinate ``r // 2`` and ``sp``
+coordinate ``r % 2``.  ``Mesh.groups`` holds one process group for each
+axis larger than one (``axis_groups``): the ranks that differ from this
+one in that axis' coordinate only.  ``Mesh.coords`` is this rank's
+coordinate on every axis.  Tensor parallelism (``tp > 1``) is ROADMAP
+queue A item 10b.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 
 import torch
 import torch.distributed as dist
@@ -53,24 +61,41 @@ class MeshSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Named axis sizes, the process group of the data axis (None for a
-    world of one without a group), and this rank's device."""
+    """Named axis sizes, the process group of the whole mesh (None for
+    the default group, or a world of one without a group), this rank's
+    device, one group per axis larger than one and this rank's
+    coordinate on each axis."""
     shape: dict[str, int]
     group: dist.ProcessGroup | None
     device: torch.device
+    groups: dict[str, dist.ProcessGroup | None] = dataclasses.field(
+        default_factory=dict)
+    coords: dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    def axis_group(self, axis: str) -> dist.ProcessGroup | None:
+        """The process group of ``axis`` (an axis larger than one)."""
+        if axis_size(self, axis) == 1:
+            raise ValueError(f"mesh axis {axis!r} has one rank and no group")
+        return self.groups[axis]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis``."""
+        return self.coords.get(axis, 0)
 
 
 def build_mesh(spec: MeshSpec | None = None,
                group: dist.ProcessGroup | None = None,
                device: str | torch.device | None = None,
                **axis_sizes: int) -> Mesh:
-    """``build_mesh(dp=2)`` or ``build_mesh(MeshSpec())``.  The ranks are
-    those of ``group`` (default: the initialised default group, else a
-    world of one).  Runs on the card unless ``device="cpu"``."""
+    """``build_mesh(dp=2, sp=2)`` or ``build_mesh(MeshSpec())``.  The
+    ranks are those of ``group`` (default: the initialised default group,
+    else a world of one).  Runs on the card unless ``device="cpu"``.
+    With two axes or more larger than one, every rank of ``group`` must
+    call it alike: forming the axis groups is collective."""
     if spec is None:
         spec = MeshSpec(**axis_sizes)
     elif axis_sizes:
@@ -79,19 +104,28 @@ def build_mesh(spec: MeshSpec | None = None,
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dist.is_available() and dist.is_initialized():
-        world = dist.get_world_size(group)
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
     elif group is not None:
         raise ValueError("a process group was given but torch.distributed "
                          "is not initialised")
     else:
-        world = 1
+        world, rank = 1, 0
     sizes = spec.resolve(world)
-    others = {a: n for a, n in sizes.items() if a != "dp" and n > 1}
-    if others:
+    if sizes["tp"] > 1:
         raise NotImplementedError(
-            f"mesh axes {others}: only 'dp' is ported so far (fsdp/tp/sp/"
-            "ep/pp are ROADMAP queue A item 10)")
-    return Mesh(shape=sizes, group=group, device=dev)
+            f"tp={sizes['tp']}: tensor parallelism (parameters sharded "
+            "over a mesh axis) is ROADMAP queue A item 10b")
+    coords = {}
+    for axis in reversed(DEFAULT_AXES):
+        rank, coords[axis] = divmod(rank, sizes[axis])
+    big = {a: n for a, n in sizes.items() if n > 1}
+    if len(big) > 1:
+        groups = axis_groups(big, group)
+    else:
+        # One axis spans the whole group (or none does).
+        groups = {a: group for a in big}
+    return Mesh(shape=sizes, group=group, device=dev, groups=groups,
+                coords={a: coords[a] for a in DEFAULT_AXES})
 
 
 def axis_size(mesh: Mesh, axis: str) -> int:
@@ -115,6 +149,7 @@ def axis_groups(shape: dict[str, int],
     order: with ``{"dp": 2, "fsdp": 2}`` the rank of group rank ``r`` has
     ``dp`` index ``r // 2`` and ``fsdp`` index ``r % 2``, the index of
     its slice in the reference's stacked ``P(("dp", "fsdp"))`` input.
+    ``build_mesh`` forms its ``groups`` here.
     Every rank of ``group`` must call this with the same shape: each
     ``dist.new_group`` is collective."""
     axes = [a for a in DEFAULT_AXES if a in shape]
@@ -137,3 +172,35 @@ def axis_groups(shape: dict[str, int],
             if me in line:
                 out[axis] = g
     return out
+
+
+class _View(threading.local):
+    """The mesh and batch axes of the Trainer's pure-GSPMD step on this
+    thread (None outside it)."""
+    batch: tuple[Mesh, tuple[str, ...]] | None = None
+
+
+_VIEW = _View()
+
+
+@contextlib.contextmanager
+def global_batch(mesh: Mesh, batch_axes: tuple[str, ...]):
+    """Inside, a model's rows are this rank's shard of a global batch laid
+    over ``mesh``'s ``batch_axes`` (row-major, in that order), and a layer
+    whose result depends on rows other than its own sees the global
+    batch, as the reference's model does under its pure-GSPMD step (sync
+    axes ``()``), where it is traced with global shapes.  Outside, a
+    model's rows are all it sees, as inside the reference's manual
+    region."""
+    prev = _VIEW.batch
+    _VIEW.batch = (mesh, tuple(batch_axes))
+    try:
+        yield
+    finally:
+        _VIEW.batch = prev
+
+
+def current_global_batch() -> tuple[Mesh, tuple[str, ...]] | None:
+    """The mesh and batch axes of the enclosing ``global_batch``, else
+    None."""
+    return _VIEW.batch

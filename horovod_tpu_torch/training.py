@@ -1,4 +1,4 @@
-"""The data-parallel training step, in PyTorch.
+"""The training step over a mesh, in PyTorch.
 
 The counterpart of ``horovod_tpu/training.py``.  ``Trainer.step`` runs the
 reference's step body in order:
@@ -27,9 +27,36 @@ nothing in the step, as in the reference, whose step calls
 ``sync_gradients_ef``'s.
 
 The loss (and, behind ``HOROVOD_TRACK_ACCURACY``, the accuracy) is
-averaged over ``dp``.  PyTorch updates in place: ``TrainState`` holds the
-model and its optimizer, and ``step`` returns the same state advanced by
-one step, where the reference returns a new immutable one.
+averaged over ``dp``.
+
+Over a mesh with more axes (``sp``, ``ep``, ``fsdp``) each rank
+passes its own shard of the batch, as the dp Trainer's callers do, laid
+out as ``batch_spec`` says (the reference's ``PartitionSpec`` entries: a
+mesh axis, a tuple of axes or None per dim; default the sync axes over
+the batch dim).  The reference has two modes, and so does the port:
+
+- **manual** (``sync.axes`` non-empty): the model sees local shards (with
+  ``batch_spec=("dp", "sp")`` a ``[B/dp, T/sp]`` chunk, ring or Ulysses
+  attention over ``sp``), and the gradients, the loss and the BatchNorm
+  statistics are averaged over the sync axes' groups.  MoE with ``ep >
+  1`` is refused here, as the reference's expert ``shard_map`` cannot
+  nest in the manual one;
+- **pure-GSPMD** (``sync.axes == ()``): the reference's model sees global
+  shapes and XLA derives every reduction.  The port makes the same result
+  explicit: the step runs inside ``parallel.mesh.global_batch``, where a
+  layer that mixes rows sees the global batch (MoE routing, and the
+  sequence under ring or Ulysses), and the replicated parameters'
+  gradients and the loss are averaged in fp32 over every rank of the
+  mesh before ``sync_gradients`` applies the wire cast, loss scale and
+  clip of ``sync`` over no axis, as the reference's does.  Only the
+  batch dim may be sharded here.
+
+Parameters sharded by ``param_rules`` (tensor parallelism, fsdp-sharded
+leaves) are ROADMAP queue A item 10b.
+
+PyTorch updates in place: ``TrainState`` holds the model and its
+optimizer, and ``step`` returns the same state advanced by one step,
+where the reference returns a new immutable one.
 
 The reference's ``optax.adamw(3e-4)`` is
 ``torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)``: optax defaults
@@ -41,11 +68,11 @@ gradient itself in both.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from .common import config
@@ -55,7 +82,8 @@ from .parallel import collectives
 from .parallel.collectives import allreduce
 from .parallel.grad_sync import (GradSyncConfig, init_ring_optimizer,
                                  sync_and_apply, sync_gradients)
-from .parallel.mesh import Mesh, data_axes
+from .parallel.mesh import (DEFAULT_AXES, Mesh, axis_size, data_axes,
+                            global_batch)
 
 
 @dataclasses.dataclass
@@ -141,21 +169,40 @@ def _model_input(batch: dict) -> torch.Tensor:
     return batch["image"] if "image" in batch else batch["input"]
 
 
-def _average_batch_stats(stats: list[torch.Tensor],
-                         group: dist.ProcessGroup | None) -> None:
-    """Average the running statistics over the group's ranks in place, in
-    one all-reduce of their concatenation; nothing to do at one rank."""
-    if not (stats and dist.is_available() and dist.is_initialized()
-            and dist.get_world_size(group) > 1):
+def _average_in_place(tensors: list[torch.Tensor], group) -> None:
+    """Average the tensors over the group's (or groups') ranks in place,
+    one all-reduce of their concatenation per dtype; nothing to do at one
+    rank."""
+    if not tensors or collectives.world_size(group) == 1:
         return
-    flat = allreduce(torch.cat([s.reshape(-1) for s in stats]), "average",
-                     group)
-    for s, part in zip(stats, flat.split([s.numel() for s in stats])):
-        s.copy_(part.view_as(s))
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for same in by_dtype.values():
+        flat = allreduce(torch.cat([t.reshape(-1) for t in same]),
+                         "average", group)
+        for t, part in zip(same, flat.split([t.numel() for t in same])):
+            t.copy_(part.view_as(t))
+
+
+def _spec_entries(batch_spec, axes: tuple[str, ...]) -> tuple:
+    """``batch_spec`` as a tuple of per-dim entries (default: the sync
+    axes over the batch dim)."""
+    if batch_spec is None:
+        return (tuple(axes),)
+    if isinstance(batch_spec, str):
+        return (batch_spec,)
+    return tuple(batch_spec)
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 class Trainer:
-    """Owns the data-parallel train step.
+    """Owns the train step.
 
     >>> model = TransformerLM(gpt_small(attention="flash"))
     >>> opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
@@ -167,11 +214,19 @@ class Trainer:
     ``sync`` takes every reference knob; with ``optimizer_in_ring`` the
     state's optimizer is the shard optimizer, and ``error_feedback`` is
     ignored by the step, as in the reference (use ``sync_gradients_ef``).
+    ``sync.axes == ()`` selects the pure-GSPMD step (see the module's
+    docstring).
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  mesh: Mesh, *, sync: GradSyncConfig | None = None,
-                 loss_fn: Callable = cross_entropy_loss) -> None:
+                 param_rules=None, loss_fn: Callable = cross_entropy_loss,
+                 batch_spec=None) -> None:
+        if param_rules is not None:
+            raise NotImplementedError(
+                "param_rules (parameters sharded over mesh axes: tensor "
+                "parallelism, fsdp-sharded leaves) is ROADMAP queue A "
+                "item 10b")
         self.model = model
         self.optimizer = optimizer
         self.mesh = mesh
@@ -179,6 +234,7 @@ class Trainer:
         self.sync = sync or GradSyncConfig(axes=axes, op="average")
         self.sync.check()
         self.loss_fn = loss_fn
+        self.batch_spec = _spec_entries(batch_spec, axes)
         self.device = resolve_device(mesh.device)
         self._names = _leaf_order(model)
         self._params = dict(model.named_parameters())
@@ -187,11 +243,50 @@ class Trainer:
             raise ValueError("the gradient leaf order does not name the "
                              "model's parameters")
         self._layouts = flax_layouts(model)
+        self._set_groups()
         self._ring = None
         if self.sync.optimizer_in_ring:
             self._ring = init_ring_optimizer(
                 optimizer, [self._params[n] for n in self._names],
-                collectives.world_size(mesh.group), self.sync)
+                collectives.world_size(self._metric_groups), self.sync)
+
+    def _set_groups(self) -> None:
+        """The groups the gradients are synced over (``_sync_group`` with
+        ``_sync``), and those the loss and statistics are averaged over
+        (``_metric_groups``)."""
+        mesh = self.mesh
+        big = [a for a in DEFAULT_AXES if axis_size(mesh, a) > 1]
+        self._gspmd = not self.sync.axes
+        self._sync = self.sync
+        if self._gspmd:
+            if self.sync.optimizer_in_ring:
+                raise ValueError(
+                    "optimizer_in_ring needs explicit sync axes (pure-GSPMD "
+                    "mode has no manual axis to shard the update over)")
+            if any(_entry_axes(e) for e in self.batch_spec[1:]):
+                raise NotImplementedError(
+                    f"batch_spec {self.batch_spec}: the pure-GSPMD step "
+                    "shards the batch dim only (other dims are ROADMAP "
+                    "queue A item 10b)")
+            self._sync_group = {}
+            self._metric_groups = [mesh.groups[a] for a in big]
+        elif set(big) <= {"dp"}:
+            # Only dp spans ranks: the mesh's own group is dp's.
+            self._sync_group = mesh.group
+            self._metric_groups = mesh.group
+        else:
+            cfg = getattr(self.model, "cfg", None)
+            if getattr(cfg, "moe_experts", 0) > 0 \
+                    and axis_size(mesh, cfg.ep_axis) > 1:
+                raise ValueError(
+                    "MoE over ep > 1 needs the pure-GSPMD step (sync axes "
+                    "()): the expert-parallel layer cannot run inside the "
+                    "manual step, as the reference's shard_map cannot nest")
+            kept = tuple(a for a in self.sync.axes
+                         if axis_size(mesh, a) > 1)
+            self._sync_group = {a: mesh.groups[a] for a in kept}
+            self._sync = dataclasses.replace(self.sync, axes=kept)
+            self._metric_groups = [mesh.groups[a] for a in kept]
 
     def init(self, sample_batch: dict | None = None) -> TrainState:
         """The state at step 0.  The model's parameters were drawn when
@@ -210,35 +305,50 @@ class Trainer:
         return (_model_input(batch).to(self.device),
                 batch["label"].to(self.device))
 
+    def _view(self):
+        """The global view of the pure-GSPMD step, else nothing."""
+        if self._gspmd:
+            return global_batch(self.mesh, _entry_axes(self.batch_spec[0]))
+        return contextlib.nullcontext()
+
     def step(self, state: TrainState, batch: dict
              ) -> tuple[TrainState, dict[str, torch.Tensor]]:
         inputs, labels = self._batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(inputs, train=True)
-        loss = self.loss_fn(logits, labels)
-        loss.backward()
+        with self._view():
+            logits = self.model(inputs, train=True)
+            loss = self.loss_fn(logits, labels)
+            # A checkpointed block's recompute, which may run on
+            # autograd's own thread, re-enters the view itself.
+            loss.backward()
 
         grads = {}
         for name in self._names:
             p = self._params[name]
             grads[name] = p.grad if p.grad is not None \
                 else torch.zeros_like(p)
-        group = self.mesh.group
+        if self._gspmd:
+            # What XLA derives from the global loss: the mean over every
+            # rank's shard of the batch.
+            _average_in_place(list(grads.values()), self._metric_groups)
+        group = self._sync_group
         if self._ring is not None:
             sync_and_apply(self._ring, grads,
                            {n: self._params[n] for n in self._names},
-                           self.sync, group, self._layouts)
+                           self._sync, group, self._layouts)
         else:
-            synced = sync_gradients(grads, self.sync, group, self._layouts)
+            synced = sync_gradients(grads, self._sync, group, self._layouts)
             for name, g in synced.items():
                 self._params[name].grad = g
             self.optimizer.step()
-        _average_batch_stats(self._stats, group)
+        _average_in_place(self._stats, self._metric_groups)
 
-        metrics = {"loss": allreduce(loss.detach(), "average", group)}
+        metrics = {"loss": allreduce(loss.detach(), "average",
+                                     self._metric_groups)}
         if _track_accuracy():
             acc = (logits.detach().argmax(-1) == labels).float().mean()
-            metrics["accuracy"] = allreduce(acc, "average", group)
+            metrics["accuracy"] = allreduce(acc, "average",
+                                            self._metric_groups)
         state.step += 1
         return state, metrics
 
@@ -246,12 +356,13 @@ class Trainer:
     def eval_step(self, state: TrainState, batch: dict
                   ) -> dict[str, torch.Tensor]:
         inputs, labels = self._batch(batch)
-        logits = state.model(inputs, train=False)
+        with self._view():
+            logits = state.model(inputs, train=False)
         loss = self.loss_fn(logits, labels)
         acc = (logits.argmax(-1) == labels).float().mean()
-        group = self.mesh.group
-        return {"loss": allreduce(loss, "average", group),
-                "accuracy": allreduce(acc, "average", group)}
+        groups = self._metric_groups
+        return {"loss": allreduce(loss, "average", groups),
+                "accuracy": allreduce(acc, "average", groups)}
 
 
 def synthetic_text_batch(batch_size: int, seq_len: int = 2048,

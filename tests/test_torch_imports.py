@@ -43,7 +43,8 @@ for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
             "elastic.discovery", "elastic.registration", "elastic.rpc",
             "elastic.worker", "elastic.driver", "elastic.state",
             "elastic.sampler", "elastic.run", "elastic.launcher",
-            "torch.elastic"):
+            "torch.elastic", "parallel.ring_attention", "parallel.ulysses",
+            "parallel.pipeline", "models.moe"):
     assert "horovod_tpu_torch." + sub in new, sub
 bad = [m for m in new
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
@@ -63,10 +64,11 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 89            # every module: the eager core,
+    assert int(count) >= 93            # every module: the eager core,
     # the device plane, the torch binding, the runtime's telemetry,
-    # fingerprint and autotuner, the failure half's resilience, and the
-    # launcher and elastic layer too
+    # fingerprint and autotuner, the failure half's resilience, the
+    # launcher and elastic layer, and sequence, expert and pipeline
+    # parallelism too
     assert bad == "BAD []", bad
 
 
@@ -153,6 +155,18 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
         == "cpu"
     assert synthetic_image_batch(1, 8, device="cpu")["image"].device.type \
         == "cpu"
+
+
+def test_moe_layer_needs_cuda_unless_cpu_is_asked(no_cuda):
+    from horovod_tpu_torch import MoEMLP
+    from horovod_tpu_torch.common.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MoEMLP(8, num_experts=2, d_ff=16)
+    layer = MoEMLP(8, num_experts=2, d_ff=16, device="cpu")
+    assert {p.device.type for p in layer.parameters()} == {"cpu"}
 
 
 def test_cpu_tensors_with_cuda_device_are_refused():

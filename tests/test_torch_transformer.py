@@ -12,8 +12,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from horovod_tpu.models import transformer as jtr
+from horovod_tpu.parallel import MeshSpec as JMeshSpec
+from horovod_tpu.parallel import build_mesh as jbuild_mesh
 from horovod_tpu_torch import convert
 from horovod_tpu_torch.models import transformer as ttr
+from horovod_tpu_torch.parallel import build_mesh as tbuild_mesh
 
 CPU = "cpu"
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -168,8 +171,55 @@ def test_seeded_init_is_reproducible():
     dict(attention="ring"),
     dict(attention="ulysses"), dict(moe_experts=4)])
 def test_unported_config_values_raise(overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.TransformerLM(ttr.gpt_tiny(**overrides), device=CPU)
+    """These configurations were refused until the port had sequence and
+    expert parallelism; each now matches the flax model on the same
+    weights, in fp32: the logits and the gradients of a square loss (1e-4
+    of the largest logit, 1e-5 of the largest gradient), or with decode a
+    prefill and two decode steps (logits within 1e-4).  Ring and Ulysses
+    run on a mesh of one rank, where the ring is local attention and
+    Ulysses' head shard dense attention on the CPU, on both sides."""
+    extra_j, extra_t = {}, {}
+    if overrides.get("attention") in ("ring", "ulysses"):
+        extra_j = dict(mesh=jbuild_mesh(JMeshSpec(dp=1),
+                                        devices=jax.devices()[:1]))
+        extra_t = dict(mesh=tbuild_mesh(device=CPU))
+    jcfg = jtr.gpt_tiny(dtype=jnp.float32, **overrides, **extra_j)
+    tcfg = ttr.gpt_tiny(dtype=torch.float32, **overrides, **extra_t)
+    params = _flax_params(jcfg)
+    model = _torch_model(tcfg, params)
+    tokens = _tokens(seed=4, t=16)
+    if tcfg.decode:
+        jmodel, variables = jtr.TransformerLM(jcfg), {"params": params}
+        jprefill = jax.jit(lambda v, t: jtr.prefill(jmodel, v, t))
+        jdecode = jax.jit(lambda v, c, t: jtr.decode_step(jmodel, v, c, t))
+        jlogits, jcache = jprefill(variables, jnp.asarray(tokens, jnp.int32))
+        tlogits, tcache = ttr.prefill(model, tokens)
+        steps = _tokens(seed=5, t=2)
+        for i in range(3):
+            np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                                       atol=1e-4, rtol=1e-4)
+            if i == 2:
+                break
+            step = steps[:, i:i + 1]
+            jlogits, jcache = jdecode(variables, jcache,
+                                      jnp.asarray(step, jnp.int32))
+            tlogits, tcache = ttr.decode_step(model, tcache, step)
+        return
+    jtokens = jnp.asarray(tokens, jnp.int32)
+    jlogits = np.asarray(jax.jit(lambda p: jtr.TransformerLM(jcfg).apply(
+        {"params": p}, jtokens))(params))
+    tlogits = model(torch.from_numpy(tokens), train=True)
+    scale = np.abs(jlogits).max()
+    np.testing.assert_allclose(tlogits.detach().numpy(), jlogits,
+                               atol=1e-4 * scale, rtol=0)
+    tlogits.float().square().mean().backward()
+    jgrads = convert.params_from_flax(jax.jit(
+        lambda p: _square_loss_grads_flax(jcfg, p, jtokens))(params), tcfg)
+    for name, p in model.named_parameters():
+        ref = jgrads[name]
+        torch.testing.assert_close(
+            p.grad, ref, atol=1e-5 * ref.abs().max().item() + 1e-12,
+            rtol=0, msg=name)
 
 
 def test_remat_gives_the_same_gradients():
