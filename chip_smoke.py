@@ -274,6 +274,33 @@ Phases, each printed as one JSON object on its own line:
    ``PARALLEL_LOSS_TOL`` of (c)'s.  The kernels line's
    ``parallel_launches`` are leg (a)'s.
 
+16. fit: the fit loop and its state on gpt_small as the train phase
+   trains it (flash, B=8, T=2048, bf16, the bf16 wire, AdamW(3e-4, wd
+   1e-4)) over a one-rank NCCL group, one line a leg.  (a)
+   ``Trainer.fit`` over 64 synthetic int32 token rows through
+   ``ShardedBatchLoader`` with ``AsyncDataLoaderMixin`` and
+   ``prefetch_to_device(size=2)``, 2 epochs of 4 steps, with
+   ``LearningRateScheduleCallback(multiplier=0.5, start_epoch=1)``,
+   ``MetricAverageCallback``, ``BestModelCheckpoint`` (timed saves) and a
+   recorder: losses finite and falling, the reference's callback events,
+   lr 3e-4 then 1.5e-4, 12 launches of each kernel a step; ms a step
+   against a plain ``Trainer.step`` loop over the same batches on the
+   card, the step's wait for its batch.  (d) Two more steps inside
+   ``start_profiler``/``stop_profiler``, each in
+   ``profiler_annotation("fit_step")``: the trace must hold the
+   annotations and CUDA kernel events of each flash kernel; its
+   host-to-device copies' device ms.  (b) A fresh model and optimizer
+   restored from the epoch-0 checkpoint (2.29 GB) re-run epoch 1: losses
+   and parameters bitwise the unbroken run's; save, restore and digest
+   ms against the host link.  (c) The same with ``optimizer_in_ring``,
+   through ``save_ring_checkpoint`` and ``restore_ring_checkpoint``.
+   (e) ResNet-50, fp32, B=128, ``axis_name="dp"`` beside ``None`` from
+   the same weights and batch: logits (1e-4), losses, statistics (1e-5)
+   and parameters after each of two SGD(0.1, 0.9) steps (the larger of
+   1e-5 and the plain leg's distance to itself on images moved by one
+   ulp), and both step times.  The kernels line's ``fit_launches`` are
+   leg (a)'s.
+
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -294,6 +321,7 @@ import json
 import math
 import os
 import random
+import shutil
 import socket
 import statistics
 import subprocess
@@ -4589,6 +4617,562 @@ def phase_parallel(train: dict | None = None) -> dict:
     return {"seconds": seconds, "launches": legs["ulysses"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The fit phase: Trainer.fit with its callbacks, the loader's card
+# pipeline, checkpoints and ring checkpoints, the profiler hooks, and
+# cross-replica BatchNorm
+# ---------------------------------------------------------------------------
+FIT_ROWS, FIT_BATCH, FIT_SEQ, FIT_VOCAB = 64, 8, 2048, 50304
+FIT_EPOCHS, FIT_STEPS = 2, 4                 # epochs, steps an epoch
+FIT_LR, FIT_WD = 3e-4, 1e-4
+FIT_PROFILED_STEPS = 2
+FIT_BN_BATCH, FIT_BN_STEPS = 128, 2
+HOST_LINK_BYTES_PER_S = 64e9                 # PCIe 5.0 x16, one direction
+
+
+def _fit_events(epochs: int, steps: int) -> list:
+    """The callback events of the reference's ``Trainer.fit``
+    (``horovod_tpu/training.py:443-512``) for one callback that has
+    ``set_state``."""
+    events = [("set_trainer",), ("set_state",), ("train_begin",)]
+    for epoch in range(epochs):
+        events.append(("epoch_begin", epoch))
+        for i in range(steps):
+            events += [("batch_begin", i), ("batch_end", i)]
+        events += [("set_state",), ("epoch_end", epoch)]
+    return events + [("train_end",)]
+
+
+def _fit_recorder(trainer_opt=None):
+    """A callback recording the events, the optimizer's lr and the loss
+    tensor at each batch, and the host clock at each batch's start and
+    at each epoch's end (after the fit loop's one read of the epoch's
+    sums, before any later callback's work)."""
+    from horovod_tpu_torch.callbacks import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.events, self.lrs, self.losses = [], [], []
+            self.t_begin, self.t_end = {}, {}
+
+        def set_trainer(self, trainer):
+            super().set_trainer(trainer)
+            self.events.append(("set_trainer",))
+
+        def set_state(self, state):
+            self.state = state
+            self.events.append(("set_state",))
+
+        def on_train_begin(self, logs=None):
+            self.events.append(("train_begin",))
+
+        def on_train_end(self, logs=None):
+            self.events.append(("train_end",))
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch = epoch
+            self.events.append(("epoch_begin", epoch))
+
+        def on_batch_begin(self, batch, logs=None):
+            if batch == 0:
+                self.t_begin[self.epoch] = time.perf_counter()
+            opt = self.state.optimizer
+            self.lrs.append(opt.param_groups[0]["lr"])
+            self.events.append(("batch_begin", batch))
+
+        def on_batch_end(self, batch, logs=None):
+            self.losses.append(logs["loss"])
+            self.events.append(("batch_end", batch))
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.t_end[epoch] = time.perf_counter()
+            self.events.append(("epoch_end", epoch))
+
+        def step_ms(self, epoch):
+            return (self.t_end[epoch] - self.t_begin[epoch]) * 1e3 \
+                / FIT_STEPS
+
+        def loss_values(self):
+            return [x.item() for x in self.losses]
+    return Recorder()
+
+
+class _WaitTimer:
+    """The time the fit loop waits in ``next()`` for each batch of the
+    pipeline it wraps (host clock)."""
+
+    def __init__(self, it):
+        self.it, self.waits = iter(it), []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.it)
+        self.waits.append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+
+def _fit_dataset() -> dict:
+    import numpy as np
+    tokens = np.random.default_rng(7).integers(
+        0, FIT_VOCAB, (FIT_ROWS, FIT_SEQ + 1), dtype=np.int32)
+    return {"input": np.ascontiguousarray(tokens[:, :-1]),
+            "label": np.ascontiguousarray(tokens[:, 1:])}
+
+
+def _fit_pipeline(waits: list):
+    """``data(epoch)`` for ``fit``: the loader (shuffled, seed 0) through
+    its producer thread and ``prefetch_to_device(size=2)``; each epoch's
+    waits are appended to ``waits``."""
+    from horovod_tpu_torch.data import (AsyncDataLoaderMixin,
+                                        ShardedBatchLoader,
+                                        prefetch_to_device)
+
+    class Loader(AsyncDataLoaderMixin, ShardedBatchLoader):
+        pass
+    loader = Loader(_fit_dataset(), batch_size=FIT_BATCH, seed=0,
+                    async_loader_queue_size=4)
+
+    def data(epoch):
+        loader.set_epoch(epoch)
+        timer = _WaitTimer(prefetch_to_device(loader, size=2))
+        waits.append(timer.waits)
+        return timer
+    return data, loader
+
+
+def _gpt_trainer(seed: int, ring: bool = False):
+    from horovod_tpu_torch import (GradSyncConfig, Trainer, TransformerLM,
+                                   build_mesh, gpt_small)
+    cfg = gpt_small(attention="flash", max_seq_len=FIT_SEQ)
+    model = TransformerLM(cfg, seed=seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=FIT_LR,
+                            weight_decay=FIT_WD)
+    trainer = Trainer(model, opt, build_mesh(dp=1),
+                      sync=GradSyncConfig(op="average", compression="bf16",
+                                          optimizer_in_ring=ring))
+    return trainer, trainer.init()
+
+
+def _params_equal(model, ref: list) -> bool:
+    return all(torch.equal(p.detach(), r)
+               for p, r in zip(model.parameters(), ref))
+
+
+def _fit_main(tmp: str, problems: list[str]) -> dict:
+    """Legs (a), (d) and the plain loop, then (b) on the same batches."""
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.callbacks import (BestModelCheckpoint,
+                                             LearningRateScheduleCallback,
+                                             MetricAverageCallback)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.statesync import state_digest
+
+    trainer, state = _gpt_trainer(seed=0)
+    waits: list = []
+    data, loader = _fit_pipeline(waits)
+    rec = _fit_recorder()
+    saves = []
+
+    def timed_save(path, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(path, st)
+        saves.append({"path": path, "ms": (time.perf_counter() - t0) * 1e3})
+    callbacks = [LearningRateScheduleCallback(trainer.optimizer,
+                                              multiplier=0.5, start_epoch=1),
+                 rec, MetricAverageCallback(),
+                 BestModelCheckpoint(os.path.join(tmp, "best-{epoch}"),
+                                     save_fn=timed_save)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()                      # the main path starts
+    t0 = time.perf_counter()
+    state, history = trainer.fit(state, data, epochs=FIT_EPOCHS,
+                                 callbacks=callbacks,
+                                 steps_per_epoch=FIT_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = fa.launch_counts()                 # ... and ends
+    steps = FIT_EPOCHS * FIT_STEPS
+    losses = rec.loss_values()
+    final = [p.detach().clone() for p in trainer.model.parameters()]
+    n_params = sum(p.numel() for p in final)
+    a = {"phase": "fit", "leg": "a-fit", "model": "gpt_small",
+         "params": n_params, "batch": FIT_BATCH, "seq": FIT_SEQ,
+         "dtype": "bfloat16", "wire": "bf16", "rows": FIT_ROWS,
+         "epochs": FIT_EPOCHS, "steps_per_epoch": FIT_STEPS,
+         "losses": losses, "history": history, "lrs": rec.lrs,
+         "fit_s": fit_s,
+         "epoch_step_ms": [rec.step_ms(e) for e in range(FIT_EPOCHS)],
+         "fit_step_ms": rec.step_ms(FIT_EPOCHS - 1),
+         "batch_wait_ms": waits,
+         "batch_wait_ms_mean": statistics.mean(waits[-1]),
+         "checkpoint_saves": saves,
+         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+         "launches": launches,
+         "launches_per_step": {n: c / steps for n, c in launches.items()}}
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("fit (a): a loss is not finite")
+    if not losses[-1] < losses[0]:
+        problems.append("fit (a): the loss did not fall")
+    if rec.events != _fit_events(FIT_EPOCHS, FIT_STEPS):
+        problems.append(f"fit (a): callback events {rec.events}")
+    want_lrs = [FIT_LR] * FIT_STEPS + [FIT_LR * 0.5] * FIT_STEPS
+    if rec.lrs != want_lrs:
+        problems.append(f"fit (a): lrs {rec.lrs}, not {want_lrs}")
+    for name, count in launches.items():
+        if count != 12 * steps:
+            problems.append(f"fit (a): {name} launched {count} times, not "
+                            f"12 a step")
+    if [os.path.basename(s["path"]) for s in saves] \
+            != [f"best-{e}" for e in range(FIT_EPOCHS)]:
+        problems.append(f"fit (a): BestModelCheckpoint saved {saves}")
+
+    # The plain loop: Trainer.step over epoch 1's batches, already on
+    # the card.
+    loader.set_epoch(FIT_EPOCHS - 1)
+    on_card = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b, _ in zip(loader, range(FIT_STEPS))]
+    trainer.step(state, on_card[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in on_card:
+        state, _ = trainer.step(state, b)
+    torch.cuda.synchronize()
+    a["plain_step_ms"] = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+    a["fit_over_plain"] = a["fit_step_ms"] / a["plain_step_ms"]
+    emit(a)
+
+    d = _fit_profile(trainer, state, data, a, problems)
+    del trainer, state, on_card, callbacks, rec
+    torch.cuda.empty_cache()
+
+    # (b): a fresh model and optimizer, the epoch-0 checkpoint restored
+    # into them, epoch 1 run again.
+    best0 = os.path.join(tmp, "best-0")
+    trainer, state = _gpt_trainer(seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore_checkpoint(best0, target=state)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    image_path = os.path.join(best0, checkpoint.IMAGE)
+    nbytes = os.path.getsize(image_path)
+    image = bytearray(nbytes)
+    with open(image_path, "rb") as f:
+        f.readinto(image)
+    t0 = time.perf_counter()
+    state_digest(image)
+    digest_ms = (time.perf_counter() - t0) * 1e3
+    del image
+    rec_b = _fit_recorder()
+    fa.reset_launch_counts()
+    trainer.fit(state, lambda e: data(FIT_EPOCHS - 1), epochs=1,
+                callbacks=[LearningRateScheduleCallback(
+                    trainer.optimizer, multiplier=0.5), rec_b],
+                steps_per_epoch=FIT_STEPS)
+    torch.cuda.synchronize()
+    b_launches = fa.launch_counts()
+    unbroken = losses[FIT_STEPS:]
+    resumed = rec_b.loss_values()
+    save_ms = saves[0]["ms"]
+    b = {"phase": "fit", "leg": "b-resume", "bytes": nbytes,
+         "save_ms": save_ms, "restore_ms": restore_ms,
+         "digest_ms": digest_ms,
+         "save_gb_per_s": nbytes / save_ms / 1e6,
+         "restore_gb_per_s": nbytes / restore_ms / 1e6,
+         "host_link_bound_ms": nbytes / HOST_LINK_BYTES_PER_S * 1e3,
+         "step": state.step, "losses": resumed, "unbroken_losses": unbroken,
+         "losses_bitwise": resumed == unbroken,
+         "params_bitwise": _params_equal(trainer.model, final),
+         "lrs": rec_b.lrs, "launches": b_launches}
+    emit(b)
+    if not (b["losses_bitwise"] and b["params_bitwise"]):
+        problems.append("fit (b): the resumed epoch is not the unbroken "
+                        "run's, bitwise")
+    if any(c != 12 * FIT_STEPS for c in b_launches.values()):
+        problems.append(f"fit (b): launches {b_launches}")
+    del trainer, state, final
+    torch.cuda.empty_cache()
+    return {"a": a, "b": b, "d": d}
+
+
+def _fit_profile(trainer, state, data, a: dict, problems: list[str]) -> dict:
+    """Leg (d): two more steps of (a) through ``fit`` inside
+    ``start_profiler``/``stop_profiler``, each step inside
+    ``profiler_annotation("fit_step")`` (entered at the batch's start,
+    left at its end, by a callback)."""
+    import glob
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.callbacks import Callback
+
+    class Annotate(Callback):
+        def __init__(self):
+            self.ends = []
+
+        def on_batch_begin(self, batch, logs=None):
+            self.ctx = hvd.profiler_annotation("fit_step")
+            self.ctx.__enter__()
+
+        def on_batch_end(self, batch, logs=None):
+            self.ctx.__exit__(None, None, None)
+            torch.cuda.synchronize()       # each step's own time
+            self.ends.append(time.perf_counter())
+
+    logdir = tempfile.mkdtemp(prefix="fit_trace")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    annotate = Annotate()
+    hvd.start_profiler(logdir)
+    trainer.fit(state, lambda e: data(FIT_EPOCHS), epochs=1,
+                callbacks=[annotate], steps_per_epoch=FIT_PROFILED_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / FIT_PROFILED_STEPS
+    t1 = time.perf_counter()
+    hvd.stop_profiler()
+    stop_s = time.perf_counter() - t1
+    traces = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    ends = [t0] + annotate.ends
+    d = {"phase": "fit", "leg": "d-profiler", "traces": len(traces),
+         "profiled_step_ms": step_ms,
+         "profiled_step_ms_each": [(b - a) * 1e3
+                                   for a, b in zip(ends, ends[1:])],
+         "stop_and_write_s": stop_s,
+         "profiler_cost": step_ms / a["fit_step_ms"] - 1}
+    if len(traces) != 1:
+        problems.append(f"fit (d): {len(traces)} trace files")
+        emit(d)
+        return d
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    d["trace_bytes"] = os.path.getsize(traces[0])
+    d["annotations"] = sum(1 for e in events if e.get("name") == "fit_step"
+                           and e.get("ph") == "X")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    d["cuda_kernel_events"] = len(kernels)
+    d["flash_kernel_events"] = {
+        n: sum(1 for e in kernels if n + "_kernel" in e.get("name", ""))
+        for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    d["h2d_copies"] = len(h2d)
+    d["h2d_device_ms_per_step"] = sum(e.get("dur", 0) for e in h2d) / 1e3 \
+        / FIT_PROFILED_STEPS
+    d["h2d_bytes"] = sum(e.get("args", {}).get("bytes", 0) for e in h2d)
+    emit(d)
+    shutil.rmtree(logdir, ignore_errors=True)
+    if d["annotations"] < FIT_PROFILED_STEPS:
+        problems.append(f"fit (d): {d['annotations']} fit_step annotations")
+    if not kernels or not all(d["flash_kernel_events"].values()):
+        problems.append(f"fit (d): the trace holds no CUDA kernel of some "
+                        f"flash kernel ({d['flash_kernel_events']})")
+    return d
+
+
+def _fit_ring(tmp: str, problems: list[str]) -> dict:
+    """Leg (c): (b) with the optimizer in the ring at a world of one,
+    through save_ring_checkpoint and restore_ring_checkpoint."""
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.callbacks import (Callback,
+                                             LearningRateScheduleCallback)
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    ck, ring_dir = os.path.join(tmp, "ring-ck"), os.path.join(tmp, "ring")
+    timing = {}
+
+    class SaveAfterEpoch0(Callback):
+        def set_state(self, state):
+            self.state = state
+
+        def on_epoch_end(self, epoch, logs=None):
+            if epoch:
+                return
+            st = self.state
+            n = sum(p.numel() for p in st.model.parameters())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save_checkpoint(ck, st)
+            t1 = time.perf_counter()
+            checkpoint.save_ring_checkpoint(ring_dir, st.optimizer, rank=0,
+                                            world=1, n_params=n,
+                                            step=st.step)
+            timing.update(save_ms=(t1 - t0) * 1e3,
+                          ring_save_ms=(time.perf_counter() - t1) * 1e3)
+
+    waits: list = []
+    data, _ = _fit_pipeline(waits)
+    trainer, state = _gpt_trainer(seed=0, ring=True)
+    rec = _fit_recorder()
+    state, _ = trainer.fit(state, data, epochs=FIT_EPOCHS, callbacks=[
+        LearningRateScheduleCallback(trainer.optimizer, multiplier=0.5,
+                                     start_epoch=1), rec, SaveAfterEpoch0()],
+        steps_per_epoch=FIT_STEPS)
+    torch.cuda.synchronize()
+    losses = rec.loss_values()
+    final = [p.detach().clone() for p in trainer.model.parameters()]
+    ring_lrs = rec.lrs
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    trainer, state = _gpt_trainer(seed=1, ring=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore_checkpoint(ck, target=state)
+    t1 = time.perf_counter()
+    _, step = checkpoint.restore_ring_checkpoint(ring_dir, state.optimizer,
+                                                 rank=0, world=1)
+    torch.cuda.synchronize()
+    timing.update(restore_ms=(t1 - t0) * 1e3,
+                  ring_restore_ms=(time.perf_counter() - t1) * 1e3)
+    rec_c = _fit_recorder()
+    fa.reset_launch_counts()
+    trainer.fit(state, lambda e: data(FIT_EPOCHS - 1), epochs=1,
+                callbacks=[LearningRateScheduleCallback(
+                    trainer.optimizer, multiplier=0.5), rec_c],
+                steps_per_epoch=FIT_STEPS)
+    torch.cuda.synchronize()
+    resumed = rec_c.loss_values()
+    c = {"phase": "fit", "leg": "c-ring-resume",
+         "bytes": os.path.getsize(os.path.join(ck, checkpoint.IMAGE)),
+         "ring_bytes": os.path.getsize(os.path.join(ring_dir,
+                                                    "ring-0-of-1.state")),
+         **timing, "ring_step": step, "losses": resumed,
+         "unbroken_losses": losses[FIT_STEPS:],
+         "losses_bitwise": resumed == losses[FIT_STEPS:],
+         "params_bitwise": _params_equal(trainer.model, final),
+         "lrs": ring_lrs, "resumed_lrs": rec_c.lrs,
+         "launches": fa.launch_counts()}
+    emit(c)
+    if not (c["losses_bitwise"] and c["params_bitwise"]):
+        problems.append("fit (c): the ring's resumed epoch is not the "
+                        "unbroken run's, bitwise")
+    if ring_lrs[-1] != FIT_LR * 0.5 or rec_c.lrs[-1] != FIT_LR * 0.5:
+        problems.append(f"fit (c): lrs {ring_lrs} / {rec_c.lrs}")
+    if any(n != 12 * FIT_STEPS for n in c["launches"].values()):
+        problems.append(f"fit (c): launches {c['launches']}")
+    del trainer, state, final
+    torch.cuda.empty_cache()
+    return c
+
+
+def _fit_bn_leg(axis_name, batch: dict, state0: dict) -> dict:
+    from horovod_tpu_torch import ResNet50, Trainer, build_mesh
+    from horovod_tpu_torch.parallel.mesh import manual_region
+    model = ResNet50(dtype=torch.float32, axis_name=axis_name, seed=0)
+    model.load_state_dict(state0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    trainer = Trainer(model, opt, build_mesh(dp=1))
+    state = trainer.init()
+    with torch.no_grad(), manual_region(trainer.mesh):
+        logits = model(batch["image"], train=True)
+    model.load_state_dict(state0)             # the forward moved the stats
+    losses, step_ms, params = [], [], []
+    for _ in range(FIT_BN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        params.append({k: v.detach().cpu()
+                       for k, v in model.named_parameters()})
+    out = {"logits": logits, "losses": losses, "step_ms": step_ms,
+           "params": params,
+           "stats": {k: v.cpu() for k, v in model.named_buffers()}}
+    del trainer, state, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fit_cross_replica_bn(problems: list[str]) -> dict:
+    """Leg (e): ResNet-50, fp32, B=128, ``axis_name="dp"`` beside
+    ``axis_name=None`` on a one-rank NCCL mesh, from the same weights and
+    batch: logits of a train-mode forward, then two SGD(0.1, 0.9) steps
+    (the first also warms up), their losses and times, the parameters
+    after each and the statistics after both.  At one rank the axis has
+    one member: no all-reduce runs, as XLA drops a one-member psum.
+
+    The parameters are held after each step to the larger of the cnn
+    phase's 1e-5 and the plain leg's own sensitivity to its input, the
+    distance to the plain leg run on images moved by one ulp
+    (``x·(1 + 2^-23)``): two fp32 BatchNorms that are not bitwise one
+    cannot be closer than that."""
+    from horovod_tpu_torch import ResNet50, synthetic_image_batch
+    state0 = {k: v.clone() for k, v in
+              ResNet50(dtype=torch.float32, seed=0).state_dict().items()}
+    batch = synthetic_image_batch(FIT_BN_BATCH, 224, seed=3)
+    plain = _fit_bn_leg(None, batch, state0)
+    cross = _fit_bn_leg("dp", batch, state0)
+    moved = _fit_bn_leg(None, {"image": batch["image"] * (1 + 2.0 ** -23),
+                               "label": batch["label"]}, state0)
+    e = {"phase": "fit", "leg": "e-cross-replica-bn", "model": "ResNet50",
+         "dtype": "float32", "batch": FIT_BN_BATCH, "image_size": 224,
+         "steps": FIT_BN_STEPS,
+         "logits_rel_err": _rel_err(cross["logits"], plain["logits"]),
+         "loss_rel_err": max(abs(x - y) / abs(y) for x, y in
+                             zip(cross["losses"], plain["losses"])),
+         "stats_max_abs_err": _max_err(cross["stats"], plain["stats"]),
+         "params_max_abs_err": [_max_err(c, p) for c, p in
+                                zip(cross["params"], plain["params"])],
+         "params_one_ulp_sensitivity": [_max_err(m, p) for m, p in
+                                        zip(moved["params"],
+                                            plain["params"])],
+         "losses": cross["losses"], "plain_losses": plain["losses"],
+         "step_ms": cross["step_ms"], "plain_step_ms": plain["step_ms"],
+         "timed_step_ms": cross["step_ms"][-1],
+         "plain_timed_step_ms": plain["step_ms"][-1]}
+    emit(e)
+    bounds = {"logits_rel_err": CNN_LOGITS_REL,
+              "loss_rel_err": CNN_LOGITS_REL,
+              "stats_max_abs_err": CNN_STATS_TOL}
+    problems += [f"fit (e): {k} {e[k]} over {bound}"
+                 for k, bound in bounds.items() if not e[k] <= bound]
+    for step, (err, floor) in enumerate(zip(
+            e["params_max_abs_err"], e["params_one_ulp_sensitivity"])):
+        if not err <= max(CNN_PARAMS_TOL, floor):
+            problems.append(f"fit (e): parameters after step {step + 1} "
+                            f"{err} apart, over {CNN_PARAMS_TOL} and the "
+                            f"one-ulp sensitivity {floor}")
+    return e
+
+
+def phase_fit() -> dict:
+    """The fit loop and its state on the card (see the module's
+    docstring)."""
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    tmp = tempfile.mkdtemp(prefix="fit")
+    try:
+        with _one_rank_nccl():
+            main = _fit_main(tmp, problems)
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp, exist_ok=True)
+            ring = _fit_ring(tmp, problems)
+            bn = _fit_cross_replica_bn(problems)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b, d = main["a"], main["b"], main["d"]
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "fit", "leg": "summary", "seconds": seconds,
+          "fit_step_ms": a["fit_step_ms"], "plain_step_ms": a["plain_step_ms"],
+          "batch_wait_ms_mean": a["batch_wait_ms_mean"],
+          "h2d_device_ms_per_step": d.get("h2d_device_ms_per_step"),
+          "save_ms": b["save_ms"], "restore_ms": b["restore_ms"],
+          "digest_ms": b["digest_ms"], "checkpoint_bytes": b["bytes"],
+          "ring_save_ms": ring.get("ring_save_ms"),
+          "ring_restore_ms": ring.get("ring_restore_ms"),
+          "profiled_step_ms": d["profiled_step_ms"],
+          "bn_cross_step_ms": bn["timed_step_ms"],
+          "bn_plain_step_ms": bn["plain_timed_step_ms"],
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": a["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -4619,7 +5203,7 @@ def main() -> int:
                   "eager": phase_eager, "binding": phase_binding,
                   "reduce": phase_reduce, "runtime": phase_runtime,
                   "resilience": phase_resilience, "elastic": phase_elastic,
-                  "parallel": phase_parallel}
+                  "parallel": phase_parallel, "fit": phase_fit}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -4636,6 +5220,7 @@ def main() -> int:
     phase_resilience()
     elastic = phase_elastic(binding)
     parallel = phase_parallel(train)
+    fit = phase_fit()
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -4645,6 +5230,7 @@ def main() -> int:
          "runtime_launches": runtime["launches"][name],
          "elastic_launches": elastic["launches"][name],
          "parallel_launches": parallel["launches"][name],
+         "fit_launches": fit["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

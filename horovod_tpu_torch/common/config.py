@@ -54,6 +54,10 @@ STREAMING_CE_MIN_ELEMENTS = Knob(
     "vocab axis; unset (None) derives the threshold from device memory "
     "(memory/16), 0 forces streaming everywhere (training.py).")
 
+FLEET = Knob(
+    "HOROVOD_FLEET", False, _parse_bool,
+    "The unified train+serve fleet controller; Trainer.fit raises on it "
+    "(the fleet runtime is ROADMAP queue A item 12).")
 
 # --- Inference serving (serving/; the reference's docs/serving.md) ----------
 SERVE_MAX_BATCH = Knob(

@@ -27,6 +27,7 @@ with ``hvd.run(fn, np=2)`` (``runner/run_api.py``); each rank then calls
 """
 from __future__ import annotations
 
+import contextlib
 import pickle
 from typing import Any, Sequence
 
@@ -52,7 +53,7 @@ __all__ = [
     "broadcast_async", "alltoall", "alltoall_async", "reducescatter",
     "reducescatter_async", "synchronize", "poll", "barrier", "join",
     "broadcast_object", "allgather_object", "run", "run_with_recovery",
-    "tcp_built",
+    "start_profiler", "stop_profiler", "profiler_annotation", "tcp_built",
     "gloo_built", "nccl_built", "mpi_built", "mpi_enabled",
     "mpi_threads_supported", "xla_built"]
 
@@ -332,6 +333,55 @@ def broadcast_object(obj: Any, root_rank: int = 0,
     payload = broadcast(payload, root_rank, name=f"{name}.data")
     return pickle.loads(payload.numpy().tobytes()) \
         if rank() != root_rank else obj
+
+
+# The trace started by start_profiler, until stop_profiler writes it.
+_profiler = None
+
+
+def start_profiler(logdir: str) -> None:
+    """Start a trace of the host and the card (reference analogue: the
+    Horovod Timeline and NVTX ranges): ``torch.profiler`` with CPU and,
+    where there is a card, CUDA activity; ``stop_profiler`` writes it
+    into ``logdir`` as TensorBoard's trace plugin reads it
+    (``tensorboard_trace_handler``).  One trace at a time."""
+    global _profiler
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    if _profiler is not None:
+        raise RuntimeError("a profile is already being taken; "
+                           "stop_profiler() it first")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(logdir))
+    prof.start()
+    _profiler = prof
+
+
+def stop_profiler() -> None:
+    """Stop the trace of ``start_profiler`` and write it."""
+    global _profiler
+    if _profiler is None:
+        raise RuntimeError("no profile started")
+    prof, _profiler = _profiler, None
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+
+
+@contextlib.contextmanager
+def profiler_annotation(name: str):
+    """Label a region in traces (reference: common/nvtx_op_range.h): a
+    ``torch.profiler.record_function`` range and, where there is a card,
+    an NVTX range of the same name."""
+    with torch.profiler.record_function(name):
+        if torch.cuda.is_available():
+            with torch.cuda.nvtx.range(name):
+                yield
+        else:
+            yield
 
 
 def allgather_object(obj: Any, name: str | None = None) -> list:

@@ -20,7 +20,13 @@ Each keeps flax's semantics where torch.nn's differ:
   mode it uses the running statistics.  It normalises in fp32 and casts
   the result to ``dtype``.  ``F.batch_norm`` does the normalisation (its
   variance is the same biased one, summed in another order than flax's
-  ``E[x²] - E[x]²``); the running update is done here;
+  ``E[x²] - E[x]²``); the running update is done here.  With an
+  ``axis_name`` (cross-replica BatchNorm) the train-mode statistics are
+  those of the batch of every rank of that mesh axis' group, in fp32,
+  from one all-reduce a layer, and the backward reduces over the group
+  too (``_CrossReplicaNorm``).  The axis is bound inside the Trainer's
+  manual step (``parallel.mesh.manual_region``); elsewhere a train-mode
+  call raises, as an unbound axis name does in JAX;
 - ``max_pool`` pads with -inf; ``avg_pool`` divides by the whole window,
   padding included (flax's ``count_include_pad=True``).
 
@@ -39,6 +45,8 @@ from typing import Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import allreduce
 
 # flax's truncated normal draws N(0, 1) cut to [-2, 2], rescaled by this
 # constant so that the truncated distribution has unit variance.
@@ -161,10 +169,6 @@ class BatchNorm(nn.Module):
                  scale_init: str = "ones", axis_name: str | None = None,
                  device: torch.device | None = None) -> None:
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "cross-replica BatchNorm (axis_name) is ROADMAP queue A "
-                "item 9 (the torch binding's sync_batch_norm)")
         if scale_init not in ("ones", "zeros"):
             raise ValueError(f"unknown scale_init {scale_init!r}")
         kw = dict(device=device, dtype=param_dtype)
@@ -173,7 +177,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.empty(features, device=device))
         self.register_buffer("var", torch.empty(features, device=device))
         self.momentum, self.epsilon, self.dtype = momentum, epsilon, dtype
-        self.scale_init = scale_init
+        self.scale_init, self.axis_name = scale_init, axis_name
         self.reset_parameters()
 
     def reset_parameters(self) -> None:
@@ -192,6 +196,8 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(inp, self.mean, self.var, self.scale, self.bias,
                              False, 0.0, self.epsilon)
             return y.to(self.dtype)
+        if self.axis_name is not None:
+            return self._cross_replica(x)
         # Momentum 1 writes the batch mean and the unbiased batch variance
         # into fresh buffers; flax's running update takes the biased one.
         batch_mean = torch.zeros_like(self.mean)
@@ -204,6 +210,81 @@ class BatchNorm(nn.Module):
             self.mean.mul_(m).add_(batch_mean, alpha=1 - m)
             self.var.mul_(m).add_(batch_var, alpha=(1 - m) * (n - 1) / n)
         return y.to(self.dtype)
+
+    def _axis_group(self):
+        """The group the statistics are averaged over, or None where the
+        axis has one rank (nothing to average)."""
+        from ..parallel.mesh import axis_size, current_manual_mesh
+        mesh = current_manual_mesh()
+        if mesh is None or self.axis_name not in mesh.shape:
+            raise NameError(f"unbound axis name: {self.axis_name}")
+        if axis_size(mesh, self.axis_name) == 1:
+            return None
+        return [mesh.axis_group(self.axis_name)]
+
+    def _cross_replica(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode with ``axis_name``: flax's statistics averaged over
+        the axis, its normalisation, and the running update."""
+        y, mean, var = _CrossReplicaNorm.apply(x, self.scale, self.bias,
+                                               self.epsilon,
+                                               self._axis_group())
+        m = self.momentum
+        with torch.no_grad():
+            self.mean.mul_(m).add_(mean, alpha=1 - m)
+            self.var.mul_(m).add_(var, alpha=1 - m)
+        return y.to(self.dtype)
+
+
+class _CrossReplicaNorm(torch.autograd.Function):
+    """flax's cross-replica BatchNorm over NCHW channels, in fp32: the
+    mean and the biased variance of the batch of every rank of ``group``
+    (None: this rank's alone), from one all-reduce of each rank's mean,
+    centred second moment and squared mean (Chan's parallel formula,
+    ranks of equal counts).  flax takes ``E[x²] - E[x]²``, the same
+    values, which in fp32 lose digits where a channel's mean is large
+    against its spread.  The backward is the derivative of the sum of
+    every rank's loss (the transpose of the reference's ``pmean``) in its
+    closed form, ``dx = scale·invstd·(dy - E[dy] - x̂·E[dy·x̂])`` with both
+    means over the group; ``scale`` and ``bias`` get this rank's sums, as
+    each rank's own loss gives them."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, group):
+        xf = x.float()
+        dims = (0, 2, 3)
+        local = xf.mean(dims)
+        centred = xf - local[:, None, None]
+        stats = torch.stack([local, (centred * centred).mean(dims),
+                             local * local])
+        del centred
+        if group is not None:
+            stats = allreduce(stats, "average", group)
+        mean = stats[0]
+        var = torch.clamp(stats[1] + (stats[2] - mean * mean), min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean[:, None, None]) * (invstd * scale)[:, None, None] \
+            + bias[:, None, None]
+        ctx.save_for_backward(x, scale, mean, invstd)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, scale, mean, invstd = ctx.saved_tensors
+        dims = (0, 2, 3)
+        dy = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        sum_dy, sum_dy_xhat = dy.sum(dims), (dy * xhat).sum(dims)
+        means = torch.stack([sum_dy, sum_dy_xhat]) / (dy.numel()
+                                                       // dy.shape[1])
+        if ctx.group is not None:
+            means = allreduce(means, "average", ctx.group)
+        dx = (dy - means[0][:, None, None]
+              - xhat * means[1][:, None, None]) \
+            * (scale * invstd)[:, None, None]
+        return (dx.to(x.dtype), sum_dy_xhat.to(scale.dtype),
+                sum_dy.to(scale.dtype), None, None)
 
 
 def max_pool(x: torch.Tensor, window: tuple[int, int],

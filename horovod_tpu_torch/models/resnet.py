@@ -18,8 +18,9 @@ Same presets, blocks, stems and rounding points as the flax model:
 Submodules carry flax's names (``conv_init``, ``bn_init``,
 ``BottleneckBlock_0`` ... with ``Conv_0..2``, ``BatchNorm_0..2``,
 ``conv_proj``, ``norm_proj``, and ``head``), so ``convert.py`` maps the
-two trees by path.  Cross-replica BatchNorm (``axis_name``) raises
-``NotImplementedError``.
+two trees by path.  With ``axis_name`` every BatchNorm is cross-replica
+over that mesh axis in train mode (``layers.BatchNorm``), and the Trainer
+leaves the statistics' average to it.
 """
 from __future__ import annotations
 
@@ -142,6 +143,7 @@ class ResNet(nn.Module):
                        param_dtype=param_dtype, axis_name=axis_name,
                        device=dev)
         self.dtype, self.act, self.stem = dtype, act, stem
+        self.axis_name = axis_name
         if stem == "space_to_depth":
             self.conv_init = conv(12, num_filters, (4, 4),
                                   padding=[(2, 1), (2, 1)])

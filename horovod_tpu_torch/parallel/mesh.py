@@ -175,9 +175,10 @@ def axis_groups(shape: dict[str, int],
 
 
 class _View(threading.local):
-    """The mesh and batch axes of the Trainer's pure-GSPMD step on this
-    thread (None outside it)."""
+    """The mesh and batch axes of the Trainer's pure-GSPMD step, and the
+    mesh of its manual step, on this thread (None outside them)."""
     batch: tuple[Mesh, tuple[str, ...]] | None = None
+    manual: Mesh | None = None
 
 
 _VIEW = _View()
@@ -204,3 +205,22 @@ def current_global_batch() -> tuple[Mesh, tuple[str, ...]] | None:
     """The mesh and batch axes of the enclosing ``global_batch``, else
     None."""
     return _VIEW.batch
+
+
+@contextlib.contextmanager
+def manual_region(mesh: Mesh):
+    """Inside, ``mesh``'s axis names are bound as in the reference's
+    manual region (its ``shard_map`` over every mesh axis): a layer
+    given an ``axis_name`` (cross-replica BatchNorm) reduces over that
+    axis' group.  The Trainer's manual step runs its forward here."""
+    prev = _VIEW.manual
+    _VIEW.manual = mesh
+    try:
+        yield
+    finally:
+        _VIEW.manual = prev
+
+
+def current_manual_mesh() -> Mesh | None:
+    """The mesh of the enclosing ``manual_region``, else None."""
+    return _VIEW.manual

@@ -14,7 +14,14 @@ reference's step body in order:
    model's buffers) averaged over the ``dp`` ranks in one all-reduce, as
    the reference averages ``batch_stats`` when BatchNorm has no
    ``axis_name``.  DDP's default, broadcasting rank 0's buffers, would be
-   another result.
+   another result.  A model with an ``axis_name`` (cross-replica
+   BatchNorm) averages its batch statistics itself, inside the forward,
+   and the step skips this average, as the reference's does.
+
+``Trainer.fit`` is the reference's epoch loop with its callback surface
+(``callbacks.py``): ``data`` is an iterable of batches, re-iterated every
+epoch, or a callable ``epoch -> iterable``; the epoch's metric sums stay
+tensors on the device and are read once, at the epoch's end.
 
 With ``GradSyncConfig(optimizer_in_ring=True)`` steps 2 and 3 are the
 reference's ring branch, ``sync_and_apply``: the gradients are
@@ -68,9 +75,8 @@ gradient itself in both.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -83,7 +89,7 @@ from .parallel.collectives import allreduce
 from .parallel.grad_sync import (GradSyncConfig, init_ring_optimizer,
                                  sync_and_apply, sync_gradients)
 from .parallel.mesh import (DEFAULT_AXES, Mesh, axis_size, data_axes,
-                            global_batch)
+                            global_batch, manual_region)
 
 
 @dataclasses.dataclass
@@ -302,14 +308,18 @@ class Trainer:
                           else self._ring)
 
     def _batch(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        return (_model_input(batch).to(self.device),
-                batch["label"].to(self.device))
+        """The inputs and labels on the mesh's device; numpy arrays (a
+        loader's batches) are taken too, as the reference's step takes
+        them."""
+        return (torch.as_tensor(_model_input(batch)).to(self.device),
+                torch.as_tensor(batch["label"]).to(self.device))
 
     def _view(self):
-        """The global view of the pure-GSPMD step, else nothing."""
+        """The global view of the pure-GSPMD step, else the manual
+        region, where the mesh's axis names are bound."""
         if self._gspmd:
             return global_batch(self.mesh, _entry_axes(self.batch_spec[0]))
-        return contextlib.nullcontext()
+        return manual_region(self.mesh)
 
     def step(self, state: TrainState, batch: dict
              ) -> tuple[TrainState, dict[str, torch.Tensor]]:
@@ -341,7 +351,8 @@ class Trainer:
             for name, g in synced.items():
                 self._params[name].grad = g
             self.optimizer.step()
-        _average_in_place(self._stats, self._metric_groups)
+        if getattr(self.model, "axis_name", None) is None:
+            _average_in_place(self._stats, self._metric_groups)
 
         metrics = {"loss": allreduce(loss.detach(), "average",
                                      self._metric_groups)}
@@ -351,6 +362,56 @@ class Trainer:
                                             self._metric_groups)
         state.step += 1
         return state, metrics
+
+    def fit(self, state: TrainState, data, epochs: int = 1,
+            callbacks: Sequence = (), steps_per_epoch: int | None = None):
+        """The epoch loop hosting the reference's callback surface
+        (reference: horovod/_keras/callbacks.py): ``data`` is an iterable
+        of batches (re-iterated every epoch) or a callable ``epoch ->
+        iterable``.  Returns ``(state, history)``, one dict of the
+        epoch's mean metrics an epoch."""
+        for cb in callbacks:
+            if hasattr(cb, "set_trainer"):
+                cb.set_trainer(self)
+            if hasattr(cb, "set_state"):
+                cb.set_state(state)
+        if config.FLEET.get():
+            raise NotImplementedError(
+                "HOROVOD_FLEET=1: the fleet runtime (one host pool "
+                "arbitrated between training and serving) is ROADMAP queue "
+                "A item 12")
+        history: list[dict] = []
+        for cb in callbacks:
+            cb.on_train_begin()
+        for epoch in range(epochs):
+            for cb in callbacks:
+                cb.on_epoch_begin(epoch)
+            batches = data(epoch) if callable(data) else data
+            sums: dict[str, torch.Tensor] = {}
+            count = 0
+            for i, batch in enumerate(batches):
+                if steps_per_epoch is not None and i >= steps_per_epoch:
+                    break
+                for cb in callbacks:
+                    cb.on_batch_begin(i)
+                state, metrics = self.step(state, batch)
+                # The metrics stay on the device through the epoch: a
+                # read here would wait for the step every step.
+                for cb in callbacks:
+                    cb.on_batch_end(i, metrics)
+                for k, v in metrics.items():
+                    sums[k] = v if k not in sums else sums[k] + v
+                count += 1
+            epoch_logs = {k: float(v) / max(count, 1)
+                          for k, v in sums.items()}
+            for cb in callbacks:
+                if hasattr(cb, "set_state"):
+                    cb.set_state(state)
+                cb.on_epoch_end(epoch, epoch_logs)
+            history.append(epoch_logs)
+        for cb in callbacks:
+            cb.on_train_end()
+        return state, history
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict

@@ -27,6 +27,7 @@ import torch
 
 from horovod_tpu.runner.network import RendezvousServer as RefServer
 from horovod_tpu_torch.runner.network import RendezvousServer
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 _WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "torch_binding_worker.py")

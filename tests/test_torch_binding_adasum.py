@@ -29,6 +29,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _WORKER = os.path.join(_HERE, "torch_binding_reduce_worker.py")
 sys.path.insert(0, _HERE)
 import torch_binding_reduce_worker as W  # noqa: E402
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 _SERVERS = {"port": RendezvousServer, "ref": RefServer}
 WORLD_TIMEOUT = 150.0

@@ -148,10 +148,36 @@ def test_batch_norm_matches_flax(train, zero_scale, epsilon):
 
 
 def test_batch_norm_cross_replica_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        layers.BatchNorm(4, axis_name="dp")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tres.ResNet18(axis_name="dp", device="cpu", num_filters=8)
+    """Cross-replica BatchNorm is ported (the name is from when
+    ``axis_name`` raised): at one rank it is flax's BatchNorm (the
+    batch's mean and biased variance); in train mode outside a manual
+    region its axis is unbound and it raises, as in JAX; in eval mode it
+    needs no axis."""
+    from horovod_tpu_torch.parallel import build_mesh
+    from horovod_tpu_torch.parallel.mesh import manual_region
+    rng = np.random.default_rng(6)
+    c = 4
+    x = (2.0 + rng.standard_normal((3, 5, 5, c))).astype(np.float32)
+    jbn = fnn.BatchNorm(use_running_average=False, momentum=0.9,
+                        epsilon=1e-5, dtype=jnp.float32)
+    variables = random_variables(jbn, x.shape, seed=2)
+    want, updated = jbn.apply(variables, jnp.asarray(x),
+                              mutable=["batch_stats"])
+    bn = layers.BatchNorm(c, momentum=0.9, epsilon=1e-5,
+                          dtype=torch.float32, axis_name="dp")
+    load(bn, variables)
+    with pytest.raises(NameError, match="unbound axis name: dp"):
+        bn(to_nchw(x), True)
+    with manual_region(build_mesh(device="cpu")):
+        got = to_nhwc(bn(to_nchw(x), True))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert_trees_close(batch_stats(bn), updated["batch_stats"],
+                       atol=STATS_ATOL)
+    assert np.isfinite(to_nhwc(bn(to_nchw(x), False))).all()
+    model = tres.ResNet18(axis_name="dp", device="cpu", num_filters=8)
+    assert model.axis_name == "dp"
+    assert {m.axis_name for m in model.modules()
+            if isinstance(m, layers.BatchNorm)} == {"dp"}
 
 
 POOL_CASES = [  # (kind, window, strides, padding)

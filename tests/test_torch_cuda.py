@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import flash_attention as fa
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -305,3 +306,44 @@ def test_quantized_allreduce_on_card_matches_cpu():
                                        residual=r.cuda())
         for a, b in zip(card, host):
             assert torch.equal(a.cpu(), b)
+
+
+def test_prefetch_to_device_on_card_yields_the_loaders_batches():
+    """The card pipeline: pinned copies on its own stream, the consumer's
+    stream waiting on them; the batches equal the loader's, on the card."""
+    import numpy as np
+    from horovod_tpu_torch.data import ShardedBatchLoader, prefetch_to_device
+    rng = np.random.default_rng(0)
+    data = {"input": rng.integers(0, 1000, (24, 64), dtype=np.int32),
+            "label": rng.integers(0, 1000, (24, 64), dtype=np.int32)}
+    want = list(ShardedBatchLoader(data, batch_size=4, seed=2))
+    got = list(prefetch_to_device(ShardedBatchLoader(data, batch_size=4,
+                                                     seed=2), size=2))
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        for k in b:
+            assert a[k].is_cuda
+            assert np.array_equal(a[k].cpu().numpy(), b[k])
+
+
+def test_cross_replica_batch_norm_on_card_matches_cpu():
+    """``BatchNorm(axis_name=...)`` at one rank on the card against the
+    CPU: outputs, gradients and running statistics."""
+    from horovod_tpu_torch.models import layers
+    from horovod_tpu_torch.parallel import build_mesh
+    from horovod_tpu_torch.parallel.mesh import manual_region
+    x = 3.0 + torch.randn(8, 16, 10, 10)
+    w = torch.randn(8, 16, 10, 10)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bn = layers.BatchNorm(16, dtype=torch.float32, axis_name="dp",
+                              device=dev)
+        xd = x.to(dev).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        with manual_region(build_mesh(device=dev)):
+            y = bn(xd, True)
+        (y * w.to(dev)).sum().backward()
+        out[dev] = [t.detach().cpu() for t in (y, xd.grad, bn.scale.grad,
+                                                bn.mean, bn.var)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5)

@@ -38,6 +38,7 @@ from horovod_tpu_torch.runner.network import RendezvousServer
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _HERE)
 import torch_device_plane_worker as W  # noqa: E402
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 WORLD_TIMEOUT = 120.0
 HALF = ("float16", "bfloat16")

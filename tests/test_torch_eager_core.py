@@ -34,6 +34,7 @@ from horovod_tpu_torch.common import stall_inspector as tstall
 from horovod_tpu_torch.common import tensor_queue as ttq
 from horovod_tpu_torch.common import timeline as ttl
 from horovod_tpu_torch.common.dtypes import DataType as TDataType
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 jquant = importlib.import_module("horovod_tpu.compress.quantize")
 JAX = dict(msg=jmsg, ctl=jctl, cache=jcache, stall=jstall, tq=jtq, tl=jtl,

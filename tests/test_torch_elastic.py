@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 PACKAGES = ("horovod_tpu", "horovod_tpu_torch")
 

@@ -23,6 +23,7 @@ from horovod_tpu_torch.common import message as port_msg
 from horovod_tpu_torch.common import tensor_queue as port_tq
 from horovod_tpu_torch.common.dtypes import DataType as PortDT
 from horovod_tpu_torch.telemetry import flight as port_flight
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 SIDES = {"port": (port_fp, port_msg, PortDT),
          "ref": (ref_fp, ref_msg, RefDT)}

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "horovod_tpu_torch"
@@ -44,7 +45,9 @@ for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
             "elastic.worker", "elastic.driver", "elastic.state",
             "elastic.sampler", "elastic.run", "elastic.launcher",
             "torch.elastic", "parallel.ring_attention", "parallel.ulysses",
-            "parallel.pipeline", "models.moe"):
+            "parallel.pipeline", "models.moe", "statesync",
+            "statesync.snapshot", "checkpoint", "spark", "spark.store",
+            "data", "data.loader", "callbacks"):
     assert "horovod_tpu_torch." + sub in new, sub
 bad = [m for m in new
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
@@ -64,11 +67,11 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 93            # every module: the eager core,
+    assert int(count) >= 101           # every module: the eager core,
     # the device plane, the torch binding, the runtime's telemetry,
     # fingerprint and autotuner, the failure half's resilience, the
-    # launcher and elastic layer, and sequence, expert and pipeline
-    # parallelism too
+    # launcher and elastic layer, sequence, expert and pipeline
+    # parallelism, and the fit loop with its state and data too
     assert bad == "BAD []", bad
 
 

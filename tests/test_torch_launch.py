@@ -31,6 +31,7 @@ from horovod_tpu.runner import launch as jlaunch
 from horovod_tpu_torch.runner import driver_service as tds
 from horovod_tpu_torch.runner import hosts as thosts
 from horovod_tpu_torch.runner import launch as tlaunch
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)

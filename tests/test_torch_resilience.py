@@ -50,6 +50,7 @@ from horovod_tpu_torch.resilience import chaos as tchaos
 from horovod_tpu_torch.resilience import context as tcontext
 from horovod_tpu_torch.resilience import heartbeat as theartbeat
 from horovod_tpu_torch.resilience import policy as tpolicy
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_resilience_worker.py"

@@ -49,6 +49,7 @@ from horovod_tpu_torch.serving import batcher as t_batcher
 from horovod_tpu_torch.serving import kvpool as t_kvpool
 from horovod_tpu_torch.serving import queue as t_queue
 from horovod_tpu_torch.telemetry import registry as t_registry
+from torch_sigterm import restore_sigterm  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_serve_worker.py"

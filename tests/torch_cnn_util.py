@@ -1,8 +1,13 @@
 """Helpers of the CNN parity tests: flax variables drawn from a numpy seed,
-the port's model loaded with them, and NHWC/NCHW carriers."""
+the port's model loaded with them, NHWC/NCHW carriers, and the gloo
+worlds of ``tests/torch_cnn_worker.py``."""
 from __future__ import annotations
 
 import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +15,9 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch import convert
+
+REPO = Path(__file__).resolve().parent.parent
+CNN_WORKER = Path(__file__).resolve().parent / "torch_cnn_worker.py"
 
 
 def random_variables(flax_model, input_shape, seed: int) -> dict:
@@ -76,3 +84,30 @@ def assert_trees_close(got: dict, want: dict, atol: float,
                                    np.asarray(w, np.float32), rtol=rtol,
                                    atol=atol,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+def run_cnn_world(tmp_path, inputs: dict, world: int) -> list:
+    """``tests/torch_cnn_worker.py`` over a gloo world of ``world`` ranks
+    (FileStore under ``tmp_path``) on ``inputs`` (the worker's
+    INPUTS.npz entries); each rank's OUT.npz, loaded."""
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    # One compute thread a rank: the worlds share the host's cores.
+    env.update(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(CNN_WORKER), str(r), str(world),
+         str(tmp_path / "store"), str(tmp_path / "inputs.npz"),
+         str(tmp_path / f"out{r}.npz")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    return [np.load(tmp_path / f"out{r}.npz") for r in range(world)]
