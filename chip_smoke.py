@@ -198,19 +198,27 @@ Phases, each printed as one JSON object on its own line:
    5 s): tokens/s, step_ms p50/p99, the exchanges' host ms a step, the
    threads alive, 32/32 served and every token within 1e-3 of the full
    forward's argmax.  (b) A kill: ``HOROVOD_CHAOS=kill`` of rank 1 at
-   step 20's completions allgather, requests in flight: rank 0's
-   ``serve_loop`` must raise ``RanksFailedError`` naming rank 1 under 2 x
-   5 s after the kill (rank 1 stamps the moment), and rank 0's flight
-   dump's last dispatch names a ``serve.*.g0`` op.  (c) A freeze of rank
-   1 for 30 s at step 10's allgather under a 2.5 s SLO: the heartbeat
-   goes on beating, so rank 0 must convert at the in-flight deadline
-   (under it plus one poll interval, and under the fault timeout), and
-   one fault window later rank 1 must still be a suspect, not confirmed
-   dead.  (d) The reference's four batteries on the host planes
+   step 20's completions allgather, requests in flight: rank 0 converges
+   on the confirmed-dead set {1}, shrinks to a world of one and serves
+   on under generation 1 (``serve.*.g1``): served plus lost must equal
+   offered, nothing may expire, every token it served stays within 1e-3
+   of the full forward's argmax, and the line gives the time from the
+   kill (rank 1 stamps the moment) to the end of the first step after
+   the shrink.  (c) A freeze of rank 1 for 30 s at step 10's allgather
+   under a 2.5 s SLO: the heartbeat goes on beating, so rank 0 must
+   convert at the in-flight deadline (under it plus one poll interval,
+   and under the fault timeout; the conversion is stamped where the
+   serve loop takes the error), suspicion alone must re-raise
+   ``RanksFailedError`` out of ``serve_loop`` (no shrink), rank 0's flight
+   dump's last dispatch names a ``serve.*.g0`` op, and one fault window
+   later rank 1 must still be a suspect, not confirmed dead; the thawed
+   rank 1 then sees an error or shrinks past rank 0.  (d) The
+   reference's four batteries on the host planes
    (``tests/torch_resilience_worker.py``, CPU tensors, CUDA hidden): a
    kill at 4 ranks (``RanksFailedError`` naming rank 2 on every
    survivor), the retry at 4 (exact after a rebuild), a freeze at 2 and
-   the off mode at 2, each time to the error printed.
+   the off mode at 2, each time to the error printed (the four worlds
+   at once; each line's ``wall_s`` counts from their common start).
 
 14. elastic: the launcher and elastic training, one line a leg.  (a)
    ``python -m horovod_tpu_torch.runner.launch -np 1 -H localhost:1``
@@ -300,6 +308,49 @@ Phases, each printed as one JSON object on its own line:
    1e-5 and the plain leg's distance to itself on images moved by one
    ulp), and both step times.  The kernels line's ``fit_launches`` are
    leg (a)'s.
+
+17. statesync: elastic membership without a restart, one line a leg;
+   every process on the one card (CUDA visible), spawned as
+   ``chip_smoke.py --statesync-worker ROLE RANK SIZE PORT OUTDIR``
+   against one RendezvousServer.  (a) The training grow 1 -> 2: gpt_small
+   as the elastic phase's user loop trains it (flash, B=8, T=2048, bf16,
+   AdamW(3e-4, wd 1e-4); the gradients averaged through
+   ``hvd.grouped_allreduce``) in a world of one with a
+   ``StateSyncService`` over ``checkpoint.train_state_tree``; after 3
+   steps a joiner process, built on a fresh model's tree, calls
+   ``join_world`` and streams the 2.29 GB image from the incumbent, which
+   keeps stepping, then ``load_train_state`` puts it on the card.  The
+   grown world takes 3 steps, its gradients averaged through host copies
+   over the TCP ring (two ranks on one card form no device plane, and
+   the core refuses their CUDA tensors).  Checks: no failed step, the
+   joiner's image digest equal to the stamp, ``allgather_object`` of
+   ``state_digest`` one value after the grow and after every grown step,
+   finite losses, 12 launches of each flash kernel a step on each rank,
+   the flight events in order.  It reports the catch-up ms, bytes and
+   GB/s, the two boundary stalls and their snapshots' ms, the step ms
+   before and during the donation, announce to the joiner's first step,
+   and the grown world's step ms and plane.  (b) Preemption 2 -> 1 under
+   ``HOROVOD_PREEMPT_GRACE_S``: ``HOROVOD_CHAOS=preempt`` sends the joiner
+   SIGTERM at its third grown step's digest exchange; it departs at the
+   next boundary with its ``bye|`` stamp and exits 0, the incumbent
+   shrinks proactively (no ``RanksFailedError``, no failed rank), its
+   core forms its plane on the card again at one rank, and 3 more steps
+   run at 12/12/12; SIGTERM to the survivor's first step.  (c) The
+   serving grow 2 -> 3: two fp32 gpt_small ranks (the resilience phase's
+   serving workload, parameters the seed's plus 0.25) with
+   ``static_state=True``; a joiner runs ``join_serving_world`` once 8 of
+   the first wave's 24 requests are served, streams 762 MB and checks
+   them against the seed's plus 0.25; the grown world serves a second
+   wave of 12.  Served equals offered, none lost or expired, one grow
+   2 -> 3; ``goodput_phases`` and the catch-up.  (d) Disaggregated
+   prefill: two bf16 gpt_small ranks, paged, ``prefill_ranks=1``, 16
+   distinct prompts of 64-512 tokens: every prompt prefilled on rank 1
+   and streamed, no fallback, all served, and rank 0's streams equal a
+   colocated one-rank paged run's in this process (where one parts, each
+   token within 1e-3 of the full forward's argmax); KV bytes a request
+   and a token, stream ms a MB, time to first token beside the colocated
+   run's.  The kernels line's ``statesync_launches`` are leg (a)'s
+   incumbent's over all its steps.
 
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
@@ -3546,12 +3597,23 @@ def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
                          params=ref.state_dict(), device="cuda")
     fa.reset_launch_counts()
     streams, rid_prompt, exch_ms = {}, {}, []
-    state = {"plan_ms": 0.0, "where": None, "call": None}
+    state = {"plan_ms": 0.0, "where": None, "call": None,
+             "converted": None, "shrunk": None, "first_after": None,
+             "gens": []}
     plan_x, done_x = ex._exchange_plan, ex._exchange_completions
     collect = ex._collect_completions
+    shrink = ex._shrink_and_resume
+
+    def shrink_and_resume(exc):
+        # Where the serve loop takes the error: the conversion's moment
+        # (a confirmed death then shrinks, suspicion re-raises).
+        state["converted"] = (time.time(), time.monotonic())
+        shrink(exc)
+        state["shrunk"] = time.time()
 
     def plan_exchange(plan):
         state["where"] = "plan"
+        state["gens"].append(ex._gen)
         t0 = time.perf_counter()
         plan = plan_x(plan)
         state["plan_ms"] = (time.perf_counter() - t0) * 1e3
@@ -3566,6 +3628,8 @@ def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
         t0 = time.perf_counter()
         done = done_x()
         exch_ms.append(state["plan_ms"] + (time.perf_counter() - t0) * 1e3)
+        if state["shrunk"] is not None and state["first_after"] is None:
+            state["first_after"] = time.time()
         return done
 
     def record():
@@ -3576,6 +3640,7 @@ def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
     ex._exchange_plan = plan_exchange
     ex._exchange_completions = done_exchange
     ex._collect_completions = record
+    ex._shrink_and_resume = shrink_and_resume
     # Both ranks are built: the requests' deadlines start from here.
     hvd.barrier()
     if rank == 0:
@@ -3590,13 +3655,19 @@ def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
         ex.serve_loop(stop_when=lambda: True)
     except hvd.HorovodInternalError as e:
         err = e
-    t_err, t_err_mono = time.time(), time.monotonic()
+    t_err, t_err_mono = state["converted"] or (time.time(),
+                                               time.monotonic())
     torch.cuda.synchronize()
     step = ex.admission._m_step
     out.update(
         leg=leg, wall_s=time.perf_counter() - t0, steps=ex._step,
         tokens=sum(len(g) for g in streams.values()),
         served=ex.stats["served"], offered=ex.stats["offered"],
+        lost=ex.stats["lost"], expired=ex.stats["expired"],
+        shrinks=ex.stats["shrinks"], gen=ex._gen,
+        plan_gens=sorted(set(state["gens"])),
+        shrunk_wall=state["shrunk"],
+        first_step_after_wall=state["first_after"],
         step_ms={"p50": step.quantile(0.5), "p99": step.quantile(0.99),
                  "count": step.count},
         exchange_host_ms_per_step={
@@ -3675,7 +3746,10 @@ def _resilience_serve(problems: list[str]) -> dict:
                         r0["exchange_host_ms_per_step"],
                     "threads": r0["threads"], "monitor": r0["monitor"],
                     "poll_s": r0["poll_s"], "chaos": r0["chaos"],
-                    "flash_launches": r0["flash_launches"]}
+                    "flash_launches": r0["flash_launches"],
+                    "lost": r0["lost"], "expired": r0["expired"],
+                    "shrinks": r0["shrinks"], "gen": r0["gen"],
+                    "plan_gens": r0["plan_gens"]}
             line["tokens_per_s"] = line["tokens"] / r0["wall_s"]
             if r0.get("check") is not None:
                 line["check"] = {f"rank{r}": rr["check"] for r, rr
@@ -3688,6 +3762,14 @@ def _resilience_serve(problems: list[str]) -> dict:
                 line["flight"] = r0.get("flight")
                 line["after_window"] = r0.get("after_window")
                 line["rank1_error"] = r1["error"] if r1 else None
+                line["rank1_shrinks"] = r1["shrinks"] if r1 else None
+            if leg == "kill":
+                line["kill_to_first_step_after_shrink_s"] = None \
+                    if fault_at is None or r0["first_step_after_wall"] \
+                    is None else r0["first_step_after_wall"] - fault_at
+                line["kill_to_shrunk_s"] = None if fault_at is None \
+                    or r0["shrunk_wall"] is None \
+                    else r0["shrunk_wall"] - fault_at
             emit(line)
             legs[leg] = line
             tag = f"resilience serve-{leg}"
@@ -3710,36 +3792,59 @@ def _resilience_serve(problems: list[str]) -> dict:
                     problems.append(f"{tag}: monitor {line['monitor']}, "
                                     f"threads {line['threads']}")
                 continue
+            if leg == "kill":
+                # The survivor shrinks past the dead rank and serves on.
+                shrinks = [(x["dead"], x["from"], x["to"])
+                           for x in line["shrinks"]]
+                if err is not None or shrinks != [([1], 2, 1)]:
+                    problems.append(f"{tag}: rank 0's error {err}, "
+                                    f"shrinks {line['shrinks']}")
+                if line["served"] + line["lost"] != line["offered"] \
+                        or line["expired"] or not line["lost"]:
+                    problems.append(
+                        f"{tag}: served {line['served']} + lost "
+                        f"{line['lost']} of {line['offered']}, expired "
+                        f"{line['expired']}")
+                if line["gen"] != 1 or line["plan_gens"] != [0, 1]:
+                    problems.append(f"{tag}: generations "
+                                    f"{line['plan_gens']}, last "
+                                    f"{line['gen']}")
+                chk = line.get("check", {}).get("rank0")
+                if chk is None or chk["beyond_tolerance"]:
+                    problems.append(f"{tag}: the survivor's tokens: {chk}")
+                took = line["kill_to_first_step_after_shrink_s"]
+                if took is None or not took > 0:
+                    problems.append(f"{tag}: kill to the first step after "
+                                    f"the shrink {took} s")
+                continue
             if err is None or err["type"] != "RanksFailedError" \
-                    or err["failed_ranks"] != [1]:
-                problems.append(f"{tag}: rank 0's error {err}")
+                    or err["failed_ranks"] != [1] or line["shrinks"]:
+                problems.append(f"{tag}: rank 0's error {err}, shrinks "
+                                f"{line['shrinks']}")
                 continue
             last = (line["flight"] or {}).get("last_dispatch") or ""
             if not last.startswith(("serve.plan.g0.", "serve.done.g0.")):
                 problems.append(f"{tag}: flight tail {line['flight']}")
-            if leg == "kill":
-                took = line["fault_to_error_s"]
-                if took is None or not took < 2 * RES_FAULT_TIMEOUT:
-                    problems.append(f"{tag}: kill to error {took} s")
-            else:
-                # A wait converts at its first poll past the op's budget,
-                # floored at two polls (ResilienceState.op_timeout).
-                poll = r0["poll_s"]
-                bound = max(err["deadline_s"] or 0.0, 2 * poll) + poll
-                if err["in_exchange"] != "done" \
-                        or err["deadline_s"] is None \
-                        or not err["waited_s"] < bound \
-                        or not err["waited_s"] < RES_FAULT_TIMEOUT:
-                    problems.append(
-                        f"{tag}: converted after {err['waited_s']} s in "
-                        f"{err['in_exchange']} (deadline "
-                        f"{err['deadline_s']} s, bound {bound} s)")
-                after = line["after_window"] or {}
-                if 1 in after.get("confirmed_dead", [1]):
-                    problems.append(f"{tag}: the frozen rank was "
-                                    f"declared dead: {after}")
-                if line["rank1_error"] is None:
-                    problems.append(f"{tag}: the thawed rank saw no error")
+            # A wait converts at its first poll past the op's budget,
+            # floored at two polls (ResilienceState.op_timeout).
+            poll = r0["poll_s"]
+            bound = max(err["deadline_s"] or 0.0, 2 * poll) + poll
+            if err["in_exchange"] != "done" \
+                    or err["deadline_s"] is None \
+                    or not err["waited_s"] < bound \
+                    or not err["waited_s"] < RES_FAULT_TIMEOUT:
+                problems.append(
+                    f"{tag}: converted after {err['waited_s']} s in "
+                    f"{err['in_exchange']} (deadline "
+                    f"{err['deadline_s']} s, bound {bound} s)")
+            after = line["after_window"] or {}
+            if 1 in after.get("confirmed_dead", [1]):
+                problems.append(f"{tag}: the frozen rank was "
+                                f"declared dead: {after}")
+            if line["rank1_error"] is None \
+                    and not line["rank1_shrinks"]:
+                problems.append(f"{tag}: the thawed rank saw no error "
+                                f"and did not shrink")
     on, off = legs["on"]["step_ms"]["p50"], legs["off"]["step_ms"]["p50"]
     return {"on_over_off_step_p50": on / off if off else None,
             "tokens_per_s": {k: legs[k]["tokens_per_s"]
@@ -3748,57 +3853,60 @@ def _resilience_serve(problems: list[str]) -> dict:
 
 def _resilience_host(problems: list[str]) -> dict:
     """Leg (d): the reference's four batteries on the port's host planes
-    (tests/torch_resilience_worker.py; CPU tensors, CUDA hidden)."""
+    (tests/torch_resilience_worker.py; CPU tensors, CUDA hidden), the
+    four worlds at once, each against its own RendezvousServer."""
     from horovod_tpu_torch.runner.network import RendezvousServer
     here = os.path.dirname(os.path.abspath(__file__))
     worker = os.path.join(here, "tests", "torch_resilience_worker.py")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (here, env.get("PYTHONPATH")) if p))
     times = {}
-    for battery, size, rcs, verdict in RES_HOST_BATTERIES:
-        server = RendezvousServer()
-        port = server.start()
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith("HOROVOD_")}
-        env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
-                   PYTHONPATH=os.pathsep.join(
-                       p for p in (here, env.get("PYTHONPATH")) if p))
+    worlds = []
+    with contextlib.ExitStack() as stack:
         t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(prefix="rhost") as outdir:
+        for battery, size, rcs, verdict in RES_HOST_BATTERIES:
+            server = RendezvousServer()
+            port = server.start()
+            stack.callback(server.stop)
+            outdir = stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="rhost"))
             procs = [subprocess.Popen(
                 [sys.executable, worker, battery, str(r), str(size),
                  str(port), outdir], env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True) for r in range(size)]
+            stack.callback(lambda ps=procs: [p.kill() for p in ps
+                                             if p.poll() is None])
+            worlds.append((battery, size, rcs, verdict, procs))
+        for battery, size, rcs, verdict, procs in worlds:
             outs = []
-            try:
-                for r, p in enumerate(procs):
-                    try:
-                        o, _ = p.communicate(timeout=EAGER_WORLD_TIMEOUT)
-                    except subprocess.TimeoutExpired:
-                        p.kill()
-                        o, _ = p.communicate()
-                    outs.append(o)
-                    if p.returncode != rcs.get(r, 0):
-                        problems.append(f"resilience host-{battery} rank "
-                                        f"{r} rc={p.returncode}: "
-                                        f"{o[-1500:]}")
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                server.stop()
-        judged = [0] if battery == "freeze" else \
-            [r for r in range(len(outs)) if rcs.get(r, 0) == 0]
-        lines = [next((ln for ln in outs[r].splitlines() if verdict in ln),
-                      None) for r in judged]
-        if None in lines:
-            problems.append(f"resilience host-{battery}: no verdict "
-                            f"{[o[-400:] for o in outs]}")
-        took = [float(ln.split(" in ")[1].split("s")[0]) for ln in lines
-                if ln and battery in ("kill", "freeze")]
-        times[battery] = took
-        emit({"phase": "resilience", "leg": f"host-{battery}",
-              "ranks": size, "fault_timeout_s": RES_HOST_FAULT_TIMEOUT,
-              "seconds_to_error": took, "verdicts": lines,
-              "wall_s": time.perf_counter() - t0})
+            for r, p in enumerate(procs):
+                try:
+                    o, _ = p.communicate(timeout=EAGER_WORLD_TIMEOUT)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    o, _ = p.communicate()
+                outs.append(o)
+                if p.returncode != rcs.get(r, 0):
+                    problems.append(f"resilience host-{battery} rank "
+                                    f"{r} rc={p.returncode}: "
+                                    f"{o[-1500:]}")
+            judged = [0] if battery == "freeze" else \
+                [r for r in range(len(outs)) if rcs.get(r, 0) == 0]
+            lines = [next((ln for ln in outs[r].splitlines()
+                           if verdict in ln), None) for r in judged]
+            if None in lines:
+                problems.append(f"resilience host-{battery}: no verdict "
+                                f"{[o[-400:] for o in outs]}")
+            took = [float(ln.split(" in ")[1].split("s")[0])
+                    for ln in lines if ln and battery in ("kill", "freeze")]
+            times[battery] = took
+            emit({"phase": "resilience", "leg": f"host-{battery}",
+                  "ranks": size, "fault_timeout_s": RES_HOST_FAULT_TIMEOUT,
+                  "seconds_to_error": took, "verdicts": lines,
+                  "wall_s": time.perf_counter() - t0})
     return times
 
 
@@ -5173,6 +5281,713 @@ def phase_fit() -> dict:
     return {"seconds": seconds, "launches": a["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# statesync: elastic membership without a restart, on the one card
+# ---------------------------------------------------------------------------
+SS_BEFORE_STEPS = 3                     # incumbent steps before the join
+SS_GROWN_STEPS = 3                      # steps of the grown world
+SS_AFTER_STEPS = 3                      # survivor steps after the departure
+# The joiner's SIGTERM: chaos fires on the grown world's third digest
+# exchange, so the departure lands at the boundary after grown step 3.
+SS_PREEMPT = f"preempt:rank=1,name=ss.grown.{SS_GROWN_STEPS}"
+SS_GRACE_S = 60.0
+SS_FAULT_TIMEOUT = 60.0                 # a 762 MB host allreduce fits
+SS_WORLD_TIMEOUT = 300.0
+SS_GO = ("chipss", "go")                # the joiners' start signal
+# Leg (c): the resilience phase's fp32 serving ranks; two waves, the
+# joiner signalled once the first wave's first third is served.
+SS_SERVE = dict(SERVE_TIMED, requests=24, max_new=32)
+SS_SERVE_GO_AFTER = 8
+SS_SERVE_WAVE2 = 12
+# Leg (d): distinct prompts, so no prefix hit admits one locally.
+SS_DISAGG = dict(SERVE_TIMED, requests=16, pool=16, max_new=32, seed=8)
+# One token's K and V in every layer of gpt_small in bf16 (the image a
+# prefill streams): 12 layers x 2 x 768 x 2 bytes.
+SS_KV_BYTES_PER_TOKEN = 12 * 2 * 768 * 2
+
+
+def _ss_env(role: str, outdir: str) -> dict:
+    env = {"HOROVOD_SHM_OPERATIONS": "0",
+           "HOROVOD_FLIGHT_FILE": os.path.join(outdir, f"flight-{role}.json"),
+           # Deep enough to keep the membership events of a run whose
+           # every step records hundreds (one a gradient).
+           "HOROVOD_FLIGHT_EVENTS": str(1 << 16),
+           "HOROVOD_STATESYNC_TIMEOUT_SECONDS": "120",
+           "HOROVOD_GLOO_TIMEOUT_SECONDS": "120"}
+    if role.startswith("train"):
+        env.update(HOROVOD_FAULT_TOLERANCE="1",
+                   HOROVOD_FAULT_TIMEOUT=str(SS_FAULT_TIMEOUT),
+                   HOROVOD_PREEMPT_GRACE_S=str(SS_GRACE_S),
+                   HOROVOD_CHAOS=SS_PREEMPT,
+                   HOROVOD_RENDEZVOUS_EPOCH="sstrain")
+    elif role.startswith("serve"):
+        env.update(HOROVOD_FAULT_TOLERANCE="1", HOROVOD_FAULT_TIMEOUT="30",
+                   HOROVOD_RENDEZVOUS_EPOCH="ssserve")
+    else:
+        env.update(HOROVOD_RENDEZVOUS_EPOCH="ssdisagg")
+    return env
+
+
+def _ss_train_state(seed: int):
+    """gpt_small as the elastic phase's user loop trains it: flash, bf16
+    compute, AdamW(3e-4, wd 1e-4), held in a ``TrainState``."""
+    from horovod_tpu_torch import TransformerLM, gpt_small
+    from horovod_tpu_torch.training import TrainState
+    cfg = gpt_small(attention="flash", max_seq_len=2048)
+    model = TransformerLM(cfg, seed=seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    return TrainState(step=0, model=model, optimizer=opt)
+
+
+def _ss_train_step(hvd, core, state, batch) -> dict:
+    """One step of the user loop: forward, backward, the gradients
+    averaged through ``hvd`` (on the card where the core has a plane on
+    it, a world of one; else host copies over the TCP ring, the API's
+    rule for CUDA tensors in a world of ranks sharing a card), AdamW."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import cross_entropy_loss
+    model, opt = state.model, state.optimizer
+    params = [p for p in model.parameters() if p.requires_grad]
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = cross_entropy_loss(model(batch["input"], train=True),
+                              batch["label"])
+    loss.backward()
+    grads = [p.grad for p in params]
+    on_card = hvd.size() == 1 or core.global_state().device_plane
+    name = f"ss.grads.{state.step}"
+    if on_card:
+        outs = hvd.grouped_allreduce(grads, op=hvd.Average, name=name)
+        for g, o in zip(grads, outs):
+            g.copy_(o)
+    else:
+        host = [g.detach().cpu() for g in grads]
+        outs = hvd.grouped_allreduce(host, op=hvd.Average, name=name)
+        for g, o in zip(grads, outs):
+            g.copy_(o, non_blocking=True)
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    state.step += 1
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"step": state.step, "size": hvd.size(), "ms": ms,
+            "loss": loss.item(), "launches": fa.launch_counts(),
+            "plane": "card" if on_card else "host (TCP ring)",
+            "t_end": time.time()}
+
+
+def _ss_digest(hvd, state, name: str) -> dict:
+    """The state's digest on every rank (``allgather_object``)."""
+    from horovod_tpu_torch import statesync
+    from horovod_tpu_torch.checkpoint import train_state_tree
+    t0 = time.perf_counter()
+    digest = statesync.state_digest(
+        statesync.flatten_state(train_state_tree(state)))
+    views = hvd.allgather_object(digest, name=name)
+    return {"name": name, "digests": views,
+            "equal": len(set(views)) == 1,
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def _ss_train_rank(role: str, port: int, outdir: str) -> dict:
+    """Legs (a) and (b), one process: the incumbent (``train``, a world
+    of one) or the joiner (``train-joiner``)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import (core, resilience, statesync,
+                                   synthetic_text_batch)
+    from horovod_tpu_torch.checkpoint import (load_train_state,
+                                              train_state_tree)
+    from horovod_tpu_torch.runner.network import RendezvousClient
+    from horovod_tpu_torch.statesync import service as ss_service
+    from horovod_tpu_torch.telemetry import flight
+    kv = RendezvousClient("127.0.0.1", port, 120.0)
+    rec: dict = {"role": role, "steps": [], "boundary_ms": [],
+                 "digests": [], "snapshots": []}
+
+    class TimedSnapshot(statesync.Snapshot):
+        """The boundary's flatten and digest, timed."""
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            rec["snapshots"].append(
+                {"ms": (time.perf_counter() - t0) * 1e3,
+                 "bytes": len(self.data), "step": self.stamp.step})
+    ss_service.Snapshot = TimedSnapshot
+    joiner = role == "train-joiner"
+    state = _ss_train_state(seed=1 if joiner else 0)
+    rank_seed = 1 if joiner else 0
+    batch = synthetic_text_batch(8, 2048, state.model.cfg.vocab_size,
+                                 seed=rank_seed)
+    grown = None
+    if joiner:
+        template = train_state_tree(state)
+        kv.wait(*SS_GO, SS_WORLD_TIMEOUT)
+        rec["t_announce"] = time.time()
+        tree, info = statesync.join_world(template)
+        rec["t_entered"] = time.time()
+        load_train_state(tree, state)
+        del tree, template
+        torch.cuda.synchronize()
+        rec["t_loaded"] = time.time()
+        rec["join"] = {"rank": info.rank, "size": info.size,
+                       "catch_up_ms": info.catch_up_ms,
+                       "bulk_bytes": info.bulk_bytes,
+                       "bulk_gb_per_s": info.bulk_bytes
+                       / (info.catch_up_ms * 1e6),
+                       "donor_stats": info.donor_stats,
+                       "stamp": info.stamp.as_meta(), "step": state.step}
+        rec["joined_digest_equals_stamp"] = statesync.state_digest(
+            statesync.flatten_state(train_state_tree(state))) \
+            == info.stamp.digest
+        grown = 0
+    else:
+        hvd.init()
+    svc = statesync.StateSyncService(lambda: train_state_tree(state))
+    if joiner:
+        rec["digests"].append(_ss_digest(hvd, state, "ss.grown.0"))
+    posted, after = False, None
+    deadline = time.monotonic() + SS_WORLD_TIMEOUT
+    while time.monotonic() < deadline:
+        donating = any(d.is_alive() for d in svc._donors.values())
+        step = _ss_train_step(hvd, core, state, batch)
+        step["donating"] = donating
+        rec["steps"].append(step)
+        if grown is not None and hvd.size() > 1:
+            grown += 1
+            rec["digests"].append(_ss_digest(hvd, state,
+                                             f"ss.grown.{grown}"))
+        prev_epoch = os.environ["HOROVOD_RENDEZVOUS_EPOCH"]
+        t0 = time.perf_counter()
+        change = svc.step_boundary()
+        rec["boundary_ms"].append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after += 1
+        if change is None:
+            pass
+        elif change.kind == "grow":
+            grown = 0
+            rec["grow"] = {"join": change.join_id, "size": change.size,
+                           "step": state.step, "t": time.time(),
+                           "boundary_ms": rec["boundary_ms"][-1]}
+            rec["digests"].append(_ss_digest(hvd, state, "ss.grown.0"))
+        elif change.kind == "departed":
+            raw = kv.get("hb", f"{prev_epoch}:1")
+            rec["departed"] = {
+                "step": state.step,
+                "bye": raw is not None and raw.startswith(b"bye|"),
+                "t_sigterm": time.time()
+                - (time.monotonic() - svc._preempt_at)}
+            break
+        elif change.kind == "shrink":
+            res = resilience.active_state()
+            rec["shrink"] = {
+                "dead": list(change.dead), "size": change.size,
+                "step": state.step, "t": time.time(),
+                "failed_ranks": sorted(res.failed_ranks())
+                if res is not None else [],
+                "device_stream": core.global_state().device_stream
+                is not None,
+                "epoch": os.environ["HOROVOD_RENDEZVOUS_EPOCH"]}
+            grown, after = None, 0
+        if not joiner and not posted and state.step >= SS_BEFORE_STEPS:
+            kv.put(*SS_GO, b"1")
+            posted = True
+        if after is not None and after >= SS_AFTER_STEPS:
+            break
+    rec["flight"] = [ev["kind"] for ev in flight.recorder().snapshot()
+                     if ev["kind"] in ("shrink", "donate", "grow",
+                                       "join-announce", "join-ready",
+                                       "join-entered", "sigterm-grace",
+                                       "departed", "shrink-proactive",
+                                       "ranks-failed", "mark-failed")]
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    svc.close()
+    hvd.shutdown()
+    return rec
+
+
+def _ss_serve_rank(role: str, rank: int, port: int, outdir: str) -> dict:
+    """Leg (c), one process: an incumbent serving rank (``serve``) or the
+    joiner (``serve-joiner``), fp32 gpt_small on the card."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import TransformerLM, gpt_small, statesync
+    from horovod_tpu_torch.runner.network import RendezvousClient
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    from horovod_tpu_torch.serving import replica as rep
+    from horovod_tpu_torch.serving.loadgen import _goodput_phases
+    kv = RendezvousClient("127.0.0.1", port, 120.0)
+    scfg = ServeConfig(model_cfg=gpt_small(dtype=torch.float32),
+                       **SS_SERVE["cfg"])
+    rec: dict = {"role": role}
+    seed = rep.serving_params_template(scfg)    # the seed's, on the host
+    if role == "serve-joiner":
+        infos = []
+        join_world = statesync.join_world
+
+        def recorded_join(*args, **kwargs):
+            out = join_world(*args, **kwargs)
+            infos.append(out[1])
+            return out
+        statesync.join_world = recorded_join
+        kv.wait(*SS_GO, SS_WORLD_TIMEOUT)
+        rec["t_announce"] = time.time()
+        ex = rep.join_serving_world(scfg, device="cuda")
+        rec["t_entered"] = time.time()
+        info = infos[0]
+        rec["join"] = {"rank": info.rank, "size": info.size,
+                       "catch_up_ms": info.catch_up_ms,
+                       "bulk_bytes": info.bulk_bytes,
+                       "bulk_gb_per_s": info.bulk_bytes
+                       / (info.catch_up_ms * 1e6)}
+        rec["params_are_seed_plus_quarter"] = all(
+            torch.equal(t.cpu(), seed[k] + 0.25)
+            for k, t in ex.state_tree().items())
+        ex.serve_loop()
+        ex._stop_requested = False
+        ex.serve_loop()
+        rec.update(rank=ex.rank, size=ex.size,
+                   completed=len(ex.completed))
+        ex.statesync.close()
+    else:
+        hvd.init()
+        base = TransformerLM(rep._serving_model_cfg(scfg), device="cpu",
+                             seed=scfg.seed)
+        params = {k: v + 0.25 for k, v in base.state_dict().items()}
+        del base
+        ex = ReplicaExecutor(scfg, params=params, device="cuda")
+        service = statesync.StateSyncService(state_provider=ex.state_tree,
+                                             static_state=True)
+        ex.attach_statesync(service)
+        prompts = _prompt_pool(SS_SERVE, scfg.model_cfg.vocab_size)
+
+        def wave(n: int, first: int) -> None:
+            for i in range(n):
+                ex.stats["offered"] += 1
+                ex.queue.submit(prompts[(first + i) % len(prompts)],
+                                SS_SERVE["max_new"])
+        posted = []
+
+        def until_grown() -> bool:
+            # Called on the front only, once a loop turn.
+            if not posted and ex.stats["served"] >= SS_SERVE_GO_AFTER:
+                kv.put(*SS_GO, b"1")
+                posted.append(time.time())
+            return bool(ex.stats["grows"])
+        hvd.barrier()
+        t0 = time.monotonic()
+        if rank == 0:
+            wave(SS_SERVE["requests"], 0)
+        ex.serve_loop(stop_when=until_grown)
+        ex._stop_requested = False
+        if ex.rank == ex.front:
+            wave(SS_SERVE_WAVE2, SS_SERVE["requests"])
+        ex.serve_loop(stop_when=lambda: True)
+        wall = time.monotonic() - t0
+        st = ex.stats
+        rec.update(rank=ex.rank, size=ex.size, served=st["served"],
+                   offered=st["offered"], lost=st["lost"],
+                   expired=st["expired"], grows=st["grows"],
+                   shrinks=st["shrinks"], gen=ex._gen, wall_s=wall,
+                   goodput_phases=_goodput_phases(ex, wall))
+        service.close()
+    ex.close()
+    hvd.shutdown()
+    return rec
+
+
+def _ss_disagg_rank(rank: int, outdir: str) -> dict:
+    """Leg (d), one process: a rank of the disaggregated world, bf16
+    gpt_small paged, rank 1 prefill-only."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import TransformerLM, gpt_small, telemetry
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    hvd.init()
+    cfg = gpt_small()
+    ex = ReplicaExecutor(ServeConfig(model_cfg=cfg, paged=True,
+                                     prefill_ranks=1, **SS_DISAGG["cfg"]),
+                         params=TransformerLM(cfg, seed=0).state_dict(),
+                         device="cuda")
+    streams, rid_prompt, ttft = {}, {}, {}
+    collect = ex._collect_completions
+    land = ex._land_streamed
+
+    def record():
+        for s in ex.slots:
+            if s is not None and s.pending is None and s.remaining == 0:
+                streams[s.rid] = list(s.generated)
+        collect()
+
+    def landed(slot, img):
+        land(slot, img)
+        s = ex.slots[slot]
+        ttft[s.rid] = s.age_ms + (time.monotonic() - s.assigned_at) * 1e3
+    ex._collect_completions = record
+    ex._land_streamed = landed
+    send = ex._kvstream.send_image if ex.is_prefill else None
+    sends = []
+
+    def timed_send(rid, dests, image, **meta):
+        t0 = time.perf_counter()
+        send(rid, dests, image, **meta)
+        sends.append((memoryview(image).nbytes,
+                      (time.perf_counter() - t0) * 1e3, meta["plen"]))
+    if send is not None:
+        ex._kvstream.send_image = timed_send
+    hvd.barrier()
+    if rank == 0:
+        for prompt in _prompt_pool(SS_DISAGG, cfg.vocab_size):
+            ex.stats["offered"] += 1
+            rid_prompt[ex.queue.submit(prompt, SS_DISAGG["max_new"])] = \
+                prompt
+    t0 = time.perf_counter()
+    ex.serve_loop(stop_when=lambda: True)
+    torch.cuda.synchronize()
+    rec = {"rank": rank, "wall_s": time.perf_counter() - t0,
+           "served": ex.stats["served"], "offered": ex.stats["offered"],
+           "prefill_streams": ex.stats["prefill_streams"],
+           "prefill_fallbacks": ex.stats["prefill_fallbacks"],
+           "streams": {str(k): v for k, v in streams.items()},
+           "prompts": {str(k): v for k, v in rid_prompt.items()},
+           "ttft_ms": {str(k): v for k, v in ttft.items()},
+           "sends": sends,
+           "sent_bytes": telemetry.metrics().counter(
+               "horovod_serve_prefill_stream_bytes_total",
+               labels={"role": "sent"}).value}
+    ex.close()
+    hvd.barrier()
+    hvd.shutdown()
+    return rec
+
+
+def statesync_worker(role: str, rank: int, size: int, port: int,
+                     outdir: str) -> int:
+    """``chip_smoke.py --statesync-worker ROLE RANK SIZE PORT OUTDIR``:
+    one process of the statesync phase on the card; its record goes to
+    ``OUTDIR/<role>_<rank>.json``.  No card: exit 3."""
+    if not torch.cuda.is_available():
+        print("statesync worker: no CUDA device", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.environ.update(HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+                      HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+                      **_ss_env(role, outdir))
+    if not role.endswith("joiner"):
+        os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size))
+    if role.startswith("train"):
+        rec = _ss_train_rank(role, port, outdir)
+    elif role.startswith("serve"):
+        rec = _ss_serve_rank(role, rank, port, outdir)
+    else:
+        rec = _ss_disagg_rank(rank, outdir)
+    with open(os.path.join(outdir, f"{role}_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _ss_world(jobs: list[tuple[str, int, int]], outdir: str
+              ) -> list[dict]:
+    """Start every (role, rank, size) process at once against one
+    RendezvousServer, each with the card visible; wait for all within
+    SS_WORLD_TIMEOUT and return their records."""
+    from horovod_tpu_torch.runner.network import RendezvousServer
+    server = RendezvousServer()
+    port = server.start()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--statesync-worker",
+         role, str(rank), str(size), str(port), outdir], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for role, rank, size in jobs]
+    failures = []
+    t_end = time.monotonic() + SS_WORLD_TIMEOUT
+    try:
+        for (role, rank, _), p in zip(jobs, procs):
+            try:
+                out, _ = p.communicate(
+                    timeout=max(1.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+                failures.append(f"{role} {rank} timed out")
+            if p.returncode != 0:
+                failures.append(f"{role} {rank} rc={p.returncode}: "
+                                + out.decode(errors="replace")[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        server.stop()
+    if failures:
+        raise RuntimeError("statesync world: " + "; ".join(failures))
+    out = []
+    for role, rank, _ in jobs:
+        with open(os.path.join(outdir, f"{role}_{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _ss_launches_ok(steps: list[dict], layers: int) -> bool:
+    return all(set(s["launches"].values()) == {layers} and
+               len(s["launches"]) == 3 for s in steps)
+
+
+def _ss_training(problems: list[str]) -> dict:
+    """Legs (a) and (b): the grow 1 -> 2 of gpt_small's user loop by peer
+    streaming, then the joiner's preemption and the proactive shrink."""
+    from horovod_tpu_torch import gpt_small
+    layers = gpt_small().num_layers
+    with tempfile.TemporaryDirectory(prefix="sstrain") as outdir:
+        inc, joi = _ss_world([("train", 0, 1), ("train-joiner", 0, 0)],
+                             outdir)
+    steps = inc["steps"]
+    grow = inc.get("grow") or {}
+    shrink = inc.get("shrink") or {}
+    before = [s for s in steps if s["size"] == 1 and not s["donating"]
+              and s["step"] <= grow.get("step", 0)]
+    during = [s for s in steps if s["donating"] and s["size"] == 1]
+    grown = [s for s in steps if s["size"] == 2]
+    after = [s for s in steps if s["step"] > shrink.get("step", 1 << 30)]
+    bstall = inc["boundary_ms"]
+    join = joi.get("join", {})
+    first_grown = next((s for s in joi["steps"] if s["size"] == 2), None)
+    snaps = inc["snapshots"]
+    a = {"phase": "statesync", "leg": "a-train-grow", "model": "gpt_small",
+         "batch": 8, "seq": 2048, "dtype": "bfloat16", "ranks": "1->2",
+         "card": "one H100 shared by both processes",
+         "catch_up_ms": join.get("catch_up_ms"),
+         "bulk_bytes": join.get("bulk_bytes"),
+         "bulk_gb_per_s": join.get("bulk_gb_per_s"),
+         "donor_stats": join.get("donor_stats"),
+         "snapshots": snaps,
+         "boundary_stall_ms": {
+             "donation_start": max((b for b, s in zip(bstall, steps)
+                                    if s in before[-1:]), default=None),
+             "grow": grow.get("boundary_ms"),
+             "steady_p50": statistics.median(bstall)},
+         "step_ms_before": [s["ms"] for s in before],
+         "step_ms_during_donation": [s["ms"] for s in during],
+         "steps_during_donation": len(during),
+         "join_wall_s": None if first_grown is None
+         else first_grown["t_end"] - joi["t_announce"],
+         "join_to_entered_s": joi["t_entered"] - joi["t_announce"],
+         "grown_step_ms": {"incumbent": [s["ms"] for s in grown],
+                           "joiner": [s["ms"] for s in joi["steps"]
+                                      if s["size"] == 2]},
+         "grown_plane": sorted({s["plane"] for s in grown}),
+         "digests": [(d["name"], d["equal"]) for d in inc["digests"]],
+         "digest_ms": [d["ms"] for d in inc["digests"]],
+         "joined_digest_equals_stamp": joi.get("joined_digest_equals_stamp"),
+         "losses": [s["loss"] for s in steps],
+         "joiner_losses": [s["loss"] for s in joi["steps"]],
+         "launches_per_step": steps[0]["launches"] if steps else None,
+         "incumbent_steps": len(steps),
+         "peak_memory_bytes": {"incumbent": inc["peak_memory_bytes"],
+                               "joiner": joi["peak_memory_bytes"]},
+         "flight": {"incumbent": inc["flight"], "joiner": joi["flight"]}}
+    emit(a)
+    dep = joi.get("departed") or {}
+    first_after = after[0] if after else None
+    b = {"phase": "statesync", "leg": "b-preempt-grace", "ranks": "2->1",
+         "grace_s": SS_GRACE_S, "chaos": SS_PREEMPT,
+         "departed": dep, "shrink": shrink,
+         "sigterm_to_survivor_first_step_s": None
+         if not dep or first_after is None
+         else first_after["t_end"] - dep["t_sigterm"],
+         "after_step_ms": [s["ms"] for s in after],
+         "after_plane": sorted({s["plane"] for s in after}),
+         "after_losses": [s["loss"] for s in after],
+         "launches_after": [s["launches"] for s in after]}
+    emit(b)
+    tag = "statesync"
+    if not grow or grow.get("size") != 2:
+        problems.append(f"{tag} (a): no grow to 2: {grow}")
+    if not a["joined_digest_equals_stamp"]:
+        problems.append(f"{tag} (a): the joiner's image is not the stamp's")
+    if len(grown) != SS_GROWN_STEPS:
+        problems.append(f"{tag} (a): {len(grown)} grown steps")
+    digests = inc["digests"] + joi["digests"]
+    if not digests or not all(d["equal"] for d in digests) \
+            or len(inc["digests"]) != SS_GROWN_STEPS + 1:
+        problems.append(f"{tag} (a): digests {a['digests']}")
+    losses = a["losses"] + a["joiner_losses"]
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"{tag} (a): a loss is not finite")
+    if not _ss_launches_ok(steps, layers) \
+            or not _ss_launches_ok(joi["steps"], layers):
+        problems.append(f"{tag} (a/b): flash launches not {layers} of each "
+                        f"kernel on every step")
+    if a["grown_plane"] != ["host (TCP ring)"]:
+        problems.append(f"{tag} (a): grown plane {a['grown_plane']}")
+    if not (dep.get("bye") and dep.get("step") == grow.get("step", 0)
+            + SS_GROWN_STEPS):
+        problems.append(f"{tag} (b): departure {dep}")
+    if shrink.get("dead") != [1] or shrink.get("size") != 1 \
+            or shrink.get("failed_ranks") or not shrink.get("device_stream"):
+        problems.append(f"{tag} (b): shrink {shrink}")
+    kinds = inc["flight"]
+    if "ranks-failed" in kinds or "mark-failed" in kinds \
+            or [k for k in kinds if k != "done"] != \
+            ["donate", "grow", "shrink-proactive"]:
+        problems.append(f"{tag} (a/b): incumbent flight {kinds}")
+    if joi["flight"] != ["join-announce", "join-ready", "join-entered",
+                         "sigterm-grace", "departed"]:
+        problems.append(f"{tag} (a/b): joiner flight {joi['flight']}")
+    if len(after) != SS_AFTER_STEPS or b["after_plane"] != ["card"]:
+        problems.append(f"{tag} (b): after the shrink {len(after)} steps "
+                        f"on {b['after_plane']}")
+    launches = {}
+    for s in steps:
+        for k, v in s["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "a": a, "b": b}
+
+
+def _ss_serving(problems: list[str]) -> dict:
+    """Leg (c): the serving grow 2 -> 3 on the card."""
+    with tempfile.TemporaryDirectory(prefix="ssserve") as outdir:
+        r0, r1, joi = _ss_world([("serve", 0, 2), ("serve", 1, 2),
+                                 ("serve-joiner", 0, 0)], outdir)
+    grows = r0["grows"]
+    line = {"phase": "statesync", "leg": "c-serve-grow", "model":
+            "gpt_small", "dtype": "float32", "ranks": "2->3",
+            "card": "one H100 shared by the three processes",
+            "served": r0["served"], "offered": r0["offered"],
+            "lost": r0["lost"], "expired": r0["expired"], "grows": grows,
+            "goodput_phases": r0["goodput_phases"], "wall_s": r0["wall_s"],
+            "catch_up_ms": joi["join"]["catch_up_ms"],
+            "bulk_bytes": joi["join"]["bulk_bytes"],
+            "bulk_gb_per_s": joi["join"]["bulk_gb_per_s"],
+            "join_to_entered_s": joi["t_entered"] - joi["t_announce"],
+            "joiner": {"rank": joi["rank"], "size": joi["size"],
+                       "completed": joi["completed"]},
+            "params_are_seed_plus_quarter":
+                joi["params_are_seed_plus_quarter"]}
+    emit(line)
+    want = SS_SERVE["requests"] + SS_SERVE_WAVE2
+    if not (r0["served"] == r0["offered"] == want and not r0["lost"]
+            and not r0["expired"]):
+        problems.append(f"statesync (c): served {r0['served']} of "
+                        f"{r0['offered']}, lost {r0['lost']}, expired "
+                        f"{r0['expired']}")
+    if [(g["from"], g["to"]) for g in grows] != [(2, 3)] or r0["shrinks"]:
+        problems.append(f"statesync (c): grows {grows}")
+    if not joi["params_are_seed_plus_quarter"]:
+        problems.append("statesync (c): the streamed params are not the "
+                        "incumbents'")
+    return line
+
+
+def _ss_disagg(problems: list[str]) -> dict:
+    """Leg (d): disaggregated prefill at 2 ranks against a colocated
+    one-rank paged run of the same requests in this process."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import TransformerLM, gpt_small
+    with tempfile.TemporaryDirectory(prefix="ssdisagg") as outdir:
+        r0, r1 = _ss_world([("disagg", 0, 2), ("disagg", 1, 2)], outdir)
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    cfg = gpt_small()
+    model = TransformerLM(cfg, seed=0)
+    hvd.init()
+    try:
+        # The colocated run: the same weights and requests, one rank.
+        ex = ReplicaExecutor(ServeConfig(model_cfg=cfg, paged=True,
+                                         **SS_DISAGG["cfg"]),
+                             params=model.state_dict(), device="cuda")
+        want, colo_ttft = {}, []
+        collect, activate = ex._collect_completions, ex._activate_slot
+
+        def record():
+            for sl in ex.slots:
+                if sl is not None and sl.remaining == 0:
+                    want[sl.rid] = list(sl.generated)
+            collect()
+
+        def activated(slot, a, now, first, **kw):
+            activate(slot, a, now, first, **kw)
+            colo_ttft.append(a.age_ms + (time.monotonic() - now) * 1e3)
+        ex._collect_completions, ex._activate_slot = record, activated
+        for prompt in _prompt_pool(SS_DISAGG, cfg.vocab_size):
+            ex.stats["offered"] += 1
+            ex.queue.submit(prompt, SS_DISAGG["max_new"])
+        t0 = time.perf_counter()
+        ex.serve_loop(stop_when=lambda: True)
+        torch.cuda.synchronize()
+        colo_wall = time.perf_counter() - t0
+        del ex._collect_completions, ex._activate_slot
+        ex.close()
+    finally:
+        hvd.shutdown()
+    got = {int(k): v for k, v in r0["streams"].items()}
+    prompts = {int(k): v for k, v in r0["prompts"].items()}
+    differ = sorted(r for r in got if got[r] != want.get(r))
+    check = None
+    if differ:
+        # The serve phase's rule: where a stream parts from the colocated
+        # run's, each token must score within NEAR_ARGMAX of the full
+        # forward's maximum.
+        check = _near_argmax(model, {r: got[r] for r in differ}, prompts)
+    del model
+    torch.cuda.empty_cache()
+    kv_bytes = [b for b, _, _ in r1["sends"]]
+    plens = [p for _, _, p in r1["sends"]]
+    ms = [m for _, m, _ in r1["sends"]]
+    ttft = sorted(r0["ttft_ms"].values())
+    colo_ttft.sort()
+    line = {"phase": "statesync", "leg": "d-disagg-prefill",
+            "model": "gpt_small", "dtype": "bfloat16", "ranks": 2,
+            "card": "one H100 shared by both processes",
+            "served": r0["served"], "offered": r0["offered"],
+            "prefill_streams": r1["prefill_streams"],
+            "prefill_fallbacks": r0["prefill_fallbacks"],
+            "kv_bytes_per_request_mean": statistics.fmean(kv_bytes)
+            if kv_bytes else None,
+            "kv_bytes_per_prompt_token": sum(kv_bytes) / max(1, sum(plens)),
+            "kv_bytes_per_token": sum(kv_bytes) / max(1, sum(
+                -(-p // SS_DISAGG["cfg"]["block_tokens"])
+                * SS_DISAGG["cfg"]["block_tokens"] for p in plens)),
+            "stream_ms_per_mb": sum(ms) / (sum(kv_bytes) / 1e6)
+            if kv_bytes else None,
+            "ttft_ms": {"p50": ttft[len(ttft) // 2] if ttft else None,
+                        "max": ttft[-1] if ttft else None},
+            "colocated": {"ttft_ms": {
+                "p50": colo_ttft[len(colo_ttft) // 2] if colo_ttft
+                else None, "max": colo_ttft[-1] if colo_ttft else None},
+                "wall_s": colo_wall},
+            "wall_s": r0["wall_s"], "streams_equal": len(got) - len(differ),
+            "streams_differ": differ, "near_argmax": check}
+    emit(line)
+    n = SS_DISAGG["requests"]
+    if not (r0["served"] == n and r1["prefill_streams"] == n
+            and r0["prefill_fallbacks"] == 0):
+        problems.append(f"statesync (d): served {r0['served']}, streamed "
+                        f"{r1['prefill_streams']}, fallbacks "
+                        f"{r0['prefill_fallbacks']} of {n}")
+    if sorted(got) != sorted(want) or (check and check["beyond_tolerance"]):
+        problems.append(f"statesync (d): streams {differ} part from the "
+                        f"colocated run's: {check}")
+    if line["kv_bytes_per_token"] != SS_KV_BYTES_PER_TOKEN:
+        problems.append(f"statesync (d): {line['kv_bytes_per_token']} KV "
+                        f"bytes a token")
+    return line
+
+
+def phase_statesync() -> dict:
+    """Elastic membership without a restart (see the module docstring)."""
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    train = _ss_training(problems)
+    _ss_serving(problems)
+    _ss_disagg(problems)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "statesync", "leg": "summary", "seconds": seconds,
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": train["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -5186,6 +6001,10 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-card-worker":
         rank, n, port, outdir = sys.argv[2:6]
         return parallel_card_worker(int(rank), int(n), int(port), outdir)
+    if len(sys.argv) > 1 and sys.argv[1] == "--statesync-worker":
+        role, rank, size, port, outdir = sys.argv[2:7]
+        return statesync_worker(role, int(rank), int(size), int(port),
+                                outdir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -5203,7 +6022,8 @@ def main() -> int:
                   "eager": phase_eager, "binding": phase_binding,
                   "reduce": phase_reduce, "runtime": phase_runtime,
                   "resilience": phase_resilience, "elastic": phase_elastic,
-                  "parallel": phase_parallel, "fit": phase_fit}
+                  "parallel": phase_parallel, "fit": phase_fit,
+                  "statesync": phase_statesync}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -5221,6 +6041,7 @@ def main() -> int:
     elastic = phase_elastic(binding)
     parallel = phase_parallel(train)
     fit = phase_fit()
+    statesync = phase_statesync()
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -5231,6 +6052,7 @@ def main() -> int:
          "elastic_launches": elastic["launches"][name],
          "parallel_launches": parallel["launches"][name],
          "fit_launches": fit["launches"][name],
+         "statesync_launches": statesync["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

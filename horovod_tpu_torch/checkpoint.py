@@ -89,9 +89,38 @@ def _hyper(value: Any) -> Any:
     return value
 
 
-def _optimizer_leaves(state) -> tuple[dict[str, torch.Tensor], dict]:
+def _initial_state(opt, group: dict, p: torch.Tensor
+                   ) -> dict[str, torch.Tensor]:
+    """The per-parameter state ``opt``'s first step creates for ``p``, as
+    the values that step starts from (``tx.init``'s zeros): what a
+    parameter the optimizer has not stepped yet holds in a state tree."""
+    name = type(opt).__name__
+    if name in ("Adam", "AdamW"):
+        on_device = group.get("capturable") or group.get("fused")
+        out = {"step": torch.zeros((), dtype=torch.float32,
+                                   device=p.device if on_device else "cpu"),
+               "exp_avg": torch.zeros_like(p),
+               "exp_avg_sq": torch.zeros_like(p)}
+        if group.get("amsgrad"):
+            out["max_exp_avg_sq"] = torch.zeros_like(p)
+        return out
+    if name == "SGD" and not group.get("momentum"):
+        return {}
+    if name == "SGD" and not group.get("dampening"):
+        # Its first step sets the buffer to the gradient, which is what
+        # momentum times a zero buffer plus the gradient gives.
+        return {"momentum_buffer": torch.zeros_like(p)}
+    raise ValueError(f"no initial state of {name} for a state tree "
+                     f"(Adam, AdamW and SGD without dampening have one)")
+
+
+def _optimizer_leaves(state, initial: bool = False
+                      ) -> tuple[dict[str, torch.Tensor], dict]:
     """The optimizer's per-parameter state as ``opt/<name>/<key>`` leaves
-    and its class and param groups (hyperparameters, parameter names)."""
+    and its class and param groups (hyperparameters, parameter names).
+    With ``initial``, a parameter the optimizer has not stepped yet
+    contributes the state its first step starts from, so a fresh state's
+    tree has the leaves of a stepped one."""
     from .training import _leaf_order
     opt = state.optimizer
     by_id = {id(p): n for n, p in state.model.named_parameters()}
@@ -107,14 +136,20 @@ def _optimizer_leaves(state) -> tuple[dict[str, torch.Tensor], dict]:
          "params": [by_id[id(p)] for p in g["params"]]}
         for g in opt.param_groups]
     params = dict(state.model.named_parameters())
+    group_of = {id(p): g for g in opt.param_groups for p in g["params"]}
     leaves = {}
     for name in _leaf_order(state.model):
-        for key, value in sorted(opt.state.get(params[name], {}).items()):
+        p = params[name]
+        entry = opt.state.get(p, {})
+        if initial and not entry and id(p) in group_of:
+            entry = _initial_state(opt, group_of[id(p)], p)
+        for key, value in sorted(entry.items()):
             leaves[f"opt/{name}/{key}"] = _leaf(value)
     return leaves, meta
 
 
-def _tree(state: Any) -> tuple[dict[str, torch.Tensor], dict]:
+def _tree(state: Any, initial: bool = False
+          ) -> tuple[dict[str, torch.Tensor], dict]:
     if not _is_train_state(state):
         return {str(k): _leaf(v) for k, v in state.items()}, {}
     from .training import _leaf_order
@@ -123,9 +158,63 @@ def _tree(state: Any) -> tuple[dict[str, torch.Tensor], dict]:
             for n in _leaf_order(state.model)}
     tree.update({f"batch_stats/{n}": b.detach()
                  for n, b in state.model.named_buffers()})
-    opt_leaves, opt_meta = _optimizer_leaves(state)
+    opt_leaves, opt_meta = _optimizer_leaves(state, initial)
     tree.update(opt_leaves)
     return tree, {"step": int(state.step), "optimizer": opt_meta}
+
+
+def train_state_tree(state) -> dict[str, torch.Tensor]:
+    """A ``TrainState`` as one state tree, the checkpoint's leaves: the
+    parameters (``params/<name>``, flax leaf order), the buffers
+    (``batch_stats/<name>``), the optimizer's per-parameter state
+    (``opt/<name>/<key>``; a parameter not stepped yet gives the state
+    its first step starts from) and ``step`` (int64).  The tensors are
+    the live ones, detached, on their devices: ``statesync.Snapshot``
+    copies them into its image at a step boundary, and a fresh state of
+    the same model and optimizer gives a tree with the same leaves, the
+    template ``statesync.join_world`` pulls into."""
+    if not _is_train_state(state):
+        raise TypeError("train_state_tree takes a TrainState")
+    tree, _ = _tree(state, initial=True)
+    tree["step"] = torch.tensor(int(state.step), dtype=torch.int64)
+    return tree
+
+
+def load_train_state(tree: Mapping[str, Any], state) -> Any:
+    """Put a tree of :func:`train_state_tree`'s leaves (as
+    ``statesync.join_world`` returns it, CPU tensors) into ``state`` in
+    place: each parameter and buffer copied onto its device, the
+    optimizer's state through ``load_state_dict`` (onto its parameter's
+    device), and the step.  ``state`` must hold the same model and
+    optimizer class; it is returned."""
+    own = train_state_tree(state)
+    if list(tree) != list(own):
+        raise ValueError("the tree's leaves are not this state's")
+    for name, t in own.items():
+        got = tree[name]
+        if tuple(got.shape) != tuple(t.shape) or got.dtype != t.dtype:
+            raise ValueError(f"{name}: the tree holds {got.dtype} "
+                             f"{list(got.shape)}, the state {t.dtype} "
+                             f"{list(t.shape)}")
+    opt = state.optimizer
+    params = dict(state.model.named_parameters())
+    with torch.no_grad():
+        for name, t in own.items():
+            if name.startswith(("params/", "batch_stats/")):
+                t.copy_(tree[name])
+    saved = opt.state_dict()
+    index = {id(p): i for i, p in enumerate(
+        p for g in opt.param_groups for p in g["params"])}
+    states: dict[int, dict] = {}
+    for name, value in tree.items():
+        if not name.startswith("opt/"):
+            continue
+        pname, key = name[len("opt/"):].rsplit("/", 1)
+        states.setdefault(index[id(params[pname])], {})[key] = value
+    opt.load_state_dict({"state": states,
+                         "param_groups": saved["param_groups"]})
+    state.step = int(tree["step"])
+    return state
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

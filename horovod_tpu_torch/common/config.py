@@ -117,8 +117,16 @@ SERVE_MAX_DEFERRALS = Knob(
 SERVE_PREFILL_RANKS = Knob(
     "HOROVOD_SERVE_PREFILL_RANKS", 0, int,
     "Disaggregated prefill/decode: the highest N ranks prefill only and "
-    "stream KV blocks to the decode ranks.  Not ported (ROADMAP queue A "
-    "items 8 and 11): a value above 0 raises NotImplementedError.")
+    "stream KV blocks to the decode ranks over a dedicated PeerMesh "
+    "(serving/kvstream.py, CRC'd addressed chunks), so long prompts never "
+    "occupy a decode step.  0 = every rank prefills its own admissions "
+    "(clamped so at least one decode rank remains; needs "
+    "HOROVOD_SERVE_PAGED).")
+SERVE_KVSTREAM_CHUNK_BYTES = Knob(
+    "HOROVOD_SERVE_KVSTREAM_CHUNK_BYTES", 1 << 18, int,
+    "Chunk size of one prefill-to-decode KV-block stream frame "
+    "(serving/kvstream.py); each chunk is independently addressed and "
+    "CRC-verified on arrival.")
 
 
 def parse_tristate(value: str) -> bool | None:
@@ -366,12 +374,85 @@ FLIGHT_FILE = Knob(
     "'.r<rank>' goes before the extension.  Written only when a "
     "structured failure fires.")
 
-# --- Resilience (resilience/) -----------------------------------------------
+# --- Elastic state streaming (statesync/ subsystem) ------
+STATESYNC = Knob(
+    "HOROVOD_STATESYNC", False, _parse_bool,
+    "Peer-to-peer live state streaming + the grow side of elasticity: "
+    "a per-step membership check (one tiny symmetric collective) lets "
+    "incumbents admit a joining rank at a step boundary, donate a "
+    "copy-on-write state snapshot from live peers (no checkpoint file, "
+    "no training pause), and rebuild the world one rank larger once the "
+    "joiner's streamed state digest-verifies.  Off (the default) adds "
+    "no collectives and no threads.")
+STATESYNC_CHUNK_BYTES = Knob(
+    "HOROVOD_STATESYNC_CHUNK_BYTES", 1 << 20, int,
+    "Chunk size of one streamed state frame (donor->joiner).  Chunks "
+    "are independently addressed (offset, length, crc), so a transfer "
+    "resumes at chunk granularity when a donor dies mid-stream.")
+STATESYNC_POLL_SECONDS = Knob(
+    "HOROVOD_STATESYNC_POLL_SECONDS", 0.1, float,
+    "Interval of the statesync watcher thread's rendezvous-KV polls "
+    "for join announcements / joiner-ready marks.")
+STATESYNC_TIMEOUT_SECONDS = Knob(
+    "HOROVOD_STATESYNC_TIMEOUT_SECONDS", 60.0, float,
+    "Deadline for one streaming round (mesh formation + transfer + "
+    "verify) on both the donor and joiner side; a round that exceeds "
+    "it is abandoned (the joiner re-announces, donors stand down).")
+STATESYNC_WORLD = Knob(
+    "HOROVOD_STATESYNC_WORLD", "world", str,
+    "Name of this process's world-membership record in the coordinator "
+    "KV (scope 'statesync').  A fleet deployment runs TWO live worlds "
+    "— training and serving — against one coordinator "
+    "(fleet/controller.py), so each names its record distinctly "
+    "('train' / 'serve') and a joiner targets the right one; single-"
+    "world deployments keep the default.")
+PREEMPT_GRACE_SECONDS = Knob(
+    "HOROVOD_PREEMPT_GRACE_S", 0.0, float,
+    "Preemption-notice grace window: > 0 installs a SIGTERM handler "
+    "that lets the rank finish its in-flight step, announce an orderly "
+    "departure through the statesync membership check (survivors "
+    "shrink proactively — no RanksFailedError, no heartbeat deadline), "
+    "write its bye| liveness stamp and exit 0.  If no step boundary "
+    "arrives within the window, a backstop stamps bye|, dumps the "
+    "flight recorder and re-delivers the default SIGTERM disposition.  "
+    "0 (the default) keeps the stock SIGTERM behavior.")
+PREEMPT_DONATE = Knob(
+    "HOROVOD_PREEMPT_DONATE", True, _parse_bool,
+    "On an orderly preemption departure, fast-donate this rank's "
+    "ring-sharded (ZeRO) optimizer-state shard to the rendezvous KV so "
+    "survivors can re-shard without the departed rank (only when the "
+    "training loop registered a shard provider; see docs/statesync.md).")
+
+# --- Autoscale policy loop (statesync/autoscale.py) -------------------------
 AUTOSCALE = Knob(
     "HOROVOD_AUTOSCALE", False, _parse_bool,
-    "The elastic driver's autoscale controller.  Not ported (ROADMAP "
-    "queue A item 11, statesync): on, the elastic launcher raises "
-    "NotImplementedError.")
+    "Rank-0 autoscale controller thread: watches the straggler-lag / "
+    "queue-depth gauges (telemetry/) and the serving shed rate, and "
+    "drives the elastic driver's target world size up/down with "
+    "hysteresis.  Decisions are metrics + flight-recorder events.")
+AUTOSCALE_INTERVAL_SECONDS = Knob(
+    "HOROVOD_AUTOSCALE_INTERVAL_S", 5.0, float,
+    "Observation interval of the autoscale controller loop.")
+AUTOSCALE_UP_SHED_RATE = Knob(
+    "HOROVOD_AUTOSCALE_UP_SHED_RATE", 0.05, float,
+    "Scale up when the serving shed rate over one interval exceeds "
+    "this fraction (capacity, not deadline, is the binding constraint).")
+AUTOSCALE_UP_QUEUE_FRACTION = Knob(
+    "HOROVOD_AUTOSCALE_UP_QUEUE_FRACTION", 0.5, float,
+    "Scale up when queue depth exceeds this fraction of "
+    "HOROVOD_SERVE_QUEUE_DEPTH (or the configured depth limit).")
+AUTOSCALE_DOWN_LAG_MS = Knob(
+    "HOROVOD_AUTOSCALE_DOWN_LAG_MS", 50.0, float,
+    "Scale down when the coordinator straggler lag exceeds this many "
+    "ms while the queue is idle and nothing is shed: one dragging rank "
+    "costs more step time than its share of the work is worth.")
+AUTOSCALE_HYSTERESIS_ROUNDS = Knob(
+    "HOROVOD_AUTOSCALE_HYSTERESIS_ROUNDS", 3, int,
+    "Consecutive intervals a scale condition must hold before a "
+    "decision fires (and the cooldown after each decision), so one "
+    "burst never flaps the world size.")
+
+# --- Resilience (resilience/) -----------------------------------------------
 FAULT_TOLERANCE = Knob(
     "HOROVOD_FAULT_TOLERANCE", False, _parse_bool,
     "Failure detection + deadline-bounded collectives: heartbeats over "

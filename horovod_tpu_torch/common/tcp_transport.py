@@ -3,8 +3,10 @@
 The port's copy of ``horovod_tpu/common/tcp_transport.py`` (``TcpTransport``
 with its clock-offset probe and the poison frames of fault tolerance:
 ``POISON_MAGIC``, ``check_poison``, ``broadcast_poison`` and the
-coordinator's drains that poison the survivors on a detected failure),
-without the statesync frame verbs (ROADMAP queue A item 11).
+coordinator's drains that poison the survivors on a detected failure)
+and the state-frame verb of statesync's peer streaming (``STATE_MAGIC``,
+the six ``STATE_*`` kinds, ``pack_state_frame``/``unpack_state_frame``),
+whose frames are bitwise the reference's.
 
 Reference: horovod/common/gloo/gloo_controller.cc:35-199 — the same
 coordination protocol as MPI (request gather to rank 0, response broadcast,
@@ -42,6 +44,53 @@ def check_poison(raw) -> None:
     if raw[:len(POISON_MAGIC)] == POISON_MAGIC:
         raise RanksFailedError.from_wire(
             bytes(raw[len(POISON_MAGIC):]).decode(errors="replace"))
+
+
+# State-frame verb (statesync/): the frames peer-to-peer live-state
+# streaming puts on its dedicated sync mesh (never on the ctrl/data
+# meshes, so they can never interleave with protocol frames).  Layout:
+#   STATE_MAGIC | u8 kind | u32 meta_len | meta json | payload
+# The magic shares the poison frame's property — the leading 0xff byte
+# cannot open any legitimate control frame — so a stray state frame on
+# a control mesh is rejected at one prefix test, and vice versa.
+STATE_MAGIC = b"\xffHVDSTATE\xff"
+_STATE_HDR = struct.Struct(">BI")
+
+# Frame kinds of the streaming protocol (stream.py documents the flow).
+STATE_HELLO = 1     # joiner -> donor: open round (meta: join id, round)
+STATE_META = 2      # donor -> joiner: snapshot stamp + byte total
+STATE_REQ = 3       # joiner -> donor: request a byte range
+STATE_DATA = 4      # donor -> joiner: one chunk (meta: offset/len/crc)
+STATE_END = 5       # donor -> joiner: requested range fully streamed
+STATE_BYE = 6       # joiner -> donor: transfer complete, stand down
+
+
+def pack_state_frame(kind: int, meta: dict, payload=b"") -> bytes:
+    """Encode one state frame (statesync wire verb)."""
+    import json
+    meta_raw = json.dumps(meta, sort_keys=True).encode()
+    head = STATE_MAGIC + _STATE_HDR.pack(kind, len(meta_raw)) + meta_raw
+    if not payload:
+        return head
+    return head + bytes(payload)
+
+
+def unpack_state_frame(raw) -> tuple[int, dict, memoryview]:
+    """Decode one state frame; raises ValueError on a non-state frame
+    (every read of a statesync channel must go through here — the
+    digest/epoch checks downstream only see frames this verb accepted)."""
+    import json
+    view = memoryview(raw) if not isinstance(raw, memoryview) \
+        else raw
+    n_magic = len(STATE_MAGIC)
+    if bytes(view[:n_magic]) != STATE_MAGIC:
+        raise ValueError(
+            "not a state frame (bad magic); statesync channels carry "
+            "only STATE_MAGIC frames")
+    kind, meta_len = _STATE_HDR.unpack_from(view, n_magic)
+    meta_start = n_magic + _STATE_HDR.size
+    meta = json.loads(bytes(view[meta_start:meta_start + meta_len]))
+    return kind, meta, view[meta_start + meta_len:]
 
 
 def _pack_words(and_word: int, or_word: int) -> bytes:

@@ -58,6 +58,10 @@ class ElasticDriver:
         self._results: dict[str, tuple[int, float]] = {}
         self._workers: dict[tuple[str, int], RpcClient] = {}
 
+        # Autoscale target (statesync/autoscale.py): caps the slots the
+        # next round assigns.  None = no cap beyond max_np.
+        self._target_np: int | None = None
+
         self._finished = threading.Event()
         self._shutdown = threading.Event()
         self._reset_limit_exceeded = False
@@ -154,6 +158,21 @@ class ElasticDriver:
         with self._round_cond:
             return self._epoch
 
+    def set_target_np(self, n: int) -> None:
+        """Autoscale hook (statesync/autoscale.py): cap the slots the
+        NEXT round assigns to ``n`` (clamped to [min_np, max_np]).  The
+        running round is untouched — the target applies when discovery
+        changes or a resume re-forms the world."""
+        n = max(int(n), self._min_np)
+        if self._max_np is not None:
+            n = min(n, self._max_np)
+        with self._round_cond:
+            self._target_np = n
+
+    def target_np(self) -> int | None:
+        with self._round_cond:
+            return self._target_np
+
     def final_slots(self) -> dict[int, str]:
         """rank -> "host[local_rank]" of the most recently formed round."""
         with self._round_cond:
@@ -186,7 +205,9 @@ class ElasticDriver:
         epoch.  Called at start and whenever a round completes."""
         with self._round_cond:
             hosts = self._ordered_hosts()
-            slots = get_host_assignments(hosts, self._min_np, self._max_np)
+            max_np = self._max_np if self._target_np is None \
+                else self._target_np
+            slots = get_host_assignments(hosts, self._min_np, max_np)
             self._assignments = {(s.hostname, s.local_rank): s
                                  for s in slots}
             self._epoch += 1

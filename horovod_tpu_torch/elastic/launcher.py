@@ -63,10 +63,6 @@ def launch_elastic(args, command: list[str], *,
     ``(rc, results, final_world_size)`` then, plain ``rc`` otherwise.
     ``extra_env`` adds user variables to every worker (the static path's
     ``env=`` contract)."""
-    if _config.AUTOSCALE.get():
-        raise NotImplementedError(
-            "HOROVOD_AUTOSCALE (the driver's autoscale controller, "
-            "statesync/autoscale.py) is ROADMAP queue A item 11")
     discovery = _make_discovery(args)
     secret = make_secret()
 
@@ -175,15 +171,38 @@ def launch_elastic(args, command: list[str], *,
                 break   # nearer epochs take precedence; stop at first hit
         return rc, fn_results, world
 
+    autoscaler = None
     try:
         try:
             driver.start(args.num_proc or min_np, create_worker)
+            if _config.AUTOSCALE.get():
+                # Autoscale policy loop (statesync/autoscale.py): the
+                # driver-side controller scrapes rank 0's metrics
+                # endpoint and moves the target world size with
+                # hysteresis; decisions are counters + flight events.
+                from ..statesync.autoscale import (AutoscaleController,
+                                                   AutoscalePolicy,
+                                                   http_source)
+                port = _config.METRICS_PORT.get()
+                bind = _config.METRICS_BIND.get() or "127.0.0.1"
+                if port > 0:
+                    autoscaler = AutoscaleController(
+                        driver, http_source(f"http://{bind}:{port}/"),
+                        AutoscalePolicy(min_np, max_np or min_np * 4))
+                    autoscaler.start()
+                else:
+                    logger.warning(
+                        "HOROVOD_AUTOSCALE=1 needs HOROVOD_METRICS_PORT "
+                        "(the controller scrapes rank 0's exposition "
+                        "endpoint); autoscale disabled")
             driver.join()
             driver.wait_for_workers_exit()
         except (TimeoutError, ValueError) as exc:
             sys.stderr.write(f"{PROG} elastic: {exc}\n")
             return _done(1)
         finally:
+            if autoscaler is not None:
+                autoscaler.stop()
             driver.shutdown()
             rpc.close()
 

@@ -27,9 +27,11 @@ Response-level actions (fired by the background loop before dispatch;
   structured ERROR before any byte moves (rank ``*`` makes the failure
   symmetric on every rank — the retriable case);
 - ``preempt:rank=2,op=7``              — deliver SIGTERM (NOT SIGKILL)
-  to self at the global collective index and keep running (the flight
-  recorder's chained SIGTERM handler dumps the ring; the reference's
-  preemption grace path is ROADMAP queue A item 11).  Like every spec,
+  to self at the global collective index and keep running: under
+  ``HOROVOD_PREEMPT_GRACE_S`` the statesync service's handler arms an
+  orderly departure at the next step boundary (``statesync/service.py``);
+  without it the flight recorder's chained SIGTERM handler dumps the
+  ring and the default disposition ends the process.  Like every spec,
   ``rank=`` names the LAUNCH-TIME rank, and the engine with its counts
   survives the re-init of a retry or an elastic re-rendezvous
   (``configure``).

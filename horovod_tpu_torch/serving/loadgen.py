@@ -14,17 +14,20 @@ capacity planner actually needs, next to the training benches:
   ingress; the report separates served / served-within-SLO / shed /
   expired / lost, with p50/p99/p999 latency and goodput vs offered
   load.
+- **Chaos**: run under ``HOROVOD_CHAOS`` (a rank kill mid-serve) and the
+  world shrinks and keeps serving; the report records every shrink.
+- **Elastic grow**: under ``HOROVOD_STATESYNC=1`` every serve step ends
+  with the statesync membership check, so a replica joining through
+  ``replica.join_serving_world`` enters while traffic runs; the report's
+  ``world.grows`` and ``goodput_phases`` record the transition.
 
 The JSON report lands in ``--output`` (default ``SERVE_r{rank}.json``,
 ``{rank}`` substitutes).  It calls ``hvd.init()`` before it builds the
 executor, so it serves in whatever eager world the environment describes
 (a world of one without the rendezvous variables), each replica on its
 card unless ``--device cpu``, and ``hvd.shutdown()`` at the end.  Not
-ported: the elastic shrink and grow the reference's report records
-(under chaos a failed rank raises ``RanksFailedError`` out of the serve
-loop instead), the statesync wiring (ROADMAP queue A item 11) and the
-fleet weights accounting (item 12), which the report names as not
-ported.
+ported: the fleet weights accounting (ROADMAP queue A item 12), which
+the report names as not ported.
 """
 from __future__ import annotations
 
@@ -120,8 +123,7 @@ def build_report(executor: ReplicaExecutor, *, offered: int,
                   "group_size": executor.group_size,
                   "shrinks": stats["shrinks"],
                   "grows": stats["grows"]},
-        # Goodput around an elastic grow: no grow without statesync.
-        "goodput_phases": None,
+        "goodput_phases": _goodput_phases(executor, wall_s),
         "config": args_echo,
         "offered": offered,
         "served": served,
@@ -157,6 +159,33 @@ def build_report(executor: ReplicaExecutor, *, offered: int,
     return report
 
 
+def _goodput_phases(executor: ReplicaExecutor,
+                    wall_s: float) -> dict | None:
+    """Goodput (served/s) before, during and after the FIRST elastic
+    grow — the number that shows incumbents kept serving through the
+    catch-up.  None when no grow happened."""
+    grows = executor.stats["grows"]
+    done = executor.stats["completed_at"]
+    if not grows or wall_s <= 0:
+        return None
+    g = grows[0]
+    t1 = g["at"]                       # grow transition completed
+    t0 = t1 - max(g.get("window_s", 0.0), 1e-9)   # donation started
+    start = min(done + [t0])
+    end = max(done + [t1])
+
+    def rate(lo: float, hi: float) -> float:
+        span = hi - lo
+        if span <= 0:
+            return 0.0
+        return sum(1 for t in done if lo <= t < hi) / span
+
+    return {"before_rps": rate(start, t0),
+            "during_rps": rate(t0, t1),
+            "after_rps": rate(t1, end + 1e-9),
+            "window_s": t1 - t0}
+
+
 def write_report(report: dict, output: str, rank: int) -> str:
     path = output.replace("{rank}", str(rank))
     with open(path, "w") as f:
@@ -177,6 +206,16 @@ def run(args: argparse.Namespace) -> dict:
         overrides["slo_ms"] = args.slo_ms
     executor = ReplicaExecutor(ServeConfig.from_env(**overrides),
                                device=args.device)
+    statesync_service = None
+    if config.STATESYNC.get():
+        # Elastic grow mid-serve: every serve step ends with the
+        # membership check, so a joining replica
+        # (replica.join_serving_world) can enter while this harness
+        # drives traffic.
+        from .. import statesync
+        statesync_service = statesync.StateSyncService(
+            state_provider=executor.state_tree, static_state=True)
+        executor.attach_statesync(statesync_service)
     done = threading.Event()
     t0 = time.monotonic()
     ingress = None
@@ -217,6 +256,8 @@ def run(args: argparse.Namespace) -> dict:
                           ("served", "shed", "expired", "goodput_rps",
                            "latency_ms", "world")}, sort_keys=True))
         print(f"loadgen: report written to {path}")
+    if statesync_service is not None:
+        statesync_service.close()
     executor.close()
     hvd.shutdown()
     return report

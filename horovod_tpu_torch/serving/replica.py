@@ -15,6 +15,12 @@
   a resident prefix is shared instead of prefilled again, a shared block
   is copied before its first divergent write, and cached blocks are
   evicted LRU-first.
+- **Disaggregated prefill/decode** (``HOROVOD_SERVE_PREFILL_RANKS``,
+  paged only): the highest N ranks prefill only and stream each prompt's
+  finished KV blocks to its decode replica over a dedicated kvstream
+  mesh (``kvstream.py``), so a long prompt overlaps decode steps instead
+  of stalling them; a decode slot waits, skipping decode, until its
+  blocks land, and prefills locally if they do not come in time.
 - Completions ride back on an all-gather each step, so the front end
   frees slots and records latencies without a side channel.
 
@@ -22,14 +28,30 @@ The serving world is the eager core's: ``hvd.init()`` comes before the
 executor, which takes its rank and size from ``hvd``.  The plan and the
 completions move through ``hvd.broadcast_object`` and
 ``hvd.allgather_object`` under the reference's names
-(``serve.plan.g0.<step>``, ``serve.done.g0.<step>``; the names feed the
-collective fingerprints), in a world of one too, and each runs under
-``deadline_scope`` of the earliest in-flight request's deadline: under
-``HOROVOD_FAULT_TOLERANCE`` a dead peer converts at once into
+(``serve.plan.g<gen>.<step>``, ``serve.done.g<gen>.<step>``; the names
+feed the collective fingerprints), in a world of one too, and each runs
+under ``deadline_scope`` of the earliest in-flight request's deadline:
+under ``HOROVOD_FAULT_TOLERANCE`` a dead peer converts at once into
 ``RanksFailedError``, and a wedged one at that deadline while the
 exchange's op runs (a wait in the negotiation before it, which no
 request deadline bounds, converts at ``HOROVOD_FAULT_TIMEOUT``, as in
 the reference).
+
+Elastic membership:
+
+- **Shrink**: when an exchange raises ``RanksFailedError``, every
+  survivor converges on the heartbeat-confirmed dead set
+  (``resilience.converge_confirmed_dead``), renumbers itself, rebuilds
+  the world one rank smaller under a fresh rendezvous epoch, moves to
+  the next generation ``<gen>``, and resyncs the in-flight map from
+  ground truth: the requests that were on dead replicas are counted
+  lost, nothing on a survivor is touched (its KV cache is process-local).
+  Suspicion alone (a wedged peer nobody confirmed dead) re-raises.
+- **Grow** (``attach_statesync``): every serve step ends with a
+  statesync boundary; a replica joining through
+  :func:`join_serving_world` streams the incumbents' parameters
+  peer-to-peer, enters at a step boundary, and every rank realigns its
+  step, generation and batcher (``serve.growsync.<join>``).
 
 The model runs on the card unless ``device="cpu"``.  Every call that
 writes the KV cache runs under ``torch.inference_mode()``.  Token, block
@@ -37,21 +59,15 @@ table and cursor arrays live on the host as numpy, as in the reference:
 a decode step copies each to the device once and reads the step's argmax
 back once.
 
-Not ported; each raises ``NotImplementedError`` naming its ROADMAP item:
-disaggregated prefill (``prefill_ranks > 0``, the kvstream mesh; items 8
-and 11), fleet weight swaps (``attach_fleet``) and
-``join_serving_world`` (items 11 and 12), the statesync grow
-(``attach_statesync``, item 11).  Also not ported: the elastic shrink on
-``RanksFailedError`` (item 11).  Where the reference's survivors converge
-on the confirmed-dead set, re-form the world without it and resume, the
-port's ``serve_loop`` lets the ``RanksFailedError`` propagate, and so
-the exchange names keep generation 0.  The serve MFU gauges
-(``_note_perf``) are item 12.
+Not ported (ROADMAP queue A item 12): fleet weight swaps
+(``attach_fleet`` raises ``NotImplementedError``) and the serve MFU
+gauges (``_note_perf``).
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 
 import numpy as np
@@ -59,6 +75,7 @@ import torch
 
 from ..common import config
 from ..common.device import resolve_device
+from ..common.exceptions import RanksFailedError
 from ..models import transformer as tfm
 from .admission import AdmissionController
 from .batcher import Assignment, BatchPlan, ContinuousBatcher
@@ -88,7 +105,8 @@ class ServeConfig:
     block_tokens: int = 16
     pool_blocks: int = 0
     paged_slots: int = 0
-    # Disaggregated prefill/decode (not ported: > 0 raises).
+    # Disaggregated prefill/decode: highest N ranks prefill-only
+    # (requires paged; clamped so at least one decode rank remains).
     prefill_ranks: int = 0
     # Prefill shapes run once at startup, so that the first requests
     # find the card's libraries loaded and the allocator warm.
@@ -147,6 +165,11 @@ class _Slot:
     # by this slot) and the sequence write cursor.
     blocks: list = dataclasses.field(default_factory=list)
     seq_len: int = 0
+    # Disaggregated mode: the original assignment while the streamed
+    # prefill is still in flight (the slot skips decode until it lands or
+    # the fallback prefills locally), and when it went pending.
+    pending: Assignment | None = None
+    pending_since: float = 0.0
 
 
 class ReplicaExecutor:
@@ -162,24 +185,17 @@ class ReplicaExecutor:
                  device: str | torch.device | None = None) -> None:
         from .. import eager as hvd
         self.cfg = serve_cfg or ServeConfig.from_env()
-        if self.cfg.prefill_ranks > 0:
-            raise NotImplementedError(
-                "disaggregated prefill (prefill_ranks > 0, the kvstream "
-                "mesh) is ROADMAP queue A items 8 and 11")
         self.device = resolve_device(device)
         self.hvd = hvd
         self.rank = hvd.rank()
         self.size = hvd.size()
         self.front = 0
+        self._gen = 0                  # shrink/grow generation (name tag)
         self._step = 0
         self._stop_requested = False
         self._configure_groups()
 
-        model_cfg = self.cfg.model_cfg
-        if model_cfg is None:
-            model_cfg = tfm.gpt_tiny(dtype=torch.float32)
-        model_cfg = dataclasses.replace(model_cfg, decode=True,
-                                        max_seq_len=self.cfg.max_seq)
+        model_cfg = _serving_model_cfg(self.cfg)
         if self.cfg.paged:
             model_cfg = dataclasses.replace(
                 model_cfg, paged=True,
@@ -203,6 +219,9 @@ class ReplicaExecutor:
                       "shrinks": [], "grows": [],
                       "prefill_streams": 0, "prefill_fallbacks": 0,
                       "prefill_skipped": 0, "weight_swaps": []}
+        # Elastic grow mid-serve: attach_statesync wires a membership
+        # service in; None adds no collective.
+        self.statesync = None
 
         self.queue = RequestQueue(maxsize=self.cfg.queue_depth,
                                   default_slo_ms=self.cfg.slo_ms)
@@ -222,23 +241,38 @@ class ReplicaExecutor:
                                     self.cfg.table_width),
                                    self._sink, np.int32)
             self._cursors = np.zeros(self.cfg.slots, np.int32)
+        self._kvstream = None
         self._init_cache()
         self._warmup()
+        if self.prefill_rank_list:
+            self._rebuild_kvstream()
 
     # -- topology --------------------------------------------------------
     def _configure_groups(self) -> None:
+        n_pref = 0
+        if self.cfg.prefill_ranks > 0:
+            if not self.cfg.paged:
+                logger.warning(
+                    "serving: HOROVOD_SERVE_PREFILL_RANKS needs "
+                    "HOROVOD_SERVE_PAGED (block streaming); ignoring")
+            else:
+                n_pref = min(self.cfg.prefill_ranks, self.size - 1)
+        self.decode_size = self.size - n_pref
+        self.prefill_rank_list = list(range(self.decode_size, self.size))
+        self.is_prefill = self.rank >= self.decode_size
         gs = self.cfg.group_size
-        if gs <= 0 or self.size % gs:
+        if gs <= 0 or self.decode_size % gs:
             if gs > 1:
                 logger.warning(
-                    "serving: group size %d does not divide the world "
-                    "size %d; falling back to per-rank replicas", gs,
-                    self.size)
+                    "serving: group size %d does not divide decode size "
+                    "%d; falling back to per-rank replicas", gs,
+                    self.decode_size)
             gs = 1
         self.group_size = gs
-        self.group = self.rank // gs
-        self.num_groups = self.size // gs
-        self.group_leader = self.rank % gs == 0
+        self.group = self.rank // gs if not self.is_prefill else -1
+        self.num_groups = self.decode_size // gs
+        self.group_leader = (not self.is_prefill
+                             and self.rank % gs == 0)
 
     def _make_batcher(self) -> ContinuousBatcher:
         return ContinuousBatcher(
@@ -247,6 +281,21 @@ class ReplicaExecutor:
             block_capacity=self.cfg.resolved_pool_blocks
             if self.cfg.paged else 0,
             block_tokens=self.cfg.block_tokens)
+
+    def _rebuild_kvstream(self) -> None:
+        """(Re)form the dedicated prefill-stream mesh — collectively,
+        every serving rank, epoch- and generation-scoped so a post-shrink
+        mesh never collides with the dying one's sockets."""
+        from ..statesync.service import _kv_client
+        from .kvstream import KVStreamMesh, kvstream_scope
+
+        if self._kvstream is not None:
+            self._kvstream.close()
+            self._kvstream = None
+        base = os.environ.get("HOROVOD_RENDEZVOUS_EPOCH", "0")
+        self._kvstream = KVStreamMesh(
+            _kv_client(), kvstream_scope(base, self._gen), self.rank,
+            self.size, self.prefill_rank_list)
 
     # -- model plumbing --------------------------------------------------
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
@@ -330,7 +379,8 @@ class ReplicaExecutor:
         stop = (self._stop_requested and self.queue.depth() == 0
                 and self.batcher.inflight_count() == 0)
         plan, expired = self.batcher.assemble(
-            self._step, self.queue, self.admission, stop=stop)
+            self._step, self.queue, self.admission, stop=stop,
+            prefill_ranks=self.prefill_rank_list)
         for _ in expired:
             # Expired while queued: shed at admission, never executed.
             self.admission.count("expired")
@@ -350,15 +400,21 @@ class ReplicaExecutor:
         with deadline_scope(self._inflight_deadline()):
             return self.hvd.broadcast_object(
                 plan, root_rank=self.front,
-                name=f"serve.plan.g0.{self._step}")
+                name=f"serve.plan.g{self._gen}.{self._step}")
 
     def _apply_plan(self, plan: BatchPlan) -> None:
         now = time.monotonic()
         for a in plan.assign:
+            if self.is_prefill:
+                if a.prefill == self.rank:
+                    self._prefill_and_stream(a)
+                continue
             if a.replica != self.group:
                 continue
             slot = next(i for i, s in enumerate(self.slots) if s is None)
-            if self.cfg.paged:
+            if a.prefill >= 0:
+                self._admit_disaggregated(slot, a, now)
+            elif self.cfg.paged:
                 self._prefill_slot_paged(slot, a, now)
             else:
                 self._prefill_slot(slot, a, now)
@@ -478,6 +534,151 @@ class ReplicaExecutor:
         self._activate_slot(slot, a, now, int(first), blocks=blocks,
                             seq_len=len(toks))
 
+    # -- disaggregated prefill/decode ------------------------------------
+    def _admit_disaggregated(self, slot: int, a: Assignment,
+                             now: float) -> None:
+        """Decode-rank admission of a prefill-rank-assigned request: a
+        full local prefix hit admits at once (the stream, when it lands,
+        is discarded); otherwise the slot parks pending — it skips decode
+        until the streamed blocks arrive (or the fallback prefills
+        locally), so the long prompt never stalls a step."""
+        toks = self._clamped_tokens(a)
+        hits, pos = self._lookup_prefix(toks)
+        for b in hits:          # _prefill_slot_paged looks up again
+            self.pool.deref(b)
+        if pos >= len(toks):
+            self._prefill_slot_paged(slot, a, now)
+            if self._kvstream is not None:
+                self._kvstream.discard(a.rid)
+            return
+        self.slots[slot] = _Slot(
+            rid=a.rid, remaining=a.max_new_tokens,
+            deadline=now + a.deadline_rel_ms / 1e3, assigned_at=now,
+            age_ms=a.age_ms, slo_ms=a.slo_ms, generated=[],
+            pending=a, pending_since=now)
+        self.prefilled.add(a.rid)
+
+    @torch.inference_mode()
+    def _prefill_and_stream(self, a: Assignment) -> None:
+        """Prefill-rank half: compute the prompt's KV blocks in the local
+        scratch pool (identity table) and stream them to every rank of
+        the decode replica group."""
+        bt = self.cfg.block_tokens
+        toks = self._clamped_tokens(a)
+        nblk = -(-len(toks) // bt)
+        row = np.full(self.cfg.table_width, self._sink, np.int32)
+        row[:nblk] = np.arange(nblk)
+        bucket = min(self._bucket(len(toks)), self.cfg.max_seq)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(toks)] = toks
+        first, self._cache = self._paged_prefill_impl(
+            self._cache, self._to_device(padded),
+            self._to_device(row[None]),
+            self._to_device(np.zeros(1, np.int32)), len(toks))
+        image = self._extract_blocks(nblk)
+        raw = image.view(torch.uint8).reshape(-1).numpy()
+        dests = list(range(a.replica * self.group_size,
+                           (a.replica + 1) * self.group_size))
+        from ..resilience import deadline_scope
+
+        # The stream is bounded twice over: the request's SLO deadline
+        # scopes the step, and the KVStreamGuard silence timeout aborts
+        # a send wedged on a dead decode peer (the decode side then
+        # prefills locally — degradation, never a stall).
+        try:
+            with deadline_scope(time.monotonic()
+                                + a.deadline_rel_ms / 1e3):
+                self._kvstream.send_image(
+                    a.rid, dests, raw, first=int(first), plen=len(toks),
+                    cursor=len(toks),
+                    shape=tuple(image.shape),
+                    dtype=str(image.dtype).removeprefix("torch."))
+        except (ConnectionError, OSError) as exc:
+            logger.warning("serving: prefill stream for rid %d failed: "
+                           "%s", a.rid, exc)
+            return
+        self.stats["prefill_streams"] += 1
+
+    def _cache_pool_leaves(self) -> list[torch.Tensor]:
+        """The per-layer key and value pools in one order on sender and
+        receiver (the same model, the same cache): layer by layer, its
+        key pool, then its value pool."""
+        return [pool for pair in zip(self._cache.key_pool,
+                                     self._cache.value_pool)
+                for pool in pair]
+
+    def _extract_blocks(self, nblk: int) -> torch.Tensor:
+        """``[2L, nblk, bt, H, D]`` on the host: the prompt's pool rows of
+        every layer, one device-to-host copy a pool."""
+        leaves = self._cache_pool_leaves()
+        out = torch.empty((len(leaves), nblk, *leaves[0].shape[1:]),
+                          dtype=leaves[0].dtype)
+        for i, leaf in enumerate(leaves):
+            out[i].copy_(leaf[:nblk])
+        return out
+
+    @torch.inference_mode()
+    def _insert_blocks(self, ids: list, image: torch.Tensor) -> None:
+        idx = self._to_device(np.asarray(ids, np.int64))
+        for i, leaf in enumerate(self._cache_pool_leaves()):
+            leaf.index_copy_(0, idx, image[i].to(self.device))
+
+    def _integrate_prefills(self) -> None:
+        """Decode-rank step hook: land fully streamed transfers into
+        pending slots (non-blocking — a transfer still in flight keeps
+        its slot pending), prefill locally when a transfer outlived its
+        patience (prefill rank died, stream lost), and drop orphaned
+        images."""
+        now = time.monotonic()
+        pending_rids = set()
+        for i, s in enumerate(self.slots):
+            if s is None or s.pending is None:
+                continue
+            pending_rids.add(s.rid)
+            img = self._kvstream.pop_ready(s.rid) \
+                if self._kvstream is not None else None
+            if img is not None:
+                self._land_streamed(i, img)
+                continue
+            patience = max(1.0, s.slo_ms / 4e3)
+            if now - s.pending_since > patience:
+                a = s.pending
+                self.slots[i] = None
+                self._prefill_slot_paged(i, a, now)
+                self.stats["prefill_fallbacks"] += 1
+                if self._kvstream is not None:
+                    self._kvstream.discard(a.rid)
+        if self._kvstream is not None:
+            for rid in self._kvstream.ready_rids():
+                if rid not in pending_rids:
+                    self._kvstream.discard(rid)
+
+    def _land_streamed(self, slot: int, img) -> None:
+        """Insert a streamed prefill into the pool and activate the slot:
+        allocate the sequence's full block run, write the prompt rows,
+        publish them for prefix reuse."""
+        a = self.slots[slot].pending
+        bt = self.cfg.block_tokens
+        toks = self._clamped_tokens(a)
+        total = -(-(len(toks) + a.max_new_tokens) // bt)
+        blocks = self.pool.alloc(total)
+        if blocks is None:
+            raise RuntimeError(
+                f"KV pool exhausted landing streamed rid {a.rid}")
+        image = torch.frombuffer(img.data, dtype=torch.uint8).view(
+            getattr(torch, img.dtype)).reshape(img.shape)
+        self._insert_blocks(blocks[:image.shape[1]], image)
+        self._publish_prompt(toks, blocks)
+        row = np.full(self.cfg.table_width, self._sink, np.int32)
+        row[:total] = blocks
+        self._tables[slot] = row
+        remaining = self.slots[slot].remaining
+        self._last_tokens[slot] = img.first
+        self.slots[slot] = dataclasses.replace(
+            self.slots[slot], remaining=remaining - 1,
+            generated=[img.first], blocks=blocks, seq_len=img.cursor,
+            pending=None, pending_since=0.0)
+
     # -- decode ----------------------------------------------------------
     @torch.inference_mode()
     def _decode_once(self) -> None:
@@ -486,7 +687,8 @@ class ReplicaExecutor:
         keeps advancing (past S, where the write clamps as in JAX), in the
         paged one its table points at the sink."""
         active = [i for i, s in enumerate(self.slots)
-                  if s is not None and s.remaining > 0]
+                  if s is not None and s.pending is None
+                  and s.remaining > 0]
         if not active:
             return
         tokens = self._to_device(self._last_tokens[:, None])
@@ -519,7 +721,7 @@ class ReplicaExecutor:
     def _collect_completions(self) -> None:
         now = time.monotonic()
         for i, s in enumerate(self.slots):
-            if s is None or s.remaining > 0:
+            if s is None or s.pending is not None or s.remaining > 0:
                 continue
             rec = {"rid": s.rid, "replica": self.group,
                    "latency_ms": s.age_ms + (now - s.assigned_at) * 1e3,
@@ -539,6 +741,8 @@ class ReplicaExecutor:
                 self.pool.deref(b)
             self._tables[i] = self._sink
             self._cursors[i] = 0
+            if self._kvstream is not None:
+                self._kvstream.discard(s.rid)
         self.slots[i] = None
 
     def _exchange_completions(self) -> list[dict]:
@@ -547,7 +751,7 @@ class ReplicaExecutor:
         mine = {"done": list(self._unreported)}
         with deadline_scope(self._inflight_deadline()):
             per_rank = self.hvd.allgather_object(
-                mine, name=f"serve.done.g0.{self._step}")
+                mine, name=f"serve.done.g{self._gen}.{self._step}")
         self._unreported.clear()       # acknowledged by the exchange
         return [rec for p in per_rank for rec in p["done"]]
 
@@ -557,7 +761,7 @@ class ReplicaExecutor:
         now = time.monotonic()
         for rec in completions:
             if rec["rid"] not in self.batcher.inflight:
-                continue
+                continue   # duplicate re-send after a failed exchange
             self.batcher.note_done(rec["rid"])
             self.admission.count("served")
             self.admission.observe_latency_ms(rec["latency_ms"])
@@ -566,15 +770,68 @@ class ReplicaExecutor:
             self.stats["latencies_ms"].append(rec["latency_ms"])
             self.stats["completed_at"].append(now)
 
-    # -- not ported ------------------------------------------------------
+    # -- elastic grow mid-serve (statesync/) -----------------------------
     def attach_statesync(self, service) -> None:
-        raise NotImplementedError(
-            "elastic grow mid-serve (statesync) is ROADMAP queue A item 11")
+        """Wire a statesync membership service in: every serve step ends
+        with its boundary check, so a joining replica is admitted at a
+        step boundary and enters after its streamed params verify."""
+        self.statesync = service
 
+    def state_tree(self) -> dict[str, torch.Tensor]:
+        """The streamed state of serving: the parameters, the only
+        cross-replica state (KV caches are per request), which never
+        change between steps (the service runs with ``static_state``,
+        so the bulk image is the joiner's entry state).  Each is
+        ``params/<name>`` in the flax leaf order, viewed in flax's shape
+        and element order, so the image is the reference's for the same
+        weights."""
+        return _params_tree(self.model)
+
+    def _statesync_boundary(self) -> None:
+        change = self.statesync.step_boundary()
+        if change is not None and change.kind == "grow":
+            self._grow_resync(change.join_id, change.rank, change.size)
+
+    def _grow_resync(self, join_id: int, new_rank: int,
+                     new_size: int) -> None:
+        """Realign the serving world after a grow: every rank (the joiner
+        included — this is its first collective) exchanges (step, gen,
+        resident rids), adopts the maxima, and rebuilds the batcher with
+        the new replica group present but empty.  Nothing in flight is
+        touched: incumbents' KV caches are process-local."""
+        old_size = self.size
+        self.rank, self.size = new_rank, new_size
+        self.front = 0
+        self._configure_groups()
+        mine = {"step": self._step, "gen": self._gen,
+                "rids": (sorted(s.rid for s in self.slots
+                                if s is not None)
+                         if self.group_leader else [])}
+        per_rank = self.hvd.allgather_object(
+            mine, name=f"serve.growsync.{join_id}")
+        self._step = max(p["step"] for p in per_rank)
+        # A fresh generation: post-grow exchange names never collide
+        # with a pre-grow step another rank might still have cached.
+        self._gen = max(p["gen"] for p in per_rank) + 1
+        per_group = [per_rank[g * self.group_size]["rids"]
+                     for g in range(self.num_groups)]
+        self.batcher.rebuild(per_group)
+        if self.prefill_rank_list:
+            self._rebuild_kvstream()
+        windows = getattr(self.statesync, "grow_windows", [])
+        self.stats["grows"].append(
+            {"join": join_id, "from": old_size, "to": new_size,
+             "step": self._step, "at": time.monotonic(),
+             "window_s": windows[-1][1] - windows[-1][0]
+             if windows else 0.0})
+        logger.warning("serving: grow %d->%d (join %d) at step %d",
+                       old_size, new_size, join_id, self._step)
+
+    # -- not ported ------------------------------------------------------
     def attach_fleet(self, kv, *, interval_s: float | None = None):
         raise NotImplementedError(
             "fleet weight deployment (attach_fleet) is ROADMAP queue A "
-            "items 11 and 12")
+            "item 12")
 
     # -- the loop --------------------------------------------------------
     def _serve_step(self) -> bool:
@@ -585,9 +842,14 @@ class ReplicaExecutor:
         if plan.stop:
             return False
         self._apply_plan(plan)
-        self._decode_once()
-        self._collect_completions()
+        if not self.is_prefill:
+            if self.cfg.paged and self.prefill_rank_list:
+                self._integrate_prefills()
+            self._decode_once()
+            self._collect_completions()
         self._account(self._exchange_completions())
+        if self.statesync is not None:
+            self._statesync_boundary()
         self.admission.observe_step_ms((time.monotonic() - t0) * 1e3)
         return True
 
@@ -595,7 +857,8 @@ class ReplicaExecutor:
                    idle_sleep: float = 0.002) -> None:
         """Run serve steps until the front end declares the system
         drained (``stop_when()`` true on the front end AND queue and
-        in-flight empty).  ``max_steps`` is a safety bound for tests."""
+        in-flight empty), riding elastic shrinks across rank failures.
+        ``max_steps`` is a safety bound for tests."""
         while max_steps is None or self._step < max_steps:
             if self.rank == self.front:
                 if stop_when is not None and stop_when():
@@ -604,8 +867,96 @@ class ReplicaExecutor:
                         and self.queue.depth() == 0
                         and self.batcher.inflight_count() == 0):
                     time.sleep(idle_sleep)   # don't hot-spin empty plans
-            if not self._serve_step():
-                return
+            try:
+                if not self._serve_step():
+                    return
+            except RanksFailedError as exc:
+                self._shrink_and_resume(exc)
+
+    # -- elastic shrink --------------------------------------------------
+    def _shrink_and_resume(self, exc: RanksFailedError) -> None:
+        from .. import core
+        from ..resilience import converge_confirmed_dead
+
+        # Converge on the heartbeat-CONFIRMED dead set (shared with the
+        # statesync failure-shrink path, resilience/policy.py): every
+        # survivor computes the same membership, and suspicion alone (a
+        # slow peer) re-raises instead of shrinking.
+        dead = converge_confirmed_dead(exc)
+        survivors = [r for r in range(self.size) if r not in dead]
+        new_rank = survivors.index(self.rank)
+        new_size = len(survivors)
+        from ..telemetry import flight
+
+        rec = flight.recorder()
+        if rec.enabled:
+            rec.record("shrink", f"dead {sorted(dead)}",
+                       detail=f"serving {self.size}->{new_size} at "
+                              f"step {self._step}")
+        logger.warning(
+            "serving: shrink %d->%d (dead=%s); this rank %d -> %d",
+            self.size, new_size, sorted(dead), self.rank, new_rank)
+        base = os.environ.get("HOROVOD_RENDEZVOUS_EPOCH", "0")
+        self._gen += 1
+        tag = "_".join(str(r) for r in sorted(dead))
+        core.reinit_world(
+            rank=new_rank, size=new_size,
+            epoch=f"{base.split('~', 1)[0]}~sv{self._gen}x{tag}")
+        old = (self.rank, self.size)
+        self.rank, self.size = new_rank, new_size
+        self.front = 0
+        self._configure_groups()
+        if self.statesync is not None:
+            self.statesync.notify_world_changed()
+        self._resync()
+        if self.prefill_rank_list:
+            self._rebuild_kvstream()
+        if not self.is_prefill:
+            self._repair_pending()
+        self.stats["shrinks"].append(
+            {"dead": sorted(dead), "from": old[1], "to": new_size,
+             "step": self._step})
+
+    def _repair_pending(self) -> None:
+        """After a world rebuild, any still-pending streamed prefill may
+        have died with its prefill rank: prefill locally right away (the
+        plan already committed these admissions — they are never
+        dropped)."""
+        now = time.monotonic()
+        for i, s in enumerate(self.slots):
+            if s is None or s.pending is None:
+                continue
+            a = s.pending
+            self.slots[i] = None
+            self._prefill_slot_paged(i, a, now)
+            self.stats["prefill_fallbacks"] += 1
+
+    def _resync(self) -> None:
+        """Rebuild shared state from ground truth after a world rebuild.
+
+        - Survivors may have caught the failure at DIFFERENT steps (a
+          per-rank data-plane error can abort rank A's plan broadcast
+          while rank B fails one exchange later), so the step counter
+          realigns to the maximum — exchange names must match again.
+        - Each group leader reports its resident rids (plus completions
+          awaiting re-send); requests that vanished with dead replicas
+          are counted lost.  Nothing on a surviving replica is ever
+          dropped.
+        """
+        rids = sorted(s.rid for s in self.slots if s is not None)
+        rids += [rec["rid"] for rec in self._unreported]
+        mine = {"step": self._step,
+                "rids": rids if self.group_leader else []}
+        per_rank = self.hvd.allgather_object(
+            mine, name=f"serve.resync.g{self._gen}")
+        self._step = max(p["step"] for p in per_rank)
+        per_group = [per_rank[g * self.group_size]["rids"]
+                     for g in range(self.num_groups)]
+        lost = self.batcher.rebuild(per_group)
+        if self.rank == self.front:
+            for _ in lost:
+                self.admission.count("lost")
+            self.stats["lost"] += len(lost)
 
     # -- introspection / teardown ----------------------------------------
     def inflight_rids(self) -> list[int]:
@@ -634,15 +985,74 @@ class ReplicaExecutor:
                 "prefill_skipped": self.stats["prefill_skipped"]}
 
     def close(self) -> None:
-        """Release the serving resources this executor owns: the KV
-        block pool."""
+        """Release the serving resources this executor owns: the kvstream
+        mesh (drain threads and sockets) and the KV block pool."""
+        if self._kvstream is not None:
+            self._kvstream.close()
+            self._kvstream = None
         if self.pool is not None:
             self.pool.close()
 
 
-def join_serving_world(serve_cfg: ServeConfig | None = None
+def _params_tree(model: tfm.TransformerLM) -> dict[str, torch.Tensor]:
+    """``params/<name>`` -> the parameter viewed in flax's shape and
+    element order, in the flax leaf order."""
+    from ..convert import flax_layouts
+    from ..training import _leaf_order
+    layouts = flax_layouts(model)
+    params = dict(model.named_parameters())
+    return {f"params/{n}": layouts[n][0](params[n].detach())
+            for n in _leaf_order(model)}
+
+
+def _serving_model_cfg(cfg: ServeConfig):
+    """The decode model of ``cfg`` (gpt_tiny in fp32 when it names none),
+    its positions sized to ``cfg.max_seq``."""
+    model_cfg = cfg.model_cfg
+    if model_cfg is None:
+        model_cfg = tfm.gpt_tiny(dtype=torch.float32)
+    return dataclasses.replace(model_cfg, decode=True,
+                               max_seq_len=cfg.max_seq)
+
+
+def serving_params_template(cfg: ServeConfig) -> dict[str, torch.Tensor]:
+    """The state tree a serving joiner offers to ``join_world``: the
+    leaves of :meth:`ReplicaExecutor.state_tree` of a model of ``cfg``
+    built on the CPU from ``cfg.seed`` (their shapes and dtypes matter;
+    the streamed image replaces the values)."""
+    return _params_tree(tfm.TransformerLM(_serving_model_cfg(cfg),
+                                          device="cpu", seed=cfg.seed))
+
+
+def join_serving_world(serve_cfg: ServeConfig | None = None, *,
+                       device: str | torch.device | None = None
                        ) -> ReplicaExecutor:
-    """Join a live serving world as a fresh replica: not ported."""
-    raise NotImplementedError(
-        "joining a live serving world (statesync grow, fleet) is ROADMAP "
-        "queue A items 11 and 12")
+    """Join a live serving world as a fresh replica (statesync grow):
+    stream the incumbents' params peer-to-peer, enter as rank N, and
+    return a ReplicaExecutor on ``device`` (the card unless "cpu")
+    already realigned (step, generation, batcher) and ready for
+    ``serve_loop``.  The incumbents' only stall is this rank's executor
+    construction between the world rebuild and the first realign
+    exchange — the bulk params transfer happened before they rebuilt
+    anything."""
+    from .. import statesync
+    from ..convert import flax_layouts
+
+    cfg = serve_cfg or ServeConfig.from_env()
+    model = tfm.TransformerLM(_serving_model_cfg(cfg), device="cpu",
+                              seed=cfg.seed)
+    tree, info = statesync.join_world(_params_tree(model))
+    layouts = flax_layouts(model)
+    del model
+    params = {}
+    for key, t in tree.items():
+        name = key[len("params/"):]
+        params[name] = layouts[name][1](t)
+    ex = ReplicaExecutor(cfg, params=params, device=device)
+    service = statesync.StateSyncService(state_provider=ex.state_tree,
+                                         static_state=True)
+    ex.attach_statesync(service)
+    # First collective on the new world: adopt the incumbents' step and
+    # generation, and announce this (empty) replica group.
+    ex._grow_resync(info.join_id, info.rank, info.size)
+    return ex

@@ -47,7 +47,9 @@ for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
             "torch.elastic", "parallel.ring_attention", "parallel.ulysses",
             "parallel.pipeline", "models.moe", "statesync",
             "statesync.snapshot", "checkpoint", "spark", "spark.store",
-            "data", "data.loader", "callbacks"):
+            "data", "data.loader", "callbacks", "statesync.stream",
+            "statesync.service", "statesync.autoscale",
+            "serving.kvstream"):
     assert "horovod_tpu_torch." + sub in new, sub
 bad = [m for m in new
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
@@ -67,11 +69,13 @@ def test_import_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 101           # every module: the eager core,
+    assert int(count) >= 105           # every module: the eager core,
     # the device plane, the torch binding, the runtime's telemetry,
     # fingerprint and autotuner, the failure half's resilience, the
     # launcher and elastic layer, sequence, expert and pipeline
-    # parallelism, and the fit loop with its state and data too
+    # parallelism, the fit loop with its state and data, and elastic
+    # membership (statesync's streaming, service and autoscale, and
+    # serving's kvstream) too
     assert bad == "BAD []", bad
 
 

@@ -14,8 +14,8 @@
   and ``hvd.allgather_object``): the plan broadcast keeps both in step,
   the front serves every request, and each rank's streams match a
   one-rank run.  Under fault tolerance a chaos SIGKILL of rank 1
-  mid-serve makes rank 0's ``serve_loop`` raise ``RanksFailedError``
-  naming rank 1 within twice the fault timeout.
+  mid-serve makes rank 0 shrink to a world of one and serve on under
+  generation 1, the requests lost with rank 1 counted.
 
 The port's executor takes its rank and size from ``hvd``, so every port
 executor here is built after ``hvd.init()`` (a world of one in-process).
@@ -424,16 +424,18 @@ def test_paged_eviction_then_readmission_stays_correct():
 
 
 def test_unported_parts_raise():
-    from horovod_tpu_torch.serving import replica
-    with pytest.raises(NotImplementedError, match="items 8 and 11"):
-        _port_executor(prefill_ranks=1)
-    ex = _port_executor()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ex.attach_statesync(None)
-    with pytest.raises(NotImplementedError, match="items 11 and 12"):
+    """Fleet weight swaps are what is left unported (item 12).  The
+    elastic pieces no longer raise: a prefill rank is clamped away in a
+    world of one (one decode rank must remain), and a statesync service
+    attaches."""
+    ex = _port_executor(prefill_ranks=1, paged=True)
+    assert ex.prefill_rank_list == [] and ex.decode_size == 1
+    assert not ex.is_prefill
+    ex.attach_statesync(None)
+    assert ex.statesync is None
+    with pytest.raises(NotImplementedError, match="item 12"):
         ex.attach_fleet(None)
-    with pytest.raises(NotImplementedError, match="items 11 and 12"):
-        replica.join_serving_world()
+    ex.close()
 
 
 def test_loadgen_report_schema_matches_reference(tmp_path):
@@ -532,24 +534,41 @@ def test_two_rank_gloo_serving(tmp_path):
 def test_two_rank_serving_chaos_kill(tmp_path):
     """Fault tolerance on, chaos SIGKILLs rank 1 at collective 11 (the
     completions exchange's data allgather of serve step 2, four
-    collectives a step) with requests in flight: rank 0's serve_loop
-    raises RanksFailedError naming rank 1 within twice the fault
-    timeout."""
+    collectives a step) with requests in flight: rank 0 converges on the
+    confirmed-dead set {1}, shrinks to a world of one and serves on under
+    generation 1.  The requests that were on rank 1 are counted lost,
+    every other one is served, and the survivor's streams are a one-rank
+    run's."""
+    prompts = _prompts(13, n=5)
     outs = _serve_world(tmp_path, dict(
-        prompts=_prompts(13, n=5), n=GLOO_N, max_new=GLOO_MAX_NEW,
+        prompts=prompts, n=GLOO_N, max_new=GLOO_MAX_NEW,
         cfg=_cfg_kwargs(group_size=1), epoch="servekill",
         env={"HOROVOD_FAULT_TOLERANCE": "1",
              "HOROVOD_FAULT_TIMEOUT": str(KILL_FAULT_TIMEOUT),
              "HOROVOD_CHAOS": "kill:rank=1,op=11,sig=9"}),
         expected_rcs={1: -signal.SIGKILL})
-    failure = outs[0]["failure"]
-    assert failure is not None, outs[0]
-    assert failure["failed_ranks"] == [1], failure
-    assert failure["op"].startswith("allgather(serve.done.g0.3"), failure
-    assert failure["seconds"] < 2 * KILL_FAULT_TIMEOUT, failure
-    assert failure["inflight"] > 0, failure
-    assert outs[0]["served"] < GLOO_N
+    out = outs[0]
+    assert out["failure"] is None, out
+    assert [(s["dead"], s["from"], s["to"]) for s in out["shrinks"]] == \
+        [([1], 2, 1)], out["shrinks"]
+    assert out["gen"] == 1
+    gens = out["plan_gens"]
+    assert gens[0] == 0 and gens[-1] == 1 and gens == sorted(gens), gens
+    assert out["lost"] > 0, out
+    assert out["expired"] == 0, out
+    assert out["served"] + out["lost"] == out["offered"] == GLOO_N, out
     assert outs[1] is None                      # killed before its report
+    # The survivor's requests: every token a one-rank run's.
+    solo = _port_executor(group_size=1)
+    want = _record_streams(solo)
+    rids = _submit(solo, prompts, GLOO_N, GLOO_MAX_NEW)
+    solo.serve_loop(stop_when=lambda: True)
+    params = convert.params_to_flax(solo.model.state_dict(), ttr.gpt_tiny())
+    got = {int(k): v for k, v in out["streams"].items()}
+    assert len(got) == out["served"]
+    _assert_streams_agree(got, {r: want[r] for r in got}, rids, params,
+                          "survivor")
+    solo.close()
 
 
 # Both packages' bf16 runs under 6 pytest-xdist workers took 40 s

@@ -8,11 +8,13 @@ settings: fault tolerance and chaos for the kill case): the rank calls
 ``hvd.init()`` against the port's rendezvous server, the front end (rank
 0) submits ``n`` requests cycling through the prompts, and every rank
 serves until the front end has drained.  The rank writes to ``OUT.json``
-the plans it executed (each a list of ``[rid, replica]``), its step
-count, the streams its replica group generated, the front's ``offered``
-and ``served``, and the ``RanksFailedError`` that ended its loop, if one
-did (failed ranks, op, phase and seconds from the last completed
-exchange to the error).  It imports torch and the port only.
+the plans it executed (each a list of ``[rid, replica]``) and the
+generation each plan exchange ran under (``serve.plan.g<gen>``), its step
+count, the streams its replica group generated, the front's ``offered``,
+``served``, ``lost`` and ``expired``, the shrinks its loop rode, and the
+``RanksFailedError`` that ended its loop, if one did (failed ranks, op,
+phase and seconds from the last completed exchange to the error).  It
+imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -39,12 +41,13 @@ def main(rank: int, world: int, port: int, spec_path: str,
     hvd.init()
     try:
         ex = ReplicaExecutor(ServeConfig(**spec["cfg"]), device="cpu")
-        plans, streams = [], {}
+        plans, streams, gens = [], {}, []
         exchange, collect = ex._exchange_plan, ex._collect_completions
         gather = ex._exchange_completions
         last_exchange = [time.monotonic()]
 
         def record_plan(plan):
+            gens.append(ex._gen)
             plan = exchange(plan)
             last_exchange[0] = time.monotonic()
             plans.append([[a.rid, a.replica] for a in plan.assign])
@@ -77,9 +80,14 @@ def main(rank: int, world: int, port: int, spec_path: str,
                        "seconds": time.monotonic() - last_exchange[0],
                        "inflight": len(ex.inflight_rids())}
         with open(out, "w") as f:
-            json.dump({"plans": plans, "steps": ex._step,
-                       "streams": streams, "offered": ex.stats["offered"],
-                       "served": ex.stats["served"], "failure": failure}, f)
+            json.dump({"plans": plans, "plan_gens": gens,
+                       "steps": ex._step, "streams": streams,
+                       "offered": ex.stats["offered"],
+                       "served": ex.stats["served"],
+                       "lost": ex.stats["lost"],
+                       "expired": ex.stats["expired"],
+                       "shrinks": ex.stats["shrinks"], "gen": ex._gen,
+                       "failure": failure}, f)
         ex.close()
     finally:
         hvd.shutdown()
