@@ -352,6 +352,55 @@ Phases, each printed as one JSON object on its own line:
    run's.  The kernels line's ``statesync_launches`` are leg (a)'s
    incumbent's over all its steps.
 
+18. cards: the data-parallel main path across the cards of this host,
+   one line a leg.  Every rank is a process the port's launcher starts
+   (``python -m horovod_tpu_torch.runner.launch -np n -H localhost:n
+   chip_smoke.py --cards-worker ...``, the ``horovodrun-tpu-torch``
+   program); each calls ``hvd.init()`` and then
+   ``torch.cuda.set_device(hvd.local_rank())``, as upstream asks of its
+   torch users, and at n > 1 fails unless the NCCL plane formed.  First
+   the one-card references on card 0 over a one-rank NCCL group: gpt_small
+   at B=8 as the train phase trains it (its losses must be the train
+   phase's bit for bit when that phase ran).  Then a launcher world of one
+   rank: the same steps through ``hvd.init`` and ``Trainer`` (losses
+   within ``CARDS_LOSS_TOL`` of the reference's; the kernels line's
+   ``cards_launches`` are its).  With n >= 2 cards, more references on
+   card 0 (the int8, uint4 and ring wires at B=8, ResNet-50 in bf16 at
+   B=128, fp32 ResNet-50 at B=128 with plain BatchNorm, on its images and
+   on them moved by one ulp), then one world of n ranks, one a card,
+   running in order: (1i) gpt_small's ``Trainer.step`` at dp=n, B=8/n a
+   rank, on the reference's global batch for 3 steps (losses within
+   ``CARDS_FIRST_LOSS_TOL`` at the first step and ``CARDS_LOSS_TOL``
+   after, the parameters' SHA-256 equal on every rank after every step);
+   (1ii) B=8 a rank, 2 warm-up and 5 timed steps (step ms, tokens/s a
+   card, scaling against one card, the sync alone, peak memory, 12
+   launches of each flash kernel a step on every rank, a profiled step);
+   (2) the int8, uint4 and ring wires (sync ms, the bytes a rank sends
+   beside the bf16 wire's, optimizer-state bytes a rank, losses within
+   the larger of ``CARDS_LOSS_TOL`` and the wire's one-card distance
+   from the bf16 leg's); (3) ResNet-50 in bf16 at B=128 a card (scaling,
+   a profiled step) and in fp32 with cross-replica BatchNorm at 128/n a
+   card against one card at B=128 (logits 1e-4, statistics 1e-5,
+   parameters within the larger of 1e-5 and the one-ulp sensitivity);
+   the quiet leg, (1ii) and (3)'s bf16 steps again with
+   ``HOROVOD_CYCLE_TIME`` at ``CARDS_QUIET_CYCLE_MS`` (the eager core's
+   idle negotiation's cost to the Trainer); (4) ``NcclBackend`` at n ranks in the binding phase's 11 dtypes,
+   bitwise against the same collectives computed on the host, a fused
+   allreduce's GB/s and bus bandwidth beside NCCL's own all-reduce, and
+   device responses on 1, 2 and 4 streams; (5) binding leg (a)'s user loop
+   at n ranks (its ranks' mean loss against (1ii)'s, step ms beside it,
+   responses and fused bytes a step) and ``_SyncBatchNormFn`` against
+   ``F.batch_norm`` on the whole batch.  Every rank's parameters,
+   optimizer state and batch must lie on its own card.  Then
+   ``_reduce_two_cards`` and the statesync phase's legs with each process
+   on a card of its own: (a)/(b) (the grown world on the NCCL plane), (d)
+   and, with three cards, (c) and (e), a training grow 2 -> 3 whose two
+   incumbents share the bulk round.  The world line gives NCCL's
+   transports and link types (``NCCL_DEBUG=INFO``); the first line the
+   cards' names, power limits, ``nvidia-smi topo -m`` and ``nvlink
+   --status``.  On one card every n-card leg says "not
+   run".
+
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -2940,6 +2989,7 @@ def reduce_card_worker(rank: int, port: int, outdir: str) -> int:
                                             quantize)
     from horovod_tpu_torch.ops.adasum import adasum_reference
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(rank)
     store = dist.TCPStore("127.0.0.1", port, 2, is_master=rank == 0,
                           timeout=datetime.timedelta(seconds=60))
     dist.init_process_group("nccl", store=store, rank=rank, world_size=2,
@@ -4160,7 +4210,8 @@ def launch_worker(mode: str, outdir: str) -> int:
     return 0
 
 
-def _launcher_run(argv: list[str], env_extra: dict) -> tuple[int, str]:
+def _launcher_run(argv: list[str], env_extra: dict,
+                  timeout: float = ELASTIC_WORLD_TIMEOUT) -> tuple[int, str]:
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("HOROVOD_")}
@@ -4171,7 +4222,7 @@ def _launcher_run(argv: list[str], env_extra: dict) -> tuple[int, str]:
         env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=ELASTIC_WORLD_TIMEOUT)
+        out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         out, _ = proc.communicate()
@@ -5167,30 +5218,11 @@ def _fit_ring(tmp: str, problems: list[str]) -> dict:
 
 
 def _fit_bn_leg(axis_name, batch: dict, state0: dict) -> dict:
-    from horovod_tpu_torch import ResNet50, Trainer, build_mesh
-    from horovod_tpu_torch.parallel.mesh import manual_region
+    from horovod_tpu_torch import ResNet50
     model = ResNet50(dtype=torch.float32, axis_name=axis_name, seed=0)
     model.load_state_dict(state0)
-    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
-    trainer = Trainer(model, opt, build_mesh(dp=1))
-    state = trainer.init()
-    with torch.no_grad(), manual_region(trainer.mesh):
-        logits = model(batch["image"], train=True)
-    model.load_state_dict(state0)             # the forward moved the stats
-    losses, step_ms, params = [], [], []
-    for _ in range(FIT_BN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = trainer.step(state, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(metrics["loss"].item())
-        params.append({k: v.detach().cpu()
-                       for k, v in model.named_parameters()})
-    out = {"logits": logits, "losses": losses, "step_ms": step_ms,
-           "params": params,
-           "stats": {k: v.cpu() for k, v in model.named_buffers()}}
-    del trainer, state, model, opt
+    out = bn_steps(model, batch, FIT_BN_STEPS)
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -5314,7 +5346,12 @@ def _ss_env(role: str, outdir: str) -> dict:
            "HOROVOD_FLIGHT_EVENTS": str(1 << 16),
            "HOROVOD_STATESYNC_TIMEOUT_SECONDS": "120",
            "HOROVOD_GLOO_TIMEOUT_SECONDS": "120"}
-    if role.startswith("train"):
+    if role.startswith("train2"):
+        # The grow 2 -> 3 of the cards phase: no preemption.
+        env.update(HOROVOD_FAULT_TOLERANCE="1",
+                   HOROVOD_FAULT_TIMEOUT=str(SS_FAULT_TIMEOUT),
+                   HOROVOD_RENDEZVOUS_EPOCH="sstrain2")
+    elif role.startswith("train"):
         env.update(HOROVOD_FAULT_TOLERANCE="1",
                    HOROVOD_FAULT_TIMEOUT=str(SS_FAULT_TIMEOUT),
                    HOROVOD_PREEMPT_GRACE_S=str(SS_GRACE_S),
@@ -5373,7 +5410,8 @@ def _ss_train_step(hvd, core, state, batch) -> dict:
     return {"step": state.step, "size": hvd.size(), "ms": ms,
             "loss": loss.item(), "launches": fa.launch_counts(),
             "plane": "card" if on_card else "host (TCP ring)",
-            "t_end": time.time()}
+            "device_plane": core.global_state().device_plane,
+            "device": str(grads[0].device), "t_end": time.time()}
 
 
 def _ss_digest(hvd, state, name: str) -> dict:
@@ -5391,7 +5429,10 @@ def _ss_digest(hvd, state, name: str) -> dict:
 
 def _ss_train_rank(role: str, port: int, outdir: str) -> dict:
     """Legs (a) and (b), one process: the incumbent (``train``, a world
-    of one) or the joiner (``train-joiner``)."""
+    of one) or the joiner (``train-joiner``); or, in the cards phase, an
+    incumbent of a world of two (``train2``) or its joiner
+    (``train2-joiner``), which stop together after the grown world's
+    steps."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import (core, resilience, statesync,
                                    synthetic_text_batch)
@@ -5413,7 +5454,8 @@ def _ss_train_rank(role: str, port: int, outdir: str) -> dict:
                 {"ms": (time.perf_counter() - t0) * 1e3,
                  "bytes": len(self.data), "step": self.stamp.step})
     ss_service.Snapshot = TimedSnapshot
-    joiner = role == "train-joiner"
+    joiner = role.endswith("joiner")
+    two = role.startswith("train2")
     state = _ss_train_state(seed=1 if joiner else 0)
     rank_seed = 1 if joiner else 0
     batch = synthetic_text_batch(8, 2048, state.model.cfg.vocab_size,
@@ -5456,6 +5498,8 @@ def _ss_train_rank(role: str, port: int, outdir: str) -> dict:
             grown += 1
             rec["digests"].append(_ss_digest(hvd, state,
                                              f"ss.grown.{grown}"))
+            if two and grown == SS_GROWN_STEPS:
+                break
         prev_epoch = os.environ["HOROVOD_RENDEZVOUS_EPOCH"]
         t0 = time.perf_counter()
         change = svc.step_boundary()
@@ -5667,6 +5711,8 @@ def statesync_worker(role: str, rank: int, size: int, port: int,
     if not torch.cuda.is_available():
         print("statesync worker: no CUDA device", file=sys.stderr)
         return 3
+    if os.environ.get("CHIP_SMOKE_CARD"):
+        torch.cuda.set_device(int(os.environ["CHIP_SMOKE_CARD"]))
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     os.environ.update(HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
@@ -5685,10 +5731,10 @@ def statesync_worker(role: str, rank: int, size: int, port: int,
     return 0
 
 
-def _ss_world(jobs: list[tuple[str, int, int]], outdir: str
-              ) -> list[dict]:
+def _ss_world(jobs: list[tuple], outdir: str) -> list[dict]:
     """Start every (role, rank, size) process at once against one
-    RendezvousServer, each with the card visible; wait for all within
+    RendezvousServer, each with the cards visible (a fourth element: the
+    card the process makes current); wait for all within
     SS_WORLD_TIMEOUT and return their records."""
     from horovod_tpu_torch.runner.network import RendezvousServer
     server = RendezvousServer()
@@ -5697,13 +5743,14 @@ def _ss_world(jobs: list[tuple[str, int, int]], outdir: str
            if not k.startswith("HOROVOD_")}
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--statesync-worker",
-         role, str(rank), str(size), str(port), outdir], env=env,
+         role, str(rank), str(size), str(port), outdir],
+        env={**env, **{"CHIP_SMOKE_CARD": str(c) for c in card}},
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for role, rank, size in jobs]
+        for role, rank, size, *card in jobs]
     failures = []
     t_end = time.monotonic() + SS_WORLD_TIMEOUT
     try:
-        for (role, rank, _), p in zip(jobs, procs):
+        for (role, rank, *_), p in zip(jobs, procs):
             try:
                 out, _ = p.communicate(
                     timeout=max(1.0, t_end - time.monotonic()))
@@ -5722,7 +5769,7 @@ def _ss_world(jobs: list[tuple[str, int, int]], outdir: str
     if failures:
         raise RuntimeError("statesync world: " + "; ".join(failures))
     out = []
-    for role, rank, _ in jobs:
+    for role, rank, *_ in jobs:
         with open(os.path.join(outdir, f"{role}_{rank}.json")) as f:
             out.append(json.load(f))
     return out
@@ -5733,14 +5780,18 @@ def _ss_launches_ok(steps: list[dict], layers: int) -> bool:
                len(s["launches"]) == 3 for s in steps)
 
 
-def _ss_training(problems: list[str]) -> dict:
+def _ss_training(problems: list[str], cards: bool = False) -> dict:
     """Legs (a) and (b): the grow 1 -> 2 of gpt_small's user loop by peer
-    streaming, then the joiner's preemption and the proactive shrink."""
+    streaming, then the joiner's preemption and the proactive shrink.
+    ``cards``: the incumbent on card 0 and the joiner on card 1, so that
+    the grown world averages on the NCCL plane."""
     from horovod_tpu_torch import gpt_small
     layers = gpt_small().num_layers
+    phase = "cards" if cards else "statesync"
+    jobs = [("train", 0, 1, 0), ("train-joiner", 0, 0, 1)] if cards \
+        else [("train", 0, 1), ("train-joiner", 0, 0)]
     with tempfile.TemporaryDirectory(prefix="sstrain") as outdir:
-        inc, joi = _ss_world([("train", 0, 1), ("train-joiner", 0, 0)],
-                             outdir)
+        inc, joi = _ss_world(jobs, outdir)
     steps = inc["steps"]
     grow = inc.get("grow") or {}
     shrink = inc.get("shrink") or {}
@@ -5753,9 +5804,10 @@ def _ss_training(problems: list[str]) -> dict:
     join = joi.get("join", {})
     first_grown = next((s for s in joi["steps"] if s["size"] == 2), None)
     snaps = inc["snapshots"]
-    a = {"phase": "statesync", "leg": "a-train-grow", "model": "gpt_small",
+    a = {"phase": phase, "leg": "a-train-grow", "model": "gpt_small",
          "batch": 8, "seq": 2048, "dtype": "bfloat16", "ranks": "1->2",
-         "card": "one H100 shared by both processes",
+         "card": "cards 0 and 1, one a process" if cards
+         else "one H100 shared by both processes",
          "catch_up_ms": join.get("catch_up_ms"),
          "bulk_bytes": join.get("bulk_bytes"),
          "bulk_gb_per_s": join.get("bulk_gb_per_s"),
@@ -5776,6 +5828,11 @@ def _ss_training(problems: list[str]) -> dict:
                            "joiner": [s["ms"] for s in joi["steps"]
                                       if s["size"] == 2]},
          "grown_plane": sorted({s["plane"] for s in grown}),
+         "grown_device_plane": [s.get("device_plane") for s in grown]
+         + [s.get("device_plane") for s in joi["steps"]
+            if s["size"] == 2],
+         "devices": sorted({s.get("device") for s in steps}
+                           | {s.get("device") for s in joi["steps"]}),
          "digests": [(d["name"], d["equal"]) for d in inc["digests"]],
          "digest_ms": [d["ms"] for d in inc["digests"]],
          "joined_digest_equals_stamp": joi.get("joined_digest_equals_stamp"),
@@ -5789,7 +5846,7 @@ def _ss_training(problems: list[str]) -> dict:
     emit(a)
     dep = joi.get("departed") or {}
     first_after = after[0] if after else None
-    b = {"phase": "statesync", "leg": "b-preempt-grace", "ranks": "2->1",
+    b = {"phase": phase, "leg": "b-preempt-grace", "ranks": "2->1",
          "grace_s": SS_GRACE_S, "chaos": SS_PREEMPT,
          "departed": dep, "shrink": shrink,
          "sigterm_to_survivor_first_step_s": None
@@ -5800,7 +5857,7 @@ def _ss_training(problems: list[str]) -> dict:
          "after_losses": [s["loss"] for s in after],
          "launches_after": [s["launches"] for s in after]}
     emit(b)
-    tag = "statesync"
+    tag = "cards statesync" if cards else "statesync"
     if not grow or grow.get("size") != 2:
         problems.append(f"{tag} (a): no grow to 2: {grow}")
     if not a["joined_digest_equals_stamp"]:
@@ -5818,8 +5875,12 @@ def _ss_training(problems: list[str]) -> dict:
             or not _ss_launches_ok(joi["steps"], layers):
         problems.append(f"{tag} (a/b): flash launches not {layers} of each "
                         f"kernel on every step")
-    if a["grown_plane"] != ["host (TCP ring)"]:
+    if a["grown_plane"] != (["card"] if cards else ["host (TCP ring)"]):
         problems.append(f"{tag} (a): grown plane {a['grown_plane']}")
+    if cards and (not all(a["grown_device_plane"])
+                  or a["devices"] != ["cuda:0", "cuda:1"]):
+        problems.append(f"{tag} (a): the grown world's NCCL plane "
+                        f"{a['grown_device_plane']} on {a['devices']}")
     if not (dep.get("bye") and dep.get("step") == grow.get("step", 0)
             + SS_GROWN_STEPS):
         problems.append(f"{tag} (b): departure {dep}")
@@ -5844,15 +5905,21 @@ def _ss_training(problems: list[str]) -> dict:
     return {"launches": launches, "a": a, "b": b}
 
 
-def _ss_serving(problems: list[str]) -> dict:
-    """Leg (c): the serving grow 2 -> 3 on the card."""
+def _ss_serving(problems: list[str], cards: bool = False) -> dict:
+    """Leg (c): the serving grow 2 -> 3 on the card (``cards``: each
+    process on a card of its own, 0, 1 and the joiner's 2)."""
+    jobs = [("serve", 0, 2), ("serve", 1, 2), ("serve-joiner", 0, 0)]
+    if cards:
+        jobs = [job + (card,) for card, job in enumerate(jobs)]
+    tag = "cards statesync" if cards else "statesync"
     with tempfile.TemporaryDirectory(prefix="ssserve") as outdir:
-        r0, r1, joi = _ss_world([("serve", 0, 2), ("serve", 1, 2),
-                                 ("serve-joiner", 0, 0)], outdir)
+        r0, r1, joi = _ss_world(jobs, outdir)
     grows = r0["grows"]
-    line = {"phase": "statesync", "leg": "c-serve-grow", "model":
-            "gpt_small", "dtype": "float32", "ranks": "2->3",
-            "card": "one H100 shared by the three processes",
+    line = {"phase": "cards" if cards else "statesync",
+            "leg": "c-serve-grow", "model": "gpt_small", "dtype": "float32",
+            "ranks": "2->3",
+            "card": "cards 0, 1 and 2, one a process" if cards
+            else "one H100 shared by the three processes",
             "served": r0["served"], "offered": r0["offered"],
             "lost": r0["lost"], "expired": r0["expired"], "grows": grows,
             "goodput_phases": r0["goodput_phases"], "wall_s": r0["wall_s"],
@@ -5868,24 +5935,28 @@ def _ss_serving(problems: list[str]) -> dict:
     want = SS_SERVE["requests"] + SS_SERVE_WAVE2
     if not (r0["served"] == r0["offered"] == want and not r0["lost"]
             and not r0["expired"]):
-        problems.append(f"statesync (c): served {r0['served']} of "
+        problems.append(f"{tag} (c): served {r0['served']} of "
                         f"{r0['offered']}, lost {r0['lost']}, expired "
                         f"{r0['expired']}")
     if [(g["from"], g["to"]) for g in grows] != [(2, 3)] or r0["shrinks"]:
-        problems.append(f"statesync (c): grows {grows}")
+        problems.append(f"{tag} (c): grows {grows}")
     if not joi["params_are_seed_plus_quarter"]:
-        problems.append("statesync (c): the streamed params are not the "
+        problems.append(f"{tag} (c): the streamed params are not the "
                         "incumbents'")
     return line
 
 
-def _ss_disagg(problems: list[str]) -> dict:
+def _ss_disagg(problems: list[str], cards: bool = False) -> dict:
     """Leg (d): disaggregated prefill at 2 ranks against a colocated
-    one-rank paged run of the same requests in this process."""
+    one-rank paged run of the same requests in this process (``cards``:
+    the decode rank on card 0, the prefill rank on card 1)."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import TransformerLM, gpt_small
+    jobs = [("disagg", 0, 2, 0), ("disagg", 1, 2, 1)] if cards \
+        else [("disagg", 0, 2), ("disagg", 1, 2)]
+    tag = "cards statesync" if cards else "statesync"
     with tempfile.TemporaryDirectory(prefix="ssdisagg") as outdir:
-        r0, r1 = _ss_world([("disagg", 0, 2), ("disagg", 1, 2)], outdir)
+        r0, r1 = _ss_world(jobs, outdir)
     from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
     cfg = gpt_small()
     model = TransformerLM(cfg, seed=0)
@@ -5935,9 +6006,11 @@ def _ss_disagg(problems: list[str]) -> dict:
     ms = [m for _, m, _ in r1["sends"]]
     ttft = sorted(r0["ttft_ms"].values())
     colo_ttft.sort()
-    line = {"phase": "statesync", "leg": "d-disagg-prefill",
+    line = {"phase": "cards" if cards else "statesync",
+            "leg": "d-disagg-prefill",
             "model": "gpt_small", "dtype": "bfloat16", "ranks": 2,
-            "card": "one H100 shared by both processes",
+            "card": "decode on card 0, prefill on card 1" if cards
+            else "one H100 shared by both processes",
             "served": r0["served"], "offered": r0["offered"],
             "prefill_streams": r1["prefill_streams"],
             "prefill_fallbacks": r0["prefill_fallbacks"],
@@ -5961,14 +6034,14 @@ def _ss_disagg(problems: list[str]) -> dict:
     n = SS_DISAGG["requests"]
     if not (r0["served"] == n and r1["prefill_streams"] == n
             and r0["prefill_fallbacks"] == 0):
-        problems.append(f"statesync (d): served {r0['served']}, streamed "
+        problems.append(f"{tag} (d): served {r0['served']}, streamed "
                         f"{r1['prefill_streams']}, fallbacks "
                         f"{r0['prefill_fallbacks']} of {n}")
     if sorted(got) != sorted(want) or (check and check["beyond_tolerance"]):
-        problems.append(f"statesync (d): streams {differ} part from the "
+        problems.append(f"{tag} (d): streams {differ} part from the "
                         f"colocated run's: {check}")
     if line["kv_bytes_per_token"] != SS_KV_BYTES_PER_TOKEN:
-        problems.append(f"statesync (d): {line['kv_bytes_per_token']} KV "
+        problems.append(f"{tag} (d): {line['kv_bytes_per_token']} KV "
                         f"bytes a token")
     return line
 
@@ -5988,6 +6061,1419 @@ def phase_statesync() -> dict:
     return {"seconds": seconds, "launches": train["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The cards phase: the data-parallel main path across the cards of one
+# host, one process a card under the port's launcher
+# ---------------------------------------------------------------------------
+# The sizes of the phase: gpt_small at B=8, T=2048 (the train phase's), the
+# reference benchmark's ResNet-50 at B=128 and 224x224, the binding legs'
+# plane and SyncBatchNorm inputs.  The CPU rehearsal of the phase
+# (tests/torch_cards_rehearsal.py) puts small sizes here.
+CARDS = dict(gpt="gpt_small", batch=8, seq=2048,
+             resnet=dict(stage_sizes=(3, 4, 6, 3), num_filters=64,
+                         num_classes=1000),
+             image=224, cnn_batch=128, plane_rows=1000,
+             fused_bytes=BINDING_FUSED_BYTES, stream_tensors=16,
+             stream_elements=(1 << 20) // 4, syncbn_shape=(8, 64, 28, 28),
+             statesync=True)
+CARDS_BACKEND = "nccl"                  # the plane's process group
+CARDS_PARITY_STEPS = 3
+CARDS_STEPS = (WARMUP_STEPS, TIMED_STEPS)
+CARDS_WIRE_STEPS = (2, 3)               # warm-up, timed (the sync phase's)
+CARDS_BN_STEPS = 2
+CARDS_LR, CARDS_WD = 3e-4, 1e-4
+# dp=n against one card on the same global batch.  The first step is a
+# forward on the same weights: the rows' bf16 logits differ only where
+# cuBLAS picks another kernel for another row count, and the mean of
+# 16,384 fp32 losses moves far less than one bf16 ulp of a logit (2^-8
+# of its size).  Later steps also carry the gradients' other summation
+# order (bf16 partial sums on the wire) through AdamW, whose first steps
+# move each weight by about lr whatever the gradient's size; the parallel
+# phase's sp=n legs hold the same kind of distance to PARALLEL_LOSS_TOL.
+CARDS_FIRST_LOSS_TOL = 5e-3
+CARDS_LOSS_TOL = PARALLEL_LOSS_TOL
+# A wire's losses at n cards are held to the bf16 wire's there within the
+# larger of CARDS_LOSS_TOL and the same distance at one card, on the one
+# card's own batch.  Neither bounds the other: the wire's rounding feeds
+# through AdamW differently on every batch (the ring's most: it gathers
+# the parameters on its 16-bit wire, as the reference's ring does).
+CARDS_WIRES = (("int8", dict(compression="int8")),
+               ("uint4", dict(compression="uint4")),
+               ("ring", dict(compression="bf16", optimizer_in_ring=True)))
+CARDS_STREAMS = RUNTIME_STREAMS
+CARDS_PLANE_VALUES = 16                 # float inputs: integers in +-16
+CARDS_WORLD_TIMEOUT = 900.0
+# The eager core's cycle in the quiet leg: the background thread then
+# negotiates about once a second while the Trainer steps (1 ms is the
+# default).
+CARDS_QUIET_CYCLE_MS = 1000.0
+
+
+class _WireCount:
+    """While open, the bytes this rank sends through ``torch.distributed``'s
+    collectives, by the ring algorithms' count: an all-reduce sends
+    2(n-1)/n of its buffer, a reduce-scatter and an all-to-all (n-1)/n of
+    their input, an all-gather (n-1)/n of its output."""
+
+    _SENT = {"all_reduce": (0, 2), "reduce_scatter_tensor": (1, 1),
+             "all_to_all_single": (1, 1), "all_gather_into_tensor": (0, 1)}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.bytes = self.calls = 0
+        self._orig = {}
+        for name, (arg, twice) in self._SENT.items():
+            orig = getattr(dist, name)
+            self._orig[name] = orig
+
+            def counted(*args, _orig=orig, _arg=arg, _twice=twice, **kw):
+                n = dist.get_world_size(kw.get("group"))
+                t = args[_arg] if len(args) > _arg else \
+                    kw["input" if _arg else "tensor"]
+                self.bytes += _twice * t.numel() * t.element_size() \
+                    * (n - 1) // n
+                self.calls += 1
+                return _orig(*args, **kw)
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, orig in self._orig.items():
+            setattr(dist, name, orig)
+
+
+def _card_sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _misplaced(device: torch.device, named) -> list[str]:
+    """The names of the tensors in ``named`` (name, tensor) that do not
+    lie on ``device``."""
+    return [name for name, t in named
+            if torch.is_tensor(t) and t.device != device]
+
+
+def _world() -> tuple[int, int]:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _gather_objects(obj) -> list:
+    """``obj`` of every rank of the default group (a world of one: this
+    rank's)."""
+    import torch.distributed as dist
+    if _world()[1] == 1:
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def cards_train(model, sync_kw: dict, batch: dict, steps: int, *,
+                warmup: int = 0, optimizer: str = "adamw",
+                digests: bool = False, probe: bool = False,
+                profile=None) -> dict:
+    """``Trainer.step`` over ``build_mesh(dp=world)`` on this rank's
+    ``batch``, with AdamW(3e-4, wd 1e-4) (or SGD(0.1, 0.9)) and
+    ``GradSyncConfig(op="average", **sync_kw)``: losses (averaged over dp
+    by the step), step ms, the flash launches, peak memory, the optimizer
+    state's bytes, and the tensors that do not lie on the model's device
+    (parameters, optimizer state, batch).  ``digests``: a SHA-256 of the
+    parameters after every step, gathered from every rank.  ``probe``:
+    the sync alone on the last step's gradients, timed on the card
+    (median of 5), and the bytes this rank sends in one sync.
+    ``profile`` (kernel categories): one more step under the profiler on
+    the card (``_profile``)."""
+    from horovod_tpu_torch import GradSyncConfig, Trainer, build_mesh
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.grad_sync import (sync_and_apply,
+                                                      sync_gradients)
+    rank, world = _world()
+    device = next(model.parameters()).device
+    if optimizer == "adamw":
+        opt = torch.optim.AdamW(model.parameters(), lr=CARDS_LR,
+                                weight_decay=CARDS_WD)
+    else:
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    sync = GradSyncConfig(**{"op": "average", **sync_kw})
+    trainer = Trainer(model, opt, build_mesh(dp=world, device=device),
+                      sync=sync)
+    state = trainer.init()
+    _card_sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    fa.reset_launch_counts()                 # the leg's path starts
+    losses, step_ms, views = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        _card_sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        if digests:
+            views.append(_gather_objects(_params_digest(model)))
+    launches = fa.launch_counts()            # ... and ends
+    misplaced = _misplaced(device, [
+        *model.named_parameters(), *model.named_buffers(),
+        *((f"optimizer.{k}", t) for st in state.optimizer.state.values()
+          for k, t in st.items() if k != "step"),
+        *((f"batch.{k}", v) for k, v in batch.items())])
+    timed = step_ms[warmup:]
+    out = {"rank": rank, "world": world, "losses": losses,
+           "step_ms": step_ms, "timed_step_ms_mean": statistics.mean(timed),
+           "launches": launches,
+           "launches_per_step": {k: c / steps for k, c in launches.items()},
+           "optimizer_state_bytes": _optimizer_bytes(state.optimizer),
+           "misplaced": misplaced, "device": str(device)}
+    if device.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    if digests:
+        out["digests"] = views
+        out["params_equal_every_step"] = all(len(set(v)) == 1
+                                             for v in views)
+    if profile is not None and device.type == "cuda":
+        out["profile"] = _profile(lambda: trainer.step(state, batch),
+                                  out["timed_step_ms_mean"], profile)
+    if probe:
+        params = {n: trainer._params[n] for n in trainer._names}
+        grads = {n: p.grad for n, p in params.items()}
+        group = trainer._sync_group
+
+        def one_sync():
+            if sync.optimizer_in_ring:
+                sync_and_apply(state.optimizer, grads, params,
+                               trainer._sync, group, trainer._layouts)
+            else:
+                sync_gradients(grads, trainer._sync, group,
+                               trainer._layouts)
+        with _WireCount() as wire:
+            one_sync()
+            _card_sync(device)
+        out["wire_bytes"] = wire.bytes
+        out["wire_calls"] = wire.calls
+        out["gradient_elements"] = sum(p.numel() for p in params.values())
+        if device.type == "cuda":
+            out["sync_ms"] = time_ms(one_sync, rounds=5, warmup=1)
+    del trainer, state, opt
+    return out
+
+
+def bn_steps(model, batch: dict, steps: int) -> dict:
+    """fp32 ``Trainer.step`` with SGD(0.1, 0.9) and the fp32 wire over
+    ``build_mesh(dp=world)``: the logits of one train-mode forward from
+    the model's weights (the statistics then put back), then ``steps``
+    steps, their losses and times, the parameters after each (on the
+    host) and the statistics after the last."""
+    from horovod_tpu_torch import Trainer, build_mesh
+    from horovod_tpu_torch.parallel.mesh import manual_region
+    _, world = _world()
+    device = next(model.parameters()).device
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    trainer = Trainer(model, opt, build_mesh(dp=world, device=device))
+    state = trainer.init()
+    with torch.no_grad(), manual_region(trainer.mesh):
+        logits = model(batch["image"], train=True)
+    model.load_state_dict(state0)             # the forward moved the stats
+    losses, step_ms, params = [], [], []
+    for _ in range(steps):
+        _card_sync(device)
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        _card_sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        # A copy on the host (on the CPU ``.cpu()`` would alias).
+        params.append({k: v.detach().to("cpu", copy=True)
+                       for k, v in model.named_parameters()})
+    out = {"logits": logits.cpu(), "losses": losses, "step_ms": step_ms,
+           "params": params,
+           "stats": {k: v.to("cpu", copy=True)
+                     for k, v in model.named_buffers()}}
+    del trainer, state, opt
+    return out
+
+
+def _cards_gpt(**overrides):
+    """The phase's gpt model (seed 0) with flash attention."""
+    import horovod_tpu_torch as hvt
+    cfg = getattr(hvt, CARDS["gpt"])(attention="flash",
+                                     max_seq_len=CARDS["seq"], **overrides)
+    return cfg, hvt.TransformerLM(cfg, seed=0)
+
+
+def _cards_resnet(dtype, axis_name=None):
+    from horovod_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    return ResNet(block_cls=BottleneckBlock, dtype=dtype,
+                  axis_name=axis_name, seed=0, **CARDS["resnet"])
+
+
+def _rows(full: dict, rank: int, rows: int) -> dict:
+    return {k: v[rank * rows:(rank + 1) * rows].contiguous()
+            for k, v in full.items()}
+
+
+def _batch_digest(batch: dict) -> str:
+    import hashlib
+    digest = hashlib.sha256()
+    for k in sorted(batch):
+        digest.update(batch[k].contiguous().view(torch.uint8).cpu().numpy()
+                      .tobytes())
+    return digest.hexdigest()
+
+
+def _text_batch(rows: int, seed: int) -> dict:
+    import horovod_tpu_torch as hvt
+    vocab = getattr(hvt, CARDS["gpt"])().vocab_size
+    return hvt.synthetic_text_batch(rows, CARDS["seq"], vocab, seed=seed)
+
+
+def _free() -> None:
+    """Give the card's cached blocks back once a leg's objects are gone."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _cards_leg_parity(ctx: dict) -> dict:
+    """(1i) dp=n at B/n a rank against one card at B, on the same global
+    batch (the train phase's), with the parameters' digests after every
+    step."""
+    rank, n = ctx["rank"], ctx["n"]
+    full = _text_batch(CARDS["batch"], seed=0)
+    batch = _rows(full, rank, CARDS["batch"] // n)
+    _, model = _cards_gpt()
+    out = cards_train(model, {"compression": "bf16"}, batch,
+                      CARDS_PARITY_STEPS, digests=True)
+    out.update(rows=CARDS["batch"] // n, batch_digest=_batch_digest(full))
+    del model
+    _free()
+    return out
+
+
+def _cards_leg_gpt(ctx: dict) -> dict:
+    """(1ii) B a rank: rank r takes rows [rB, (r+1)B) of a global batch of
+    nB drawn from seed 0 (at one rank the train phase's batch); warm-up
+    and timed steps, then the sync alone."""
+    rank, n = ctx["rank"], ctx["n"]
+    batch = _rows(_text_batch(CARDS["batch"] * n, seed=0), rank,
+                  CARDS["batch"])
+    ctx["gpt_batch"] = batch
+    _, model = _cards_gpt()
+    out = cards_train(model, {"compression": "bf16"}, batch,
+                      sum(CARDS_STEPS), warmup=CARDS_STEPS[0], probe=True,
+                      profile=KERNEL_CATEGORIES)
+    out.update(rows=CARDS["batch"], seq=CARDS["seq"])
+    del model
+    _free()
+    return out
+
+
+def _cards_leg_wires(ctx: dict) -> dict:
+    """(2) the int8, uint4 and optimizer-in-ring wires on (1ii)'s
+    batches."""
+    out = {}
+    for name, kw in CARDS_WIRES:
+        _, model = _cards_gpt()
+        out[name] = cards_train(model, kw, ctx["gpt_batch"],
+                                sum(CARDS_WIRE_STEPS),
+                                warmup=CARDS_WIRE_STEPS[0], probe=True)
+        del model
+        _free()
+    return out
+
+
+def _cards_resnet_bf16(ctx: dict) -> dict:
+    """ResNet-50 in bf16 with local BatchNorm at B a card: rank r takes
+    rows [rB, (r+1)B) of a batch of nB images from seed 0."""
+    from horovod_tpu_torch import synthetic_image_batch
+    rank, n = ctx["rank"], ctx["n"]
+    b, classes = CARDS["cnn_batch"], CARDS["resnet"]["num_classes"]
+    model = _cards_resnet(torch.bfloat16)
+    batch = _rows(synthetic_image_batch(b * n, CARDS["image"], classes,
+                                        seed=0), rank, b)
+    torch.backends.cudnn.benchmark = True
+    try:
+        out = cards_train(model, {"compression": "bf16"}, batch,
+                          sum(CARDS_STEPS), warmup=CARDS_STEPS[0],
+                          optimizer="sgd", profile=CNN_CATEGORIES)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    del model, batch
+    _free()
+    return out
+
+
+def _cards_leg_quiet(ctx: dict) -> dict:
+    """(1ii) and (3)'s bf16 ResNet-50 once more in a world re-initialised
+    with ``HOROVOD_CYCLE_TIME`` at CARDS_QUIET_CYCLE_MS.  The Trainer runs
+    no eager op, so what the steps gain here is what the eager core's
+    idle negotiation costs them at the default cycle."""
+    hvd = ctx["hvd"]
+    base = dict(os.environ)
+    hvd.shutdown()
+    os.environ.update(HOROVOD_RENDEZVOUS_EPOCH="cards.quiet",
+                      HOROVOD_CYCLE_TIME=str(CARDS_QUIET_CYCLE_MS))
+    hvd.init()
+    try:
+        out = {"cycle_time_ms": CARDS_QUIET_CYCLE_MS,
+               "threads": sorted(t.name for t in threading.enumerate()),
+               "gpt": _cards_leg_gpt(ctx),
+               "resnet_bf16": _cards_resnet_bf16(ctx)}
+    finally:
+        hvd.shutdown()
+        os.environ.clear()
+        os.environ.update(base, HOROVOD_RENDEZVOUS_EPOCH="cards.main")
+        hvd.init()
+    return out
+
+
+def _cards_leg_resnet(ctx: dict) -> dict:
+    """(3) ResNet-50 in bf16 with local BatchNorm at B a card (scaling),
+    then fp32 with cross-replica BatchNorm at B/n a card against one
+    card at B (the parent holds them; rank 0 writes its parameters and
+    statistics, every rank its logits)."""
+    from horovod_tpu_torch import synthetic_image_batch
+    rank, n, outdir = ctx["rank"], ctx["n"], ctx["outdir"]
+    b, size = CARDS["cnn_batch"], CARDS["image"]
+    classes = CARDS["resnet"]["num_classes"]
+    out = {"bf16": _cards_resnet_bf16(ctx)}
+    full = synthetic_image_batch(b, size, classes, seed=3)
+    model = _cards_resnet(torch.float32, axis_name="dp")
+    res = bn_steps(model, _rows(full, rank, b // n), CARDS_BN_STEPS)
+    torch.save(res["logits"], os.path.join(outdir, f"bn_logits_{rank}.pt"))
+    if rank == 0:
+        torch.save({"params": res["params"], "stats": res["stats"]},
+                   os.path.join(outdir, "bn_state.pt"))
+    views = _gather_objects(_params_digest(model))
+    out["cross_bn"] = {"losses": res["losses"], "step_ms": res["step_ms"],
+                       "rows": b // n, "batch_digest": _batch_digest(full),
+                       "params_equal_across_ranks": len(set(views)) == 1}
+    del model, res
+    _free()
+    return out
+
+
+def _plane_input(shape, dtype: str, seed: int) -> torch.Tensor:
+    """A rank's input of one plane case, drawn on the host: floats are
+    integers within CARDS_PLANE_VALUES (every sum below is exact), other
+    types as the binding phase draws them."""
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    if dtype == "bool":
+        return torch.rand(shape, generator=g) < 0.3
+    if dt.is_floating_point:
+        return torch.randint(-CARDS_PLANE_VALUES, CARDS_PLANE_VALUES + 1,
+                             shape, generator=g).to(dt)
+    info = torch.iinfo(dt)
+    return torch.randint(max(info.min // 4, -2 ** 40),
+                         min(info.max // 4, 2 ** 40), shape, generator=g,
+                         dtype=torch.int64).to(dt)
+
+
+def _plane_sum(xs: list, pre: float, post: float) -> torch.Tensor:
+    """The plane's allreduce of the ranks' ``xs`` on the host: each input
+    prescaled, summed exactly (integers wrap, as NCCL's and numpy's add
+    do; a bool sum is logical or), then postscaled."""
+    scaled = [_torch_scale(x, pre) for x in xs]
+    dt = xs[0].dtype
+    if dt == torch.bool:
+        total = torch.stack(scaled).any(0)
+    elif dt.is_floating_point:
+        total = torch.stack([x.double() for x in scaled]).sum(0).to(dt)
+    else:
+        total = torch.stack([x.long() for x in scaled]).sum(0).to(dt)
+    return _torch_scale(total, post)
+
+
+def _cards_leg_plane(ctx: dict) -> dict:
+    """(4) ``NcclBackend`` at n ranks over the world's group, driven with
+    responses built as the controller builds them, in every dtype of the
+    binding phase, against the same collectives on the host; then a
+    fused allreduce timed beside NCCL's all-reduce of the same bytes."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import native
+    from horovod_tpu_torch.backend.nccl import NcclBackend, NcclCommunicator
+    from horovod_tpu_torch.common.dtypes import from_any
+    from horovod_tpu_torch.common.message import Response, ResponseType
+    from horovod_tpu_torch.common.tensor_queue import TensorTableEntry
+    from horovod_tpu_torch.telemetry.perfmodel import busbw_mbps
+    rank, n = ctx["rank"], ctx["n"]
+    dev = _rank_device()
+    calls = dict(native.calls)
+    plane = NcclBackend(NcclCommunicator(device=dev))
+    rows, k = CARDS["plane_rows"], 5
+    fused_shapes = ((7,), (), (64, 64), (33,))
+    results: dict[str, bool] = {}
+    for i, dt in enumerate(BINDING_DTYPES):
+        def draw(shape_of, salt):
+            return [_plane_input(shape_of(r), dt, 1000 * salt + 10 * i + r)
+                    for r in range(n)]
+        base = dict(devices=list(range(n)),
+                    tensor_type=from_any(getattr(torch, dt)))
+
+        def run(rtype, xs, splits=(), **kw):
+            entries = [TensorTableEntry(tensor_name=f"t{j}",
+                                        tensor=t.to(dev))
+                       for j, t in enumerate(xs)]
+            entries[0].splits = list(splits)
+            resp = Response(response_type=rtype,
+                            tensor_names=[e.tensor_name for e in entries],
+                            **base, **kw)
+            if not plane.enabled(resp, entries):
+                raise RuntimeError(f"the plane declines {rtype} {dt}")
+            plane.execute(resp, entries).raise_if_error()
+            return [e.output for e in entries]
+
+        def same(tag, got, want):
+            results[f"{tag}_{dt}"] = bool(
+                got.device == dev and got.dtype == want.dtype
+                and got.shape == want.shape
+                and torch.equal(got.cpu(), want))
+
+        ar = ResponseType.ALLREDUCE
+        xs = draw(lambda r: (rows, 3), 1)
+        for tag, pre, post in (("ar_sum", 1.0, 1.0),
+                               ("ar_avg", 1.0, 1.0 / n),
+                               ("ar_scaled", 2.0, 0.25)):
+            same(tag, run(ar, [xs[rank]], tensor_sizes=[xs[rank].numel()],
+                          prescale_factor=pre, postscale_factor=post)[0],
+                 _plane_sum(xs, pre, post))
+        parts = [draw(lambda r, s=s: s, 2 + j)
+                 for j, s in enumerate(fused_shapes)]
+        outs = run(ar, [p[rank] for p in parts],
+                   tensor_sizes=[p[rank].numel() for p in parts],
+                   prescale_factor=2.0, postscale_factor=0.25)
+        results[f"ar_fused_{dt}"] = all(
+            o.shape == p[rank].shape
+            and torch.equal(o.cpu(), _plane_sum(p, 2.0, 0.25))
+            for o, p in zip(outs, parts))
+        xs = draw(lambda r: (rows + r, 3), 7)
+        same("ag", run(ResponseType.ALLGATHER, [xs[rank]],
+                       tensor_sizes=[x.shape[0] for x in xs])[0],
+             torch.cat(xs))
+        outs = run(ResponseType.ALLGATHER, [xs[rank], xs[rank][:0]],
+                   tensor_sizes=[x.shape[0] for x in xs] + [0] * n)
+        results[f"ag_fused_{dt}"] = torch.equal(outs[0].cpu(),
+                                                torch.cat(xs)) \
+            and outs[1].shape == (0, 3)
+        xs = draw(lambda r: (rows, 3), 8)
+        same("bc", run(ResponseType.BROADCAST, [xs[rank]],
+                       tensor_sizes=[xs[rank].numel()],
+                       root_rank=n - 1)[0], xs[n - 1])
+        xs = draw(lambda r: (n * k, 3), 9)
+        same("a2a", run(ResponseType.ALLTOALL, [xs[rank]],
+                        splits=[k] * n)[0],
+             torch.cat([x[rank * k:(rank + 1) * k] for x in xs]))
+        same("rs", run(ResponseType.REDUCESCATTER, [xs[rank]],
+                       tensor_sizes=[xs[rank].numel()],
+                       prescale_factor=2.0, postscale_factor=0.25)[0],
+             _plane_sum(xs, 2.0, 0.25)[rank * k:(rank + 1) * k])
+    torch.cuda.synchronize()
+    # A fused allreduce of 16 fp32 tensors, CARDS["fused_bytes"] in all,
+    # and NCCL's all-reduce of one buffer of those bytes.
+    nbytes = CARDS["fused_bytes"]
+    parts = [torch.randn(nbytes // 64, device=dev) for _ in range(16)]
+    entries = [TensorTableEntry(tensor_name=f"f{j}", tensor=t)
+               for j, t in enumerate(parts)]
+    resp = Response(response_type=ResponseType.ALLREDUCE,
+                    tensor_names=[e.tensor_name for e in entries],
+                    devices=list(range(n)),
+                    tensor_type=from_any(torch.float32),
+                    tensor_sizes=[t.numel() for t in parts])
+    ms = time_ms(lambda: plane.allreduce(resp, entries), rounds=5,
+                 warmup=2)
+    flat = torch.cat(parts)
+    nccl_ms = time_ms(lambda: dist.all_reduce(flat), rounds=5, warmup=2)
+    native_moved = {k2: v - calls.get(k2, 0) for k2, v in
+                    native.calls.items() if v != calls.get(k2, 0)}
+    return {"ranks": n, "dtypes": list(BINDING_DTYPES),
+            "on_card": dev.type == "cuda", "checks": len(results),
+            "mismatches": sorted(c for c, ok in results.items() if not ok),
+            "fused_allreduce": {
+                "bytes": nbytes, "tensors": len(parts), "ms": ms,
+                "gb_per_s": nbytes / ms / 1e6,
+                "busbw_gb_per_s": busbw_mbps("allreduce", nbytes, ms, n)
+                / 1e3,
+                "nccl_all_reduce_ms": nccl_ms,
+                "nccl_busbw_gb_per_s":
+                    busbw_mbps("allreduce", nbytes, nccl_ms, n) / 1e3},
+            "native_calls_during": native_moved}
+
+
+class _StreamCount:
+    """The responses each stream's op manager runs, and those of them on
+    the device plane."""
+
+    def __init__(self, core) -> None:
+        from horovod_tpu_torch.backend.base import is_device_response
+        managers = core.global_state().op_managers
+        self.responses = [0] * len(managers)
+        self.device = [0] * len(managers)
+        for s, manager in enumerate(managers):
+            inner = manager.execute_operation
+
+            def counted(response, entries, _s=s, _inner=inner):
+                self.responses[_s] += 1
+                self.device[_s] += is_device_response(response)
+                return _inner(response, entries)
+            manager.execute_operation = counted
+
+
+def _cards_leg_streams(ctx: dict) -> dict:
+    """(4) Device responses on 1, 2 and 4 streams: the world re-initialised
+    with ``HOROVOD_NUM_STREAMS`` and fusion off, CARDS["stream_tensors"]
+    fp32 tensors on the card allreduced in one cycle (2 warm-up and 5
+    timed bursts), the responses each stream ran."""
+    from horovod_tpu_torch.telemetry.perfmodel import busbw_mbps
+    hvd, core, rank, n = ctx["hvd"], ctx["core"], ctx["rank"], ctx["n"]
+    dev = _rank_device()
+    m, count = CARDS["stream_elements"], CARDS["stream_tensors"]
+    xs = [torch.full((m,), float(rank + 1 + i), device=dev)
+          for i in range(count)]
+    want = [float(sum(r + 1 + i for r in range(n))) for i in range(count)]
+    base = dict(os.environ)
+    out, bad = {}, []
+    for streams in CARDS_STREAMS:
+        hvd.shutdown()
+        os.environ.update(HOROVOD_RENDEZVOUS_EPOCH=f"cards.s{streams}",
+                          HOROVOD_NUM_STREAMS=str(streams),
+                          HOROVOD_FUSION_THRESHOLD="0")
+        hvd.init()
+        st = core.global_state()
+        counter = _StreamCount(core)
+
+        def burst():
+            hs = [hvd.allreduce_async(x, op=hvd.Sum, name=f"s{i}")
+                  for i, x in enumerate(xs)]
+            for i, h in enumerate(hs):
+                o = hvd.synchronize(h)
+                if o.device != dev or not bool(o.eq(want[i]).all()):
+                    bad.append(f"streams {streams} s{i}: {o.device} "
+                               f"{o[:2].tolist()} not {want[i]}")
+        for _ in range(2):
+            burst()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            burst()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        nbytes = count * m * 4
+        out[f"streams{streams}"] = {
+            "ms": ms, "gb_per_s": nbytes / ms / 1e6,
+            "busbw_gb_per_s": busbw_mbps("allreduce", nbytes, ms, n) / 1e3,
+            "device_plane": st.device_plane, "on_card": dev.type == "cuda",
+            "active_streams": st.active_streams,
+            "responses_by_stream": counter.responses,
+            "device_responses_by_stream": counter.device}
+    hvd.shutdown()
+    os.environ.clear()
+    os.environ.update(base, HOROVOD_RENDEZVOUS_EPOCH="cards.binding")
+    hvd.init()
+    out["problems"] = bad
+    out["bytes"] = count * m * 4
+    return out
+
+
+def _cards_leg_binding(ctx: dict) -> dict:
+    """(5) Binding leg (a)'s user loop at n ranks: ``broadcast_parameters``,
+    ``DistributedOptimizer(AdamW, compression=bf16)`` (its hooks fire
+    during the backward) and ``broadcast_optimizer_state`` on gpt_small at
+    (1ii)'s per-rank batches; the rank's loss, step ms, flash launches,
+    responses and fused bytes a step."""
+    hvd, core = ctx["hvd"], ctx["core"]
+    from horovod_tpu_torch import allgather_object
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import cross_entropy_loss
+    batch = ctx["gpt_batch"]
+    _, model = _cards_gpt()
+    count = _ResponseCount(core)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=CARDS_LR,
+                          weight_decay=CARDS_WD),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.bf16)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    count.take()
+    steps = sum(CARDS_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()                 # the leg's path starts
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = cross_entropy_loss(model(batch["input"], train=True),
+                                  batch["label"])
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    launches = fa.launch_counts()            # ... and ends
+    responses, fused = count.take()
+    misplaced = _misplaced(_rank_device(), [
+        *model.named_parameters(),
+        *((f"optimizer.{k}", t) for st in opt.state.values()
+          for k, t in st.items() if k != "step")])
+    out = {"losses": losses,
+           "mean_losses": [statistics.fmean(x) for x in
+                           zip(*allgather_object(losses))],
+           "step_ms": step_ms,
+           "timed_step_ms_mean": statistics.mean(step_ms[CARDS_STEPS[0]:]),
+           "launches_per_step": {k: c / steps for k, c in launches.items()},
+           "responses_per_step": responses / steps,
+           "fused_bytes_per_step": fused / steps,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "misplaced": misplaced,
+           "params_equal_across_ranks": len(set(allgather_object(
+               _params_digest(model)))) == 1}
+    del model, opt
+    _free()
+    return out
+
+
+def _cards_leg_syncbn(ctx: dict) -> dict:
+    """(5) ``_SyncBatchNormFn`` at n ranks, each its rows of a global
+    batch, against ``F.batch_norm`` on the whole batch in training mode,
+    fp32: outputs and input gradients by rows, the weight and bias
+    gradients summed over the ranks, the running statistics."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.torch.sync_batch_norm import _SyncBatchNormFn
+    hvd, rank, n = ctx["hvd"], ctx["rank"], ctx["n"]
+    dev = _rank_device()
+    shape = CARDS["syncbn_shape"]
+    rows, c = shape[0], shape[1]
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn((rows * n,) + tuple(shape[1:]), generator=g) * 2
+         + 0.5).to(dev)
+    w = (torch.rand(c, generator=g) + 0.5).to(dev)
+    b = torch.randn(c, generator=g).to(dev)
+    dy = torch.randn(x.shape, generator=g).to(dev)
+    got, ref = {}, {}
+    mine = slice(rank * rows, (rank + 1) * rows)
+    for side in ("sync", "plain"):
+        xi = (x[mine] if side == "sync" else x).clone().requires_grad_(True)
+        wi, bi = (t.clone().requires_grad_(True) for t in (w, b))
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        if side == "sync":
+            y = _SyncBatchNormFn.apply(xi, wi, bi, rm, rv, 1e-5, 0.1)
+            y.backward(dy[mine])
+            got.update(out=y.detach(), dx=xi.grad,
+                       dw=hvd.allreduce(wi.grad, op=hvd.Sum, name="bn.dw"),
+                       db=hvd.allreduce(bi.grad, op=hvd.Sum, name="bn.db"),
+                       running_mean=rm, running_var=rv)
+        else:
+            y = F.batch_norm(xi, rm, rv, wi, bi, True, 0.1, 1e-5)
+            y.backward(dy)
+            ref.update(out=y.detach()[mine], dx=xi.grad[mine], dw=wi.grad,
+                       db=bi.grad, running_mean=rm, running_var=rv)
+    err = {k: (got[k] - ref[k]).abs().max().item() for k in got}
+    scale = {k: ref[k].abs().max().item() for k in got}
+    return {"shape_per_rank": list(shape), "ranks": n, "dtype": "float32",
+            "max_abs_err": err, "max_abs_ref": scale,
+            "tolerance": "1e-5 of max|ref|",
+            "bad": [k for k in got if err[k] > 1e-5 * max(scale[k], 1.0)]}
+
+
+CARDS_LEGS = {"one": ("gpt",),
+              "cards": ("parity", "gpt", "wires", "resnet", "quiet",
+                        "plane", "streams", "binding", "syncbn")}
+_CARDS_LEG_FNS = {"parity": _cards_leg_parity, "gpt": _cards_leg_gpt,
+                  "wires": _cards_leg_wires, "resnet": _cards_leg_resnet,
+                  "quiet": _cards_leg_quiet,
+                  "plane": _cards_leg_plane, "streams": _cards_leg_streams,
+                  "binding": _cards_leg_binding,
+                  "syncbn": _cards_leg_syncbn}
+
+
+def _rank_device() -> torch.device:
+    """This process's card: the current CUDA device."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def cards_worker(mode: str, outdir: str) -> int:
+    """``chip_smoke.py --cards-worker one|cards OUTDIR``: one rank of the
+    cards phase, started by the port's launcher.  As upstream asks of its
+    torch users, the rank makes its own card current
+    (``torch.cuda.set_device(hvd.local_rank())``) before it builds
+    anything; in a world of more than one rank the NCCL plane must have
+    formed.  Its record goes to ``OUTDIR/<mode>_<rank>.json`` after every
+    leg.  No card: exit 3."""
+    if not torch.cuda.is_available():
+        print("cards worker: no CUDA device", file=sys.stderr)
+        return 3
+    import traceback
+
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import core
+    hvd.init()
+    torch.cuda.set_device(hvd.local_rank())
+    rank, n = hvd.rank(), hvd.size()
+    st = core.global_state()
+    rec = {"rank": rank, "size": n, "local_rank": hvd.local_rank(),
+           "device": str(_rank_device()),
+           "card": torch.cuda.get_device_name(_rank_device()),
+           "device_plane": st.device_plane, "device_index": st.device_index,
+           "backend": dist.get_backend() if dist.is_initialized() else None,
+           "legs": {}}
+    path = os.path.join(outdir, f"{mode}_{rank}.json")
+
+    def save():
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+    ctx = {"hvd": hvd, "core": core, "rank": rank, "n": n,
+           "outdir": outdir}
+    try:
+        if n > 1 and not (st.device_plane
+                          and rec["backend"] == CARDS_BACKEND):
+            raise RuntimeError(f"rank {rank}: no {CARDS_BACKEND} device "
+                               f"plane formed ({rec})")
+        for name in CARDS_LEGS[mode]:
+            t0 = time.perf_counter()
+            rec["legs"][name] = _CARDS_LEG_FNS[name](ctx)
+            rec["legs"][name]["leg_s"] = time.perf_counter() - t0
+            save()
+    except BaseException:
+        rec["error"] = traceback.format_exc()[-4000:]
+        save()
+        raise
+    finally:
+        hvd.shutdown()
+    return 0
+
+
+def _cards_world(n: int, mode: str, outdir: str) -> dict:
+    """``horovodrun-tpu-torch -np n`` (the port's launcher as a module) of
+    ``--cards-worker mode``, with NCCL's INFO log at n > 1 for its
+    transports and the link types of its graph search; the ranks'
+    records, the exit code, those counts and the output's tail."""
+    import re
+    from collections import Counter
+    argv = ["-np", str(n), "-H", f"localhost:{n}", sys.executable,
+            os.path.abspath(__file__), "--cards-worker", mode, outdir]
+    env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,GRAPH"} \
+        if n > 1 else {}
+    t0 = time.perf_counter()
+    rc, text = _launcher_run(argv, env, timeout=CARDS_WORLD_TIMEOUT)
+    recs = []
+    for r in range(n):
+        p = os.path.join(outdir, f"{mode}_{r}.json")
+        if os.path.exists(p):
+            with open(p) as f:
+                recs.append(json.load(f))
+        else:
+            recs.append({"rank": r, "legs": {}})
+    transports = Counter(m.group(1) for m in
+                         re.finditer(r"via (\S+)", text))
+    # NCCL's graph search names the links it found ("type NVL/PIX").
+    links = Counter(m.group(1) for m in
+                    re.finditer(r"Pattern.*type (\S+?),", text))
+    return {"rc": rc, "wall_s": time.perf_counter() - t0, "ranks": recs,
+            "transports": dict(transports), "link_types": dict(links),
+            "nccl_version": next(iter(re.findall(r"NCCL version (\S+)",
+                                                 text)), None),
+            "tail": "\n".join(line for line in text.splitlines()
+                              if "NCCL INFO" not in line)[-3000:]}
+
+
+def _smi(*args: str) -> str:
+    try:
+        return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"nvidia-smi failed: {exc}"
+
+
+def _cards_reference(n: int, problems: list[str], train) -> dict:
+    """The one-card legs the world is held against, on card 0 over a
+    one-rank NCCL group: gpt_small at B (the parity leg's first steps and
+    the per-card baseline); with n > 1 also the wires, ResNet-50 in bf16
+    at B=128 and fp32 ResNet-50 at B=128 with plain BatchNorm, once more
+    on images moved by one ulp (the parameters' own sensitivity)."""
+    from horovod_tpu_torch import synthetic_image_batch
+    ref: dict = {}
+    with _one_rank_nccl():
+        batch = _text_batch(CARDS["batch"], seed=0)
+        _, model = _cards_gpt()
+        ref["gpt"] = cards_train(model, {"compression": "bf16"}, batch,
+                                 sum(CARDS_STEPS), warmup=CARDS_STEPS[0],
+                                 probe=True, profile=KERNEL_CATEGORIES)
+        ref["gpt"]["batch_digest"] = _batch_digest(batch)
+        del model
+        _free()
+        if train is not None:
+            ref["gpt"]["losses_bitwise_train_phase"] = \
+                ref["gpt"]["losses"] == train["losses"]
+            if not ref["gpt"]["losses_bitwise_train_phase"]:
+                problems.append("cards: the one-card reference's losses are "
+                                "not the train phase's")
+        if n > 1:
+            ref["wires"] = {}
+            for name, kw in CARDS_WIRES:
+                _, model = _cards_gpt()
+                ref["wires"][name] = cards_train(
+                    model, kw, batch, sum(CARDS_WIRE_STEPS),
+                    warmup=CARDS_WIRE_STEPS[0], probe=True)
+                del model
+                _free()
+            b, size = CARDS["cnn_batch"], CARDS["image"]
+            classes = CARDS["resnet"]["num_classes"]
+            model = _cards_resnet(torch.bfloat16)
+            images = synthetic_image_batch(b, size, classes, seed=0)
+            torch.backends.cudnn.benchmark = True
+            try:
+                ref["resnet_bf16"] = cards_train(
+                    model, {"compression": "bf16"}, images, sum(CARDS_STEPS),
+                    warmup=CARDS_STEPS[0], optimizer="sgd",
+                    profile=CNN_CATEGORIES)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            del model, images
+            _free()
+            full = synthetic_image_batch(b, size, classes, seed=3)
+            ref["bn_batch_digest"] = _batch_digest(full)
+            ref["bn_plain"] = bn_steps(_cards_resnet(torch.float32), full,
+                                       CARDS_BN_STEPS)
+            moved = {"image": full["image"] * (1 + 2.0 ** -23),
+                     "label": full["label"]}
+            ref["bn_moved"] = bn_steps(_cards_resnet(torch.float32), moved,
+                                       CARDS_BN_STEPS)
+            del full, moved
+            _free()
+    return ref
+
+
+def _short_profile(prof: dict | None) -> dict | None:
+    """A profile's totals and categories, without its kernel list."""
+    if prof is None:
+        return None
+    return {k: v for k, v in prof.items() if k != "top"}
+
+
+def _loss_diffs(got: list, want: list) -> list[float]:
+    return [abs(x - y) for x, y in zip(got, want)]
+
+
+def _ss_two_donors(problems: list[str]) -> dict:
+    """The training grow 2 -> 3 on three cards: two incumbents (cards 0
+    and 1, already on the NCCL plane) share the joiner's bulk round, each
+    streaming its range of the image; the grown world takes
+    SS_GROWN_STEPS steps on the plane and stops."""
+    from horovod_tpu_torch import gpt_small
+    layers = gpt_small().num_layers
+    with tempfile.TemporaryDirectory(prefix="sstrain2") as outdir:
+        r0, r1, joi = _ss_world([("train2", 0, 2, 0), ("train2", 1, 2, 1),
+                                 ("train2-joiner", 0, 0, 2)], outdir)
+    join = joi.get("join", {})
+    grown = [s for r in (r0, r1, joi) for s in r["steps"]
+             if s["size"] == 3]
+    first = next((s for s in joi["steps"] if s["size"] == 3), None)
+    donors = join.get("donor_stats") or {}
+    line = {"phase": "cards", "leg": "e-train-grow-two-donors",
+            "model": "gpt_small", "batch": 8, "seq": 2048,
+            "dtype": "bfloat16", "ranks": "2->3",
+            "card": "cards 0, 1 and the joiner's 2, one a process",
+            "catch_up_ms": join.get("catch_up_ms"),
+            "bulk_bytes": join.get("bulk_bytes"),
+            "bulk_gb_per_s": join.get("bulk_gb_per_s"),
+            "donor_stats": donors,
+            "grow": {"incumbents": [r0.get("grow"), r1.get("grow")]},
+            "step_ms_before": [s["ms"] for s in r0["steps"]
+                               if s["size"] == 2],
+            "grown_step_ms": {"rank0": [s["ms"] for s in r0["steps"]
+                                        if s["size"] == 3],
+                              "joiner": [s["ms"] for s in joi["steps"]
+                                         if s["size"] == 3]},
+            "grown_plane": sorted({s["plane"] for s in grown}),
+            "grown_device_plane": [s.get("device_plane") for s in grown],
+            "devices": sorted({s.get("device") for r in (r0, r1, joi)
+                               for s in r["steps"]}),
+            "join_wall_s": None if first is None
+            else first["t_end"] - joi["t_announce"],
+            "digests": [(d["name"], d["equal"]) for d in r0["digests"]],
+            "joined_digest_equals_stamp":
+                joi.get("joined_digest_equals_stamp"),
+            "flight": {"rank0": r0["flight"], "rank1": r1["flight"],
+                       "joiner": joi["flight"]}}
+    emit(line)
+    tag = "cards statesync (e)"
+    if [g and g.get("size") for g in line["grow"]["incumbents"]] != [3, 3]:
+        problems.append(f"{tag}: no grow to 3: {line['grow']}")
+    if len(donors) != 2 or not all(b for b, _ in donors.values()):
+        problems.append(f"{tag}: the bulk round's donors {donors}")
+    if not line["joined_digest_equals_stamp"]:
+        problems.append(f"{tag}: the joiner's image is not the stamp's")
+    digests = r0["digests"] + r1["digests"] + joi["digests"]
+    if len(r0["digests"]) != SS_GROWN_STEPS + 1 \
+            or not all(d["equal"] for d in digests):
+        problems.append(f"{tag}: digests {line['digests']}")
+    if line["grown_plane"] != ["card"] or not all(
+            line["grown_device_plane"]) or len(grown) != 3 * SS_GROWN_STEPS \
+            or line["devices"] != ["cuda:0", "cuda:1", "cuda:2"]:
+        problems.append(f"{tag}: grown steps {len(grown)} on "
+                        f"{line['grown_plane']} {line['devices']}")
+    if not all(_ss_launches_ok(r["steps"], layers) for r in (r0, r1, joi)):
+        problems.append(f"{tag}: flash launches not {layers} of each "
+                        f"kernel on every step")
+    if not all(math.isfinite(s["loss"]) for r in (r0, r1, joi)
+               for s in r["steps"]):
+        problems.append(f"{tag}: a loss is not finite")
+    return line
+
+
+def _cards_statesync(n: int, problems: list[str]) -> dict:
+    """(6) The statesync phase's legs with each process on a card of its
+    own: (a)/(b) the training grow 1 -> 2 (the grown world on the NCCL
+    plane) and the preemption 2 -> 1, (d) disaggregated prefill across two
+    cards, (c) the serving grow 2 -> 3 on three cards, and (e) the
+    training grow 2 -> 3 with two donors."""
+    t0 = time.perf_counter()
+    train = _ss_training(problems, cards=True)
+    disagg = _ss_disagg(problems, cards=True)
+    out = {"grown_step_ms": train["a"]["grown_step_ms"],
+           "grown_plane": train["a"]["grown_plane"],
+           "catch_up_ms": train["a"]["catch_up_ms"],
+           "ttft_ms_p50": disagg["ttft_ms"]["p50"],
+           "colocated_ttft_ms_p50": disagg["colocated"]["ttft_ms"]["p50"]}
+    if n >= 3:
+        serve = _ss_serving(problems, cards=True)
+        out["serve_catch_up_ms"] = serve["catch_up_ms"]
+        two = _ss_two_donors(problems)
+        out["two_donors_catch_up_ms"] = two["catch_up_ms"]
+    else:
+        for leg in ("c-serve-grow", "e-train-grow-two-donors"):
+            emit({"phase": "cards", "leg": leg,
+                  "not_run": f"the machine shows {n} cards"})
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _flash_per_step() -> float:
+    """Launches of each flash kernel a gpt step: one a layer on the card,
+    none where the wrappers run their plain versions (the CPU)."""
+    return float(_cards_gpt()[0].num_layers) \
+        if _rank_device().type == "cuda" else 0.0
+
+
+def _cards_check_gpt(ref: dict, recs: list, n: int, tag: str,
+                     problems: list[str]) -> dict:
+    """(1) the parity and throughput legs of every rank."""
+    per_step = _flash_per_step()
+    out = {}
+    for name in ("parity", "gpt"):
+        legs = [r["legs"].get(name) for r in recs]
+        if any(leg is None for leg in legs):
+            problems.append(f"{tag} {name}: a rank has no record")
+            return out
+        for r, leg in enumerate(legs):
+            if leg["misplaced"]:
+                problems.append(f"{tag} {name}: rank {r}'s "
+                                f"{leg['misplaced'][:4]} lie off "
+                                f"{leg['device']}")
+            if set(leg["launches_per_step"].values()) != {per_step} \
+                    or len(leg["launches_per_step"]) != 3:
+                problems.append(f"{tag} {name}: rank {r} launched "
+                                f"{leg['launches_per_step']} a step")
+            if leg["losses"] != legs[0]["losses"]:
+                problems.append(f"{tag} {name}: the ranks' losses differ")
+            if not all(math.isfinite(x) for x in leg["losses"]):
+                problems.append(f"{tag} {name}: a loss is not finite")
+    one = ref["gpt"]
+    par = [r["legs"]["parity"] for r in recs]
+    diffs = _loss_diffs(par[0]["losses"], one["losses"])
+    out["parity"] = {
+        "rows_per_rank": par[0]["rows"], "steps": CARDS_PARITY_STEPS,
+        "losses": par[0]["losses"],
+        "one_card_losses": one["losses"][:CARDS_PARITY_STEPS],
+        "loss_abs_diff": diffs,
+        "tolerance": {"first": CARDS_FIRST_LOSS_TOL,
+                      "later": CARDS_LOSS_TOL},
+        "params_equal_every_step": [p["params_equal_every_step"]
+                                    for p in par],
+        "digests_step_last": par[0]["digests"][-1][:1],
+        "batch_equal_one_card": par[0]["batch_digest"]
+        == one["batch_digest"]}
+    if diffs[0] > CARDS_FIRST_LOSS_TOL or max(diffs) > CARDS_LOSS_TOL:
+        problems.append(f"{tag} parity: losses {diffs} from one card's")
+    if not all(p["params_equal_every_step"] for p in par):
+        problems.append(f"{tag} parity: parameters differ across "
+                        f"ranks: {[p['digests'] for p in par][:1]}")
+    if not out["parity"]["batch_equal_one_card"]:
+        problems.append(f"{tag} parity: the global batch is not the "
+                        f"one-card leg's")
+    gpt = [r["legs"]["gpt"] for r in recs]
+    tokens = CARDS["batch"] * CARDS["seq"]
+    mean_ms = statistics.fmean(g["timed_step_ms_mean"] for g in gpt)
+    out["gpt"] = {
+        "rows_per_rank": CARDS["batch"], "seq": CARDS["seq"],
+        "step_ms": [g["timed_step_ms_mean"] for g in gpt],
+        "step_ms_all": gpt[0]["step_ms"],
+        "tokens_per_s_per_card": tokens / (mean_ms / 1e3),
+        "one_card_step_ms": one["timed_step_ms_mean"],
+        "one_card_tokens_per_s": tokens / (one["timed_step_ms_mean"] / 1e3),
+        "scaling_per_card": one["timed_step_ms_mean"] / mean_ms,
+        "scaling_total": n * one["timed_step_ms_mean"] / mean_ms,
+        "sync_ms": [g.get("sync_ms") for g in gpt],
+        "one_card_sync_ms": one.get("sync_ms"),
+        "profile_rank0": _short_profile(gpt[0].get("profile")),
+        "one_card_profile": _short_profile(one.get("profile")),
+        "wire_bytes_per_rank": gpt[0]["wire_bytes"],
+        "peak_memory_bytes": [g.get("peak_memory_bytes") for g in gpt],
+        "launches_per_step": gpt[0]["launches_per_step"],
+        "launches": gpt[0]["launches"], "losses": gpt[0]["losses"]}
+    return out
+
+
+def _cards_check_wires(ref: dict, recs: list, n: int, problems: list[str]
+                       ) -> dict:
+    """(2) each wire against the bf16 leg at n cards, its one-card spread
+    beside."""
+    out = {}
+    bf16 = recs[0]["legs"]["gpt"]
+    steps = sum(CARDS_WIRE_STEPS)
+    one_bf16 = ref["gpt"]["losses"][:steps]
+    for name, _ in CARDS_WIRES:
+        legs = [r["legs"]["wires"][name] for r in recs]
+        one = ref["wires"][name]
+        diff = max(_loss_diffs(legs[0]["losses"], bf16["losses"][:steps]))
+        spread = max(_loss_diffs(one["losses"], one_bf16))
+        out[name] = {
+            "losses": legs[0]["losses"],
+            "loss_max_abs_diff_bf16": diff,
+            "one_card_loss_max_abs_diff_bf16": spread,
+            "within_one_card_spread": diff <= spread,
+            "sync_ms": [x.get("sync_ms") for x in legs],
+            "one_card_sync_ms": one.get("sync_ms"),
+            "wire_bytes_per_rank": legs[0]["wire_bytes"],
+            "wire_share_of_bf16": legs[0]["wire_bytes"] / bf16["wire_bytes"],
+            "optimizer_state_bytes_per_rank": [x["optimizer_state_bytes"]
+                                               for x in legs],
+            "optimizer_state_share_of_one_card":
+                legs[0]["optimizer_state_bytes"]
+                / ref["gpt"]["optimizer_state_bytes"],
+            "step_ms": [x["timed_step_ms_mean"] for x in legs],
+            "peak_memory_bytes": [x.get("peak_memory_bytes") for x in legs],
+            "launches_per_step": legs[0]["launches_per_step"]}
+        if any(x["losses"] != legs[0]["losses"] for x in legs):
+            problems.append(f"cards wires {name}: the ranks' losses differ")
+        bound = max(CARDS_LOSS_TOL, spread)
+        out[name]["tolerance"] = bound
+        if not diff <= bound:
+            problems.append(f"cards wires {name}: losses {diff} from the "
+                            f"bf16 leg's, over {bound}")
+        for r, x in enumerate(legs):
+            if x["misplaced"]:
+                problems.append(f"cards wires {name}: rank {r}'s "
+                                f"{x['misplaced'][:4]} off its card")
+    return out
+
+
+def _cards_check_resnet(ref: dict, recs: list, n: int, outdir: str,
+                        problems: list[str]) -> dict:
+    """(3) ResNet-50's scaling, and cross-replica BatchNorm at n cards
+    against one card with plain BatchNorm, held as the fit phase's (e)."""
+    legs = [r["legs"]["resnet"] for r in recs]
+    one = ref["resnet_bf16"]
+    b = CARDS["cnn_batch"]
+    mean_ms = statistics.fmean(x["bf16"]["timed_step_ms_mean"] for x in legs)
+    out = {"bf16": {
+        "batch_per_card": b, "image_size": CARDS["image"],
+        "step_ms": [x["bf16"]["timed_step_ms_mean"] for x in legs],
+        "images_per_s_per_card": b / (mean_ms / 1e3),
+        "one_card_step_ms": one["timed_step_ms_mean"],
+        "scaling_per_card": one["timed_step_ms_mean"] / mean_ms,
+        "step_ms_all": legs[0]["bf16"]["step_ms"],
+        "one_card_step_ms_all": one["step_ms"],
+        "profile_rank0": _short_profile(legs[0]["bf16"].get("profile")),
+        "one_card_profile": _short_profile(one.get("profile")),
+        "losses": legs[0]["bf16"]["losses"],
+        "peak_memory_bytes": [x["bf16"].get("peak_memory_bytes")
+                              for x in legs]}}
+    for r, x in enumerate(legs):
+        if x["bf16"]["misplaced"]:
+            problems.append(f"cards resnet: rank {r}'s "
+                            f"{x['bf16']['misplaced'][:4]} off its card")
+    plain, moved = ref["bn_plain"], ref["bn_moved"]
+    logits = torch.cat([torch.load(os.path.join(outdir,
+                                                f"bn_logits_{r}.pt"))
+                        for r in range(n)])
+    state = torch.load(os.path.join(outdir, "bn_state.pt"))
+    cross = legs[0]["cross_bn"]
+    e = {"batch": b, "rows_per_rank": cross["rows"], "dtype": "float32",
+         "steps": CARDS_BN_STEPS,
+         "logits_rel_err": _rel_err(logits, plain["logits"]),
+         "loss_rel_err": max(abs(x - y) / abs(y) for x, y in
+                             zip(cross["losses"], plain["losses"])),
+         "stats_max_abs_err": _max_err(state["stats"], plain["stats"]),
+         "params_max_abs_err": [_max_err(c, p) for c, p in
+                                zip(state["params"], plain["params"])],
+         "params_one_ulp_sensitivity": [_max_err(m, p) for m, p in
+                                        zip(moved["params"],
+                                            plain["params"])],
+         "losses": cross["losses"], "one_card_losses": plain["losses"],
+         "step_ms": [x["cross_bn"]["step_ms"] for x in legs],
+         "one_card_step_ms": plain["step_ms"],
+         "params_equal_across_ranks": [x["cross_bn"]
+                                       ["params_equal_across_ranks"]
+                                       for x in legs],
+         "batch_equal_one_card": cross["batch_digest"]
+         == ref["bn_batch_digest"]}
+    out["cross_bn"] = e
+    bounds = {"logits_rel_err": CNN_LOGITS_REL,
+              "loss_rel_err": CNN_LOGITS_REL,
+              "stats_max_abs_err": CNN_STATS_TOL}
+    problems += [f"cards cross-replica BN: {k} {e[k]} over {bound}"
+                 for k, bound in bounds.items() if not e[k] <= bound]
+    for step, (err, floor) in enumerate(zip(
+            e["params_max_abs_err"], e["params_one_ulp_sensitivity"])):
+        if not err <= max(CNN_PARAMS_TOL, floor):
+            problems.append(f"cards cross-replica BN: parameters after step "
+                            f"{step + 1} {err} apart, over {CNN_PARAMS_TOL} "
+                            f"and the one-ulp sensitivity {floor}")
+    if not all(e["params_equal_across_ranks"]) \
+            or not e["batch_equal_one_card"]:
+        problems.append(f"cards cross-replica BN: ranks' parameters equal "
+                        f"{e['params_equal_across_ranks']}, batch equal "
+                        f"{e['batch_equal_one_card']}")
+    return out
+
+
+def _cards_check_quiet(ref: dict, recs: list, problems: list[str]) -> dict:
+    """The quiet leg beside the default cycle's: the gpt and ResNet-50
+    steps, their profiles' idle share; its gpt losses must be (1ii)'s
+    (the same batch, weights and wire)."""
+    out = {"cycle_time_ms": recs[0]["legs"]["quiet"]["cycle_time_ms"],
+           "threads_rank0": recs[0]["legs"]["quiet"]["threads"]}
+    for name, default, one in (
+            ("gpt", lambda r: r["legs"]["gpt"], ref["gpt"]),
+            ("resnet_bf16", lambda r: r["legs"]["resnet"]["bf16"],
+             ref.get("resnet_bf16"))):
+        legs = [r["legs"]["quiet"][name] for r in recs]
+        prof = legs[0].get("profile") or {}
+        out[name] = {
+            "step_ms": [x["timed_step_ms_mean"] for x in legs],
+            "default_cycle_step_ms": [default(r)["timed_step_ms_mean"]
+                                      for r in recs],
+            "one_card_step_ms": one["timed_step_ms_mean"] if one else None,
+            "device_idle_share": prof.get("device_idle_share"),
+            "kernel_ms": prof.get("kernel_ms")}
+        for r, x in enumerate(legs):
+            if x["misplaced"]:
+                problems.append(f"cards quiet {name}: rank {r}'s "
+                                f"{x['misplaced'][:4]} off its card")
+    gpt = recs[0]["legs"]["gpt"]["losses"]
+    quiet = recs[0]["legs"]["quiet"]["gpt"]["losses"]
+    out["gpt"]["losses_equal_default_cycle"] = quiet == gpt
+    if max(_loss_diffs(quiet, gpt)) > CARDS_LOSS_TOL:
+        problems.append(f"cards quiet: gpt losses {quiet} against {gpt}")
+    return out
+
+
+def _cards_check_eager(ref: dict, recs: list, n: int, problems: list[str]
+                       ) -> dict:
+    """(4) and (5): the plane, the streams, the binding and
+    SyncBatchNorm at n ranks."""
+    out = {"plane": recs[0]["legs"]["plane"],
+           "streams": {k: v for k, v in recs[0]["legs"]["streams"].items()
+                       if k.startswith("streams")}}
+    for r, rec in enumerate(recs):
+        legs = rec["legs"]
+        if legs["plane"]["mismatches"]:
+            problems.append(f"cards plane: rank {r} disagrees with the host "
+                            f"in {legs['plane']['mismatches']}")
+        if legs["plane"]["on_card"] and legs["plane"]["native_calls_during"]:
+            problems.append(f"cards plane: rank {r} ran native host kernels "
+                            f"{legs['plane']['native_calls_during']}")
+        problems += [f"cards streams rank {r}: {p}"
+                     for p in legs["streams"]["problems"]]
+        for k, v in legs["streams"].items():
+            # On the cards every response of a burst is a device response.
+            if k.startswith("streams") and (
+                    not v["device_plane"] or v["on_card"] and
+                    sum(v["device_responses_by_stream"])
+                    != sum(v["responses_by_stream"])):
+                problems.append(f"cards streams rank {r} {k}: {v}")
+        if legs["syncbn"]["bad"]:
+            problems.append(f"cards SyncBatchNorm rank {r}: "
+                            f"{legs['syncbn']['bad']} off "
+                            f"{legs['syncbn']['max_abs_err']}")
+    binding = [r["legs"]["binding"] for r in recs]
+    trainer = recs[0]["legs"]["gpt"]
+    diffs = _loss_diffs(binding[0]["mean_losses"], trainer["losses"])
+    per_step = _flash_per_step()
+    out["binding"] = {
+        "mean_losses": binding[0]["mean_losses"],
+        "trainer_losses": trainer["losses"], "loss_abs_diff": diffs,
+        "step_ms": [x["timed_step_ms_mean"] for x in binding],
+        "trainer_step_ms": [r["legs"]["gpt"]["timed_step_ms_mean"]
+                            for r in recs],
+        "responses_per_step": binding[0]["responses_per_step"],
+        "fused_bytes_per_step": binding[0]["fused_bytes_per_step"],
+        "launches_per_step": binding[0]["launches_per_step"],
+        "peak_memory_bytes": [x["peak_memory_bytes"] for x in binding]}
+    out["syncbn"] = recs[0]["legs"]["syncbn"]
+    if diffs[0] > CARDS_FIRST_LOSS_TOL or max(diffs) > CARDS_LOSS_TOL:
+        problems.append(f"cards binding: losses {diffs} from Trainer.step's")
+    for r, x in enumerate(binding):
+        if x["misplaced"] or not x["params_equal_across_ranks"]:
+            problems.append(f"cards binding rank {r}: misplaced "
+                            f"{x['misplaced'][:4]}, parameters equal "
+                            f"{x['params_equal_across_ranks']}")
+        if set(x["launches_per_step"].values()) != {per_step}:
+            problems.append(f"cards binding rank {r}: launches "
+                            f"{x['launches_per_step']}")
+    return out
+
+
+def phase_cards(train: dict | None = None) -> dict:
+    """The data-parallel main path across the cards of this host (see the
+    module docstring)."""
+    t_phase = time.perf_counter()
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE"):
+        os.environ.pop(var, None)
+    problems: list[str] = []
+    n = torch.cuda.device_count()
+    cards = {"phase": "cards", "leg": "cards", "count": n,
+             "nvidia_smi": _smi("--query-gpu=name,power.limit",
+                                "--format=csv,noheader").splitlines()}
+    if n > 1:
+        cards["topology"] = _smi("topo", "-m").splitlines()
+        cards["nvlink"] = _smi("nvlink", "--status").splitlines()[:12]
+    emit(cards)
+    torch.cuda.empty_cache()
+    ref = _cards_reference(n, problems, train)
+    emit({"phase": "cards", "leg": "one-card-reference", "card":
+          cards["nvidia_smi"][:1],
+          **{k: {kk: vv for kk, vv in v.items()
+                 if kk not in ("digests", "launches", "profile")}
+             for k, v in ref.items() if k in ("gpt", "resnet_bf16")},
+          "wires": {k: {"losses": v["losses"], "sync_ms": v.get("sync_ms"),
+                        "wire_bytes": v["wire_bytes"],
+                        "optimizer_state_bytes": v["optimizer_state_bytes"]}
+                    for k, v in ref.get("wires", {}).items()},
+          "bn_plain": {k: ref["bn_plain"][k] for k in ("losses", "step_ms")}
+          if "bn_plain" in ref else None})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="cards") as outdir:
+        world = _cards_world(1, "one", outdir)
+    one = world["ranks"][0]
+    leg = one["legs"].get("gpt")
+    line = {"phase": "cards", "leg": "launcher-np1", "rc": world["rc"],
+            "wall_s": world["wall_s"], "device_plane": one.get(
+                "device_plane"), "device": one.get("device")}
+    if world["rc"] != 0 or leg is None:
+        problems.append(f"cards -np 1: rc {world['rc']}: "
+                        f"{one.get('error') or world['tail'][-1500:]}")
+    else:
+        diffs = _loss_diffs(leg["losses"], ref["gpt"]["losses"])
+        line.update(losses=leg["losses"], loss_abs_diff_one_card=diffs,
+                    losses_bitwise_one_card=leg["losses"]
+                    == ref["gpt"]["losses"],
+                    step_ms=leg["timed_step_ms_mean"],
+                    one_card_step_ms=ref["gpt"]["timed_step_ms_mean"],
+                    launches_per_step=leg["launches_per_step"],
+                    peak_memory_bytes=leg.get("peak_memory_bytes"))
+        if max(diffs) > CARDS_LOSS_TOL or diffs[0] > CARDS_FIRST_LOSS_TOL:
+            problems.append(f"cards -np 1: losses {diffs} from one card's")
+        if leg["misplaced"]:
+            problems.append(f"cards -np 1: {leg['misplaced'][:4]} off the "
+                            f"card")
+    emit(line)
+    launches = leg["launches"] if leg else {}
+    summary: dict = {}
+    if n < 2:
+        for name in ("gpt-dp", "wires", "resnet50", "device-plane",
+                     "binding", "two-card-reduce", "statesync"):
+            emit({"phase": "cards", "leg": name,
+                  "not_run": f"the machine shows {n} card"})
+    else:
+        summary = _cards_n(ref, n, problems)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "cards", "leg": "summary", "seconds": seconds,
+          "cards": n, "card": cards["nvidia_smi"], **summary,
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": launches}
+
+
+def _cards_n(ref: dict, n: int, problems: list[str]) -> dict:
+    """The n-card legs: the launcher's world of n ranks (legs 1-5), the
+    two-card reduce, and statesync's legs with each rank on a card."""
+    with tempfile.TemporaryDirectory(prefix="cards") as outdir:
+        world = _cards_world(n, "cards", outdir)
+        recs = world["ranks"]
+        emit({"phase": "cards", "leg": "world", "ranks": n,
+              "rc": world["rc"], "wall_s": world["wall_s"],
+              "nccl_version": world["nccl_version"],
+              "nccl_transports": world["transports"],
+              "nccl_link_types": world["link_types"],
+              "device_plane": [r.get("device_plane") for r in recs],
+              "backend": [r.get("backend") for r in recs],
+              "devices": [r.get("device") for r in recs],
+              "leg_s": {k: v.get("leg_s") for k, v in
+                        recs[0]["legs"].items()}})
+        if world["rc"] != 0:
+            problems.append("cards world: rc {}: {}".format(
+                world["rc"], " | ".join(
+                    r.get("error", "")[-1200:] for r in recs
+                    if r.get("error")) or world["tail"][-2000:]))
+        on_card = _rank_device().type == "cuda"
+        for r, rec in enumerate(recs):
+            if rec.get("device") != (f"cuda:{r}" if on_card else "cpu") \
+                    or not rec.get("device_plane"):
+                problems.append(f"cards world: rank {r} on "
+                                f"{rec.get('device')}, plane "
+                                f"{rec.get('device_plane')}")
+        done = set.intersection(*(set(r["legs"]) for r in recs))
+        out = {"transports": world["transports"]}
+        if {"parity", "gpt"} <= done:
+            g = _cards_check_gpt(ref, recs, n, "cards", problems)
+            for name, leg in g.items():
+                emit({"phase": "cards", "leg": f"gpt-{name}", "ranks": n,
+                      **leg})
+            out["gpt_step_ms"] = g["gpt"]["step_ms"]
+            out["gpt_scaling_per_card"] = g["gpt"]["scaling_per_card"]
+        if "wires" in done:
+            w = _cards_check_wires(ref, recs, n, problems)
+            emit({"phase": "cards", "leg": "wires", "ranks": n, **w})
+            out["wire_sync_ms"] = {k: v["sync_ms"] for k, v in w.items()}
+        if "resnet" in done:
+            c = _cards_check_resnet(ref, recs, n, outdir, problems)
+            emit({"phase": "cards", "leg": "resnet50", "ranks": n, **c})
+            out["resnet_scaling_per_card"] = c["bf16"]["scaling_per_card"]
+        if "quiet" in done:
+            q = _cards_check_quiet(ref, recs, problems)
+            emit({"phase": "cards", "leg": "quiet-core", "ranks": n, **q})
+            out["quiet_step_ms"] = {k: v["step_ms"] for k, v in q.items()
+                                    if isinstance(v, dict)}
+        if {"plane", "streams", "binding", "syncbn"} <= done:
+            e = _cards_check_eager(ref, recs, n, problems)
+            for name, leg in e.items():
+                emit({"phase": "cards", "leg": name, "ranks": n, **leg})
+            out["plane_busbw_gb_per_s"] = \
+                e["plane"]["fused_allreduce"]["busbw_gb_per_s"]
+    across = _reduce_two_cards(problems)
+    emit({"phase": "cards", "leg": "two-card-reduce", **across})
+    if CARDS["statesync"]:
+        out["statesync"] = _cards_statesync(n, problems)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -6001,6 +7487,8 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-card-worker":
         rank, n, port, outdir = sys.argv[2:6]
         return parallel_card_worker(int(rank), int(n), int(port), outdir)
+    if len(sys.argv) > 1 and sys.argv[1] == "--cards-worker":
+        return cards_worker(sys.argv[2], sys.argv[3])
     if len(sys.argv) > 1 and sys.argv[1] == "--statesync-worker":
         role, rank, size, port, outdir = sys.argv[2:7]
         return statesync_worker(role, int(rank), int(size), int(port),
@@ -6023,7 +7511,7 @@ def main() -> int:
                   "reduce": phase_reduce, "runtime": phase_runtime,
                   "resilience": phase_resilience, "elastic": phase_elastic,
                   "parallel": phase_parallel, "fit": phase_fit,
-                  "statesync": phase_statesync}
+                  "statesync": phase_statesync, "cards": phase_cards}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -6042,6 +7530,7 @@ def main() -> int:
     parallel = phase_parallel(train)
     fit = phase_fit()
     statesync = phase_statesync()
+    cards = phase_cards(train)
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -6053,6 +7542,7 @@ def main() -> int:
          "parallel_launches": parallel["launches"][name],
          "fit_launches": fit["launches"][name],
          "statesync_launches": statesync["launches"][name],
+         "cards_launches": cards["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -13,8 +13,9 @@ horovod/common/elastic.py).  Three cooperating pieces:
 - **notification plumbing**: the driver pushes host-change events into
   running workers so they can interrupt proactively instead of failing.
 
-The driver's autoscale controller (``HOROVOD_AUTOSCALE``, statesync) is
-ROADMAP queue A item 11.
+The driver's autoscale controller (``HOROVOD_AUTOSCALE``) is
+``statesync/autoscale.py``; the elastic launcher (``elastic/launcher.py``)
+starts it and the driver caps its slots at the controller's target.
 """
 from __future__ import annotations
 

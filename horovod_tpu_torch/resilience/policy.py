@@ -124,9 +124,9 @@ def converge_confirmed_dead(exc: RanksFailedError) -> frozenset[int]:
     unconfirmable failure re-raises ``exc`` instead.
 
     Polls the liveness monitor until the confirmed set is stable across
-    two polls, bounded by two fault windows (the reference's serving
-    shrink and statesync transitions call it; in the port they are
-    ROADMAP queue A item 11)."""
+    two polls, bounded by two fault windows (serving's shrink,
+    ``serving/replica.py``, and statesync's transitions,
+    ``statesync/service.py``, call it)."""
     from . import context as _ctx
 
     state = _ctx.active_state()

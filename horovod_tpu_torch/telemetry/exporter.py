@@ -20,7 +20,9 @@ Prometheus scrape deployment.
 from __future__ import annotations
 
 import json
+import socket
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..common import config
@@ -48,6 +50,48 @@ class _MetricsHandler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
 
+class _Server(ThreadingHTTPServer):
+    """A ``ThreadingHTTPServer`` that keeps its request threads.  The
+    stdlib's request threads are daemons that ``server_close`` never
+    joins, so one may still be finishing its response after the client
+    has read it; ``reap`` ends and joins them."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        self._live: dict[threading.Thread, socket.socket] = {}
+        self._live_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def process_request(self, request, client_address) -> None:
+        t = threading.Thread(target=self._serve_one,
+                             args=(request, client_address), daemon=True,
+                             name="hvd-metrics-request")
+        with self._live_lock:
+            self._live[t] = request
+        t.start()
+
+    def _serve_one(self, request, client_address) -> None:
+        try:
+            self.process_request_thread(request, client_address)
+        finally:
+            with self._live_lock:
+                self._live.pop(threading.current_thread(), None)
+
+    def reap(self, timeout: float) -> None:
+        """Shut each live request's socket (a kept-alive connection
+        would hold its thread in a read) and join the threads, all
+        within ``timeout`` seconds."""
+        with self._live_lock:
+            live = list(self._live.items())
+        for _, request in live:
+            try:
+                request.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        deadline = time.monotonic() + timeout
+        for t, _ in live:
+            t.join(max(0.0, deadline - time.monotonic()))
+
+
 class MetricsExporter:
     """Prometheus text-format endpoint for one rank's registry."""
 
@@ -60,12 +104,11 @@ class MetricsExporter:
         self.bind = bind
         want = base_port + rank
         try:
-            self._httpd = ThreadingHTTPServer((bind, want),
-                                              _MetricsHandler)
+            self._httpd = _Server((bind, want), _MetricsHandler)
         except OSError:
             # Port taken (another world on this host, or a low base):
             # fall back to an ephemeral port rather than failing init.
-            self._httpd = ThreadingHTTPServer((bind, 0), _MetricsHandler)
+            self._httpd = _Server((bind, 0), _MetricsHandler)
             logger.info("telemetry: port %d busy; metrics for rank %d on "
                         "port %d instead", want, rank,
                         self._httpd.server_address[1])
@@ -80,12 +123,14 @@ class MetricsExporter:
 
     def close(self) -> None:
         """shutdown() wakes the serve loop, server_close() releases the
-        listening socket, and the join reaps the serve thread: every
-        ``core.init`` with the port knob set builds a new exporter, so
-        without the join one hvd-metrics thread would leak a world."""
+        listening socket, and the joins reap the serve thread and the
+        request threads: every ``core.init`` with the port knob set
+        builds a new exporter, so without them its threads would leak a
+        world."""
         self._httpd.shutdown()
         self._httpd.server_close()
         self._thread.join(timeout=5.0)
+        self._httpd.reap(timeout=5.0)
 
 
 def resolve_dump_path(path: str, rank: int) -> str:

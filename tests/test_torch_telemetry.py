@@ -18,6 +18,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 from urllib import request as urlrequest
 
 import numpy as np
@@ -176,6 +177,29 @@ def test_exporter_serves_closes_and_falls_back():
     assert {t.name for t in threading.enumerate()} <= before
     with pytest.raises(OSError):
         urlrequest.urlopen(f"http://127.0.0.1:{ex.port}/metrics", timeout=2)
+
+
+def test_exporter_close_reaps_its_request_threads(monkeypatch):
+    """A request thread may still be finishing its response when the
+    client has read it (the stdlib joins no daemon request thread):
+    ``close`` must reap it, here made slow to exit on purpose."""
+    from horovod_tpu_torch.telemetry import exporter
+    finish = exporter._MetricsHandler.finish
+
+    def slow_finish(self):
+        time.sleep(1.5)
+        finish(self)
+    monkeypatch.setattr(exporter._MetricsHandler, "finish", slow_finish)
+    reg = port_tm.MetricsRegistry(0)
+    before = {t.name for t in threading.enumerate()}
+    ex = port_tm.MetricsExporter(reg, 0, 0, bind="127.0.0.1")
+    with urlrequest.urlopen(f"http://127.0.0.1:{ex.port}/metrics",
+                            timeout=10) as r:
+        assert r.read().decode() == reg.render_prometheus()
+    t0 = time.monotonic()
+    ex.close()
+    assert time.monotonic() - t0 < 6.0
+    assert {t.name for t in threading.enumerate()} <= before
 
 
 @pytest.mark.parametrize("path", ["m.json", "metrics", "out/{rank}.json",
