@@ -400,6 +400,28 @@ Phases, each printed as one JSON object on its own line:
    cards' names, power limits, ``nvidia-smi topo -m`` and ``nvlink
    --status``.  On one card every n-card leg says "not
    run".
+19. shard: sharded parameters (``Trainer(param_rules=...)``).  On card 0
+   over a one-rank NCCL group: gpt_small's flax view validated against
+   the reference's canonical tensor-parallel table (no problem), the
+   Trainer with that table on a mesh of one bit for bit the plain step
+   over 7 steps (the kernels line's ``shard_launches`` are its), the tp
+   path (the split layers over a group of one) bit for bit the plain
+   pure-GSPMD step, and a checkpoint round trip.  With four cards, one
+   launcher world of four ranks (``--shard-worker DIR``, the eager core
+   at a 1 s cycle), in order: (a) pure-GSPMD tp=4 at B=8 on every rank,
+   attention on 3 heads a rank through the flash kernels (losses within
+   ``CARDS_FIRST_LOSS_TOL`` / ``CARDS_LOSS_TOL`` of the one-card leg's,
+   12 launches of each kernel a step on every rank, each kernel held
+   against its plain version at that shape, the bytes of parameters and
+   AdamW state a rank equal to the reckoning, peak memory, step ms, the
+   split's all-reduces timed alone, a profiled step); (b) manual dp=2 x
+   tp=2 and (c) manual fsdp=4, each bit for bit the same mesh without
+   rules (for (c) dp=4, the cards phase's parity leg); (d) MoE at ep=4
+   with the experts held over ep against every rank holding them all;
+   (e) ResNet-50 in bf16 with the reference's head table at dp=2 x tp=2,
+   bit for bit without it; (f) (a)'s state, saved at tp=4, restored at
+   dp=4 (the whole state's SHA-256 equal).  On fewer cards the world's
+   line says "not run".
 
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
@@ -448,6 +470,12 @@ REPLACES = {
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # The train phase's remat legs, after the main leg (which runs without).
 REMAT_POLICIES = ("full", "dots")
+# _profile: the spin kernels that open a trace, idle host time on each
+# side of the traced call, and how many traces it takes before it gives
+# up on one that holds no kernel.
+PROFILE_WARMUP = 64
+PROFILE_PAD_S = 0.05
+PROFILE_ATTEMPTS = 3
 # Kernel names of the profile, by what they do (first match wins).
 KERNEL_CATEGORIES = (
     ("flash attention (this repo)", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
@@ -964,20 +992,41 @@ def _profile(fn, wall_ms: float, categories=KERNEL_CATEGORIES) -> dict:
     of the same work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    seen: list[dict] = []
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    # Kernel events only, not the annotations the profiler also puts on
-    # the device timeline ("Optimizer.step#AdamW.step"; a kernel's own
-    # name may hold "#" too, as in "{lambda(int)#1}", but never without
-    # a space).
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not ("#" in e.name and " " not in e.name)]
-    if not kernels:
-        raise RuntimeError("the profiler saw no kernel on the card")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # A trace after the first one of a process can lose the
+            # device records at its start (a millisecond's call lost 15
+            # of its 19 kernels, once all of them), and the profiler keeps
+            # only device events inside its host-clock window. So the
+            # trace opens with PROFILE_WARMUP spin kernels, left out of
+            # the result, and idles on each side of the call.
+            for _ in range(PROFILE_WARMUP):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = prof.events()
+        # Kernel events only, not the annotations the profiler also puts
+        # on the device timeline ("Optimizer.step#AdamW.step"; a kernel's
+        # own name may hold "#" too, as in "{lambda(int)#1}", but never
+        # without a space).
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not ("#" in e.name and " " not in e.name)]
+        warmup_seen = sum("spin_kernel" in e.name for e in device)
+        kernels = [e for e in device if "spin_kernel" not in e.name]
+        if kernels:
+            break
+        seen.append({"events": len(events), "device_events": len(device),
+                     "warmup_seen": warmup_seen})
+    else:
+        raise RuntimeError(f"the profiler saw no kernel on the card in "
+                           f"{PROFILE_ATTEMPTS} traces: {seen}")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_start, cur_end = 0.0, *spans[0]
     for start, end in spans[1:]:
@@ -1009,7 +1058,8 @@ def _profile(fn, wall_ms: float, categories=KERNEL_CATEGORIES) -> dict:
             key in name for key in keys)), "elementwise and other")
         cats[cat] = cats.get(cat, 0.0) + us / 1e3
     return {"kernel_ms": kernel_us / 1e3, "busy_ms": busy_us / 1e3,
-            "window_ms": window_us / 1e3,
+            "window_ms": window_us / 1e3, "empty_traces": len(seen),
+            "warmup_seen": warmup_seen,
             "device_idle_share": 1 - busy_us / window_us,
             "kernel_share_of_timed_step": kernel_us / 1e3 / wall_ms,
             "kernel_launches": sum(v[1] for _, v in rows),
@@ -2786,7 +2836,8 @@ def _reduce_plane(problems: list[str]) -> dict:
                             out["cases"][f"int8_{n}"]["ms"])
             out["int8_profile"] = {k: prof[k] for k in (
                 "kernel_ms", "kernel_launches", "device_idle_share",
-                "dtoh_copies", "dtoh_max_ms", "top")}
+                "dtoh_copies", "dtoh_max_ms", "empty_traces",
+                "warmup_seen", "top")}
             out["int8_profile"]["top"] = prof["top"][:8]
             if prof["dtoh_max_ms"] > BINDING_DTOH_MAX_MS:
                 problems.append(f"device int8: a device-to-host copy of "
@@ -7474,6 +7525,657 @@ def _cards_n(ref: dict, n: int, problems: list[str]) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The shard phase: sharded parameters (tensor parallelism, fsdp-sharded
+# leaves, experts held over ep, sharded checkpoints), on one card and on
+# four, one process a card under the port's launcher
+# ---------------------------------------------------------------------------
+# gpt_small as the train phase trains it, the parallel phase's MoE, and
+# ResNet-50 at the reference benchmark's batch (a global batch of
+# cnn_batch, half a dp rank).  The CPU rehearsal of the phase
+# (tests/torch_shard_rehearsal.py) puts small sizes here.
+SHARD = dict(gpt="gpt_small", batch=8, seq=2048, moe=dict(PARALLEL_MOE),
+             resnet=dict(stage_sizes=(3, 4, 6, 3), num_filters=64,
+                         num_classes=1000),
+             image=224, cnn_batch=128)
+SHARD_CARDS = 4
+SHARD_STEPS = (WARMUP_STEPS, TIMED_STEPS)   # the tp=4 leg
+SHARD_CHECK_STEPS = 3                       # the bitwise legs, each run
+SHARD_WORLD_TIMEOUT = 600.0
+# The reference's canonical tensor-parallel table (flax paths and dims),
+# every kernel and the embedding sharded on dim 0 over fsdp, the experts
+# over ep, and test_trainer_tp_sharded_head's table.
+SHARD_TP = ((r"attn/w[qkv]/kernel", (None, "tp", None)),
+            (r"attn/wo/kernel", ("tp", None, None)),
+            (r"mlp/(gate|up)/kernel", (None, "tp")),
+            (r"mlp/down/kernel", ("tp", None)))
+SHARD_FSDP = ((r"embedding|kernel", ("fsdp",)),)
+SHARD_EXPERTS = ((r"moe/w[io]$", ("ep",)),)
+SHARD_HEAD = ((r"head/kernel", (None, "tp")), (r"head/bias", ("tp",)))
+# gpt_small's parameters and AdamW state a rank (4 + 8 bytes a
+# parameter): at tp=4 the table keeps 105,597,696 of 190,532,352
+# parameters a rank, at fsdp=4 every leaf of two dims or more is a
+# quarter.
+SHARD_RECKONED = {"tp": 1_267_172_352, "fsdp": 571_769_856}
+
+
+def _shard_rules(table):
+    from horovod_tpu_torch.parallel.sharding import ShardingRules
+    return ShardingRules(list(table))
+
+
+def _reckoned_bytes(model, mesh, table, moments: int = 2) -> int:
+    """This rank's bytes of parameters and optimizer moments as the rule
+    table cuts the model's flax leaves (4 bytes an element each)."""
+    from horovod_tpu_torch.parallel.sharding import plan_sharding
+    total = 0
+    for leaf in plan_sharding(model, mesh, _shard_rules(table)).values():
+        parts = math.prod(p for _, _, p in leaf.splits)
+        total += math.prod(leaf.flax_shape) // parts
+    return total * 4 * (1 + moments)
+
+
+def _state_bytes(state) -> int:
+    """The bytes this rank holds of parameters and optimizer tensors
+    (step counters aside)."""
+    params = sum(p.numel() * p.element_size()
+                 for p in state.model.parameters())
+    return params + sum(t.numel() * t.element_size()
+                        for st in state.optimizer.state.values()
+                        for k, t in st.items()
+                        if torch.is_tensor(t) and t.dim() > 0)
+
+
+def _whole_digest(state) -> str:
+    """SHA-256 of the whole parameters and buffers of a state, sharded
+    ones gathered from every rank (every rank calls it alike)."""
+    import hashlib
+    sharding = state.sharding
+    tensors = {}
+    for name, p in state.model.named_parameters():
+        t = p.detach()
+        if sharding is not None and name in sharding.leaves:
+            t = sharding.gather(name, t)
+        tensors[name] = t
+    tensors.update((n, b) for n, b in state.model.named_buffers())
+    digest = hashlib.sha256()
+    for name, t in sorted(tensors.items()):
+        digest.update(name.encode())
+        digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                      .tobytes())
+    return digest.hexdigest()
+
+
+def shard_train(model, mesh, steps: int, batch: dict, *, table=None,
+                sync_kw: dict | None = None, batch_spec=None,
+                optimizer: str = "adamw", warmup: int = 0,
+                profile: bool = False, keep: bool = False) -> dict:
+    """``Trainer.step`` on ``mesh`` with ``param_rules`` from ``table``
+    (None: no rules), AdamW(3e-4, wd 1e-4) or SGD(0.1, 0.9) and
+    ``GradSyncConfig(op="average", compression="bf16", **sync_kw)``:
+    losses, step ms, the flash launches of the steps, peak memory, the
+    bytes of parameters and optimizer state this rank holds, the whole
+    state's digest, and (``profile``) one more step under the profiler.
+    ``keep``: the trainer and state come back too."""
+    from horovod_tpu_torch import GradSyncConfig, Trainer
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import data_axes
+    device = next(model.parameters()).device
+    if optimizer == "adamw":
+        opt = torch.optim.AdamW(model.parameters(), lr=CARDS_LR,
+                                weight_decay=CARDS_WD)
+    else:
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    sync = GradSyncConfig(**{"op": "average", "compression": "bf16",
+                             "axes": data_axes(mesh) or ("dp",),
+                             **(sync_kw or {})})
+    trainer = Trainer(model, opt, mesh, sync=sync, batch_spec=batch_spec,
+                      param_rules=None if table is None
+                      else _shard_rules(table))
+    state = trainer.init()
+    _card_sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    fa.reset_launch_counts()                 # the leg's path starts
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        _card_sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = fa.launch_counts()            # ... and ends
+    out = {"losses": losses, "step_ms": step_ms,
+           "timed_step_ms_mean": statistics.mean(step_ms[warmup:]),
+           "launches_per_step": {k: c / steps for k, c in launches.items()},
+           "state_bytes": _state_bytes(state),
+           "sharded_leaves": 0 if state.sharding is None
+           else len(state.sharding.leaves),
+           "split_layers": sum(getattr(m, "split", None) is not None
+                               for m in model.modules()),
+           "misplaced": _misplaced(device, [
+               *model.named_parameters(),
+               *((f"optimizer.{k}", t)
+                 for st in state.optimizer.state.values()
+                 for k, t in st.items() if k != "step")])}
+    if device.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+        if profile:
+            out["profile"] = _short_profile(_profile(
+                lambda: trainer.step(state, batch),
+                out["timed_step_ms_mean"]))
+    out["step"] = state.step
+    out["digest"] = _whole_digest(state)
+    if keep:
+        out["trainer"], out["state"] = trainer, state
+    else:
+        del trainer, state, opt
+    return out
+
+
+def _shard_gpt(mesh=None, **overrides):
+    import horovod_tpu_torch as hvt
+    cfg = getattr(hvt, SHARD["gpt"])(**{"attention": "flash",
+                                        "max_seq_len": SHARD["seq"],
+                                        "mesh": mesh, **overrides})
+    return hvt.TransformerLM(cfg, seed=0)
+
+
+def _shard_text(rows: int, seq: int, seed: int) -> dict:
+    import horovod_tpu_torch as hvt
+    vocab = getattr(hvt, SHARD["gpt"])().vocab_size
+    return hvt.synthetic_text_batch(rows, seq, vocab, seed=seed)
+
+
+def _shard_one_card(problems: list[str]) -> dict:
+    """The one-card legs, over a one-rank NCCL group on card 0."""
+    import horovod_tpu_torch.checkpoint as ckpt
+    from horovod_tpu_torch import Trainer, build_mesh
+    from horovod_tpu_torch.ops import flash_attention as fa
+    out: dict = {}
+    steps = sum(SHARD_STEPS)
+    with _one_rank_nccl():
+        mesh = build_mesh()
+        batch = _shard_text(SHARD["batch"], SHARD["seq"], seed=0)
+        model = _shard_gpt()
+        out["validate"] = _shard_rules(SHARD_TP).validate(mesh, model)
+        if out["validate"]:
+            problems.append(f"shard: the canonical table on "
+                            f"{SHARD['gpt']}: {out['validate']}")
+        plain = shard_train(model, mesh, steps, batch, warmup=SHARD_STEPS[0])
+        del model
+        _free()
+        model = _shard_gpt()
+        ruled = shard_train(model, mesh, steps, batch, table=SHARD_TP,
+                            warmup=SHARD_STEPS[0], keep=True)
+        launches = fa.launch_counts()
+        out["mesh-of-one"] = {
+            "losses": ruled["losses"], "plain_losses": plain["losses"],
+            "bitwise": ruled["losses"] == plain["losses"]
+            and ruled["digest"] == plain["digest"],
+            "step_ms": ruled["timed_step_ms_mean"],
+            "plain_step_ms": plain["timed_step_ms_mean"],
+            "launches_per_step": ruled["launches_per_step"]}
+        if not out["mesh-of-one"]["bitwise"]:
+            problems.append("shard: the Trainer with the tp table on a mesh "
+                            "of one is not the plain step bit for bit")
+        with tempfile.TemporaryDirectory(prefix="shard") as tmp:
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(os.path.join(tmp, "ruled"), ruled["state"])
+            save_s = time.perf_counter() - t0
+            del ruled["trainer"], ruled["state"], model
+            _free()
+            model = _shard_gpt()
+            opt = torch.optim.AdamW(model.parameters(), lr=CARDS_LR,
+                                    weight_decay=CARDS_WD)
+            fresh = Trainer(model, opt, mesh).init()
+            t0 = time.perf_counter()
+            restored = ckpt.restore_checkpoint(os.path.join(tmp, "ruled"),
+                                               fresh)
+            restore_s = time.perf_counter() - t0
+            out["checkpoint"] = {
+                "save_s": save_s, "restore_s": restore_s,
+                "bitwise": _whole_digest(restored) == plain["digest"]
+                and restored.step == steps}
+            del fresh, restored, model, opt
+            _free()
+        if not out["checkpoint"]["bitwise"]:
+            problems.append("shard: the checkpoint round trip is not "
+                            "bitwise")
+        split = {}
+        for name, table in (("plain", None), ("tp-path", SHARD_TP)):
+            model = _shard_gpt()
+            split[name] = shard_train(model, mesh, SHARD_CHECK_STEPS, batch,
+                                      table=table, sync_kw={"axes": ()})
+            del model
+            _free()
+        out["tp-at-one"] = {
+            "losses": split["tp-path"]["losses"],
+            "split_layers": split["tp-path"]["split_layers"],
+            "bitwise": split["tp-path"]["losses"] == split["plain"]["losses"]
+            and split["tp-path"]["digest"] == split["plain"]["digest"]}
+        if not out["tp-at-one"]["bitwise"] \
+                or out["tp-at-one"]["split_layers"] == 0:
+            problems.append(f"shard: the tp path at tp=1 is not the plain "
+                            f"path bit for bit ({out['tp-at-one']})")
+    out["losses"] = plain["losses"]
+    out["launches"] = launches
+    return out
+
+
+def _shard_leg_tp(ctx: dict) -> dict:
+    """(a) pure-GSPMD tp=n: every rank the whole batch, the layers on their
+    chunks (H/n heads a rank through the flash kernels), the kernels held
+    against their plain versions at that head count, then the state saved
+    (gathered; rank 0 writes) for (f)."""
+    import horovod_tpu_torch.checkpoint as ckpt
+    from horovod_tpu_torch import build_mesh
+    n = ctx["n"]
+    mesh = build_mesh(tp=n)
+    model = _shard_gpt(mesh)
+    batch = _shard_text(SHARD["batch"], SHARD["seq"], seed=0)
+    reckoned = _reckoned_bytes(model, mesh, SHARD_TP)
+    out = shard_train(model, mesh, sum(SHARD_STEPS), batch, table=SHARD_TP,
+                      sync_kw={"axes": ()}, warmup=SHARD_STEPS[0],
+                      profile=True, keep=True)
+    out["reckoned_bytes"] = reckoned
+    heads = model.cfg.num_heads // n
+    out["heads_per_rank"] = heads
+    if _rank_device().type == "cuda":
+        # The split's all-reduces alone, on the card, back to back: one
+        # at each attention and MLP output forward and at each input
+        # backward; and the replicated leaves' gradient average over tp.
+        import torch.distributed as dist
+        group = mesh.groups["tp"]
+        act = torch.zeros(SHARD["batch"], SHARD["seq"], model.cfg.d_model,
+                          dtype=model.cfg.dtype, device=_rank_device())
+        rep = sum(p.numel() for name, p in model.named_parameters()
+                  if name not in out["state"].sharding.leaves)
+        grads = torch.zeros(rep, device=_rank_device())
+        out["tp_allreduce"] = {
+            "per_step": 4 * model.cfg.num_layers,
+            "bytes": act.numel() * act.element_size(),
+            "device_ms": time_ms(lambda: dist.all_reduce(act, group=group),
+                                 **DEVICE),
+            "replicated_grad_bytes": grads.numel() * 4,
+            "replicated_grad_device_ms": time_ms(
+                lambda: dist.all_reduce(grads, group=group), **DEVICE)}
+        del act, grads
+        shape = dict(MAIN_SHAPE, b=SHARD["batch"], h=heads, tq=SHARD["seq"],
+                     tk=SHARD["seq"])
+        out["kernels"] = {
+            k: {kk: v[kk] for kk in ("ok", "max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms")}
+            for k, v in check_kernels(shape, seed=3, measure=True).items()}
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(os.path.join(ctx["outdir"], "tp-ckpt"),
+                         out.pop("state"))
+    out["save_s"] = time.perf_counter() - t0
+    del out["trainer"], model
+    _free()
+    return out
+
+
+def _shard_pair(build, mesh, steps, batch, table, **kw) -> dict:
+    """The run with ``table`` and the same run without rules."""
+    runs = {}
+    for label, t in (("sharded", table), ("plain", None)):
+        model = build()
+        reckoned = _reckoned_bytes(
+            model, mesh, table,
+            moments=1 if kw.get("optimizer") == "sgd" else 2)
+        runs[label] = shard_train(model, mesh, steps, batch, table=t,
+                                  warmup=1, **kw)
+        runs[label]["reckoned_bytes"] = reckoned
+        del model
+        _free()
+    s, p = runs["sharded"], runs["plain"]
+    s["plain"] = {k: p[k] for k in ("losses", "timed_step_ms_mean",
+                                    "state_bytes", "digest")
+                  if k in p}
+    s["plain"]["peak_memory_bytes"] = p.get("peak_memory_bytes")
+    s["bitwise"] = s["losses"] == p["losses"] and s["digest"] == p["digest"]
+    return s
+
+
+def _shard_leg_dp_tp(ctx: dict) -> dict:
+    """(b) manual dp=2 x tp=2: dp rank d takes rows [dB/2, (d+1)B/2)."""
+    from horovod_tpu_torch import build_mesh
+    mesh = build_mesh(dp=2, tp=ctx["n"] // 2)
+    rows = SHARD["batch"] // 2
+    batch = _rows(_shard_text(SHARD["batch"], SHARD["seq"], seed=0),
+                  mesh.axis_index("dp"), rows)
+    return _shard_pair(_shard_gpt, mesh, SHARD_CHECK_STEPS, batch, SHARD_TP)
+
+
+def _shard_leg_fsdp(ctx: dict) -> dict:
+    """(c) manual fsdp=n against dp=n without rules (the cards phase's
+    parity leg: B/n rows a rank of the same global batch)."""
+    from horovod_tpu_torch import build_mesh
+    n = ctx["n"]
+    batch = _rows(_shard_text(SHARD["batch"], SHARD["seq"], seed=0),
+                  ctx["rank"], SHARD["batch"] // n)
+    runs = {}
+    for label, mesh, table in (("sharded", build_mesh(fsdp=n), SHARD_FSDP),
+                               ("plain", build_mesh(dp=n), None)):
+        model = _shard_gpt()
+        reckoned = _reckoned_bytes(model, mesh, SHARD_FSDP)
+        runs[label] = shard_train(model, mesh, CARDS_PARITY_STEPS, batch,
+                                  table=table, warmup=1)
+        runs[label]["reckoned_bytes"] = reckoned
+        del model
+        _free()
+    s, p = runs["sharded"], runs["plain"]
+    s["plain"] = {k: p.get(k) for k in ("losses", "timed_step_ms_mean",
+                                        "state_bytes", "digest",
+                                        "peak_memory_bytes")}
+    s["bitwise"] = s["losses"] == p["losses"] and s["digest"] == p["digest"]
+    return s
+
+
+def _shard_leg_moe(ctx: dict) -> dict:
+    """(d) MoE at ep=n, pure-GSPMD, each rank its row block: the experts
+    held over ep against every rank holding them all (the parallel
+    phase's leg (d))."""
+    from horovod_tpu_torch import build_mesh
+    moe, n = SHARD["moe"], ctx["n"]
+    mesh = build_mesh(ep=n)
+    rows = moe["batch"] // n
+    batch = _rows(_shard_text(moe["batch"], moe["seq"], seed=2),
+                  ctx["rank"], rows)
+    return _shard_pair(
+        lambda: _shard_gpt(mesh, max_seq_len=moe["seq"],
+                                       moe_experts=moe["experts"]),
+        mesh, SHARD_CHECK_STEPS, batch, SHARD_EXPERTS,
+        sync_kw={"axes": ()}, batch_spec=("ep",))
+
+
+def _shard_leg_resnet(ctx: dict) -> dict:
+    """(e) ResNet-50 in bf16 with the reference's head table at manual
+    dp=2 x tp=2, SGD, deterministic cuDNN (the two runs are compared bit
+    for bit)."""
+    from horovod_tpu_torch import build_mesh, synthetic_image_batch
+    from horovod_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    mesh = build_mesh(dp=2, tp=ctx["n"] // 2)
+    rows = SHARD["cnn_batch"] // 2
+    images = synthetic_image_batch(SHARD["cnn_batch"], SHARD["image"],
+                                   SHARD["resnet"]["num_classes"], seed=0)
+    batch = _rows(images, mesh.axis_index("dp"), rows)
+    del images
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _shard_pair(
+            lambda: ResNet(block_cls=BottleneckBlock,
+                                          dtype=torch.bfloat16, seed=0,
+                                          **SHARD["resnet"]),
+            mesh, SHARD_CHECK_STEPS, batch, SHARD_HEAD, optimizer="sgd")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _shard_leg_restore(ctx: dict) -> dict:
+    """(f) (a)'s checkpoint, saved at tp=n, restored at dp=n without
+    rules: every rank's whole state is (a)'s."""
+    import horovod_tpu_torch.checkpoint as ckpt
+    from horovod_tpu_torch import Trainer, build_mesh
+    mesh = build_mesh(dp=ctx["n"])
+    model = _shard_gpt()
+    opt = torch.optim.AdamW(model.parameters(), lr=CARDS_LR,
+                            weight_decay=CARDS_WD)
+    state = Trainer(model, opt, mesh).init()
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(os.path.join(ctx["outdir"], "tp-ckpt"), state)
+    out = {"restore_s": time.perf_counter() - t0, "step": state.step,
+           "digest": _whole_digest(state),
+           "optimizer_state_bytes": _optimizer_bytes(opt)}
+    del state, opt, model
+    _free()
+    return out
+
+
+SHARD_LEGS = {"tp": _shard_leg_tp, "dp-tp": _shard_leg_dp_tp,
+              "fsdp": _shard_leg_fsdp, "moe": _shard_leg_moe,
+              "resnet": _shard_leg_resnet, "restore": _shard_leg_restore}
+
+
+def shard_worker(outdir: str) -> int:
+    """``chip_smoke.py --shard-worker OUTDIR``: one rank of the shard
+    phase's world, started by the port's launcher; it makes its own card
+    current, runs every leg in order and writes its record to
+    ``OUTDIR/shard_<rank>.json`` after each.  No card: exit 3."""
+    if not torch.cuda.is_available():
+        print("shard worker: no CUDA device", file=sys.stderr)
+        return 3
+    import traceback
+
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import core
+    hvd.init()
+    torch.cuda.set_device(hvd.local_rank())
+    rank, n = hvd.rank(), hvd.size()
+    st = core.global_state()
+    rec = {"rank": rank, "size": n, "device": str(_rank_device()),
+           "device_plane": st.device_plane,
+           "backend": dist.get_backend() if dist.is_initialized() else None,
+           "legs": {}}
+    path = os.path.join(outdir, f"shard_{rank}.json")
+
+    def save():
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+    ctx = {"rank": rank, "n": n, "outdir": outdir}
+    try:
+        if not (st.device_plane and rec["backend"] == CARDS_BACKEND):
+            raise RuntimeError(f"rank {rank}: no {CARDS_BACKEND} device "
+                               f"plane formed ({rec})")
+        for name, fn in SHARD_LEGS.items():
+            t0 = time.perf_counter()
+            rec["legs"][name] = fn(ctx)
+            rec["legs"][name]["leg_s"] = time.perf_counter() - t0
+            save()
+    except BaseException:
+        rec["error"] = traceback.format_exc()[-4000:]
+        save()
+        raise
+    finally:
+        hvd.shutdown()
+    return 0
+
+
+def _shard_world(n: int, outdir: str) -> dict:
+    """``horovodrun-tpu-torch -np n`` of ``--shard-worker`` (the eager
+    core's cycle at ``CARDS_QUIET_CYCLE_MS``: no eager op runs here)."""
+    argv = ["-np", str(n), "-H", f"localhost:{n}", sys.executable,
+            os.path.abspath(__file__), "--shard-worker", outdir]
+    t0 = time.perf_counter()
+    rc, text = _launcher_run(argv, {"HOROVOD_CYCLE_TIME":
+                                    str(CARDS_QUIET_CYCLE_MS)},
+                             timeout=SHARD_WORLD_TIMEOUT)
+    recs = []
+    for r in range(n):
+        p = os.path.join(outdir, f"shard_{r}.json")
+        if os.path.exists(p):
+            with open(p) as f:
+                recs.append(json.load(f))
+        else:
+            recs.append({"rank": r, "legs": {}})
+    return {"rc": rc, "wall_s": time.perf_counter() - t0, "ranks": recs,
+            "tail": text[-3000:]}
+
+
+def _shard_check_world(one: dict, world: dict, n: int,
+                       problems: list[str]) -> dict:
+    """The four-card legs against their references and bounds."""
+    recs = world["ranks"]
+    out: dict = {}
+    done = set.intersection(*(set(r["legs"]) for r in recs))
+    missing = [k for k in SHARD_LEGS if k not in done]
+    if missing:
+        problems.append(f"shard world: legs {missing} did not finish")
+
+    def same(key, leg):
+        return len({json.dumps(r["legs"][leg][key]) for r in recs}) == 1
+
+    def summary(leg, keys):
+        return {k: [r["legs"][leg].get(k) for r in recs] for k in keys}
+    if "tp" in done:
+        a = recs[0]["legs"]["tp"]
+        diffs = _loss_diffs(a["losses"], one["losses"])
+        leg = {"losses": a["losses"], "one_card_losses": one["losses"],
+               "loss_abs_diff_one_card": diffs,
+               "heads_per_rank": a["heads_per_rank"],
+               "launches_per_step": [r["legs"]["tp"]["launches_per_step"]
+                                     for r in recs],
+               "kernels": [r["legs"]["tp"].get("kernels") for r in recs],
+               "reckoned_bytes": a["reckoned_bytes"],
+               "tp_allreduce": a.get("tp_allreduce"),
+               "profile": a.get("profile"),
+               **summary("tp", ("state_bytes", "peak_memory_bytes",
+                                "timed_step_ms_mean", "split_layers",
+                                "sharded_leaves", "save_s", "leg_s"))}
+        out["tp"] = leg
+        if diffs[0] > CARDS_FIRST_LOSS_TOL or max(diffs) > CARDS_LOSS_TOL:
+            problems.append(f"shard (a): losses {diffs} from one card's")
+        if not same("losses", "tp"):
+            problems.append("shard (a): the ranks' losses differ")
+        for r in recs:
+            t = r["legs"]["tp"]
+            if any(c != _flash_per_step()
+                   for c in t["launches_per_step"].values()):
+                problems.append(f"shard (a) rank {r['rank']}: "
+                                f"{t['launches_per_step']} launches a step")
+            if t["state_bytes"] != t["reckoned_bytes"]:
+                problems.append(f"shard (a) rank {r['rank']}: "
+                                f"{t['state_bytes']} B held, "
+                                f"{t['reckoned_bytes']} reckoned")
+            if t["misplaced"]:
+                problems.append(f"shard (a): {t['misplaced'][:4]} off the "
+                                f"card")
+            if t["split_layers"] == 0:
+                problems.append("shard (a): no layer computed on its "
+                                "chunks")
+            bad = [k for k, v in (t.get("kernels") or {}).items()
+                   if not v["ok"]]
+            if bad or (_rank_device().type == "cuda"
+                       and not t.get("kernels")):
+                problems.append(f"shard (a) rank {r['rank']}: kernels "
+                                f"{bad} disagree at {t['heads_per_rank']} "
+                                f"heads")
+        if SHARD["gpt"] == "gpt_small" and n == 4 \
+                and a["reckoned_bytes"] != SHARD_RECKONED["tp"]:
+            problems.append(f"shard (a): {a['reckoned_bytes']} B reckoned, "
+                            f"not {SHARD_RECKONED['tp']}")
+    for leg, tag in (("dp-tp", "b"), ("fsdp", "c"), ("moe", "d"),
+                     ("resnet", "e")):
+        if leg not in done:
+            continue
+        first = recs[0]["legs"][leg]
+        rec = {"losses": first["losses"],
+               "plain_losses": first["plain"]["losses"],
+               "bitwise": [r["legs"][leg]["bitwise"] for r in recs],
+               "reckoned_bytes": [r["legs"][leg]["reckoned_bytes"]
+                                  for r in recs],
+               "plain_state_bytes": [r["legs"][leg]["plain"]["state_bytes"]
+                                     for r in recs],
+               "plain_step_ms": [r["legs"][leg]["plain"]
+                                 ["timed_step_ms_mean"] for r in recs],
+               "plain_peak_memory_bytes": [r["legs"][leg]["plain"]
+                                           ["peak_memory_bytes"]
+                                           for r in recs],
+               **summary(leg, ("state_bytes", "peak_memory_bytes",
+                               "timed_step_ms_mean", "launches_per_step",
+                               "sharded_leaves", "leg_s"))}
+        out[leg] = rec
+        for r in recs:
+            x = r["legs"][leg]
+            if x["state_bytes"] != x["reckoned_bytes"]:
+                problems.append(f"shard ({tag}) rank {r['rank']}: "
+                                f"{x['state_bytes']} B held, "
+                                f"{x['reckoned_bytes']} reckoned")
+            if x["misplaced"]:
+                problems.append(f"shard ({tag}): {x['misplaced'][:4]} off "
+                                f"the card")
+            if not x["sharded_leaves"]:
+                problems.append(f"shard ({tag}): nothing sharded")
+        if leg == "moe":
+            diff = _max_loss_diff(first["losses"], first["plain"]["losses"])
+            rec["loss_max_abs_diff_unsharded"] = diff
+            if diff > PARALLEL_LOSS_TOL:
+                problems.append(f"shard (d): losses {diff} from the "
+                                f"unsharded ep={n}'s")
+        elif not all(rec["bitwise"]):
+            problems.append(f"shard ({tag}): not the unsharded run bit for "
+                            f"bit ({rec['bitwise']})")
+        if leg == "fsdp" and SHARD["gpt"] == "gpt_small" and n == 4 \
+                and rec["reckoned_bytes"][0] != SHARD_RECKONED["fsdp"]:
+            problems.append(f"shard (c): {rec['reckoned_bytes'][0]} B "
+                            f"reckoned, not {SHARD_RECKONED['fsdp']}")
+    if {"tp", "restore"} <= done:
+        digests = {r["legs"]["tp"]["digest"] for r in recs}
+        f = {"restored_digest_is_tp_state": [
+                 r["legs"]["restore"]["digest"] in digests for r in recs],
+             "tp_step": recs[0]["legs"]["tp"]["step"],
+             **summary("restore", ("step", "restore_s",
+                                   "optimizer_state_bytes"))}
+        out["restore"] = f
+        if len(digests) != 1 or not all(f["restored_digest_is_tp_state"]) \
+                or any(x != f["tp_step"] for x in f["step"]):
+            problems.append("shard (f): the dp state restored from the "
+                            "tp checkpoint is not the tp state")
+    return out
+
+
+def phase_shard() -> dict:
+    """Sharded parameters (see the module docstring): the one-card legs,
+    then, with four cards, the launcher's world of four ranks."""
+    t_phase = time.perf_counter()
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE"):
+        os.environ.pop(var, None)
+    problems: list[str] = []
+    n = torch.cuda.device_count()
+    card = _smi("--query-gpu=name,power.limit",
+                "--format=csv,noheader").splitlines()
+    torch.cuda.empty_cache()
+    one = _shard_one_card(problems)
+    emit({"phase": "shard", "leg": "one-card", "card": card[:1],
+          **{k: v for k, v in one.items() if k != "launches"}})
+    summary: dict = {}
+    if n < SHARD_CARDS:
+        emit({"phase": "shard", "leg": "cards",
+              "not_run": f"the machine shows {n} card(s); the legs need "
+                         f"{SHARD_CARDS}"})
+    else:
+        with tempfile.TemporaryDirectory(prefix="shard") as outdir:
+            world = _shard_world(SHARD_CARDS, outdir)
+        recs = world["ranks"]
+        emit({"phase": "shard", "leg": "world", "ranks": SHARD_CARDS,
+              "rc": world["rc"], "wall_s": world["wall_s"],
+              "device_plane": [r.get("device_plane") for r in recs],
+              "devices": [r.get("device") for r in recs],
+              "leg_s": {k: v.get("leg_s") for k, v in
+                        recs[0]["legs"].items()}})
+        if world["rc"] != 0:
+            problems.append("shard world: rc {}: {}".format(
+                world["rc"], " | ".join(
+                    r.get("error", "")[-1200:] for r in recs
+                    if r.get("error")) or world["tail"][-2000:]))
+        summary = _shard_check_world(one, world, SHARD_CARDS, problems)
+        for name, leg in summary.items():
+            emit({"phase": "shard", "leg": name, "ranks": SHARD_CARDS,
+                  **leg})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "shard", "leg": "summary", "seconds": seconds,
+          "cards": n, "card": card, "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": one["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -7489,6 +8191,8 @@ def main() -> int:
         return parallel_card_worker(int(rank), int(n), int(port), outdir)
     if len(sys.argv) > 1 and sys.argv[1] == "--cards-worker":
         return cards_worker(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 1 and sys.argv[1] == "--shard-worker":
+        return shard_worker(sys.argv[2])
     if len(sys.argv) > 1 and sys.argv[1] == "--statesync-worker":
         role, rank, size, port, outdir = sys.argv[2:7]
         return statesync_worker(role, int(rank), int(size), int(port),
@@ -7511,7 +8215,8 @@ def main() -> int:
                   "reduce": phase_reduce, "runtime": phase_runtime,
                   "resilience": phase_resilience, "elastic": phase_elastic,
                   "parallel": phase_parallel, "fit": phase_fit,
-                  "statesync": phase_statesync, "cards": phase_cards}
+                  "statesync": phase_statesync, "cards": phase_cards,
+                  "shard": phase_shard}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -7531,6 +8236,7 @@ def main() -> int:
     fit = phase_fit()
     statesync = phase_statesync()
     cards = phase_cards(train)
+    shard = phase_shard()
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -7543,6 +8249,7 @@ def main() -> int:
          "fit_launches": fit["launches"][name],
          "statesync_launches": statesync["launches"][name],
          "cards_launches": cards["launches"][name],
+         "shard_launches": shard["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

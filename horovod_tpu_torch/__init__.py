@@ -16,8 +16,10 @@ from .models import (VGG, VGG16, VGG19, InceptionV3, MoEMLP, ResNet,
                      ResNet18, ResNet34, ResNet50, ResNet101, ResNet152,
                      TransformerConfig, TransformerLM, gpt_small, gpt_tiny)
 from .ops.flash_attention import flash_attention, flash_attention_with_lse
-from .parallel import (GradSyncConfig, MeshSpec, build_mesh, pipeline_apply,
-                       ring_attention, sync_gradients, ulysses_attention)
+from .parallel import (GradSyncConfig, MeshSpec, ShardingRules, build_mesh,
+                       constrain, named_sharding, pipeline_apply, replicated,
+                       ring_attention, shard_params, sync_gradients,
+                       ulysses_attention)
 from .serving import (AdmissionController, Assignment, BatchPlan,
                       ContinuousBatcher, KVBlockPool, ReplicaExecutor,
                       RequestQueue, ServeConfig, ServeRequest)
@@ -30,6 +32,8 @@ __all__ = ["eager", "models", "parallel", "serving", "training",
            "ResNet152", "VGG", "VGG16", "VGG19", "InceptionV3", "MoEMLP",
            "flash_attention", "flash_attention_with_lse", "GradSyncConfig",
            "MeshSpec", "build_mesh", "sync_gradients", "pipeline_apply",
+           "ShardingRules", "shard_params", "named_sharding", "constrain",
+           "replicated",
            "ring_attention", "ulysses_attention", "Trainer",
            "TrainState", "synthetic_text_batch", "synthetic_image_batch",
            "AdmissionController", "Assignment", "BatchPlan",

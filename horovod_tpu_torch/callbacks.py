@@ -182,7 +182,10 @@ class LearningRateWarmupCallback(LearningRateScheduleCallback):
 
 class BestModelCheckpoint(Callback):
     """Save the model when the monitored metric improves; rank-0-gated
-    (reference: keras/callbacks.py:151 BestModelCheckpoint)."""
+    (reference: keras/callbacks.py:151 BestModelCheckpoint).  A state
+    with sharded parameters (``Trainer(param_rules=...)``) is saved on
+    every rank, since its gather is a collective of the mesh;
+    ``save_checkpoint`` still writes on rank 0 only."""
 
     def __init__(self, filepath: str, monitor: str = "loss",
                  mode: str = "min",
@@ -203,8 +206,8 @@ class BestModelCheckpoint(Callback):
     def on_epoch_end(self, epoch: int, logs: dict | None = None) -> None:
         if not logs or self.monitor not in logs:
             return
-        from . import eager as hvd
-        if hvd.is_initialized() and hvd.rank() != 0:
+        from .checkpoint import _not_rank0
+        if _not_rank0() and getattr(self._state, "sharding", None) is None:
             return
         value = float(logs[self.monitor])
         if not self._better(value):

@@ -21,6 +21,17 @@ optimizer state out: each rank writes its shard with
 :func:`save_ring_checkpoint`.  Any other mapping of names to tensors,
 arrays or numbers is saved as its leaves.
 
+A ``TrainState`` whose Trainer has ``param_rules`` holds chunks of its
+sharded parameters and of their optimizer state; its tree gathers them
+(a collective: every rank saves, and rank 0 writes), so that its image
+and digest are the unsharded state's and either package's tree reads
+it.  Restoring into such a state cuts this rank's chunks out of the
+whole leaves, for whatever mesh and rules the restoring Trainer has:
+the reference's reshard of a trained state onto another mesh.
+``train_state_tree(state, gather=True)`` gives the same gathered tree;
+statesync's paths (``train_state_tree`` without ``gather``,
+``load_train_state``) refuse such a state, whose grow is not ported.
+
 Restoring reads the manifest, checks the image's byte count and digest
 before any byte of it is interpreted (the reference's HVD1007 rule),
 and either returns the leaves as CPU tensors or, given a ``target``,
@@ -114,6 +125,17 @@ def _initial_state(opt, group: dict, p: torch.Tensor
                      f"(Adam, AdamW and SGD without dampening have one)")
 
 
+def _whole(state, name: str, p: torch.Tensor,
+           value: torch.Tensor) -> torch.Tensor:
+    """``value`` (parameter ``name`` ``p`` or a tensor of its shape) whole:
+    gathered from every rank's chunk when the state shards ``name``."""
+    sharding = getattr(state, "sharding", None)
+    if sharding is None or name not in sharding.leaves \
+            or tuple(value.shape) != tuple(p.shape):
+        return value
+    return sharding.gather(name, value)
+
+
 def _optimizer_leaves(state, initial: bool = False
                       ) -> tuple[dict[str, torch.Tensor], dict]:
     """The optimizer's per-parameter state as ``opt/<name>/<key>`` leaves
@@ -144,26 +166,61 @@ def _optimizer_leaves(state, initial: bool = False
         if initial and not entry and id(p) in group_of:
             entry = _initial_state(opt, group_of[id(p)], p)
         for key, value in sorted(entry.items()):
-            leaves[f"opt/{name}/{key}"] = _leaf(value)
+            leaves[f"opt/{name}/{key}"] = _whole(state, name, p, _leaf(value))
     return leaves, meta
 
 
-def _tree(state: Any, initial: bool = False
-          ) -> tuple[dict[str, torch.Tensor], dict]:
-    if not _is_train_state(state):
-        return {str(k): _leaf(v) for k, v in state.items()}, {}
+def _model_leaves(state) -> dict[str, torch.Tensor]:
+    """The live parameter (``params/<name>``, flax leaf order) and buffer
+    (``batch_stats/<name>``) tensors of a ``TrainState``, detached."""
     from .training import _leaf_order
     params = dict(state.model.named_parameters())
     tree = {f"params/{n}": params[n].detach()
             for n in _leaf_order(state.model)}
     tree.update({f"batch_stats/{n}": b.detach()
                  for n, b in state.model.named_buffers()})
+    return tree
+
+
+def _whole_shape(state, name: str, t: torch.Tensor) -> tuple[int, ...]:
+    """The shape of model leaf ``name`` whole (a sharded parameter's
+    chunk has a smaller one)."""
+    sharding = getattr(state, "sharding", None)
+    pname = name[len("params/"):]
+    if sharding is not None and name.startswith("params/") \
+            and pname in sharding.leaves:
+        return tuple(sharding.shapes[pname])
+    return tuple(t.shape)
+
+
+def _tree(state: Any, initial: bool = False
+          ) -> tuple[dict[str, torch.Tensor], dict]:
+    if not _is_train_state(state):
+        return {str(k): _leaf(v) for k, v in state.items()}, {}
+    tree = _model_leaves(state)
+    for name, t in tree.items():
+        if name.startswith("params/"):
+            tree[name] = _whole(state, name[len("params/"):], t, t)
     opt_leaves, opt_meta = _optimizer_leaves(state, initial)
     tree.update(opt_leaves)
     return tree, {"step": int(state.step), "optimizer": opt_meta}
 
 
-def train_state_tree(state) -> dict[str, torch.Tensor]:
+_SHARDED_STATESYNC = (
+    "statesync of a state with sharded parameters (its donors, a "
+    "departing rank's donation and a joiner's template and load) is not "
+    "ported: ROADMAP queue A lists it with what stays of sharded "
+    "parameters; a checkpoint (save_checkpoint, every rank) or "
+    "train_state_tree(state, gather=True) on every rank gathers the state")
+
+
+def _sharded(state) -> bool:
+    sharding = getattr(state, "sharding", None)
+    return sharding is not None and bool(sharding.leaves)
+
+
+def train_state_tree(state, *, gather: bool = False
+                     ) -> dict[str, torch.Tensor]:
     """A ``TrainState`` as one state tree, the checkpoint's leaves: the
     parameters (``params/<name>``, flax leaf order), the buffers
     (``batch_stats/<name>``), the optimizer's per-parameter state
@@ -172,9 +229,18 @@ def train_state_tree(state) -> dict[str, torch.Tensor]:
     the live ones, detached, on their devices: ``statesync.Snapshot``
     copies them into its image at a step boundary, and a fresh state of
     the same model and optimizer gives a tree with the same leaves, the
-    template ``statesync.join_world`` pulls into."""
+    template ``statesync.join_world`` pulls into.
+
+    A state with sharded parameters needs ``gather=True``: its sharded
+    parameters and their optimizer state then come whole, gathered from
+    every rank's chunks, and every rank of the mesh must call it alike
+    (the tree, its image and digest are the unsharded state's).
+    Without it such a state raises ``NotImplementedError``: statesync
+    calls its provider on some ranks only."""
     if not _is_train_state(state):
         raise TypeError("train_state_tree takes a TrainState")
+    if _sharded(state) and not gather:
+        raise NotImplementedError(_SHARDED_STATESYNC)
     tree, _ = _tree(state, initial=True)
     tree["step"] = torch.tensor(int(state.step), dtype=torch.int64)
     return tree
@@ -186,7 +252,11 @@ def load_train_state(tree: Mapping[str, Any], state) -> Any:
     place: each parameter and buffer copied onto its device, the
     optimizer's state through ``load_state_dict`` (onto its parameter's
     device), and the step.  ``state`` must hold the same model and
-    optimizer class; it is returned."""
+    optimizer class; it is returned.  A state with sharded parameters
+    raises ``NotImplementedError`` (statesync's grow of one is not
+    ported)."""
+    if _sharded(state):
+        raise NotImplementedError(_SHARDED_STATESYNC)
     own = train_state_tree(state)
     if list(tree) != list(own):
         raise ValueError("the tree's leaves are not this state's")
@@ -198,10 +268,10 @@ def load_train_state(tree: Mapping[str, Any], state) -> Any:
                              f"{list(t.shape)}")
     opt = state.optimizer
     params = dict(state.model.named_parameters())
+    live = _model_leaves(state)
     with torch.no_grad():
-        for name, t in own.items():
-            if name.startswith(("params/", "batch_stats/")):
-                t.copy_(tree[name])
+        for name, t in live.items():
+            t.copy_(tree[name])
     saved = opt.state_dict()
     index = {id(p): i for i, p in enumerate(
         p for g in opt.param_groups for p in g["params"])}
@@ -217,6 +287,16 @@ def load_train_state(tree: Mapping[str, Any], state) -> Any:
     return state
 
 
+def _cut(state, name: str, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``whole``, parameter ``name`` or a tensor of its
+    shape: its chunk where the state shards ``name``, else ``whole``."""
+    sharding = getattr(state, "sharding", None)
+    if sharding is None or name not in sharding.leaves \
+            or tuple(whole.shape) != tuple(sharding.shapes[name]):
+        return whole
+    return sharding.cut(name, whole)
+
+
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -227,14 +307,19 @@ def save_checkpoint(path: str, state: Any, *, force: bool = True) -> None:
 
     In a world of more than one rank (``hvd.init`` or
     ``torch.distributed``) only rank 0 writes, as the reference gates its
-    eager worlds.  An existing checkpoint is replaced unless ``force`` is
-    False, when it raises."""
+    eager worlds; a state with sharded parameters is gathered first, so
+    every rank calls this.  An existing checkpoint is replaced unless
+    ``force`` is False, when it raises."""
+    sharded = _is_train_state(state) \
+        and getattr(state, "sharding", None) is not None
+    if _not_rank0() and not sharded:
+        return
+    tree, meta = _tree(state)
     if _not_rank0():
         return
     path = os.path.abspath(path)
     if os.path.exists(path) and not force:
         raise FileExistsError(f"checkpoint {path} exists")
-    tree, meta = _tree(state)
     image = flatten_state(tree)
     leaves, offset = [], 0
     for name, t in tree.items():
@@ -313,9 +398,11 @@ def _load_optimizer(state, manifest: dict, leaves: dict) -> None:
         for name in names:
             prefix = f"opt/{name}/"
             # One copy of each leaf, onto its parameter's device (a step
-            # counter stays where it is); load_state_dict keeps it.
+            # counter stays where it is), this rank's chunk of a sharded
+            # one; load_state_dict keeps it.
+            p = params[name]
             entry = {k[len(prefix):]: v.clone() if k.endswith("/step")
-                     else v.to(params[name].device, copy=True)
+                     else _cut(state, name, v).to(p.device, copy=True)
                      for k, v in leaves.items() if k.startswith(prefix)}
             if entry:
                 states[index] = entry
@@ -345,26 +432,28 @@ def restore_checkpoint(path: str, target: Any | None = None) -> Any:
             raise ValueError("the target's leaves are not the checkpoint's")
         load_state_into(image, target)
         return target
-    tree, meta = _tree(target)
-    model_leaves = {k: v for k, v in tree.items()
-                    if not k.startswith("opt/")}
+    model_leaves = _model_leaves(target)
     saved = [k for k in template if not k.startswith("opt/")]
     if list(model_leaves) != saved:
         raise ValueError("the checkpoint's parameters and buffers are not "
                          "the target model's")
     for name, t in model_leaves.items():
-        if t.shape != template[name].shape or t.dtype != template[name].dtype:
+        shape = _whole_shape(target, name, t)
+        if shape != tuple(template[name].shape) \
+                or t.dtype != template[name].dtype:
             raise ValueError(f"{name}: the checkpoint holds "
                              f"{template[name].dtype} "
                              f"{list(template[name].shape)}, the target "
-                             f"{t.dtype} {list(t.shape)}")
-    # One pass over the image: each model leaf straight into its tensor,
-    # each optimizer leaf as a view for load_state_dict to copy.
+                             f"{t.dtype} {list(shape)}")
+    # One pass over the image: each model leaf (or this rank's chunk of
+    # it) straight into its tensor, each optimizer leaf as a view for
+    # load_state_dict to copy.
     views = {}
     with torch.no_grad():
         for name, _, part in iter_leaves(image, template):
             if name in model_leaves:
-                model_leaves[name].copy_(part)
+                t = model_leaves[name]
+                t.copy_(_cut(target, name[name.index("/") + 1:], part))
             else:
                 views[name] = part
     _load_optimizer(target, manifest, views)

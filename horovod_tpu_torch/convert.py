@@ -39,10 +39,17 @@ before ``BottleneckBlock_2``, and upper case before ``bn_init``).
 ``flax_layouts`` gives, for every parameter of either kind of model, the
 views between the port's shape and flax's: the element order that the
 quantized gradient sync and the optimizer-in-ring buffer follow.
+``leaf_views`` gives the same views for a chunk of any shape, with each
+leaf's flax path and shape: the view in which ``parallel.sharding`` cuts
+and gathers sharded parameters.  ``shard_state_dict`` cuts a state dict
+into one rank's chunks by a rule table, as ``Trainer(param_rules=...)``
+holds them, and ``unshard_state_dict`` puts every rank's chunks back
+together.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+import dataclasses
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -50,53 +57,49 @@ from torch import nn
 
 from .models.transformer import KVCache, PagedKVCache, TransformerConfig
 
-# (torch name, flax path, flax -> torch, torch -> flax) for every leaf.
-_Leaf = tuple[str, tuple[str, ...], Callable, Callable]
+# (torch name, flax path, flax shape, flax -> torch, torch -> flax) for
+# every leaf.  The views take a tensor or an array of any shape, a
+# chunk's too: ``to_torch(k)`` and ``to_flax(w, flax_shape)``.
+_Leaf = tuple[str, tuple[str, ...], tuple[int, ...], Callable, Callable]
 
-
-def _same(x):
-    return x
+_SAME = (lambda k: k, lambda w, shape: w)
+_DENSE = (lambda k: k.T, lambda w, shape: w.T)      # [in, out] <-> [out, in]
+_QKV = (lambda k: k.reshape(k.shape[0], -1).T,      # [dm, H, D] <-> [H*D, dm]
+        lambda w, shape: w.T.reshape(shape))
+_OUT_PROJ = (lambda k: k.reshape(-1, k.shape[-1]).T,  # [H, D, dm] <->
+             lambda w, shape: w.T.reshape(shape))     # [dm, H*D]
 
 
 def _leaves(cfg: TransformerConfig) -> list[_Leaf]:
     h, d, dm = cfg.num_heads, cfg.head_dim, cfg.d_model
-
-    def dense():                   # [in, out] <-> [out, in]
-        return (lambda k: k.T, lambda w: w.T)
-
-    def qkv():                     # [dm, H, D] <-> [H*D, dm]
-        return (lambda k: k.reshape(dm, h * d).T,
-                lambda w: w.T.reshape(dm, h, d))
-
-    def out_proj():                # [H, D, dm] <-> [dm, H*D]
-        return (lambda k: k.reshape(h * d, dm).T,
-                lambda w: w.T.reshape(h, d, dm))
-
+    ff, vocab, e = cfg.ff_dim, cfg.vocab_size, cfg.moe_experts
     leaves: list[_Leaf] = [
-        ("embed.weight", ("embed", "embedding"), _same, _same),
-        ("final_norm.scale", ("final_norm", "scale"), _same, _same),
-        ("lm_head.weight", ("lm_head", "kernel"), *dense()),
+        ("embed.weight", ("embed", "embedding"), (vocab, dm), *_SAME),
+        ("final_norm.scale", ("final_norm", "scale"), (dm,), *_SAME),
+        ("lm_head.weight", ("lm_head", "kernel"), (dm, vocab), *_DENSE),
     ]
     for i in range(cfg.num_layers):
         t, f = f"layers.{i}", f"layer_{i}"
         leaves += [
-            (f"{t}.attn_norm.scale", (f, "attn_norm", "scale"), _same, _same),
-            (f"{t}.mlp_norm.scale", (f, "mlp_norm", "scale"), _same, _same),
-            (f"{t}.attn.wo.weight", (f, "attn", "wo", "kernel"),
-             *out_proj()),
+            (f"{t}.attn_norm.scale", (f, "attn_norm", "scale"), (dm,),
+             *_SAME),
+            (f"{t}.mlp_norm.scale", (f, "mlp_norm", "scale"), (dm,), *_SAME),
+            (f"{t}.attn.wo.weight", (f, "attn", "wo", "kernel"), (h, d, dm),
+             *_OUT_PROJ),
         ]
         for name in ("wq", "wk", "wv"):
             leaves.append((f"{t}.attn.{name}.weight",
-                           (f, "attn", name, "kernel"), *qkv()))
-        if cfg.moe_experts > 0:
+                           (f, "attn", name, "kernel"), (dm, h, d), *_QKV))
+        if e > 0:
             leaves += [(f"{t}.moe.router.weight",
-                        (f, "moe", "router", "kernel"), *dense()),
-                       (f"{t}.moe.wi", (f, "moe", "wi"), _same, _same),
-                       (f"{t}.moe.wo", (f, "moe", "wo"), _same, _same)]
+                        (f, "moe", "router", "kernel"), (dm, e), *_DENSE),
+                       (f"{t}.moe.wi", (f, "moe", "wi"), (e, dm, ff), *_SAME),
+                       (f"{t}.moe.wo", (f, "moe", "wo"), (e, ff, dm), *_SAME)]
             continue
-        for name in ("gate", "up", "down"):
-            leaves.append((f"{t}.mlp.{name}.weight",
-                           (f, "mlp", name, "kernel"), *dense()))
+        leaves += [(f"{t}.mlp.{name}.weight", (f, "mlp", name, "kernel"),
+                    shape, *_DENSE)
+                   for name, shape in (("gate", (dm, ff)), ("up", (dm, ff)),
+                                       ("down", (ff, dm)))]
     # Lexicographic order of the paths is the flatten order of a tree
     # whose keys are sorted at every level.
     return sorted(leaves, key=lambda leaf: leaf[1])
@@ -119,19 +122,19 @@ def params_from_flax(tree: Any, cfg: TransformerConfig
     ``np.asarray``) -> ``TransformerLM`` state dict of CPU tensors."""
     return {name: torch.from_numpy(np.array(to_torch(
                 np.asarray(_get(tree, path))), order="C"))
-            for name, path, to_torch, _ in _leaves(cfg)}
+            for name, path, _, to_torch, _ in _leaves(cfg)}
 
 
 def params_to_flax(state_dict: dict[str, torch.Tensor],
                    cfg: TransformerConfig) -> dict:
     """``TransformerLM`` state dict -> flax params tree of numpy arrays."""
     tree: dict = {}
-    for name, path, _, to_flax in _leaves(cfg):
+    for name, path, shape, _, to_flax in _leaves(cfg):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         value = state_dict[name].detach().cpu().float().numpy()
-        node[path[-1]] = np.ascontiguousarray(to_flax(value))
+        node[path[-1]] = np.ascontiguousarray(to_flax(value, shape))
     return tree
 
 
@@ -248,9 +251,98 @@ def flax_layouts(model: nn.Module
     keeps memory order."""
     from .models import VGG, InceptionV3, ResNet, TransformerLM
     if isinstance(model, TransformerLM):
-        return {name: (to_flax, to_torch)
-                for name, _, to_torch, to_flax in _leaves(model.cfg)}
+        return {name: (lambda w, f=to_flax, shape=shape: f(w, shape),
+                       to_torch)
+                for name, _, shape, to_torch, to_flax in _leaves(model.cfg)}
     if isinstance(model, (ResNet, VGG, InceptionV3)):
         return {name: (_kernel_to_flax, _kernel_to_torch)
                 for name, _ in model.named_parameters()}
     return None
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafView:
+    """A parameter's flax path (``a/b/kernel``) and shape, and the views
+    between the port's layout and flax's for a chunk of any shape:
+    ``to_flax(t, flax_shape)`` and ``to_torch(k)``."""
+    path: str
+    flax_shape: tuple[int, ...]
+    to_flax: Callable
+    to_torch: Callable
+
+
+def leaf_views(model: nn.Module) -> dict[str, LeafView]:
+    """Every parameter of ``model`` by torch name, in the flax leaf order
+    for a ``TransformerLM`` or a CNN: its flax path and shape and its
+    chunk views.  A model with no flax twin keeps its torch names (``/``
+    for ``.``), shapes and layout."""
+    from .models import VGG, InceptionV3, ResNet, TransformerLM
+    params = dict(model.named_parameters())
+    out = {}
+    if isinstance(model, TransformerLM):
+        for name, path, shape, to_torch, to_flax in _leaves(model.cfg):
+            out[name] = LeafView("/".join(path), shape, to_flax, to_torch)
+        return out
+    if isinstance(model, (ResNet, VGG, InceptionV3)):
+        for name in cnn_leaf_order(model):
+            shape = tuple(_kernel_to_flax(torch.empty(
+                params[name].shape, device="meta")).shape)
+            out[name] = LeafView("/".join(_cnn_path(name)[1]), shape,
+                                 lambda w, shape: _kernel_to_flax(w),
+                                 _kernel_to_torch)
+        return out
+    to_torch, to_flax = _SAME
+    for name, p in params.items():
+        out[name] = LeafView(name.replace(".", "/"), tuple(p.shape),
+                             to_flax, to_torch)
+    return out
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
+def shard_state_dict(state_dict: dict, rules, mesh, rank: int,
+                     model: nn.Module) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s chunks of a whole state dict (tensors or numpy
+    arrays in the port's layout, e.g. ``params_from_flax``'s) under
+    ``rules`` over ``mesh`` (a ``Mesh`` or a mapping of axis sizes, ranks
+    row-major over ``DEFAULT_AXES``): each parameter cut in its flax view
+    and returned in the port's layout, as ``Trainer(param_rules=...)``
+    holds it on that rank; every other entry (buffers) whole.  ``model``
+    gives the flax views (``leaf_views``)."""
+    from .parallel.sharding import mesh_coords, plan_sharding
+    plan = plan_sharding(model, mesh, rules)
+    sizes = dict(mesh.shape if hasattr(mesh, "shape") else mesh)
+    coords = mesh_coords(sizes, rank)
+    out = {}
+    for name, value in state_dict.items():
+        t = _as_tensor(value)
+        out[name] = plan[name].cut(t, sizes, coords) \
+            if name in plan and plan[name].sharded else t
+    return out
+
+
+def unshard_state_dict(chunks: Sequence[dict], rules, mesh,
+                       model: nn.Module) -> dict[str, torch.Tensor]:
+    """Inverse of ``shard_state_dict``: the whole state dict from every
+    rank's chunks (``chunks[r]`` rank ``r``'s), put together in the flax
+    view on the host."""
+    from .parallel.sharding import chunk_slices, mesh_coords, plan_sharding
+    plan = plan_sharding(model, mesh, rules)
+    sizes = dict(mesh.shape if hasattr(mesh, "shape") else mesh)
+    out = {}
+    for name, value in chunks[0].items():
+        leaf = plan.get(name)
+        if leaf is None or not leaf.sharded:
+            out[name] = _as_tensor(value)
+            continue
+        full = torch.empty(leaf.flax_shape, dtype=_as_tensor(value).dtype)
+        for rank, part in enumerate(chunks):
+            index = chunk_slices(leaf.spec, leaf.flax_shape, sizes,
+                                 mesh_coords(sizes, rank))
+            full[index] = leaf.to_flax(_as_tensor(part[name]),
+                                       leaf.chunk_flax_shape)
+        out[name] = leaf.to_torch(full).contiguous()
+    return out

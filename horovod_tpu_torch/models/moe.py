@@ -9,10 +9,14 @@ cast to ``dtype``; the activation is GELU's tanh approximation, as
 reference has no kernel here.
 
 Parameters are flax's leaves: ``router`` (a ``Dense`` d_model -> E, fp32
-compute), ``wi`` ``[E, D, F]`` and ``wo`` ``[E, F, D]``, every rank
-holding all experts (sharding them is ROADMAP queue A item 10b); with
-``ep = n`` rank ``e`` runs experts ``e·E/n ..``.  ``lecun_normal`` on an
-``[E, D, F]`` leaf takes its fan-in over ``E·D``.
+compute), ``wi`` ``[E, D, F]`` and ``wo`` ``[E, F, D]``.  With ``ep = n``
+rank ``e`` runs experts ``e·E/n ..``; every rank holds all experts
+unless ``Trainer(param_rules=...)`` shards ``moe/wi`` and ``moe/wo`` over
+``ep`` on their leading dim, when rank ``e`` holds only the ``E/n`` it
+runs (``held``, set by ``TransformerLM.apply_tensor_parallel``: ``wi``
+and ``wo`` are then those chunks, and their gradients stay on their ep
+rank).  ``lecun_normal`` on an ``[E, D, F]`` leaf takes its
+fan-in over ``E·D``.
 
 Which tokens are routed together decides the result as soon as a
 capacity binds (the capacity and the queue order are counted over them):
@@ -136,6 +140,9 @@ class MoEMLP(nn.Module):
         self.n_ep = 1 if ep_mesh is None else axis_size(ep_mesh, ep_axis)
         if e % self.n_ep:
             raise ValueError(f"{e} experts not divisible by ep={self.n_ep}")
+        # True when wi and wo hold this ep rank's experts alone (set by
+        # TransformerLM.apply_tensor_parallel), else every expert.
+        self.held = False
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None
@@ -163,9 +170,13 @@ class MoEMLP(nn.Module):
                              self.wi, self.wo, self.capacity_factor)
             return out.reshape(b, t, d).to(self.dtype)
         el = self.num_experts // self.n_ep
-        e0 = self.ep_mesh.axis_index(self.ep_axis) * el
+        wi, wo = self.wi, self.wo
+        if not self.held:
+            # Every expert held here: this rank runs its own.
+            e0 = self.ep_mesh.axis_index(self.ep_axis) * el
+            wi, wo = wi[e0:e0 + el], wo[e0:e0 + el]
         return _expert_parallel_moe_with_logits(
-            x, logits, self.wi[e0:e0 + el], self.wo[e0:e0 + el],
+            x, logits, wi, wo,
             group=self.ep_mesh.axis_group(self.ep_axis),
             axis_size=self.n_ep, capacity_factor=self.capacity_factor,
             dtype=self.dtype)

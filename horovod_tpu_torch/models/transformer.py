@@ -25,6 +25,19 @@ Same configuration, presets and mixed-precision rules as the flax model:
   chunk and gathers the sequence back;
 - ``moe_experts > 0`` puts ``models/moe.py``'s ``MoEMLP`` in each block's
   place of the MLP, its experts over ``cfg.mesh``'s ``ep`` axis;
+- tensor parallelism: ``Attention.split`` and ``MLP.split`` (set by
+  ``TransformerLM.apply_tensor_parallel``, which ``Trainer(param_rules=
+  ...)`` calls in its pure-GSPMD step; None otherwise) are the process
+  groups over which the layer's weights are split, and the weights are
+  then this rank's chunks: ``wq``, ``wk``, ``wv`` rows of
+  ``H/n`` heads and ``wo`` their columns (flax's ``P(None, "tp",
+  None)`` and ``P("tp", None, None)``), ``gate``/``up`` rows and
+  ``down`` columns of ``d_ff/n`` (``P(None, "tp")``, ``P("tp", None)``).
+  Attention runs RoPE and its kernels (the CUDA flash kernels, or dense)
+  on the local heads and the MLP on its column slice; each layer's
+  input is ``enter_split`` (an all-reduce of its gradient) and its
+  output, ``wo``'s or ``down``'s partial product, ``leave_split`` (an
+  all-reduce of the partial sums).  At one rank both are the identity;
 - with ``decode=True`` attention runs over a KV cache passed to the
   forward: a dense ``KVCache`` or, with ``paged=True``, a
   ``PagedKVCache`` addressed through block tables.  Decode attention is
@@ -51,7 +64,7 @@ import dataclasses
 import math
 import threading
 from functools import partial
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -60,10 +73,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..common.device import resolve_device
 from ..ops.flash_attention import NEG_INF, flash_attention, mha_reference
-from ..parallel.collectives import allgather
+from ..parallel.collectives import allgather, enter_split, leave_split
 from ..parallel.mesh import (axis_size, current_global_batch,
                              global_batch)
 from ..parallel.ring_attention import ring_attention
+from ..parallel.sharding import entry_axes
 from ..parallel.ulysses import ulysses_attention
 from .layers import Dense
 from .moe import MoEMLP
@@ -356,13 +370,19 @@ class Attention(nn.Module):
         self.wk = Dense(cfg.d_model, hd, *args)
         self.wv = Dense(cfg.d_model, hd, *args)
         self.wo = Dense(hd, cfg.d_model, *args)
+        # The groups the heads are split over (tensor parallelism), else
+        # None; the weights are then this rank's heads.
+        self.split = None
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
                 block_tables=None, cursors=None, lengths=None
                 ) -> torch.Tensor:
         cfg = self.cfg
         b, t, _ = x.shape
-        shape = (b, t, cfg.num_heads, cfg.head_dim)
+        if self.split is not None:
+            x = enter_split(x, self.split)
+        # The heads this rank holds: all of them, or H/n under the split.
+        shape = (b, t, -1, cfg.head_dim)
         q = _dense(self.wq, x).view(shape)
         k = _dense(self.wk, x).view(shape)
         v = _dense(self.wv, x).view(shape)
@@ -392,7 +412,8 @@ class Attention(nn.Module):
                                     einsum=_einsum)
             else:
                 out = _sequence_parallel(cfg, q, k, v)
-        return _dense(self.wo, out.to(cfg.dtype).reshape(b, t, -1))
+        out = _dense(self.wo, out.to(cfg.dtype).reshape(b, t, -1))
+        return out if self.split is None else leave_split(out, self.split)
 
     def _decode_attend(self, q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, cache: "KVCache", layer: int
@@ -530,10 +551,17 @@ class MLP(nn.Module):
         self.gate = Dense(cfg.d_model, cfg.ff_dim, *args)
         self.up = Dense(cfg.d_model, cfg.ff_dim, *args)
         self.down = Dense(cfg.ff_dim, cfg.d_model, *args)
+        # The groups d_ff is split over (tensor parallelism), else None.
+        self.split = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _dense(self.down, F.silu(_dense(self.gate, x))
-                      * _dense(self.up, x))
+        if self.split is None:
+            return _dense(self.down, F.silu(_dense(self.gate, x))
+                          * _dense(self.up, x))
+        x = enter_split(x, self.split)
+        out = _dense(self.down, F.silu(_dense(self.gate, x))
+                     * _dense(self.up, x))
+        return leave_split(out, self.split)
 
 
 class Block(nn.Module):
@@ -590,6 +618,62 @@ class TransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.weight.device
+
+    def apply_tensor_parallel(self, plan=None, groups=None,
+                              batch_axes: Sequence[str] = ()
+                              ) -> dict[str, bool]:
+        """Set the tensor-parallel split of every block whose leaves have
+        the canonical layout in ``plan`` (torch name -> ``LeafShard``,
+        ``parallel.sharding.plan_sharding``) over axes that are not
+        ``batch_axes``; ``groups(axes)`` gives the process groups of those
+        axes.  With no plan every split is cleared.  Returns the leaves
+        the model then uses as chunks: the split layers' (True: every
+        rank of the split's group computes the same loss) and the experts
+        held over ``ep`` (``MoEMLP.held``; False: each rank's loss is its
+        own rows')."""
+        direct: dict[str, bool] = {}
+        for block in self.layers:
+            block.attn.split = None
+            if hasattr(block, "mlp"):
+                block.mlp.split = None
+            else:
+                block.moe.held = False
+        if plan is None:
+            return direct
+        batch = set(batch_axes)
+
+        def spec(name):
+            return tuple(entry_axes(e) for e in plan[name].spec)
+
+        def free(axes):
+            return bool(axes) and not batch & set(axes)
+        for i, block in enumerate(self.layers):
+            pre = f"layers.{i}."
+            qkv = [pre + f"attn.{w}.weight" for w in ("wq", "wk", "wv")]
+            axes = spec(qkv[0])[1]
+            if self.cfg.attention in ("dense", "flash") and free(axes) \
+                    and all(spec(n) == ((), axes, ()) for n in qkv) \
+                    and spec(pre + "attn.wo.weight") == (axes, (), ()):
+                block.attn.split = groups(axes)
+                direct.update(dict.fromkeys(qkv + [pre + "attn.wo.weight"],
+                                            True))
+            if hasattr(block, "mlp"):
+                gate = spec(pre + "mlp.gate.weight")
+                axes = gate[1]
+                if free(axes) and gate == ((), axes) \
+                        and spec(pre + "mlp.up.weight") == gate \
+                        and spec(pre + "mlp.down.weight") == (axes, ()):
+                    block.mlp.split = groups(axes)
+                    direct.update(dict.fromkeys(
+                        [pre + f"mlp.{w}.weight"
+                         for w in ("gate", "up", "down")], True))
+            else:
+                held = ((self.cfg.ep_axis,), (), ())
+                if spec(pre + "moe.wi") == held \
+                        and spec(pre + "moe.wo") == held:
+                    block.moe.held = True
+                    direct[pre + "moe.wi"] = direct[pre + "moe.wo"] = False
+        return direct
 
     def init_parameters(self, generator: torch.Generator) -> None:
         """flax's defaults: Embed normal(0, 1/sqrt(d_model)), Dense and

@@ -1,5 +1,5 @@
-"""Parallelism of the port: the mesh, collectives, gradient sync, and
-sequence and pipeline parallelism."""
+"""Parallelism of the port: the mesh, collectives, gradient sync,
+parameter sharding rules, and sequence and pipeline parallelism."""
 from .collectives import (adasum_allreduce, allgather, allreduce, alltoall,
                           broadcast, ppermute, reduce_scatter)
 from .grad_sync import (GradSyncConfig, init_error_feedback,
@@ -8,6 +8,8 @@ from .grad_sync import (GradSyncConfig, init_error_feedback,
 from .mesh import (DEFAULT_AXES, Mesh, MeshSpec, axis_groups, axis_size,
                    build_mesh, data_axes, global_batch)
 from .pipeline import pipeline_apply
+from .sharding import (P, ShardingRules, constrain, gather_params,
+                       named_sharding, replicated, shard_params)
 from .ring_attention import local_attention, ring_attention
 from .ulysses import ulysses_attention
 
@@ -17,4 +19,6 @@ __all__ = ["adasum_allreduce", "allgather", "allreduce", "alltoall",
            "sync_and_apply", "sync_gradients", "sync_gradients_ef",
            "DEFAULT_AXES", "Mesh", "MeshSpec", "axis_groups", "axis_size",
            "build_mesh", "data_axes", "global_batch", "pipeline_apply",
+           "P", "ShardingRules", "shard_params", "gather_params",
+           "named_sharding", "constrain", "replicated",
            "local_attention", "ring_attention", "ulysses_attention"]

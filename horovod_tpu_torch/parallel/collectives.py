@@ -138,6 +138,46 @@ def allgather(x: torch.Tensor, group: Groups = None) -> torch.Tensor:
     return _AllGather.apply(x, group)
 
 
+class _EnterSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return allreduce(g.contiguous(), "sum", ctx.group), None
+
+
+class _LeaveSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return allreduce(x.contiguous(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter_split(x: torch.Tensor, group: Groups) -> torch.Tensor:
+    """The input of a layer whose weight is split over ``group``'s ranks
+    (tensor parallelism): the identity forward, the gradient summed over
+    the group backward, as every rank's slice of the layer reads all of
+    ``x``.  The identity over no group or one rank."""
+    if world_size(group) == 1:
+        return x
+    return _EnterSplit.apply(x, group)
+
+
+def leave_split(x: torch.Tensor, group: Groups) -> torch.Tensor:
+    """The output of such a layer: this rank's partial sum summed over the
+    group forward, the gradient passed through backward.  The identity
+    over no group or one rank."""
+    if world_size(group) == 1:
+        return x
+    return _LeaveSplit.apply(x, group)
+
+
 class _AllToAll(torch.autograd.Function):
     """The reference's tiled ``lax.all_to_all`` over one group: split
     ``split_axis`` into one block per rank, send block ``p`` to rank

@@ -226,18 +226,24 @@ def sync_gradients(grads: Mapping[str, torch.Tensor]
                    config: GradSyncConfig = GradSyncConfig(),
                    group=None,
                    layouts: Mapping[str, Layout] | Sequence[Layout] | None
-                   = None):
+                   = None, norm_groups: Mapping[str, list] | None = None):
     """Reduce gradients over the data axes (the ranks of ``group``).
 
     ``grads`` is a mapping name -> tensor or a sequence of tensors, in the
     order that buckets are filled; the result has the same structure and
     order.  ``layouts`` (same structure; ``convert.flax_layouts``) puts
-    the quantized buckets in flax's element order.  The inputs are not
-    modified; an output may share memory with its input where no cast or
-    reduction was needed."""
+    the quantized buckets in flax's element order.  ``norm_groups`` maps
+    the name of a gradient that is one rank's chunk of a sharded leaf to
+    the process groups its chunks span: for ``clip_global_norm`` its
+    squared norm is summed over them, so that the clip sees every chunk
+    of every leaf once.  The inputs are not modified; an output may share
+    memory with its input where no cast or reduction was needed."""
     config.check()
     names, leaves, aligned = _leaves_of(grads, layouts)
-    out, _ = _sync_impl(leaves, config, group, aligned, None)
+    chunked = None
+    if norm_groups:
+        chunked = [norm_groups.get(n) for n in names]
+    out, _ = _sync_impl(leaves, config, group, aligned, None, chunked)
     return _rebuild(names, out)
 
 
@@ -272,7 +278,7 @@ def sync_gradients_ef(grads, residuals, config: GradSyncConfig, group=None,
 
 def _sync_impl(leaves: list[torch.Tensor], config: GradSyncConfig, group,
                layouts: list[Layout | None],
-               residuals: list[torch.Tensor] | None):
+               residuals: list[torch.Tensor] | None, chunked=None):
     if not leaves:
         return [], residuals
     groups = _groups(config, group)
@@ -325,8 +331,12 @@ def _sync_impl(leaves: list[torch.Tensor], config: GradSyncConfig, group,
                     flat = allreduce(flat, config.op, groups)
             reduced.append((members, flat, dtype, floating, quantized))
 
-    factor = _scale_clip_factor(
-        config, [flat for _, flat, _, floating, _ in reduced if floating])
+    if chunked is not None and config.clip_global_norm is not None:
+        factor = _factor(config, _chunked_gsq(reduced, leaves, chunked),
+                         leaves[0].device)
+    else:
+        factor = _scale_clip_factor(
+            config, [flat for _, flat, _, floating, _ in reduced if floating])
     for members, flat, dtype, floating, packed in reduced:
         if factor is not None and floating:
             flat = (flat.float() * factor).to(dtype)
@@ -383,6 +393,33 @@ def _scale_clip_factor(config: GradSyncConfig,
             f32 = flat.float()
             gsq = gsq + torch.dot(f32, f32)
     return _factor(config, gsq, device)
+
+
+def _chunked_gsq(reduced, leaves: list[torch.Tensor],
+                 chunked: list) -> torch.Tensor:
+    """The squared global norm when some leaves are chunks of sharded ones
+    (``chunked[i]``: the groups leaf i's chunks span, else None): the
+    whole leaves' squares here, each chunked leaf's summed over its
+    groups, one all-reduce a distinct set of groups."""
+    gsq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    spans: dict[tuple, torch.Tensor] = {}
+    for members, flat, _, floating, _ in reduced:
+        if not floating:
+            continue
+        offset = 0
+        for i in members:
+            n = leaves[i].numel()
+            part = flat[offset:offset + n].float()
+            offset += n
+            sq = torch.dot(part, part)
+            if chunked[i] is None:
+                gsq = gsq + sq
+            else:
+                key = tuple(chunked[i])
+                spans[key] = spans[key] + sq if key in spans else sq
+    for key, sq in spans.items():
+        gsq = gsq + allreduce(sq, "sum", list(key))
+    return gsq
 
 
 def _factor(config: GradSyncConfig, gsq: torch.Tensor | None,

@@ -12,8 +12,9 @@ lay out their devices (``np.asarray(devices).reshape(shape)``): with
 coordinate ``r % 2``.  ``Mesh.groups`` holds one process group for each
 axis larger than one (``axis_groups``): the ranks that differ from this
 one in that axis' coordinate only.  ``Mesh.coords`` is this rank's
-coordinate on every axis.  Tensor parallelism (``tp > 1``) is ROADMAP
-queue A item 10b.
+coordinate on every axis.  ``tp`` is an axis like the others: its group
+holds the ranks that split a tensor-parallel layer's heads or columns
+(``parallel/sharding.py``, ``Trainer(param_rules=...)``).
 """
 from __future__ import annotations
 
@@ -111,10 +112,6 @@ def build_mesh(spec: MeshSpec | None = None,
     else:
         world, rank = 1, 0
     sizes = spec.resolve(world)
-    if sizes["tp"] > 1:
-        raise NotImplementedError(
-            f"tp={sizes['tp']}: tensor parallelism (parameters sharded "
-            "over a mesh axis) is ROADMAP queue A item 10b")
     coords = {}
     for axis in reversed(DEFAULT_AXES):
         rank, coords[axis] = divmod(rank, sizes[axis])

@@ -40,7 +40,9 @@ array, or number), flattened by :mod:`.snapshot` in its own order; a
 tree in the flax leaf order with each leaf viewed in flax's shape
 (serving's ``ReplicaExecutor.state_tree``) has the reference's bytes and
 digest.  A ``TrainState``'s tree is ``checkpoint.train_state_tree``, and
-``checkpoint.load_train_state`` puts a pulled one back.
+``checkpoint.load_train_state`` puts a pulled one back; both refuse a
+state with sharded parameters (``Trainer(param_rules=...)``), whose grow
+is not ported (ROADMAP queue A, sharded parameters).
 """
 from __future__ import annotations
 

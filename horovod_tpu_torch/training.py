@@ -58,8 +58,35 @@ the batch dim).  The reference has two modes, and so does the port:
   clip of ``sync`` over no axis, as the reference's does.  Only the
   batch dim may be sharded here.
 
-Parameters sharded by ``param_rules`` (tensor parallelism, fsdp-sharded
-leaves) are ROADMAP queue A item 10b.
+With ``param_rules`` (``parallel.sharding.ShardingRules`` over the flax
+paths and shapes) each parameter that a rule splits over mesh axes of
+more than one rank holds this rank's chunk, cut in the flax view, and
+so does its optimizer state; the state stays sharded at rest after every
+step (the reference's manual step hands back replicated arrays; the
+numbers are the same).  Every problem ``validate`` finds is logged.
+
+- **manual:** each sharded leaf is gathered into a transient whole
+  tensor before the forward, as the reference's ``shard_map`` gathers
+  its ``P()`` state; its whole gradient goes through ``sync_gradients``
+  (or ``sync_and_apply``) with the others in the flax leaf order, and
+  each chunk takes its slice of the result.  Every sync knob then gives
+  the unsharded step's numbers bit for bit.
+- **pure-GSPMD:** where the rules give a Transformer block the canonical
+  tensor-parallel layout (``attn/w[qkv]/kernel`` ``P(None, A, None)``,
+  ``attn/wo/kernel`` ``P(A, None, None)``, ``mlp/(gate|up)/kernel``
+  ``P(None, A)``, ``mlp/down/kernel`` ``P(A, None)``, ``A`` not a batch
+  axis), its layers compute on their chunks (``Attention.split``,
+  ``MLP.split``), and a chunk's gradient is averaged over the mesh axes
+  it is not split over; MoE experts sharded over ``ep`` on their leading
+  dim are the layer's own, and their gradients are summed over the other
+  axes and divided by the mesh's rank count, as the zeros of the other
+  experts' ranks divide them in the unsharded step.  Any other sharded
+  leaf is gathered for the forward, and its gradient, averaged with the
+  replicated ones, is cut to the chunk.  ``clip_global_norm`` sums each
+  chunk's squares over its axes (``sync_gradients(norm_groups=...)``).
+  The quantized wires (int8, uint4) take the whole leaves, as the
+  reference's blocks do: each chunk's gradient is gathered before the
+  sync and cut after it.
 
 PyTorch updates in place: ``TrainState`` holds the model and its
 optimizer, and ``step`` returns the same state advanced by one step,
@@ -75,6 +102,7 @@ gradient itself in both.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Sequence
 
@@ -83,6 +111,7 @@ from torch import nn
 
 from .common import config
 from .common.device import resolve_device
+from .common.logging import logger
 from .convert import flax_layouts
 from .parallel import collectives
 from .parallel.collectives import allreduce
@@ -90,6 +119,7 @@ from .parallel.grad_sync import (GradSyncConfig, init_ring_optimizer,
                                  sync_and_apply, sync_gradients)
 from .parallel.mesh import (DEFAULT_AXES, Mesh, axis_size, data_axes,
                             global_batch, manual_region)
+from .parallel.sharding import ShardedParams, entry_axes, plan_sharding
 
 
 @dataclasses.dataclass
@@ -99,6 +129,8 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    # The Trainer's sharded parameters (param_rules), else None.
+    sharding: ShardedParams | None = None
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -201,11 +233,6 @@ def _spec_entries(batch_spec, axes: tuple[str, ...]) -> tuple:
     return tuple(batch_spec)
 
 
-def _entry_axes(entry) -> tuple[str, ...]:
-    if entry is None:
-        return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
-
 
 class Trainer:
     """Owns the train step.
@@ -228,11 +255,6 @@ class Trainer:
                  mesh: Mesh, *, sync: GradSyncConfig | None = None,
                  param_rules=None, loss_fn: Callable = cross_entropy_loss,
                  batch_spec=None) -> None:
-        if param_rules is not None:
-            raise NotImplementedError(
-                "param_rules (parameters sharded over mesh axes: tensor "
-                "parallelism, fsdp-sharded leaves) is ROADMAP queue A "
-                "item 10b")
         self.model = model
         self.optimizer = optimizer
         self.mesh = mesh
@@ -255,6 +277,66 @@ class Trainer:
             self._ring = init_ring_optimizer(
                 optimizer, [self._params[n] for n in self._names],
                 collectives.world_size(self._metric_groups), self.sync)
+        self.param_rules = param_rules
+        self._sharded: ShardedParams | None = None
+        # Chunks the model computes on as they are (pure-GSPMD): name ->
+        # (groups summed over, divisor).
+        self._direct: dict[str, tuple[list, int]] = {}
+        # The sync sees whole leaves (manual step; quantized wires, whose
+        # blocks run over whole leaves as the reference's do), else the
+        # chunks, whose squares the clip sums over their groups.
+        self._whole_sync = not self._gspmd \
+            or self.sync.compression in ("int8", "uint4")
+        self._norm_groups = None
+        if param_rules is not None:
+            self._shard(param_rules)
+        elif hasattr(model, "apply_tensor_parallel"):
+            model.apply_tensor_parallel(None)    # an earlier Trainer's split
+
+    def _axis_groups(self, axes) -> list:
+        return [self.mesh.groups[a] for a in axes
+                if axis_size(self.mesh, a) > 1]
+
+    def _shard(self, rules) -> None:
+        """Log the table's problems, then replace each sharded
+        parameter's storage (and any optimizer state of its shape) by
+        this rank's chunk."""
+        mesh = self.mesh
+        for problem in rules.validate(mesh, self.model):
+            logger.warning("sharding rules: %s", problem)
+        plan = plan_sharding(self.model, mesh, rules)
+        leaves = {n: leaf for n, leaf in plan.items() if leaf.sharded}
+        direct = {}
+        if hasattr(self.model, "apply_tensor_parallel"):
+            # The model's own split (pure-GSPMD only: the manual step
+            # computes on whole leaves).
+            direct = self.model.apply_tensor_parallel(
+                plan if self._gspmd else None, self._axis_groups,
+                entry_axes(self.batch_spec[0]))
+        shapes = {n: self._params[n].shape for n in leaves}
+        self._sharded = ShardedParams(mesh, leaves, shapes)
+        with torch.no_grad():
+            for name in leaves:
+                p = self._params[name]
+                p.data = self._sharded.cut(name, p.data)
+                state = self.optimizer.state.get(p, {})
+                for key, value in state.items():
+                    if isinstance(value, torch.Tensor) \
+                            and value.shape == shapes[name]:
+                        state[key] = self._sharded.cut(name, value)
+        if not self._whole_sync and leaves:
+            self._norm_groups = {n: self._axis_groups(leaf.axes)
+                                 for n, leaf in leaves.items()}
+        big = [a for a in DEFAULT_AXES if axis_size(mesh, a) > 1]
+        for name, megatron in direct.items():
+            leaf = plan[name]
+            if not leaf.sharded:
+                continue        # split over one rank: a replicated leaf
+            others = [a for a in big if a not in leaf.axes]
+            divisor = 1
+            for a in (others if megatron else big):
+                divisor *= axis_size(mesh, a)
+            self._direct[name] = (self._axis_groups(others), divisor)
 
     def _set_groups(self) -> None:
         """The groups the gradients are synced over (``_sync_group`` with
@@ -269,7 +351,7 @@ class Trainer:
                 raise ValueError(
                     "optimizer_in_ring needs explicit sync axes (pure-GSPMD "
                     "mode has no manual axis to shard the update over)")
-            if any(_entry_axes(e) for e in self.batch_spec[1:]):
+            if any(entry_axes(e) for e in self.batch_spec[1:]):
                 raise NotImplementedError(
                     f"batch_spec {self.batch_spec}: the pure-GSPMD step "
                     "shards the batch dim only (other dims are ROADMAP "
@@ -305,7 +387,7 @@ class Trainer:
                                  f"mesh's device is {self.device}")
         return TrainState(step=0, model=self.model,
                           optimizer=self.optimizer if self._ring is None
-                          else self._ring)
+                          else self._ring, sharding=self._sharded)
 
     def _batch(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """The inputs and labels on the mesh's device; numpy arrays (a
@@ -318,14 +400,59 @@ class Trainer:
         """The global view of the pure-GSPMD step, else the manual
         region, where the mesh's axis names are bound."""
         if self._gspmd:
-            return global_batch(self.mesh, _entry_axes(self.batch_spec[0]))
+            return global_batch(self.mesh, entry_axes(self.batch_spec[0]))
         return manual_region(self.mesh)
+
+    def _gathered(self) -> dict[str, torch.Tensor]:
+        """The whole leaf of every sharded parameter the model does not
+        use as a chunk (collective, in the leaf order)."""
+        if self._sharded is None:
+            return {}
+        return {n: self._sharded.gather(n, self._params[n].data)
+                for n in self._names
+                if n in self._sharded.leaves and n not in self._direct}
+
+    @contextlib.contextmanager
+    def _holding(self, whole: dict[str, torch.Tensor]):
+        """Inside, each parameter named in ``whole`` holds that whole
+        tensor; on exit it holds its chunk again, and the whole gradient
+        it took is in the yielded dict."""
+        chunks, grads = {}, {}
+        for name, full in whole.items():
+            p = self._params[name]
+            chunks[name], p.data = p.data, full
+        try:
+            yield grads
+        finally:
+            for name, chunk in chunks.items():
+                p = self._params[name]
+                grads[name], p.grad = p.grad, None
+                p.data = chunk
+
+    def _reduce_direct(self, grads: dict[str, torch.Tensor]) -> None:
+        """Sum each chunk the model used as it is over the mesh axes it is
+        not split over, and divide it (``_shard``)."""
+        by_reduction: dict[tuple, list[torch.Tensor]] = {}
+        for name in self._names:
+            if name in self._direct:
+                groups, divisor = self._direct[name]
+                by_reduction.setdefault((tuple(groups), divisor),
+                                        []).append(grads[name])
+        for (groups, divisor), tensors in by_reduction.items():
+            if not groups and divisor == 1:
+                continue
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            flat = allreduce(flat, "sum", list(groups)) / divisor
+            for t, part in zip(tensors,
+                               flat.split([t.numel() for t in tensors])):
+                t.copy_(part.view_as(t))
 
     def step(self, state: TrainState, batch: dict
              ) -> tuple[TrainState, dict[str, torch.Tensor]]:
         inputs, labels = self._batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        with self._view():
+        whole = self._gathered()
+        with self._view(), self._holding(whole) as whole_grads:
             logits = self.model(inputs, train=True)
             loss = self.loss_fn(logits, labels)
             # A checkpointed block's recompute, which may run on
@@ -334,21 +461,37 @@ class Trainer:
 
         grads = {}
         for name in self._names:
-            p = self._params[name]
-            grads[name] = p.grad if p.grad is not None \
-                else torch.zeros_like(p)
+            p = whole.get(name, self._params[name])
+            g = whole_grads[name] if name in whole else p.grad
+            grads[name] = g if g is not None else torch.zeros_like(p)
         if self._gspmd:
             # What XLA derives from the global loss: the mean over every
             # rank's shard of the batch.
-            _average_in_place(list(grads.values()), self._metric_groups)
+            _average_in_place([g for n, g in grads.items()
+                               if n not in self._direct],
+                              self._metric_groups)
+            self._reduce_direct(grads)
+            if self._whole_sync:
+                for name in self._direct:
+                    grads[name] = self._sharded.gather(name, grads[name])
+            else:
+                for name in whole:
+                    grads[name] = self._sharded.cut(name, grads[name])
         group = self._sync_group
         if self._ring is not None:
-            sync_and_apply(self._ring, grads,
-                           {n: self._params[n] for n in self._names},
-                           self._sync, group, self._layouts)
+            params = {n: whole.get(n, self._params[n]) for n in self._names}
+            sync_and_apply(self._ring, grads, params, self._sync, group,
+                           self._layouts)
+            with torch.no_grad():
+                for name, full in whole.items():
+                    self._params[name].copy_(self._sharded.cut(name, full))
         else:
-            synced = sync_gradients(grads, self._sync, group, self._layouts)
+            synced = sync_gradients(grads, self._sync, group, self._layouts,
+                                    self._norm_groups)
             for name, g in synced.items():
+                if self._whole_sync and self._sharded is not None \
+                        and name in self._sharded.leaves:
+                    g = self._sharded.cut(name, g)
                 self._params[name].grad = g
             self.optimizer.step()
         if getattr(self.model, "axis_name", None) is None:
@@ -417,7 +560,7 @@ class Trainer:
     def eval_step(self, state: TrainState, batch: dict
                   ) -> dict[str, torch.Tensor]:
         inputs, labels = self._batch(batch)
-        with self._view():
+        with self._view(), self._holding(self._gathered()):
             logits = state.model(inputs, train=False)
         loss = self.loss_fn(logits, labels)
         acc = (logits.argmax(-1) == labels).float().mean()

@@ -677,8 +677,10 @@ def test_kv_barrier_waits_and_names_the_missing_rank():
 
         def peer():
             time.sleep(0.3)
-            kv.put("barrier", "kvb:t:1:1", b"1")
+            # Stamped before the write: the barrier may see the key and
+            # return before this thread runs again.
             released.append(time.monotonic())
+            kv.put("barrier", "kvb:t:1:1", b"1")
 
         t = threading.Thread(target=peer)
         t.start()

@@ -199,8 +199,13 @@ def fake_world(monkeypatch):
 
 
 def test_tensor_parallel_mesh_names_item_10b(fake_world):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        build_mesh(tp=2, device=CPU)
+    """tp > 1 builds like any other axis: with one axis
+    larger than one it spans the whole group, and rank 1 sits at tp
+    coordinate 1."""
+    mesh = build_mesh(tp=2, device=CPU)
+    assert mesh.shape["tp"] == 2 and mesh.shape["dp"] == 1
+    assert mesh.coords["tp"] == 1 and mesh.axis_index("tp") == 1
+    assert mesh.groups == {"tp": None} and mesh.axis_group("tp") is None
 
 
 def test_mesh_of_one_axis_uses_the_group(fake_world):
@@ -217,8 +222,6 @@ def _tiny_model(**kw):
 def test_trainer_refusals():
     model = _tiny_model()
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Trainer(model, opt, build_mesh(device=CPU), param_rules=[])
     with pytest.raises(ValueError, match="optimizer_in_ring"):
         Trainer(model, opt, build_mesh(device=CPU),
                 sync=GradSyncConfig(axes=(), optimizer_in_ring=True))
