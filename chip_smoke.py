@@ -191,17 +191,20 @@ Phases, each printed as one JSON object on its own line:
 13. resilience: the eager core's failure half, one line a leg.  (a) A
    serving world of two ranks through ``--eager-worker rserve-<leg>``,
    both ``ReplicaExecutor(device="cuda")`` on the one card (the TCP
-   plane: no NCCL plane forms on one card, shm is off), the serve
-   phase's timed workload (32 requests, 64-512 prompt tokens, 64 new,
-   max_batch 8, dense) on gpt_small in fp32, with
+   plane: no NCCL plane forms on one card, shm is off), three quarters
+   of the serve phase's timed workload (24 requests, 64-512 prompt
+   tokens, 64 new, max_batch 8, dense: the two replicas' 16 slots, then
+   8 more) on gpt_small in fp32, with
    ``HOROVOD_FAULT_TOLERANCE`` off and then on (``HOROVOD_FAULT_TIMEOUT``
    5 s): tokens/s, step_ms p50/p99, the exchanges' host ms a step, the
-   threads alive, 32/32 served and every token within 1e-3 of the full
+   threads alive, 24/24 served and every token within 1e-3 of the full
    forward's argmax.  (b) A kill: ``HOROVOD_CHAOS=kill`` of rank 1 at
    step 20's completions allgather, requests in flight: rank 0 converges
    on the confirmed-dead set {1}, shrinks to a world of one and serves
    on under generation 1 (``serve.*.g1``): served plus lost must equal
-   offered, nothing may expire, every token it served stays within 1e-3
+   offered, nothing may expire, the requests still queued at the kill
+   must be admitted and served under generation 1 (at least one of
+   them), every token it served stays within 1e-3
    of the full forward's argmax, and the line gives the time from the
    kill (rank 1 stamps the moment) to the end of the first step after
    the shrink.  (c) A freeze of rank 1 for 30 s at step 10's allgather
@@ -422,6 +425,42 @@ Phases, each printed as one JSON object on its own line:
    bit for bit without it; (f) (a)'s state, saved at tp=4, restored at
    dp=4 (the whole state's SHA-256 equal).  On fewer cards the world's
    line says "not run".
+20. perf: perfscope, the MFU gauges and the offline tools, under
+   ``HOROVOD_METRICS=on``, last.  The peak is the port's table's for the
+   card (``telemetry/perfmodel.py``, the one ``bound`` reads): a card the
+   table does not list fails.  (a) gpt_small's ``Trainer.step`` as the
+   train phase runs it (B=8, T=2048, bf16, the bf16 wire, 2 warm-up and
+   5 timed steps): ``horovod_train_step_flops`` must be
+   ``transformer_train_flops`` with the LM head (2.0586e13), the
+   ``horovod_train_mfu`` gauge of the timed steps within 10 % of the MFU
+   of the phase's synchronised steps, 12 launches of each flash kernel a
+   step, each kernel within ``kernel_error`` of its plain version at that
+   shape.  (b) ResNet-50 in bf16 at B=128, 3 steps (``cudnn.benchmark``
+   off: its autotuning would take most of the phase): the FLOPs gauge
+   3 x 128 x ``resnet_forward_flops`` (2.9629e12).  (c) One gpt_small
+   replica in bf16 (a world of one): a first wave of 2 requests, then 8
+   requests of 17 new tokens, about 16 decode steps: the three serve
+   gauges set, tokens/s within 25 % of the wave's decoded tokens over the
+   host time of its steps after the first (the first prefills every
+   prompt), FLOPs a token within the wave's contexts, MFU their product
+   over the peak.  (d) ``tests/torch_perfscope_worker.py`` in a launcher world
+   of four ranks on CPU tensors (CUDA hidden) with
+   ``HOROVOD_METRICS_FILE`` and ``HOROVOD_TIMELINE``: an allreduce ladder
+   of 4 KiB to 16 MiB; the dumps through ``python -m
+   horovod_tpu_torch.telemetry.perf`` (its busbw rows must be the dumps'
+   histograms recomputed) and ``python -m
+   horovod_tpu_torch.telemetry.trace --critical-path`` (a rank and a
+   phase), then ``perfcheck`` (0 against itself, 1 with a finding on a
+   copy cut by half) and ``report`` (a dump and the merged trace), each
+   its CLI's ``main`` in this process.  (e) With four
+   cards, a launcher world of four ranks, one a card
+   (``--perf-card-worker``): the eager NCCL ladder, its timeline started
+   after one warm-up allreduce (the communicator's set-up), then
+   gpt_small at dp=4, B=8 a card, whose gauge must count 4 x 2.0586e13
+   over 4 peaks; every rank's ``NCCL_*`` span time counted as wire on the
+   critical path, and the four dumps' ledger with ``nccl`` rows.  On fewer cards
+   its line says "not run".  The kernels line's ``perf_launches`` are
+   (a)'s.
 
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
@@ -439,6 +478,7 @@ import contextlib
 import dataclasses
 import datetime
 import gc
+import io
 import json
 import math
 import os
@@ -454,9 +494,9 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate and
-# device-memory bandwidth, at the full 700 W power limit.
-PEAK_BF16_FLOPS = 989e12
+# H100 SXM device-memory bandwidth (NVIDIA data sheet), at the full 700 W
+# power limit.  The dense bf16 rate is the port's own table's
+# (peak_bf16_flops).
 PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_SHAPE = dict(b=8, h=12, tq=2048, tk=2048, d=64, causal=True)
@@ -614,7 +654,7 @@ def bound(name: str, bh: int, tq: int, tk: int, d: int, causal: bool):
     else:                         # s, dp, dv = p^T.do, dk = ds^T.q
         flops = 8 * d * pairs
         nbytes = 2 * row_q + 2 * row_k + 2 * stat + 2 * row_k
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_bf16_flops() * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), flops, nbytes
@@ -1419,7 +1459,7 @@ def _cnn_leg(leg: str, preset: str, image_size: int, warmup: int,
            # the backward elementwise pass.
            "train_flops": 3 * work["flops"] * CNN_BATCH,
            "flops_bound_ms": 3 * work["flops"] * CNN_BATCH
-           / PEAK_BF16_FLOPS * 1e3,
+           / peak_bf16_flops() * 1e3,
            "bn_elements": work["bn_elements"] * CNN_BATCH,
            "bn_bytes_bound_ms": 16 * work["bn_elements"] * CNN_BATCH
            / PEAK_BYTES_PER_S * 1e3}
@@ -3621,9 +3661,13 @@ def phase_runtime() -> dict:
 # resilience: the eager core's failure half
 # ---------------------------------------------------------------------------
 RES_FAULT_TIMEOUT = 5.0
-# The serving world runs the serve phase's timed workload (32 requests,
-# 64-512 prompt tokens, 64 new, max_batch 8, dense) on gpt_small in fp32,
-# so that the serve phase's near-argmax check holds every served token.
+# The serving world runs three quarters of the serve phase's timed
+# workload (24 requests, 64-512 prompt tokens, 64 new, max_batch 8, dense)
+# on gpt_small in fp32, so that the serve phase's near-argmax check holds
+# every served token.  The two replicas' 16 slots take the first 16; the
+# other 8 wait for a slot, so that the kill's survivor still has queued
+# requests to admit in the shrunk world, and the unbroken legs reuse
+# slots across the exchange.
 # Collective 0 is the barrier before the requests; then a serve step
 # makes four (the plan broadcast's size and data, the completions
 # allgather's size and data): step s's allgather starts at collective
@@ -3632,7 +3676,7 @@ RES_FAULT_TIMEOUT = 5.0
 # 1's bytes, under the op's deadline, with requests in flight.  (A fault
 # on the plan broadcast would leave rank 0, its root, waiting in the next
 # negotiation instead, which no request deadline bounds.)
-RES_SERVE = SERVE_TIMED
+RES_SERVE = dict(SERVE_TIMED, requests=24)
 RES_KILL_OP = 1 + 4 * 20 + 2
 RES_FREEZE_OP = 1 + 4 * 10 + 2
 RES_FREEZE_MS = 30000
@@ -3700,7 +3744,7 @@ def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
     streams, rid_prompt, exch_ms = {}, {}, []
     state = {"plan_ms": 0.0, "where": None, "call": None,
              "converted": None, "shrunk": None, "first_after": None,
-             "gens": []}
+             "gens": [], "assigned_gen": {}}
     plan_x, done_x = ex._exchange_plan, ex._exchange_completions
     collect = ex._collect_completions
     shrink = ex._shrink_and_resume
@@ -3714,13 +3758,15 @@ def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
 
     def plan_exchange(plan):
         state["where"] = "plan"
-        state["gens"].append(ex._gen)
+        gen = ex._gen
+        state["gens"].append(gen)
         t0 = time.perf_counter()
         plan = plan_x(plan)
         state["plan_ms"] = (time.perf_counter() - t0) * 1e3
         for a in plan.assign:
             if a.replica == ex.group:
                 rid_prompt[a.rid] = list(a.tokens)
+                state["assigned_gen"][a.rid] = gen
         return plan
 
     def done_exchange():
@@ -3767,6 +3813,9 @@ def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
         lost=ex.stats["lost"], expired=ex.stats["expired"],
         shrinks=ex.stats["shrinks"], gen=ex._gen,
         plan_gens=sorted(set(state["gens"])),
+        served_by_gen={str(g): sum(
+            1 for rid in streams if state["assigned_gen"].get(rid) == g)
+            for g in sorted(set(state["gens"]))},
         shrunk_wall=state["shrunk"],
         first_step_after_wall=state["first_after"],
         step_ms={"p50": step.quantile(0.5), "p99": step.quantile(0.99),
@@ -3850,7 +3899,8 @@ def _resilience_serve(problems: list[str]) -> dict:
                     "flash_launches": r0["flash_launches"],
                     "lost": r0["lost"], "expired": r0["expired"],
                     "shrinks": r0["shrinks"], "gen": r0["gen"],
-                    "plan_gens": r0["plan_gens"]}
+                    "plan_gens": r0["plan_gens"],
+                    "served_by_gen": r0["served_by_gen"]}
             line["tokens_per_s"] = line["tokens"] / r0["wall_s"]
             if r0.get("check") is not None:
                 line["check"] = {f"rank{r}": rr["check"] for r, rr
@@ -3910,6 +3960,12 @@ def _resilience_serve(problems: list[str]) -> dict:
                     problems.append(f"{tag}: generations "
                                     f"{line['plan_gens']}, last "
                                     f"{line['gen']}")
+                # The requests queued at the kill: admitted by the
+                # survivor in the shrunk world and served there.
+                if not line["served_by_gen"].get("1"):
+                    problems.append(f"{tag}: no request assigned under "
+                                    f"generation 1 was served: "
+                                    f"{line['served_by_gen']}")
                 chk = line.get("check", {}).get("rank0")
                 if chk is None or chk["beyond_tolerance"]:
                     problems.append(f"{tag}: the survivor's tokens: {chk}")
@@ -8176,6 +8232,617 @@ def phase_shard() -> dict:
     return {"seconds": seconds, "launches": one["launches"]}
 
 
+# The perf phase: perfscope's gauges and offline tools.
+PERF_TRAIN_STEPS = (WARMUP_STEPS, TIMED_STEPS)  # gpt_small: warm-up, timed
+PERF_RESNET_STEPS = 3
+PERF_SERVE = dict(cfg=dict(max_batch=8, token_budget=1024, max_seq=1024,
+                           slo_ms=600000.0),
+                  requests=8, pool=8, prompt_tokens=(16, 48), max_new=17,
+                  seed=9)
+PERF_SERVE_WARM = dict(PERF_SERVE, requests=2, max_new=4, seed=10)
+PERF_LADDER = (4 << 10, 64 << 10, 1 << 20, 16 << 20)
+PERF_LADDER_REPS = 5
+PERF_HOST_RANKS = 4
+PERF_CARDS = 4
+PERF_MFU_TOL = 0.10                     # gauge against the synced steps
+PERF_TPS_TOL = 0.25                     # serve gauge against the leg's count
+PERF_WORLD_TIMEOUT = 300.0
+PERF_WORKER = os.path.join("tests", "torch_perfscope_worker.py")
+
+
+def peak_bf16_flops() -> float:
+    """The card's dense bf16 peak, read from the port's table
+    (``telemetry/perfmodel.py``), the number its MFU gauges divide by.  A
+    card the table does not list fails: no bound or MFU is printed
+    against a nominal peak."""
+    from horovod_tpu_torch.telemetry import perfmodel
+    kind = torch.cuda.get_device_name(0)
+    peak = perfmodel.table_peak_flops(kind)
+    if peak is None:
+        raise RuntimeError(f"no peak for the card {kind!r} in "
+                           "telemetry/perfmodel.PEAK_FLOPS_TABLE")
+    return peak
+
+
+@contextlib.contextmanager
+def _metrics_on():
+    """``HOROVOD_METRICS=on`` and a fresh registry; off again after."""
+    from horovod_tpu_torch import telemetry
+    saved = os.environ.get("HOROVOD_METRICS")
+    os.environ["HOROVOD_METRICS"] = "1"
+    try:
+        yield telemetry.configure()
+    finally:
+        if saved is None:
+            os.environ.pop("HOROVOD_METRICS", None)
+        else:
+            os.environ["HOROVOD_METRICS"] = saved
+        telemetry.configure()
+
+
+def _gauges(reg, names) -> dict:
+    return {n: reg.gauge(n).value for n in names}
+
+
+def _perf_train(reg, problems: list[str]) -> dict:
+    """(a) gpt_small's ``Trainer.step`` as the train phase runs it, under
+    the metrics registry: the gauges against the FLOP count and against
+    the MFU of the phase's own synchronised steps."""
+    from horovod_tpu_torch import (GradSyncConfig, Trainer, TransformerLM,
+                                   build_mesh, gpt_small,
+                                   synthetic_text_batch)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.telemetry import perfmodel
+    peak = peak_bf16_flops()
+    check = check_kernels(MAIN_SHAPE, seed=3, measure=False)
+    with _one_rank_nccl():
+        cfg = gpt_small(attention="flash", max_seq_len=2048)
+        model = TransformerLM(cfg, seed=0)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                weight_decay=1e-4)
+        trainer = Trainer(model, opt, build_mesh(dp=1),
+                          sync=GradSyncConfig(op="average",
+                                              compression="bf16"))
+        batch = synthetic_text_batch(8, 2048, cfg.vocab_size, seed=0)
+        state = trainer.init()
+        hist = reg.histogram("horovod_train_step_ms")
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()                 # the main path starts
+        step_ms, gauge_mfu, losses = [], [], []
+        steps = sum(PERF_TRAIN_STEPS)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            gauge_mfu.append(reg.gauge("horovod_train_mfu").value)
+            losses.append(metrics["loss"].item())
+        launches = fa.launch_counts()            # ... and ends
+        trainer_peak = trainer._peak_flops
+        del trainer, state, opt, model
+    torch.cuda.empty_cache()
+    want = perfmodel.transformer_train_flops(cfg, 8, 2048)
+    timed = step_ms[PERF_TRAIN_STEPS[0]:]
+    synced = want / (statistics.mean(timed) / 1e3) / peak
+    # The gauge of the timed steps, averaged as the synced MFU is: the
+    # count over the mean of the clock's intervals (from one step's
+    # return to the next), i.e. the harmonic mean of the gauge's values.
+    gauge = reg.gauge("horovod_train_mfu").value
+    gauge_mean = statistics.harmonic_mean(gauge_mfu[PERF_TRAIN_STEPS[0]:])
+    out = {"leg": "gpt_small", "batch": 8, "seq": 2048,
+           "step_flops": reg.gauge("horovod_train_step_flops").value,
+           "step_flops_count": want, "peak_flops": peak,
+           "trainer_peak_flops": trainer_peak, "mfu_gauge_last": gauge,
+           "mfu_gauge_timed_mean": gauge_mean, "mfu_synced": synced,
+           "mfu_rel_diff": abs(gauge_mean - synced) / synced,
+           "step_ms": step_ms, "timed_step_ms_mean": statistics.mean(timed),
+           "gauge_step_ms": {"count": hist.count, "mean": hist.mean},
+           "launches": launches,
+           "launches_per_step": {k: c / steps for k, c in launches.items()},
+           "kernels": {k: {"max_abs_err": v["max_abs_err"], "ok": v["ok"]}
+                       for k, v in check.items()},
+           "losses": losses}
+    if trainer_peak != peak:
+        problems.append(f"the Trainer divides by {trainer_peak}, not the "
+                        f"table's {peak}")
+    if out["step_flops"] != want:
+        problems.append(f"train step FLOPs gauge {out['step_flops']} is "
+                        f"not the count {want}")
+    if abs(want - 2.0586e13) > 1e-4 * 2.0586e13:
+        problems.append(f"gpt_small's count {want} is not 2.0586e13")
+    if not 0.0 < gauge_mean < 1.0 or out["mfu_rel_diff"] > PERF_MFU_TOL:
+        problems.append(f"train MFU gauge {gauge_mean} is not within "
+                        f"{PERF_MFU_TOL:.0%} of the synced {synced}")
+    for name, count in launches.items():
+        if count != cfg.num_layers * steps:
+            problems.append(f"{name} launched {count} times, not "
+                            f"{cfg.num_layers} a step")
+    bad = [k for k, v in check.items() if not v["ok"]]
+    if bad:
+        problems.append(f"kernels disagree with their plain versions at "
+                        f"the train shape: {bad}")
+    return out
+
+
+def _perf_resnet(reg, problems: list[str]) -> dict:
+    """(b) ResNet-50 in bf16 at B=128 for 3 steps: the step FLOPs gauge
+    against the conv walk of ``resnet_forward_flops``."""
+    import horovod_tpu_torch as hvt
+    from horovod_tpu_torch.telemetry import perfmodel
+    with _one_rank_nccl():
+        model = hvt.ResNet50(seed=0)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        trainer = hvt.Trainer(model, opt, hvt.build_mesh(dp=1),
+                              sync=hvt.GradSyncConfig(op="average",
+                                                      compression="bf16"))
+        batch = hvt.synthetic_image_batch(CNN_BATCH, 224, 1000, seed=0)
+        state = trainer.init()
+        step_ms = []
+        for _ in range(PERF_RESNET_STEPS):
+            t0 = time.perf_counter()
+            state, _ = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        del trainer, state, opt, model
+    torch.cuda.empty_cache()
+    want = 3.0 * CNN_BATCH * perfmodel.resnet_forward_flops((3, 4, 6, 3))
+    flops = reg.gauge("horovod_train_step_flops").value
+    mfu = reg.gauge("horovod_train_mfu").value
+    out = {"leg": "resnet50", "batch": CNN_BATCH, "dtype": "bfloat16",
+           "step_flops": flops, "step_flops_count": want,
+           "mfu_gauge_last": mfu,
+           "mfu_last_synced": want / (step_ms[-1] / 1e3) / peak_bf16_flops(),
+           "step_ms": step_ms}
+    if flops != want or abs(want - 2.9629e12) > 1e-4 * 2.9629e12:
+        problems.append(f"resnet50 step FLOPs gauge {flops}, count {want}: "
+                        "not 2.9629e12")
+    if not 0.0 < mfu < 1.0:
+        problems.append(f"resnet50 MFU gauge {mfu}")
+    return out
+
+
+def _perf_serve(problems: list[str]) -> dict:
+    """(c) one gpt_small replica (bf16, dense KV) in a world of one: a
+    short first wave, then about 16 decode steps of 8 requests; the serve
+    gauges against the timed wave's own count: its decoded tokens over the
+    host time of its steps after the first (which prefills every prompt;
+    the gauge's EMA has all but forgotten it by the wave's end)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import gpt_small
+    from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
+    from horovod_tpu_torch.telemetry import perfmodel
+    hvd.init()
+    reg = hvd.telemetry.metrics()          # init builds the registry anew
+    try:
+        cfg = gpt_small()
+        ex = ReplicaExecutor(ServeConfig(model_cfg=cfg,
+                                         **PERF_SERVE["cfg"]))
+        contexts, steps_seen = [], []
+        decode, serve_step = ex._decode_once, ex._serve_step
+
+        def record():
+            decode()
+            contexts.extend(s.seq_len for s in ex.slots
+                            if s is not None and s.pending is None)
+
+        def timed_step():
+            before, t0 = len(contexts), time.perf_counter()
+            more = serve_step()
+            steps_seen.append((len(contexts) - before,
+                               time.perf_counter() - t0))
+            return more
+        ex._decode_once, ex._serve_step = record, timed_step
+        waves = {}
+        for name, spec in (("warm", PERF_SERVE_WARM), ("timed", PERF_SERVE)):
+            for prompt in _prompt_pool(spec, cfg.vocab_size)[
+                    :spec["requests"]]:
+                ex.queue.submit(prompt, spec["max_new"])
+            served, steps = ex.stats["served"], ex._step
+            contexts.clear()
+            steps_seen.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.serve_loop(stop_when=lambda: True)
+            torch.cuda.synchronize()
+            waves[name] = {"wall_s": time.perf_counter() - t0,
+                           "served": ex.stats["served"] - served,
+                           "steps": ex._step - steps,
+                           "tokens": spec["requests"] * spec["max_new"],
+                           "decoded": len(contexts),
+                           "step_ms": [dt * 1e3 for _, dt in steps_seen]}
+        later = [(n, dt) for n, dt in steps_seen[1:] if n]
+        del ex._decode_once, ex._serve_step
+        ex.close()
+    finally:
+        hvd.shutdown()
+    timed = waves["timed"]
+    own_tps = sum(n for n, _ in later) / sum(dt for _, dt in later)
+    names = ("horovod_serve_tokens_per_sec", "horovod_serve_flops_per_token",
+             "horovod_serve_mfu")
+    g = _gauges(reg, names)
+    lo = perfmodel.transformer_decode_flops(cfg, min(contexts))
+    hi = perfmodel.transformer_decode_flops(cfg, max(contexts))
+    out = {"leg": "serve", "model": "gpt_small", "dtype": "bfloat16",
+           "waves": waves, "tokens_per_s_own": own_tps,
+           "tokens_per_s_wave": timed["decoded"] / timed["wall_s"],
+           "gauges": g,
+           "tps_rel_diff": abs(g[names[0]] - own_tps) / own_tps,
+           "flops_per_token_range": [lo, hi],
+           "peak_flops": peak_bf16_flops()}
+    if timed["served"] != PERF_SERVE["requests"]:
+        problems.append(f"serve: {timed['served']} of "
+                        f"{PERF_SERVE['requests']} served")
+    if not all(v > 0.0 for v in g.values()):
+        problems.append(f"serve gauges not all set: {g}")
+    if out["tps_rel_diff"] > PERF_TPS_TOL:
+        problems.append(f"serve tokens/s gauge {g[names[0]]} is not within "
+                        f"{PERF_TPS_TOL:.0%} of the leg's {own_tps}")
+    if not lo <= g[names[1]] <= hi:
+        problems.append(f"serve FLOPs a token {g[names[1]]} outside the "
+                        f"leg's contexts' [{lo}, {hi}]")
+    if abs(g[names[2]] - g[names[0]] * g[names[1]] / out["peak_flops"]) \
+            > 1e-9 * g[names[2]]:
+        problems.append("serve MFU gauge is not tokens/s x FLOPs a token "
+                        "over the card's peak")
+    return out
+
+
+def _clis(calls: list[tuple[str, list[str]]], cwd: str
+          ) -> list[subprocess.CompletedProcess]:
+    """``python -m horovod_tpu_torch.telemetry.<tool> args`` for each
+    (tool, args), all started at once (each process spends most of its
+    time importing torch); their results in order."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    env.update(PYTHONPATH=os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH")) if p),
+        CUDA_VISIBLE_DEVICES="")
+    procs = [(subprocess.Popen(
+        [sys.executable, "-m", f"horovod_tpu_torch.telemetry.{tool}",
+         *args], env=env, cwd=cwd, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), tool, args)
+        for tool, args in calls]
+    out = []
+    for proc, tool, args in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        out.append(subprocess.CompletedProcess(proc.args, proc.returncode,
+                                               stdout, stderr))
+    return out
+
+
+def _tool(main, argv: list[str]) -> subprocess.CompletedProcess:
+    """A telemetry tool's ``main(argv)`` in this process: what its CLI
+    would return and print, without another interpreter's start."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return subprocess.CompletedProcess(argv, rc, out.getvalue(),
+                                       err.getvalue())
+
+
+def _ledger_rows_recomputed(dumps: list[str]) -> dict:
+    """(plane, op, codec, algo, bucket) -> (samples, mean busbw) from the
+    dumps' busbw histograms."""
+    cells: dict = {}
+    for path in dumps:
+        with open(path) as f:
+            snap = json.load(f)
+        for m in snap["metrics"]:
+            if m["name"] != "horovod_collective_busbw_mbps":
+                continue
+            key = tuple(m["labels"][k] for k in
+                        ("plane", "op", "codec", "algo", "size_bucket"))
+            c = cells.setdefault(key, [0, 0.0])
+            c[0] += m["count"]
+            c[1] += m["sum"]
+    return {k: (n, s / n) for k, (n, s) in cells.items() if n}
+
+
+def _perf_tools(outdir: str, n: int, problems: list[str], tag: str,
+                plane: str | None = None) -> dict:
+    """The offline tools over a world's dumps and timelines: the perf
+    CLI's ledger (its busbw rows against a recomputation from the
+    histograms), perfcheck against itself and against a copy cut by half,
+    the critical path and report's tables."""
+    from horovod_tpu_torch.telemetry.perfmodel import size_bucket
+    dumps = [os.path.join(outdir, f"dump.r{r}.json") for r in range(n)]
+    timelines = [os.path.join(outdir, "tl.json")] + [
+        os.path.join(outdir, f"tl.r{r}.json") for r in range(1, n)]
+    ledger_path = os.path.join(outdir, "PERF.json")
+    merged = os.path.join(outdir, "merged.json")
+    perf, crit = _clis([("perf", dumps + ["-o", ledger_path, "--timeline",
+                                          *timelines, "--summary"]),
+                        ("trace", timelines + ["--critical-path", "-o",
+                                               merged])], outdir)
+    out: dict = {"perf_rc": perf.returncode,
+                 "summary": perf.stderr.strip().splitlines()[:8]}
+    if perf.returncode != 0:
+        problems.append(f"{tag}: perf CLI rc {perf.returncode}: "
+                        f"{perf.stderr[-800:]}")
+        return out
+    with open(ledger_path) as f:
+        ledger = json.load(f)
+    want = _ledger_rows_recomputed(dumps)
+    rows = ledger["busbw"]
+    got = {tuple(r[k] for k in ("plane", "op", "codec", "algo",
+                                "size_bucket")): (r["samples"],
+                                                  r["busbw_mbps"])
+           for r in rows}
+    out.update(world=ledger["world"], peak_mbps=ledger["peak_mbps"],
+               rows=[{k: r[k] for k in ("plane", "op", "algo", "size_bucket",
+                                        "samples", "busbw_mbps",
+                                        "efficiency")} for r in rows],
+               lost_time=ledger.get("lost_time"), step=ledger.get("step"))
+    if not rows or got != want:
+        problems.append(f"{tag}: the ledger's busbw rows are not the "
+                        f"dumps' histograms ({len(rows)} rows)")
+    if plane is not None and not any(r["plane"] == plane for r in rows):
+        problems.append(f"{tag}: no {plane} rows in the ledger")
+    buckets = {r["size_bucket"] for r in rows}
+    for nbytes in PERF_LADDER:
+        if size_bucket(nbytes) not in buckets:
+            problems.append(f"{tag}: no {size_bucket(nbytes)} cell")
+    cut = json.loads(json.dumps(ledger))
+    for r in cut["busbw"]:
+        r["busbw_mbps"] *= 0.5
+    cut_path = os.path.join(outdir, "PERF.cut.json")
+    with open(cut_path, "w") as f:
+        json.dump(cut, f)
+    from horovod_tpu_torch.telemetry import perfcheck, report
+    ok = _tool(perfcheck.main, [ledger_path, "--baseline", ledger_path])
+    bad = _tool(perfcheck.main, [cut_path, "--baseline", ledger_path])
+    rep = _tool(report.main, [dumps[0], merged])
+    findings = json.loads(bad.stdout)["findings"] if bad.stdout else []
+    out["perfcheck"] = {"self_rc": ok.returncode, "cut_rc": bad.returncode,
+                        "cut_stderr": bad.stderr.strip()[-400:],
+                        "cut_findings": len(findings),
+                        "first_finding": findings[0] if findings else None}
+    if ok.returncode != 0 or bad.returncode != 1 or not findings:
+        problems.append(f"{tag}: perfcheck self rc {ok.returncode}, cut rc "
+                        f"{bad.returncode}, {len(findings)} findings")
+    last = crit.stdout.strip().splitlines()[-1] if crit.stdout.strip() \
+        else ""
+    out["critical_path"] = crit.stdout.strip().splitlines()[-3:]
+    if crit.returncode != 0 or not last.startswith("critical path: rank ") \
+            or ", phase " not in last:
+        problems.append(f"{tag}: trace --critical-path names no rank and "
+                        f"phase (rc {crit.returncode}): "
+                        f"{(crit.stdout + crit.stderr)[-600:]}")
+    out["report_lines"] = len(rep.stdout.splitlines())
+    if rep.returncode != 0 or "horovod_collective_busbw_mbps" \
+            not in rep.stdout or "ALLREDUCE" not in rep.stdout:
+        problems.append(f"{tag}: report rc {rep.returncode}: "
+                        f"{rep.stderr[-400:]}")
+    out["report_head"] = rep.stdout.splitlines()[:3]
+    return out
+
+
+def _perf_host_world(problems: list[str]) -> dict:
+    """(d) a launcher world of four ranks on the host planes (CUDA
+    hidden): the allreduce ladder of ``tests/torch_perfscope_worker.py``
+    under ``HOROVOD_METRICS``, ``HOROVOD_METRICS_FILE`` and
+    ``HOROVOD_TIMELINE``, then the offline tools over its files."""
+    n = PERF_HOST_RANKS
+    with tempfile.TemporaryDirectory(prefix="perfhost") as outdir:
+        t0 = time.perf_counter()
+        rc, text = _launcher_run(
+            ["-np", str(n), "-H", f"localhost:{n}", sys.executable,
+             PERF_WORKER, "cpu", ",".join(map(str, PERF_LADDER)),
+             str(PERF_LADDER_REPS)],
+            {"HOROVOD_METRICS": "1", "CUDA_VISIBLE_DEVICES": "",
+             "OMP_NUM_THREADS": "1",
+             "HOROVOD_METRICS_FILE": os.path.join(outdir, "dump.json"),
+             "HOROVOD_TIMELINE": os.path.join(outdir, "tl.json")},
+            timeout=PERF_WORLD_TIMEOUT)
+        out = {"leg": "host-world", "ranks": n, "rc": rc,
+               "world_s": time.perf_counter() - t0}
+        if rc != 0:
+            problems.append(f"host world rc {rc}: {text[-1500:]}")
+            return out
+        out.update(_perf_tools(outdir, n, problems, "host world"))
+    return out
+
+
+def perf_card_worker(outdir: str) -> int:
+    """``chip_smoke.py --perf-card-worker OUTDIR``: one rank of (e), a
+    card each, under the launcher with the metrics registry, its dump and
+    a timeline (``DYNAMIC``: started after one warm-up allreduce).  The
+    eager NCCL allreduce ladder on the rank's card, then
+    gpt_small's ``Trainer.step`` at dp=n with B=8 a card: the gauges and
+    the synchronised step times go to ``OUTDIR/perf_<rank>.json``."""
+    if not torch.cuda.is_available():
+        print("perf card worker: no CUDA device", file=sys.stderr)
+        return 3
+    import traceback
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import core, telemetry
+    hvd.init()
+    torch.cuda.set_device(hvd.local_rank())
+    rank, n = hvd.rank(), hvd.size()
+    dev = _rank_device()
+    rec = {"rank": rank, "size": n, "device": str(dev),
+           "device_plane": core.global_state().device_plane}
+    try:
+        if not rec["device_plane"]:
+            raise RuntimeError(f"rank {rank}: no device plane formed")
+        # The plane's first collective creates the NCCL communicator
+        # (hundreds of ms): one allreduce before the timeline starts, so
+        # that the ladder's spans are its own wire time.
+        t0 = time.perf_counter()
+        hvd.allreduce(torch.ones(1, device=dev), op=hvd.Sum,
+                      name="perf.warm")
+        torch.cuda.synchronize()
+        rec["warm_ms"] = (time.perf_counter() - t0) * 1e3
+        hvd.start_timeline(os.path.join(outdir, "tl.json"))
+        bad = []
+        for nbytes in PERF_LADDER:
+            x = torch.full((nbytes // 4,), float(rank + 1), device=dev)
+            for _ in range(PERF_LADDER_REPS):
+                y = hvd.allreduce(x, op=hvd.Sum, name=f"ladder.{nbytes}")
+                if not bool((y == n * (n + 1) / 2).all()):
+                    bad.append(nbytes)
+        rec["wrong_sums"] = sorted(set(bad))
+        batch = _rows(_text_batch(CARDS["batch"] * n, seed=0), rank,
+                      CARDS["batch"])
+        _, model = _cards_gpt()
+        train = cards_train(model, {"compression": "bf16"}, batch,
+                            sum(PERF_TRAIN_STEPS), warmup=PERF_TRAIN_STEPS[0])
+        reg = telemetry.metrics()
+        rec["train"] = {k: train[k] for k in ("losses", "step_ms",
+                                              "timed_step_ms_mean",
+                                              "launches_per_step")}
+        rec["gauges"] = _gauges(reg, ("horovod_train_step_flops",
+                                      "horovod_train_mfu"))
+    except BaseException:
+        rec["error"] = traceback.format_exc()[-4000:]
+        raise
+    finally:
+        with open(os.path.join(outdir, f"perf_{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        hvd.shutdown()
+    return 0
+
+
+def _nccl_wire(outdir: str, n: int) -> dict:
+    """Every rank's NCCL_* span time (and its longest span) against the
+    wire phase the critical path gives its collectives."""
+    from horovod_tpu_torch.telemetry import trace
+    paths = [os.path.join(outdir, "tl.json")] + [
+        os.path.join(outdir, f"tl.r{r}.json") for r in range(1, n)]
+    traces = trace.load(paths)
+    spans, longest = {}, {}
+    for t in traces:
+        opened, total, most = {}, 0.0, 0.0
+        for e in t.events:
+            key = (e.get("pid"), e.get("tid"))
+            if e.get("ph") == "B":
+                opened.setdefault(key, []).append(e)
+            elif e.get("ph") == "E" and opened.get(key):
+                b = opened[key].pop()
+                if b.get("name", "").startswith("NCCL_") \
+                        and (b.get("args") or {}).get("trace") is not None:
+                    total += e["ts"] - b["ts"]
+                    most = max(most, e["ts"] - b["ts"])
+        spans[t.rank] = total
+        longest[t.rank] = most
+    phases = {}
+    for ranks in trace.collective_records(traces).values():
+        for r, recd in ranks.items():
+            p = phases.setdefault(r, dict.fromkeys(trace.PHASES, 0.0))
+            for k, v in recd.phases.items():
+                p[k] += v
+    return {"nccl_span_us": spans, "nccl_span_max_us": longest,
+            "phases_us": phases}
+
+
+def _perf_cards(problems: list[str]) -> dict:
+    """(e) with four cards: the launcher's world of four ranks, one a
+    card (see the module docstring)."""
+    n = PERF_CARDS
+    with tempfile.TemporaryDirectory(prefix="perfcards") as outdir:
+        t0 = time.perf_counter()
+        rc, text = _launcher_run(
+            ["-np", str(n), "-H", f"localhost:{n}", sys.executable,
+             os.path.abspath(__file__), "--perf-card-worker", outdir],
+            {"HOROVOD_METRICS": "1",
+             "HOROVOD_METRICS_FILE": os.path.join(outdir, "dump.json"),
+             "HOROVOD_TIMELINE": "DYNAMIC"},
+            timeout=PERF_WORLD_TIMEOUT)
+        recs = []
+        for r in range(n):
+            p = os.path.join(outdir, f"perf_{r}.json")
+            recs.append(json.load(open(p)) if os.path.exists(p) else {})
+        out = {"leg": "cards", "ranks": n, "rc": rc,
+               "world_s": time.perf_counter() - t0}
+        if rc != 0:
+            problems.append("perf cards world rc {}: {}".format(
+                rc, " | ".join(r.get("error", "")[-1200:] for r in recs
+                               if r.get("error")) or text[-2000:]))
+            return out
+        peak = peak_bf16_flops()
+        from horovod_tpu_torch import gpt_small
+        from horovod_tpu_torch.telemetry import perfmodel
+        want = n * perfmodel.transformer_train_flops(gpt_small(), 8, 2048)
+        out["train"] = []
+        for r in recs:
+            g, t = r["gauges"], r["train"]
+            synced = want / (t["timed_step_ms_mean"] / 1e3) / (n * peak)
+            out["train"].append({
+                "rank": r["rank"], "step_flops": g["horovod_train_step_flops"],
+                "mfu_gauge_last": g["horovod_train_mfu"],
+                "mfu_synced": synced,
+                "timed_step_ms_mean": t["timed_step_ms_mean"],
+                "launches_per_step": t["launches_per_step"],
+                "warm_ms": r["warm_ms"], "wrong_sums": r["wrong_sums"]})
+            if g["horovod_train_step_flops"] != want:
+                problems.append(f"cards rank {r['rank']}: step FLOPs "
+                                f"{g['horovod_train_step_flops']}, not "
+                                f"{n} x the one-card count")
+            if not 0.0 < g["horovod_train_mfu"] < 1.0:
+                problems.append(f"cards rank {r['rank']}: MFU gauge "
+                                f"{g['horovod_train_mfu']}")
+            if r["wrong_sums"]:
+                problems.append(f"cards rank {r['rank']}: wrong sums")
+        out["mesh_peak_flops"] = n * peak
+        out["wire"] = _nccl_wire(outdir, n)
+        for rank, span in out["wire"]["nccl_span_us"].items():
+            wire = out["wire"]["phases_us"].get(rank, {}).get("wire", 0.0)
+            if span <= 0.0 or wire < span:
+                problems.append(f"cards rank {rank}: NCCL spans {span} us, "
+                                f"wire phase {wire} us")
+        out.update(_perf_tools(outdir, n, problems, "cards world",
+                               plane="nccl"))
+    return out
+
+
+def phase_perf() -> dict:
+    """perfscope on the card (see the module docstring): the gauges of
+    the Trainer and the replica, a host world through the offline tools,
+    and with four cards the NCCL world."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    card = _smi("--query-gpu=name,power.limit",
+                "--format=csv,noheader").splitlines()[:1]
+    torch.cuda.empty_cache()
+    legs = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        legs[name] = fn(*args, problems)
+        legs[name]["leg_s"] = time.perf_counter() - t0
+    with _metrics_on() as reg:
+        run("gpt_small", _perf_train, reg)
+        run("resnet50", _perf_resnet, reg)
+    with _metrics_on():                  # hvd.init() builds the registry
+        run("serve", _perf_serve)
+    for leg in legs.values():
+        emit({"phase": "perf", "card": card, **leg})
+    launches = legs["gpt_small"]["launches"]
+    run("host", _perf_host_world)
+    emit({"phase": "perf", **legs["host"]})
+    n = torch.cuda.device_count()
+    if n < PERF_CARDS:
+        emit({"phase": "perf", "leg": "cards",
+              "not_run": f"the machine shows {n} card(s); the leg needs "
+                         f"{PERF_CARDS}"})
+    else:
+        emit({"phase": "perf", **_perf_cards(problems)})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "perf", "leg": "summary", "seconds": seconds,
+          "card": card, "flash_launches": launches, "problems": problems})
+    fa.reset_launch_counts()
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -8193,6 +8860,8 @@ def main() -> int:
         return cards_worker(sys.argv[2], sys.argv[3])
     if len(sys.argv) > 1 and sys.argv[1] == "--shard-worker":
         return shard_worker(sys.argv[2])
+    if len(sys.argv) > 1 and sys.argv[1] == "--perf-card-worker":
+        return perf_card_worker(sys.argv[2])
     if len(sys.argv) > 1 and sys.argv[1] == "--statesync-worker":
         role, rank, size, port, outdir = sys.argv[2:7]
         return statesync_worker(role, int(rank), int(size), int(port),
@@ -8216,7 +8885,7 @@ def main() -> int:
                   "resilience": phase_resilience, "elastic": phase_elastic,
                   "parallel": phase_parallel, "fit": phase_fit,
                   "statesync": phase_statesync, "cards": phase_cards,
-                  "shard": phase_shard}
+                  "shard": phase_shard, "perf": phase_perf}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -8237,6 +8906,7 @@ def main() -> int:
     statesync = phase_statesync()
     cards = phase_cards(train)
     shard = phase_shard()
+    perf = phase_perf()
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -8250,6 +8920,7 @@ def main() -> int:
          "statesync_launches": statesync["launches"][name],
          "cards_launches": cards["launches"][name],
          "shard_launches": shard["launches"][name],
+         "perf_launches": perf["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -357,6 +357,29 @@ STRAGGLER_THRESHOLD_MS = Knob(
     "which the coordinator logs a straggler warning and sets the "
     "straggler-rank gauge.")
 
+# --- perfscope roofline accounting (telemetry/perfmodel.py) -----------------
+PERF_PEAK_MBPS = Knob(
+    "HOROVOD_PERF_PEAK_MBPS", 0.0, float,
+    "Peak per-link bus bandwidth (MB/s) the perfscope roofline divides "
+    "measured busbw by.  0 = self-calibrate: the best measured (plane, "
+    "algo, codec, size-bucket) cell in the ledger window is the "
+    "roofline.")
+PERF_PEAK_FLOPS = Knob(
+    "HOROVOD_PERF_PEAK_FLOPS", 0.0, float,
+    "Peak dense FLOP/s of one card, the MFU gauges' denominator.  0 = "
+    "the table of NVIDIA cards in telemetry/perfmodel.py, with a nominal "
+    "1e12 for unknown kinds (the CPU).")
+PERF_TOLERANCE_PCT = Knob(
+    "HOROVOD_PERF_TOLERANCE_PCT", 10.0, float,
+    "Regression-gate tolerance: telemetry.perfcheck fails (exit 1, "
+    "structured finding) when a (plane, op, size-bucket) busbw cell or "
+    "the MFU drops more than this percentage below the baseline "
+    "ledger.")
+PERF_MIN_SAMPLES = Knob(
+    "HOROVOD_PERF_MIN_SAMPLES", 1, int,
+    "Observations a (plane, op, codec, algo, size-bucket) cell needs "
+    "before the perf ledger includes it.")
+
 # --- Flight recorder (telemetry/flight.py) ----------------------------------
 FLIGHT = Knob(
     "HOROVOD_FLIGHT", True, _parse_bool,

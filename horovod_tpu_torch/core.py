@@ -1089,6 +1089,15 @@ def _observe_collective(tm, response: Response, plane: str, stream: int,
             "rank's data planes")
         if busbw > peak.value:
             peak.set(busbw)
+        roof = float(config.PERF_PEAK_MBPS.get()) or peak.value
+        tm.gauge(
+            "horovod_collective_efficiency",
+            "Roofline-relative bus-bandwidth efficiency of the most "
+            "recent collective in each (plane, algo, size-bucket) cell: "
+            "busbw / peak (HOROVOD_PERF_PEAK_MBPS, else the "
+            "self-calibrated peak gauge)",
+            labels={"plane": plane, "algo": algo, "size_bucket": bucket}
+        ).set(busbw / roof if roof > 0.0 else 0.0)
 
 
 def _card_of(st: GlobalState, response: Response,

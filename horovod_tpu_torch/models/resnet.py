@@ -144,6 +144,10 @@ class ResNet(nn.Module):
                        device=dev)
         self.dtype, self.act, self.stem = dtype, act, stem
         self.axis_name = axis_name
+        # The stage plan, as the reference's fields hold it (the FLOP
+        # count of telemetry/perfmodel.py walks it).
+        self.stage_sizes = tuple(stage_sizes)
+        self.block_cls, self.num_filters = block_cls, num_filters
         if stem == "space_to_depth":
             self.conv_init = conv(12, num_filters, (4, 4),
                                   padding=[(2, 1), (2, 1)])

@@ -61,6 +61,9 @@ class VGG(nn.Module):
         self.convs = add_named(self, "Conv", convs)
         self.norms = add_named(self, "BatchNorm", norms)
         self.stages = [n for n, _ in stages]
+        # The (convs, filters) plan, the reference's ``stages`` (the FLOP
+        # count of telemetry/perfmodel.py walks it).
+        self.stage_plan = tuple((n, f) for n, f in stages)
         dense = [Dense(size * size * width, 4096, dtype, torch.float32, dev,
                        bias=True),
                  Dense(4096, 4096, dtype, torch.float32, dev, bias=True)]

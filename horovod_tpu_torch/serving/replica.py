@@ -59,9 +59,13 @@ table and cursor arrays live on the host as numpy, as in the reference:
 a decode step copies each to the device once and reads the step's argmax
 back once.
 
+Under ``HOROVOD_METRICS=on`` each decode step folds its accepted tokens
+into the serve gauges (``_note_perf``): tokens/s (an EMA), FLOPs a token
+at the step's mean KV context, and their product over the peak of the
+replica's card (serve MFU).
+
 Not ported (ROADMAP queue A item 12): fleet weight swaps
-(``attach_fleet`` raises ``NotImplementedError``) and the serve MFU
-gauges (``_note_perf``).
+(``attach_fleet`` raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -213,6 +217,10 @@ class ReplicaExecutor:
         self.prefilled: set[int] = set()
         # Completions not yet acknowledged by an exchange.
         self._unreported: list[dict] = []
+        # The serve gauges (telemetry/perfmodel.py): smoothed accepted
+        # tokens/s and the card's peak for the serve MFU.
+        self._perf_tps = 0.0
+        self._peak_flops: float | None = None
         self.stats = {"offered": 0, "expired": 0, "served": 0,
                       "served_slo": 0, "lost": 0,
                       "latencies_ms": [], "completed_at": [],
@@ -833,6 +841,30 @@ class ReplicaExecutor:
             "fleet weight deployment (attach_fleet) is ROADMAP queue A "
             "item 12")
 
+    def _note_perf(self, tokens: int, ctx_sum: int, dt_s: float) -> None:
+        """Fold one decode step into the serve gauges: accepted tokens/s,
+        FLOPs a token at the step's mean KV context, and their product
+        over the card's peak (serve MFU)."""
+        from ..telemetry import metrics as telemetry_metrics
+        tm = telemetry_metrics()
+        if not tm.enabled or tokens <= 0 or dt_s <= 0.0:
+            return
+        from ..telemetry import perfmodel
+        if self._peak_flops is None:
+            self._peak_flops = perfmodel.peak_flops(
+                perfmodel.device_kind(self.device))
+        tps = tokens / dt_s
+        # An EMA over steps: a serve step is milliseconds, and the raw
+        # rate of one step swings with the batch's occupancy.
+        self._perf_tps = tps if self._perf_tps <= 0.0 \
+            else 0.8 * self._perf_tps + 0.2 * tps
+        flops_per_token = perfmodel.transformer_decode_flops(
+            self.model.cfg, ctx_sum / tokens)
+        tm.gauge("horovod_serve_tokens_per_sec").set(self._perf_tps)
+        tm.gauge("horovod_serve_flops_per_token").set(flops_per_token)
+        tm.gauge("horovod_serve_mfu").set(
+            self._perf_tps * flops_per_token / self._peak_flops)
+
     # -- the loop --------------------------------------------------------
     def _serve_step(self) -> bool:
         t0 = time.monotonic()
@@ -842,15 +874,22 @@ class ReplicaExecutor:
         if plan.stop:
             return False
         self._apply_plan(plan)
+        decoded = ctx_sum = 0
         if not self.is_prefill:
             if self.cfg.paged and self.prefill_rank_list:
                 self._integrate_prefills()
             self._decode_once()
+            for s in self.slots:
+                if s is not None and s.pending is None:
+                    decoded += 1
+                    ctx_sum += s.seq_len
             self._collect_completions()
         self._account(self._exchange_completions())
         if self.statesync is not None:
             self._statesync_boundary()
-        self.admission.observe_step_ms((time.monotonic() - t0) * 1e3)
+        dt = time.monotonic() - t0
+        self.admission.observe_step_ms(dt * 1e3)
+        self._note_perf(decoded, ctx_sum, dt)
         return True
 
     def serve_loop(self, *, stop_when=None, max_steps: int | None = None,

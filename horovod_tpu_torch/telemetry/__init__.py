@@ -14,11 +14,18 @@ of ``horovod_tpu/telemetry/__init__.py``.
   negotiation-skew statistics naming the slowest rank.
 - :mod:`.flight` — the always-on failure flight recorder
   (``HOROVOD_FLIGHT``).
+- :mod:`.perfmodel` — perfscope: the roofline cost model, the FLOP counts
+  and the card peak table behind the MFU gauges of ``Trainer`` and the
+  serving replica, and the busbw/MFU ledger :func:`summary` stamps.
+- the offline tools, each ``python -m horovod_tpu_torch.telemetry.<tool>``:
+  ``report`` (tables of a metrics dump or a timeline), ``trace`` (the
+  cross-rank merge of timelines and the critical path), ``perf`` (rank
+  dumps merged into the PERF.json ledger) and ``perfcheck`` (the
+  regression gate over ledgers); :mod:`.catalog` lists the metric names
+  the package can register.
 
 Serving builds its own :class:`MetricsRegistry` objects, whatever
-``HOROVOD_METRICS`` says.  The reference's offline tools (``report``,
-``trace``, ``perf``, ``perfcheck``) and the MFU half of ``perfmodel`` are
-ROADMAP queue A item 12; so :func:`summary` carries no ``perf`` stamp.
+``HOROVOD_METRICS`` says.
 """
 from __future__ import annotations
 
@@ -62,7 +69,8 @@ def metrics():
 
 def summary() -> dict:
     """Compact end-of-run digest: total wire bytes, response-cache hit
-    rate, and per-stream busy time."""
+    rate, per-stream busy time, and the perf ledger (``perf``) when there
+    is one."""
     reg = metrics()
     if not reg.enabled:
         return {}
@@ -103,4 +111,10 @@ def summary() -> dict:
         out["stream_utilization"] = {
             s: (v / total if total else 0.0)
             for s, v in sorted(streams.items())}
+    # The one-rank busbw/MFU ledger, whenever the registry holds busbw
+    # or step evidence.
+    from . import perfmodel
+    ledger = perfmodel.build_ledger([reg.snapshot()])
+    if ledger.get("busbw") or ledger.get("step"):
+        out["perf"] = ledger
     return out

@@ -104,6 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Callable, Sequence
 
 import torch
@@ -279,6 +280,14 @@ class Trainer:
                 collectives.world_size(self._metric_groups), self.sync)
         self.param_rules = param_rules
         self._sharded: ShardedParams | None = None
+        # The MFU gauges (telemetry/perfmodel.py): the FLOPs of the batch
+        # the whole mesh consumes in one step, resolved from the first
+        # batch's shape, over the peak of the mesh's cards, timed from one
+        # step's return to the next (a wait for the card here would stall
+        # the queue the step leaves behind).
+        self._step_flops: float | None = None
+        self._peak_flops: float | None = None
+        self._last_step: float | None = None
         # Chunks the model computes on as they are (pure-GSPMD): name ->
         # (groups summed over, divisor).
         self._direct: dict[str, tuple[list, int]] = {}
@@ -504,7 +513,47 @@ class Trainer:
             metrics["accuracy"] = allreduce(acc, "average",
                                             self._metric_groups)
         state.step += 1
+        self._note_step(batch)
         return state, metrics
+
+    def _mesh_shape(self, x) -> list[int]:
+        """The shape of the input the whole mesh consumes in one step: each
+        local dim times the sizes of the mesh axes ``batch_spec`` names on
+        it (dp and fsdp grow the batch, sp the sequence; tp and ep repeat
+        it)."""
+        shape = [int(n) for n in x.shape]
+        for dim, entry in enumerate(self.batch_spec[:len(shape)]):
+            for axis in entry_axes(entry):
+                shape[dim] *= axis_size(self.mesh, axis)
+        return shape
+
+    def _note_step(self, batch: dict) -> None:
+        """Fold one step into the MFU gauges under ``HOROVOD_METRICS=on``.
+        The first call only arms the clock."""
+        from .telemetry import metrics as telemetry_metrics
+        tm = telemetry_metrics()
+        if not tm.enabled:
+            return
+        from .telemetry import perfmodel
+        now = time.monotonic()
+        prev, self._last_step = self._last_step, now
+        if self._step_flops is None:
+            shape = self._mesh_shape(_model_input(batch))
+            ndim = len(shape)
+            self._step_flops = perfmodel.model_step_flops(
+                self.model, shape[0] if ndim else 1,
+                seq=shape[1] if ndim == 2 else 0,
+                image_size=shape[1] if ndim == 4 else 224, train=True)
+            tm.gauge("horovod_train_step_flops").set(self._step_flops)
+        if self._peak_flops is None:
+            self._peak_flops = perfmodel.peak_flops(
+                perfmodel.device_kind(self.device)) * self.mesh.size
+        if prev is None:
+            return
+        dt = now - prev
+        tm.histogram("horovod_train_step_ms").observe(dt * 1e3)
+        tm.gauge("horovod_train_mfu").set(
+            perfmodel.mfu(self._step_flops, dt, self._peak_flops))
 
     def fit(self, state: TrainState, data, epochs: int = 1,
             callbacks: Sequence = (), steps_per_epoch: int | None = None):

@@ -33,6 +33,8 @@ for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
             "torch.optimizer", "torch.functions", "torch.compression",
             "torch.sync_batch_norm", "telemetry", "telemetry.exporter",
             "telemetry.flight", "telemetry.straggler", "telemetry.perfmodel",
+            "telemetry.report", "telemetry.trace", "telemetry.perf",
+            "telemetry.perfcheck", "telemetry.catalog",
             "analysis.fingerprint", "common.parameter_manager",
             "common.optim.gaussian_process",
             "common.optim.bayesian_optimization", "resilience",

@@ -38,7 +38,9 @@ configurations (each evaluated with ``eval_step`` after its steps):
 
 The states of ``tp-manual`` and ``fsdp-ckpt`` are checkpointed and
 restored at ``dp=4`` and resharded onto the other leg's layout, and
-``tp-manual``'s Trainer runs ``fit`` under ``BestModelCheckpoint``.
+``tp-manual``'s Trainer runs ``fit`` under ``BestModelCheckpoint``.  The
+world runs under ``HOROVOD_METRICS=on``, and each leg's MFU gauges count
+the batch the whole mesh consumes over the peak of its four ranks.
 
 Limits: losses within 1e-5 relative and the gathered parameters within
 1e-5 max abs of the JAX run's (under AdamW on all but isolated elements,
@@ -82,6 +84,7 @@ from horovod_tpu_torch import convert
 from horovod_tpu_torch.models import resnet as tres
 from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.parallel.sharding import ShardingRules
+from horovod_tpu_torch.telemetry import perfmodel as tperf
 from torch_cnn_util import random_variables
 
 REPO = Path(__file__).resolve().parent.parent
@@ -311,7 +314,8 @@ def _start(tmp_path, jobs, arrays):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(REPO), env.get("PYTHONPATH")) if p)
-    env.update(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    env.update(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+               HOROVOD_METRICS="on")
     return [subprocess.Popen(
         [sys.executable, str(WORKER), str(r), str(WORLD),
          str(tmp_path / "store"), str(tmp_path / "inputs.npz"),
@@ -483,3 +487,30 @@ def test_fit_saves_a_sharded_state_on_every_rank(world):
 def test_gather_params_inverts_shard_params(world):
     _, results, _ = world
     assert [int(r["gather/roundtrip"]) for r in results] == [1] * WORLD
+
+
+def _mesh_batch_flops(leg) -> float:
+    """The FLOPs of one step on the leg's whole global batch."""
+    if LEGS[leg]["model"] == "resnet":
+        return 3.0 * 8 * tperf.resnet_forward_flops((1, 1), True, 8, 16)
+    return tperf.transformer_train_flops(
+        ttr.gpt_tiny(**LEGS[leg].get("model_kw", {})), B, T)
+
+
+@pytest.mark.parametrize("leg", ("tp-manual", "tp-gspmd", "tp-gspmd-flash",
+                                 "fsdp-manual", "moe-gspmd", "resnet-head"))
+def test_mfu_gauges_count_the_mesh_batch(world, leg):
+    """``horovod_train_step_flops`` is the count of the global batch on
+    every rank, whether tp repeats it (tp-gspmd: B rows a rank), dp splits
+    it (dp x tp: B/2) or fsdp or dp x ep do (B/4); the peak is one CPU's
+    nominal 1e12 times the mesh's 4 ranks, and the MFU gauge is the count
+    over the step time it was read from and that peak."""
+    j, _, results, _ = _leg(world, leg)
+    want = _mesh_batch_flops(leg)
+    for r in results:
+        flops, peak, mfu, step_ms = r[f"{j}/perf"]
+        assert flops == want
+        assert peak == tperf.NOMINAL_PEAK_FLOPS * WORLD
+        assert step_ms > 0.0
+        assert mfu == pytest.approx(flops / (step_ms / 1e3) / peak,
+                                    rel=1e-9)

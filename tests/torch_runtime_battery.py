@@ -53,10 +53,9 @@ TIMED = ("stream_bytes", "metric_stream_labels", "tuned", "tuner",
 _TUNED_FIELDS = ("tuned_fusion_threshold", "tuned_cycle_time_ms",
                  "tuned_codec", "tuned_segment_bytes", "tuned_num_streams",
                  "tuned_fused", "tuned_algo", "tuned_tree_threshold")
-# Metrics the reference has and the port leaves for ROADMAP item 12: the
-# efficiency gauge divides by HOROVOD_PERF_PEAK_MBPS, a knob of the perf
-# model.
-REF_ONLY_METRICS = ("horovod_collective_efficiency",)
+# Metrics the reference has and the port does not: none since the port
+# sets the roofline efficiency gauge too.
+REF_ONLY_METRICS: tuple[str, ...] = ()
 AUTOTUNE_OPS = 48
 AUTOTUNE_N = 3001
 

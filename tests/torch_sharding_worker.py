@@ -33,6 +33,11 @@ layout) and the global batch ``inputs``/``labels`` (token rows) or
   ``fit/restored`` (that checkpoint restored at ``dp=4`` without rules
   is the fitted state bit for bit).
 
+The world runs under ``HOROVOD_METRICS=on``: each job's ``perf`` holds
+the Trainer's ``horovod_train_step_flops`` gauge after its steps, the
+peak it divides by, ``horovod_train_mfu`` and the one step time that
+MFU was read from (ms, the ``horovod_train_step_ms`` histogram's growth).
+
 After the jobs, ``gather/roundtrip``: ``gather_params`` of this rank's
 ``shard_params`` chunks of a flax-shaped tree (gpt_tiny's, drawn from
 seed 0) over a ``dp=2, tp=2`` mesh with the strided table of
@@ -50,7 +55,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch import GradSyncConfig, Trainer, build_mesh, convert
+from horovod_tpu_torch import (GradSyncConfig, Trainer, build_mesh, convert,
+                               telemetry)
 from horovod_tpu_torch.callbacks import BestModelCheckpoint
 from horovod_tpu_torch.checkpoint import (restore_checkpoint,
                                           save_checkpoint,
@@ -131,6 +137,20 @@ def _run(job, j, data, rules):
     # last step.
     losses.append(float(trainer.eval_step(state, batch)["loss"]))
     return trainer, state, losses
+
+
+def _step_ms_sum() -> float:
+    return telemetry.metrics().histogram("horovod_train_step_ms").sum
+
+
+def _perf(trainer, ms_before: float) -> torch.Tensor:
+    """The MFU gauges of the job just run: step FLOPs, the peak the
+    Trainer divides by, MFU, and the step time (ms) it was read from."""
+    tm = telemetry.metrics()
+    return torch.tensor([tm.gauge("horovod_train_step_flops").value,
+                         trainer._peak_flops,
+                         tm.gauge("horovod_train_mfu").value,
+                         _step_ms_sum() - ms_before], dtype=torch.float64)
 
 
 def _bytes(state) -> list[int]:
@@ -248,9 +268,11 @@ def main(rank: int, world: int, store: str, inputs: str, out: str) -> None:
     try:
         result = {}
         for j, job in enumerate(jobs):
-            _, state, losses = _run(job, j, data, job["rules"])
+            ms_before = _step_ms_sum()
+            trainer, state, losses = _run(job, j, data, job["rules"])
             found = {"losses": torch.tensor(losses, dtype=torch.float64),
-                     "bytes": torch.tensor(_bytes(state))}
+                     "bytes": torch.tensor(_bytes(state)),
+                     "perf": _perf(trainer, ms_before)}
             for name, p in state.model.state_dict().items():
                 found[f"state/{name}"] = p
             if job.get("twin"):
