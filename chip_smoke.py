@@ -461,6 +461,40 @@ Phases, each printed as one JSON object on its own line:
    critical path, and the four dumps' ledger with ``nccl`` rows.  On fewer cards
    its line says "not run".  The kernels line's ``perf_launches`` are
    (a)'s.
+21. controlplane: the rendezvous that survives its coordinator, last.
+   Each replica pair is a primary as its own process (``python -m
+   horovod_tpu_torch.runner.controlplane``, the chaos target) and a
+   standby in this process over one WAL directory (the temporary
+   directory when a block device holds it, else the checkout; the line
+   names the mount), lease 500 ms.  (a) gpt_small (B=8, four rows a
+   rank, T=2048, bf16, AdamW) in a world of two ranks on card 0
+   (``--cp-worker``) that dials the seed list, with heartbeats
+   (``HOROVOD_FAULT_TOLERANCE``) and a statesync service's membership
+   watcher (a world of one would run neither), the gradients averaged
+   through bf16 host copies (two ranks on one card form no device plane)
+   over the shm plane with a 512 MiB region when ``/dev/shm`` holds it; ``HOROVOD_CHAOS=coordkill:name=ss.grads.2`` SIGKILLs the
+   primary at step 3's exchange, beside an unbroken world of the same
+   seed: 0 failed steps, losses and parameters bitwise the unbroken
+   world's, kill to promotion, the longest step against the median, the
+   standby's ``horovod_rendezvous_*`` counters, its ``kv_digest()``
+   equal to ``replay_state`` of the log, 12 launches of each flash
+   kernel a step.  (b) At the same time, ``coordpause`` through the
+   port's chaos engine stops another primary for 2 s: the standby
+   promotes, the resumed primary demotes and answers 409 naming it, no
+   acknowledged write is lost.  (e) Also at the same time,
+   ``horovodrun-tpu-torch --use-mpi -np 1`` through a stub ``mpirun``
+   (``OMPI_COMM_WORLD_*``) starts the elastic phase's static worker
+   (B=8): the identity adopted from those and the exported layout,
+   launch to the first step.  (c) Then the WAL's cost: 64 stamps in one
+   ``put_many``, 64 writer threads of 8 puts at once (each batch's fsync
+   timed), a put's latency against the in-memory server.  (d)
+   With four cards (``--phases controlplane-cards`` runs it alone):
+   three gpt_small ranks on cards 0-2 over the NCCL plane and the
+   replica set, the primary SIGKILLed at their second exchange, then a
+   joiner on card 3 grows the world 3 -> 4 through the promoted standby
+   (the statesync phase's roles, ``cp3``); parameters equal on every
+   rank, the digest the log's.  On fewer cards its line says "not run".
+   The kernels line's ``controlplane_launches`` are (a)'s rank 0's.
 
 A line ``{"phase": "total"}`` gives the script's wall time, a line
 ``{"kernels": [...]}`` sums up the kernels, and the last line is
@@ -484,6 +518,7 @@ import math
 import os
 import random
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -4152,11 +4187,13 @@ def _launch_static(outdir: str) -> dict:
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.training import cross_entropy_loss
 
+    rank_before_init = os.environ.get("HOROVOD_RANK")
     hvd.init()
     launcher_env = {k: os.environ.get(k) for k in (
         "HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
         "HOROVOD_HOSTNAME", "HOROVOD_HOST_IDS",
-        "HOROVOD_GLOO_RENDEZVOUS_ADDR")}
+        "HOROVOD_GLOO_RENDEZVOUS_ADDR", "HOROVOD_JSRUN_HOSTS",
+        "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE")}
     try:
         cfg, model, opt = _gpt_user_setup(hvd)
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
@@ -4180,7 +4217,9 @@ def _launch_static(outdir: str) -> dict:
                 t_first = time.time()
         launches = fa.launch_counts()            # ... and ends
         return {"rank": hvd.rank(), "size": hvd.size(),
-                "launcher_env": launcher_env, "t_first_step": t_first,
+                "launcher_env": launcher_env,
+                "rank_env_before_init": rank_before_init,
+                "t_first_step": t_first,
                 "losses": losses, "step_ms": step_ms, "steps": steps,
                 "launches": launches}
     finally:
@@ -5453,7 +5492,15 @@ def _ss_env(role: str, outdir: str) -> dict:
            "HOROVOD_FLIGHT_EVENTS": str(1 << 16),
            "HOROVOD_STATESYNC_TIMEOUT_SECONDS": "120",
            "HOROVOD_GLOO_TIMEOUT_SECONDS": "120"}
-    if role.startswith("train2"):
+    if role.startswith("cp3"):
+        # The control-plane phase's grow 3 -> 4 over the replica set: the
+        # rendezvous primary killed at the incumbents' second exchange.
+        env.update(HOROVOD_FAULT_TOLERANCE="1",
+                   HOROVOD_FAULT_TIMEOUT=str(SS_FAULT_TIMEOUT),
+                   HOROVOD_RENDEZVOUS_EPOCH="cpgrow")
+        if role == "cp3":
+            env["HOROVOD_CHAOS"] = CP_CARDS_KILL
+    elif role.startswith("train2"):
         # The grow 2 -> 3 of the cards phase: no preemption.
         env.update(HOROVOD_FAULT_TOLERANCE="1",
                    HOROVOD_FAULT_TIMEOUT=str(SS_FAULT_TIMEOUT),
@@ -5483,11 +5530,13 @@ def _ss_train_state(seed: int):
     return TrainState(step=0, model=model, optimizer=opt)
 
 
-def _ss_train_step(hvd, core, state, batch) -> dict:
+def _ss_train_step(hvd, core, state, batch,
+                   host_dtype: torch.dtype | None = None) -> dict:
     """One step of the user loop: forward, backward, the gradients
     averaged through ``hvd`` (on the card where the core has a plane on
     it, a world of one; else host copies over the TCP ring, the API's
-    rule for CUDA tensors in a world of ranks sharing a card), AdamW."""
+    rule for CUDA tensors in a world of ranks sharing a card, cast to
+    ``host_dtype`` on the card first when it is given), AdamW."""
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.training import cross_entropy_loss
     model, opt = state.model, state.optimizer
@@ -5505,7 +5554,7 @@ def _ss_train_step(hvd, core, state, batch) -> dict:
         for g, o in zip(grads, outs):
             g.copy_(o)
     else:
-        host = [g.detach().cpu() for g in grads]
+        host = [g.detach().to(host_dtype or g.dtype).cpu() for g in grads]
         outs = hvd.grouped_allreduce(host, op=hvd.Average, name=name)
         for g, o in zip(grads, outs):
             g.copy_(o, non_blocking=True)
@@ -5548,7 +5597,8 @@ def _ss_train_rank(role: str, port: int, outdir: str) -> dict:
     from horovod_tpu_torch.runner.network import RendezvousClient
     from horovod_tpu_torch.statesync import service as ss_service
     from horovod_tpu_torch.telemetry import flight
-    kv = RendezvousClient("127.0.0.1", port, 120.0)
+    kv = RendezvousClient(os.environ["HOROVOD_GLOO_RENDEZVOUS_ADDR"], port,
+                          120.0)
     rec: dict = {"role": role, "steps": [], "boundary_ms": [],
                  "digests": [], "snapshots": []}
 
@@ -5562,7 +5612,7 @@ def _ss_train_rank(role: str, port: int, outdir: str) -> dict:
                  "bytes": len(self.data), "step": self.stamp.step})
     ss_service.Snapshot = TimedSnapshot
     joiner = role.endswith("joiner")
-    two = role.startswith("train2")
+    two = role.startswith(("train2", "cp3"))
     state = _ss_train_state(seed=1 if joiner else 0)
     rank_seed = 1 if joiner else 0
     batch = synthetic_text_batch(8, 2048, state.model.cfg.vocab_size,
@@ -5822,12 +5872,13 @@ def statesync_worker(role: str, rank: int, size: int, port: int,
         torch.cuda.set_device(int(os.environ["CHIP_SMOKE_CARD"]))
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    os.environ.update(HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+    os.environ.update(HOROVOD_GLOO_RENDEZVOUS_ADDR=os.environ.get(
+                          "CHIP_SMOKE_SEEDS", "127.0.0.1"),
                       HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
                       **_ss_env(role, outdir))
     if not role.endswith("joiner"):
         os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size))
-    if role.startswith("train"):
+    if role.startswith(("train", "cp3")):
         rec = _ss_train_rank(role, port, outdir)
     elif role.startswith("serve"):
         rec = _ss_serve_rank(role, rank, port, outdir)
@@ -5838,16 +5889,24 @@ def statesync_worker(role: str, rank: int, size: int, port: int,
     return 0
 
 
-def _ss_world(jobs: list[tuple], outdir: str) -> list[dict]:
+def _ss_world(jobs: list[tuple], outdir: str,
+              seeds: list[str] | None = None) -> list[dict]:
     """Start every (role, rank, size) process at once against one
-    RendezvousServer, each with the cards visible (a fourth element: the
-    card the process makes current); wait for all within
-    SS_WORLD_TIMEOUT and return their records."""
+    RendezvousServer (or the replica set of the ``seeds`` list), each
+    with the cards visible (a fourth element: the card the process makes
+    current); wait for all within SS_WORLD_TIMEOUT and return their
+    records."""
     from horovod_tpu_torch.runner.network import RendezvousServer
-    server = RendezvousServer()
-    port = server.start()
+    server = None
+    if seeds is None:
+        server = RendezvousServer()
+        port = server.start()
+    else:
+        port = int(seeds[0].rsplit(":", 1)[1])
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("HOROVOD_")}
+    if seeds is not None:
+        env["CHIP_SMOKE_SEEDS"] = ",".join(seeds)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--statesync-worker",
          role, str(rank), str(size), str(port), outdir],
@@ -5872,7 +5931,8 @@ def _ss_world(jobs: list[tuple], outdir: str) -> list[dict]:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-        server.stop()
+        if server is not None:
+            server.stop()
     if failures:
         raise RuntimeError("statesync world: " + "; ".join(failures))
     out = []
@@ -8843,6 +8903,800 @@ def phase_perf() -> dict:
     return {"seconds": seconds, "launches": launches}
 
 
+# The control-plane phase: the lease of every replica pair, the gpt_small
+# world's steps (the kill fires at the exchange of step CP_KILL_STEP), its
+# fault timeout (heartbeats every eighth of it), the coordpause's length,
+# the WAL legs' writers and puts, and leg (d)'s kill (the incumbents'
+# second exchange, before the joiner is let in).
+CP_LEASE_MS = 500.0
+CP_STEPS = 5
+CP_KILL_STEP = 3
+CP_KILL = f"coordkill:name=ss.grads.{CP_KILL_STEP - 1}"
+CP_FAULT_TIMEOUT = 20.0
+# The shared-memory plane's region for (a)'s exchange: gpt_small's
+# gradients in bf16 (381 MB) in one fused response; the default 64 MiB
+# region sends them over the TCP ring, several seconds a step.
+CP_SHM_CAPACITY = 512 << 20
+CP_PAUSE_MS = 2000
+CP_WRITERS = 64
+CP_WRITER_PUTS = 8
+CP_PUTS = 200
+CP_WORLD_TIMEOUT = 300.0
+CP_CARDS = 4
+CP_CARDS_KILL = "coordkill:name=ss.grads.1"
+MPIRUN_STUB = '''#!/usr/bin/env python3
+import os, subprocess, sys
+argv = sys.argv[1:]
+if argv and argv[0] == "--version":
+    print("Open MPI 4.1.0"); sys.exit(0)
+arity = {"-np": 1, "-H": 1, "-bind-to": 1, "-map-by": 1, "-mca": 2,
+         "-x": 1, "--allow-run-as-root": 0}
+np = 1; i = 0
+while i < len(argv):
+    if argv[i] in arity:
+        if argv[i] == "-np":
+            np = int(argv[i + 1])
+        i += 1 + arity[argv[i]]
+    else:
+        break
+procs = []
+for r in range(np):
+    env = dict(os.environ)
+    env["OMPI_COMM_WORLD_RANK"] = str(r)
+    env["OMPI_COMM_WORLD_SIZE"] = str(np)
+    procs.append(subprocess.Popen(argv[i:], env=env))
+sys.exit(max(p.wait() for p in procs))
+'''
+
+
+def _package_root() -> str:
+    """The checkout that holds ``horovod_tpu_torch``."""
+    import horovod_tpu_torch
+    return os.path.dirname(os.path.dirname(os.path.abspath(
+        horovod_tpu_torch.__file__)))
+
+
+def _wal_parent() -> str:
+    """Where the phase puts its logs: the temporary directory when a
+    block device holds it, else the checkout; never a tmpfs when either
+    is on a disk (the WAL's fsync is what leg (c) measures)."""
+    tmp, checkout = tempfile.gettempdir(), _package_root()
+    disk = _disk_of(tmp)
+    if disk["device"] and disk["device"].startswith("/dev/") and \
+            disk["fstype"] not in ("tmpfs", "ramfs"):
+        return tmp
+    return checkout
+
+
+def _disk_of(path: str) -> dict:
+    """The mount that holds ``path``: device, mount point, file system
+    (the longest mount point of ``/proc/mounts`` that prefixes it)."""
+    path = os.path.realpath(path)
+    best = {"device": None, "mount": "", "fstype": None}
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best["mount"]):
+                best = {"device": dev, "mount": mnt, "fstype": fstype}
+    return best
+
+
+class _Replicas:
+    """One rendezvous primary as its own process (``python -m
+    horovod_tpu_torch.runner.controlplane``, the chaos target) and one
+    standby in this process over the same WAL directory; a thread stamps
+    the primary's death and the standby's promotion on the wall clock.
+    The primary is spawned at construction and the standby built by
+    ``start`` (the primary's imports, seconds, overlap across pairs; the
+    standby's metrics go to the registry of the time ``start`` runs)."""
+
+    def __init__(self, wal_dir: str, lease_ms: float = CP_LEASE_MS):
+        here = _package_root()
+        self.wal_dir = wal_dir
+        self.lease_ms = lease_ms
+        self.ports = [_free_port(), _free_port()]
+        self.seeds = [f"127.0.0.1:{p}" for p in self.ports]
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.runner.controlplane",
+             "--port", str(self.ports[0]), "--wal-dir", wal_dir,
+             "--replica-id", "0", "--endpoints", ",".join(self.seeds),
+             "--lease-ms", str(lease_ms)],
+            cwd=here, env=dict(os.environ, PYTHONPATH=here),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.standby = None
+        self.t_dead = self.t_promoted = None
+        self._stop = threading.Event()
+        self._watch = threading.Thread(target=self._stamp, daemon=True)
+
+    def start(self) -> "_Replicas":
+        from horovod_tpu_torch.runner.network import RendezvousServer
+        ready = self.proc.stdout.readline()
+        if ready != f"READY {self.ports[0]} {self.proc.pid}\n":
+            self.proc.kill()
+            raise RuntimeError(f"the primary did not start: {ready!r} "
+                               f"{self.proc.stdout.read()[-2000:]}")
+        # Drained, so that the primary's log lines never fill the pipe.
+        threading.Thread(target=self.proc.stdout.read, daemon=True).start()
+        self.standby = RendezvousServer(
+            port=self.ports[1], wal_dir=self.wal_dir, replica_id=1,
+            endpoints=self.seeds, lease_ms=self.lease_ms, standby=True)
+        self.standby.start()
+        self._watch.start()
+        return self
+
+    def _stamp(self) -> None:
+        cp = self.standby.controlplane
+        while not self._stop.wait(0.002):
+            if self.t_dead is None and self.proc.poll() is not None:
+                self.t_dead = time.time()
+            if self.t_promoted is None and cp.role == "primary":
+                self.t_promoted = time.time()
+
+    def digest_is_the_log(self) -> dict:
+        """The standby's live digest against a replay of the log, once
+        the writers are done.  A standby that is still a standby mirrors
+        the tail a poll behind: it gets 3 s to catch up."""
+        from horovod_tpu_torch.runner import controlplane
+        t0 = time.perf_counter()
+        while True:
+            state = controlplane.replay_state(
+                controlplane.wal_path(self.wal_dir))
+            live = self.standby.kv_digest()
+            if live == state["digest"] or time.perf_counter() - t0 > 3.0:
+                break
+            time.sleep(0.05)
+        return {"live": live, "replay": state["digest"],
+                "equal": live == state["digest"],
+                "wait_ms": (time.perf_counter() - t0) * 1e3,
+                "epoch": state["epoch"], "leader_id": state["leader_id"]}
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._watch.is_alive():
+            self._watch.join(timeout=5.0)
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=10)
+        if self.standby is not None:
+            self.standby.stop()
+
+
+def _cp_counters(reg) -> dict:
+    """This process's control-plane counters (both standbys of leg (a)
+    and (b)'s replicas count into them) and the role gauge by replica."""
+    out = {}
+    for e in reg.snapshot()["metrics"]:
+        if e["name"] in ("horovod_rendezvous_wal_records_total",
+                         "horovod_rendezvous_wal_commit_batches_total",
+                         "horovod_rendezvous_failovers_total"):
+            out[e["name"]] = out.get(e["name"], 0) + e["value"]
+    return out
+
+
+def cp_worker(rank: int, seeds: str, outdir: str) -> int:
+    """``chip_smoke.py --cp-worker RANK SEEDS OUTDIR``: one rank of leg
+    (a)'s world of two on card 0 over the seed list, heartbeats and the
+    statesync membership watcher on: gpt_small as the statesync phase's
+    user loop trains it (``_ss_train_step``: the train phase's batch of
+    B=8, four rows a rank), a step boundary after each step, then the
+    state's digest on both ranks.  Its record goes to
+    ``OUTDIR/cp_<rank>.json``."""
+    if not torch.cuda.is_available():
+        print("control-plane worker: no CUDA device", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.environ.update(HOROVOD_GLOO_RENDEZVOUS_ADDR=seeds,
+                      HOROVOD_GLOO_RENDEZVOUS_PORT=seeds.split(",")[0]
+                      .rsplit(":", 1)[1],
+                      HOROVOD_RANK=str(rank), HOROVOD_SIZE="2")
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import (core, resilience, statesync,
+                                   synthetic_text_batch)
+    from horovod_tpu_torch.checkpoint import train_state_tree
+    hvd.init()
+    rec = {"rank": rank, "steps": [], "failed": [], "boundary_ms": []}
+    try:
+        state = _ss_train_state(seed=0)
+        batch = _rows(synthetic_text_batch(8, 2048,
+                                           state.model.cfg.vocab_size,
+                                           seed=0), rank, 4)
+        svc = statesync.StateSyncService(lambda: train_state_tree(state))
+        res = resilience.active_state()
+        rec["heartbeats"] = res is not None
+        for _ in range(CP_STEPS):
+            try:
+                step = _ss_train_step(hvd, core, state, batch,
+                                      host_dtype=torch.bfloat16)
+            except Exception as exc:
+                rec["failed"].append(f"{type(exc).__name__}: {exc}")
+                raise
+            engine = resilience.chaos.active()
+            step["chaos_fired"] = 0 if engine is None else \
+                sum(a.fired for a in engine.actions)
+            rec["steps"].append(step)
+            t0 = time.perf_counter()
+            change = svc.step_boundary()
+            rec["boundary_ms"].append((time.perf_counter() - t0) * 1e3)
+            if change is not None:
+                rec["failed"].append(f"world change {change.kind}")
+        rec["digest"] = _ss_digest(hvd, state, "cp.digest")
+        from horovod_tpu_torch.backend.shm import ShmWorld
+        rec["shm_formed"] = any(isinstance(r, ShmWorld) and r.formed
+                                for r in core.global_state().resources)
+        rec["failed_ranks"] = sorted(res.failed_ranks()) if res else None
+        svc.close()
+    finally:
+        with open(os.path.join(outdir, f"cp_{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        hvd.shutdown()
+    return 0
+
+
+def _shm_free() -> int:
+    """Bytes free where the shared-memory plane puts its regions."""
+    try:
+        st = os.statvfs("/dev/shm")
+    except OSError:
+        return 0
+    return st.f_bavail * st.f_frsize
+
+
+def _cp_world(rep: _Replicas, outdir: str, chaos: str | None,
+              epoch: str, shm_capacity: int | None
+              ) -> tuple[list[dict], list[str]]:
+    """Leg (a)'s world: two ``--cp-worker`` ranks on card 0 dialing the
+    replica set; returns their records and the failures."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    if shm_capacity:
+        env["HOROVOD_SHM_CAPACITY"] = str(shm_capacity)
+    env.update(HOROVOD_FAULT_TOLERANCE="1",
+               HOROVOD_FAULT_TIMEOUT=str(CP_FAULT_TIMEOUT),
+               HOROVOD_GLOO_TIMEOUT_SECONDS="120",
+               HOROVOD_RENDEZVOUS_EPOCH=epoch)
+    if chaos:
+        env["HOROVOD_CHAOS"] = chaos
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cp-worker", str(r),
+         ",".join(rep.seeds), outdir], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    failures, t_end = [], time.monotonic() + CP_WORLD_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(
+                    timeout=max(1.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+                failures.append(f"rank {r} timed out")
+            if p.returncode != 0:
+                failures.append(f"rank {r} rc={p.returncode}: {out[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    recs = []
+    for r in range(2):
+        path = os.path.join(outdir, f"cp_{r}.json")
+        recs.append(json.load(open(path)) if os.path.exists(path) else {})
+    return recs, failures
+
+
+def _cp_pause(rep: _Replicas, problems: list[str]) -> dict:
+    """(b) ``coordpause`` past the lease: the port's chaos engine SIGSTOPs
+    the primary of ``rep`` for CP_PAUSE_MS; the standby promotes; on
+    SIGCONT the old primary demotes and answers 409 naming the new
+    leader; every acknowledged write is read back through the seed
+    list."""
+    import urllib.error
+    from urllib import request as urlrequest
+
+    from horovod_tpu_torch.resilience import chaos
+    from horovod_tpu_torch.runner.network import RendezvousClient
+    out = {"leg": "b-coordpause", "lease_ms": CP_LEASE_MS,
+           "pause_ms": CP_PAUSE_MS}
+    try:
+        seeds = ",".join(rep.seeds)
+        client = RendezvousClient(seeds, timeout=15.0)
+        acked = {}
+        for i in range(16):
+            client.put("cp", f"pre{i}", b"%d" % i)
+            acked[f"pre{i}"] = b"%d" % i
+        saved = {k: os.environ.get(k) for k in (
+            "HOROVOD_GLOO_RENDEZVOUS_ADDR", "HOROVOD_GLOO_RENDEZVOUS_PORT")}
+        os.environ.update(HOROVOD_GLOO_RENDEZVOUS_ADDR=seeds,
+                          HOROVOD_GLOO_RENDEZVOUS_PORT=rep.seeds[0]
+                          .rsplit(":", 1)[1])
+        try:
+            engine = chaos.ChaosEngine(
+                f"coordpause:at=0,ms={CP_PAUSE_MS}", rank=0)
+            t_stop = time.time()
+            engine.on_response(["cp.pause"])
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        # Writes while the primary sleeps: each waits for the promotion.
+        t0 = time.perf_counter()
+        client.put("cp", "during", b"1")
+        acked["during"] = b"1"
+        out["first_write_in_pause_ms"] = (time.perf_counter() - t0) * 1e3
+        for i in range(16):
+            client.put("cp", f"mid{i}", b"%d" % i)
+            acked[f"mid{i}"] = b"%d" % i
+        out["stop_to_promotion_ms"] = None if rep.t_promoted is None \
+            else (rep.t_promoted - t_stop) * 1e3
+        old = RendezvousClient(rep.seeds[0], timeout=5.0)
+        deadline = time.monotonic() + 10.0 + CP_PAUSE_MS / 1e3
+        role = ""
+        while time.monotonic() < deadline:
+            try:
+                role = old.probe() or ""
+            except OSError:
+                role = ""
+            if role.startswith("standby"):
+                break
+            time.sleep(0.01)
+        out["resume_to_demotion_ms"] = (time.time() - t_stop) * 1e3 \
+            - CP_PAUSE_MS
+        out["old_primary_role"] = role
+        req = urlrequest.Request(f"http://{rep.seeds[0]}/cp/late",
+                                 data=b"x", method="PUT")
+        try:
+            urlrequest.urlopen(req, timeout=5.0)
+            out["old_primary_put"] = 200
+        except urllib.error.HTTPError as exc:
+            out["old_primary_put"] = exc.code
+            out["leader_hint"] = exc.headers.get("X-Hvd-Leader")
+        seeded = RendezvousClient(seeds, timeout=15.0)
+        lost = [k for k, v in acked.items() if seeded.get("cp", k) != v]
+        out.update(acked=len(acked), lost=lost,
+                   standby_role=rep.standby.controlplane.role,
+                   failovers=rep.standby.controlplane.failovers,
+                   digest=rep.digest_is_the_log(),
+                   primary_alive=rep.proc.poll() is None)
+    finally:
+        rep.close()
+    emit({"phase": "controlplane", **out})
+    tag = "controlplane (b)"
+    if out.get("old_primary_role", "")[:7] != "standby" or \
+            out.get("old_primary_put") != 409 or \
+            out.get("leader_hint") != rep.seeds[1]:
+        problems.append(f"{tag}: the resumed primary did not fence itself: "
+                        f"{out.get('old_primary_role')!r}, "
+                        f"{out.get('old_primary_put')}, "
+                        f"{out.get('leader_hint')}")
+    if out.get("lost") or out.get("standby_role") != "primary" or \
+            out.get("failovers") != 1 or not out["digest"]["equal"] or \
+            not out.get("primary_alive"):
+        problems.append(f"{tag}: {out}")
+    return out
+
+
+def _cp_wal_cost(root: str, problems: list[str]) -> dict:
+    """(c) The WAL on this machine's disk: 64 stamps in one ``put_many``
+    (the host group's fan-in) and 64 writer threads at once, each batch's
+    fsync timed; a ``put``'s latency with the log against the in-memory
+    server."""
+    from horovod_tpu_torch.runner import controlplane
+    from horovod_tpu_torch.runner.network import (RendezvousClient,
+                                                  RendezvousServer)
+    flushes: list[tuple[int, float]] = []
+
+    class TimedWal(controlplane.WalWriter):
+        def _flush(self, batch):
+            t0 = time.perf_counter()
+            super()._flush(batch)
+            flushes.append((len(batch), (time.perf_counter() - t0) * 1e3))
+
+    def puts(port: int) -> list[float]:
+        client = RendezvousClient(f"127.0.0.1:{port}", timeout=10.0)
+        ms = []
+        for i in range(CP_PUTS):
+            t0 = time.perf_counter()
+            client.put("lat", f"k{i % 16}", b"%d" % i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ms)
+
+    def pct(ms, q):
+        return ms[min(len(ms) - 1, int(q * len(ms)))]
+
+    def settled(records: int) -> list:
+        """The timed batches once they hold ``records`` records (a
+        writer acks inside ``_flush``, before its timing is appended),
+        then a fresh list."""
+        t_end = time.monotonic() + 2.0
+        while sum(n for n, _ in flushes) < records and \
+                time.monotonic() < t_end:
+            time.sleep(0.001)
+        out = list(flushes)
+        flushes.clear()
+        return out
+
+    wal_dir = os.path.join(root, "cost")
+    out = {"leg": "c-wal-cost", "disk": _disk_of(root),
+           "candidates": {"tmpdir": _disk_of(tempfile.gettempdir()),
+                          "checkout": _disk_of(_package_root())}}
+    saved = controlplane.WalWriter
+    controlplane.WalWriter = TimedWal
+    try:
+        # A lease far longer than the leg: no renewal joins its batches.
+        server = RendezvousServer(wal_dir=wal_dir, lease_ms=600e3)
+        port = server.start()
+        try:
+            client = RendezvousClient(f"127.0.0.1:{port}", timeout=10.0)
+            flushes.clear()
+            client.put_many([("hb", f"fleet:{i}", b"%d|1" % i)
+                             for i in range(CP_WRITERS)])
+            fan_in = settled(CP_WRITERS)
+
+            def writer(w):
+                c = RendezvousClient(f"127.0.0.1:{port}", timeout=30.0)
+                for i in range(CP_WRITER_PUTS):
+                    c.put("hb", f"w{w}", b"%d" % i)
+            threads = [threading.Thread(target=writer, args=(w,))
+                       for w in range(CP_WRITERS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            writers_s = time.perf_counter() - t0
+            concurrent = settled(CP_WRITERS * CP_WRITER_PUTS)
+            out["last_values_ok"] = all(
+                client.get("hb", f"w{w}") == b"%d" % (CP_WRITER_PUTS - 1)
+                for w in range(CP_WRITERS))
+            wal_ms = puts(port)
+            out["digest_equal"] = server.kv_digest() == \
+                controlplane.replay_state(
+                    controlplane.wal_path(wal_dir))["digest"]
+        finally:
+            server.stop()
+    finally:
+        controlplane.WalWriter = saved
+    mem = RendezvousServer()
+    mem_port = mem.start()
+    try:
+        mem_ms = puts(mem_port)
+    finally:
+        mem.stop()
+    fsync_ms = sorted(ms for _, ms in concurrent)
+    out.update(
+        fan_in={"records": sum(n for n, _ in fan_in),
+                "batches": len(fan_in),
+                "flush_ms": [ms for _, ms in fan_in]},
+        writers={"writers": CP_WRITERS, "puts_each": CP_WRITER_PUTS,
+                 # A put whose answer is lost is sent again (the client
+                 # retries idempotent verbs): records may exceed the puts.
+                 "records": sum(n for n, _ in concurrent),
+                 "batches": len(concurrent),
+                 "records_per_batch_max": max(n for n, _ in concurrent),
+                 "flush_ms_p50": pct(fsync_ms, 0.5),
+                 "flush_ms_p99": pct(fsync_ms, 0.99), "wall_s": writers_s,
+                 "puts_per_s": CP_WRITERS * CP_WRITER_PUTS / writers_s},
+        put_ms={"wal_p50": pct(wal_ms, 0.5), "wal_p99": pct(wal_ms, 0.99),
+                "memory_p50": pct(mem_ms, 0.5),
+                "memory_p99": pct(mem_ms, 0.99), "puts": CP_PUTS})
+    emit({"phase": "controlplane", **out})
+    want = CP_WRITERS * CP_WRITER_PUTS
+    if out["fan_in"]["records"] != CP_WRITERS or \
+            not 1 <= out["fan_in"]["batches"] <= 16 or \
+            out["writers"]["records"] < want or not out["digest_equal"] \
+            or out["last_values_ok"] is not True:
+        problems.append(f"controlplane (c): {out}")
+    return out
+
+
+def _cp_train(root: str, problems: list[str]) -> dict:
+    """(a) gpt_small trains at two ranks on card 0 through a coordkill of
+    the rendezvous primary, beside an unbroken world of the same seed;
+    (b) and (e) run at the same time (the card trains meanwhile).  (b)'s
+    replicas are built before the metrics registry, so that the
+    registry's control-plane counters are the kill world's standby's
+    alone (the unbroken world's standby writes nothing)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch import gpt_small
+    layers = gpt_small().num_layers
+    runs, reps, worlds, beside = {}, {}, {}, {}
+    # The exchange rides the shared-memory plane when /dev/shm holds
+    # both worlds' regions (one a rank), else the TCP ring.
+    shm_free = _shm_free()
+    shm_capacity = CP_SHM_CAPACITY \
+        if shm_free >= 4 * CP_SHM_CAPACITY + (1 << 30) else None
+    for mode in ("unbroken", "kill"):
+        os.makedirs(os.path.join(root, mode))
+        reps[mode] = _Replicas(os.path.join(root, mode, "wal"))
+    pause_rep = _Replicas(os.path.join(root, "pause"))
+    pool = ThreadPoolExecutor(4)
+    try:
+        pause_rep.start()
+        with _metrics_on() as reg:
+            for rep in reps.values():
+                rep.start()
+            t0 = time.time()
+            for mode in reps:
+                worlds[mode] = pool.submit(
+                    _cp_world, reps[mode], os.path.join(root, mode),
+                    CP_KILL if mode == "kill" else None, f"cp{mode}",
+                    shm_capacity)
+            beside = {"pause": pool.submit(_cp_pause, pause_rep, problems),
+                      "mpirun": pool.submit(_cp_mpirun, root, problems)}
+            for mode, rep in reps.items():
+                recs, failures = worlds[mode].result()
+                runs[mode] = {"recs": recs, "failures": failures,
+                              "wall_s": time.time() - t0,
+                              "t_dead": rep.t_dead,
+                              "t_promoted": rep.t_promoted,
+                              "primary_rc": rep.proc.poll(),
+                              "digest": rep.digest_is_the_log(),
+                              "role": rep.standby.controlplane.role,
+                              "failovers":
+                                  rep.standby.controlplane.failovers}
+            runs["kill"]["counters"] = _cp_counters(reg)
+            runs["kill"]["counters"]["horovod_rendezvous_role"] = [
+                (e["labels"], e["value"]) for e in reg.snapshot()["metrics"]
+                if e["name"] == "horovod_rendezvous_role"]
+            beside = {k: f.result() for k, f in beside.items()}
+    finally:
+        pool.shutdown()
+        for rep in (pause_rep, *reps.values()):
+            rep.close()
+    tag = "controlplane (a)"
+    for mode, run in runs.items():
+        if run["failures"]:
+            problems.append(f"{tag} {mode}: {'; '.join(run['failures'])}")
+    kill, ref = runs["kill"], runs["unbroken"]
+    if kill["failures"] or ref["failures"]:
+        return beside
+    r0, ref0 = kill["recs"][0], ref["recs"][0]
+    step_ms = [s["ms"] for s in r0["steps"]]
+    ends = [s["t_end"] for s in r0["steps"]]
+    after = [t for t in ends if kill["t_dead"] and t > kill["t_dead"]]
+    losses = [[s["loss"] for s in r["steps"]] for r in kill["recs"]]
+    ref_losses = [[s["loss"] for s in r["steps"]] for r in ref["recs"]]
+    line = {"leg": "a-coordkill-train", "model": "gpt_small", "batch": 8,
+            "batch_per_rank": 4, "seq": 2048, "dtype": "bfloat16",
+            "optimizer": "AdamW", "ranks": "2 on card 0", "lease_ms": CP_LEASE_MS,
+            "chaos": CP_KILL, "fault_timeout_s": CP_FAULT_TIMEOUT,
+            "wall_s": {m: r["wall_s"] for m, r in runs.items()},
+            "kill_to_promotion_ms": None if not (
+                kill["t_dead"] and kill["t_promoted"])
+            else (kill["t_promoted"] - kill["t_dead"]) * 1e3,
+            "kill_to_next_step_end_ms": (after[0] - kill["t_dead"]) * 1e3
+            if after else None,
+            "fired_at_step": next((i + 1 for i, s in enumerate(r0["steps"])
+                                   if s["chaos_fired"]), None),
+            "killed_in_step": None if not kill["t_dead"] else
+            sum(t <= kill["t_dead"] for t in ends) + 1,
+            "step_ms": step_ms,
+            "step_ms_unbroken": [s["ms"] for s in ref0["steps"]],
+            "step_gap_max_ms": max(step_ms),
+            "step_ms_median": statistics.median(step_ms),
+            "boundary_ms": r0["boundary_ms"],
+            "failed_steps": sum(len(r["failed"]) for r in kill["recs"]),
+            "losses": losses, "losses_unbroken": ref_losses,
+            "losses_bitwise_equal": losses == ref_losses,
+            "digests": [r["digest"]["digests"] for r in kill["recs"]],
+            "params_bitwise_equal_to_unbroken":
+                r0["digest"]["digests"] == ref0["digest"]["digests"],
+            "heartbeats": [r.get("heartbeats") for r in kill["recs"]],
+            "failed_ranks": [r.get("failed_ranks") for r in kill["recs"]],
+            "primary_rc": kill["primary_rc"], "role": kill["role"],
+            "failovers": kill["failovers"],
+            "counters": kill["counters"], "digest": kill["digest"],
+            "wal_disk": _disk_of(root),
+            "dev_shm_free": shm_free, "shm_capacity": shm_capacity,
+            "shm_formed": [r.get("shm_formed") for r in kill["recs"]],
+            "exchange": "bf16 host copies, shm plane"
+            if shm_capacity and all(r.get("shm_formed")
+                                    for r in kill["recs"])
+            else "bf16 host copies, TCP ring",
+            "launches_per_step": [s["launches"] for s in r0["steps"]]}
+    emit({"phase": "controlplane", **line})
+    if line["failed_steps"] or len(r0["steps"]) != CP_STEPS:
+        problems.append(f"{tag}: {line['failed_steps']} failed steps, "
+                        f"{len(r0['steps'])} run")
+    if kill["primary_rc"] != -signal.SIGKILL or kill["role"] != "primary" \
+            or kill["failovers"] != 1 or line["kill_to_promotion_ms"] is None:
+        problems.append(f"{tag}: primary rc {kill['primary_rc']}, standby "
+                        f"{kill['role']} after {kill['failovers']} failovers")
+    if line["fired_at_step"] != CP_KILL_STEP:
+        problems.append(f"{tag}: the coordkill fired at step "
+                        f"{line['fired_at_step']}")
+    if ref["role"] != "standby" or ref["failovers"] != 0:
+        problems.append(f"{tag}: the unbroken run's standby took over")
+    if not (kill["digest"]["equal"] and ref["digest"]["equal"]):
+        problems.append(f"{tag}: live digest against the log's replay: "
+                        f"{kill['digest']} {ref['digest']}")
+    if not line["losses_bitwise_equal"] or \
+            not line["params_bitwise_equal_to_unbroken"] or not all(
+                len(set(d)) == 1 for d in line["digests"]):
+        problems.append(f"{tag}: losses or parameters differ from the "
+                        f"unbroken run's")
+    if not all(math.isfinite(x) for row in losses for x in row):
+        problems.append(f"{tag}: a loss is not finite")
+    if not all(line["heartbeats"]) or any(line["failed_ranks"]):
+        problems.append(f"{tag}: heartbeats {line['heartbeats']}, failed "
+                        f"ranks {line['failed_ranks']}")
+    if not all(_ss_launches_ok(r["steps"], layers) for r in kill["recs"]):
+        problems.append(f"{tag}: flash launches not {layers} of each "
+                        f"kernel on every step")
+    launches = {}
+    for s in r0["steps"]:
+        for name, c in s["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+    return {"line": line, "launches": launches, **beside}
+
+
+def _cp_mpirun(root: str, problems: list[str]) -> dict:
+    """(e) ``--use-mpi`` on the card through a stub ``mpirun`` (the
+    reference test's: it starts the command once a rank with
+    ``OMPI_COMM_WORLD_*``): one gpt_small rank as the elastic phase's
+    static worker trains it; the rank must adopt its identity from the
+    OMPI variables and the exported layout."""
+    stub_dir = os.path.join(root, "mpibin")
+    os.makedirs(stub_dir)
+    stub = os.path.join(stub_dir, "mpirun")
+    with open(stub, "w") as f:
+        f.write(MPIRUN_STUB)
+    os.chmod(stub, 0o755)
+    outdir = os.path.join(root, "mpi")
+    os.makedirs(outdir)
+    t_launch = time.time()
+    rc, text = _launcher_run(
+        ["--use-mpi", "-np", "1", sys.executable, os.path.abspath(__file__),
+         "--launch-worker", "static", outdir],
+        {"PATH": stub_dir + os.pathsep + os.environ.get("PATH", "")})
+    wall = time.time() - t_launch
+    path = os.path.join(outdir, "static.json")
+    if rc != 0 or not os.path.exists(path):
+        problems.append(f"controlplane (e): launcher rc {rc}: {text[-3000:]}")
+        return {}
+    rec = json.load(open(path))
+    env = rec["launcher_env"]
+    steps = WARMUP_STEPS + TIMED_STEPS
+    line = {"leg": "e-use-mpi", "command": "horovodrun-tpu-torch --use-mpi "
+            "-np 1 (stub mpirun)", "wall_s": wall,
+            "beside": "leg (a)'s two worlds and leg (b)",
+            "launch_to_first_step_s": rec["t_first_step"] - t_launch,
+            "rank_env_before_init": rec["rank_env_before_init"],
+            "adopted": env, "rank": rec["rank"], "size": rec["size"],
+            "losses": rec["losses"],
+            "timed_step_ms_mean": statistics.mean(
+                rec["step_ms"][WARMUP_STEPS:]),
+            "launches_per_step": {n: c / steps
+                                  for n, c in rec["launches"].items()}}
+    emit({"phase": "controlplane", **line})
+    if rec["rank_env_before_init"] is not None or \
+            env["OMPI_COMM_WORLD_RANK"] != "0" or \
+            env["HOROVOD_RANK"] != "0" or env["HOROVOD_SIZE"] != "1" or \
+            env["HOROVOD_JSRUN_HOSTS"] != "localhost:1" or \
+            (rec["rank"], rec["size"]) != (0, 1):
+        problems.append(f"controlplane (e): identity {line}")
+    if not all(math.isfinite(x) for x in rec["losses"]) or \
+            any(c != 12 * steps for c in rec["launches"].values()):
+        problems.append(f"controlplane (e): losses {rec['losses']}, "
+                        f"launches {rec['launches']}")
+    return line
+
+
+def _cp_cards(root: str, problems: list[str]) -> dict:
+    """(d) With four cards: gpt_small's world of three ranks on cards 0-2
+    over the NCCL plane and the replica set; the chaos ``coordkill`` at
+    the incumbents' second exchange, then a joiner on card 3 grows the
+    world 3 -> 4 through the promoted standby (the statesync phase's
+    ``train2`` roles with three incumbents)."""
+    from horovod_tpu_torch import gpt_small
+    layers = gpt_small().num_layers
+    rep = _Replicas(os.path.join(root, "cards-wal")).start()
+    outdir = os.path.join(root, "cards")
+    os.makedirs(outdir)
+    t0 = time.time()
+    try:
+        recs = _ss_world([("cp3", r, 3, r) for r in range(3)] +
+                         [("cp3-joiner", 0, 0, 3)], outdir, seeds=rep.seeds)
+        out = {"wall_s": time.time() - t0, "primary_rc": rep.proc.poll(),
+               "role": rep.standby.controlplane.role,
+               "failovers": rep.standby.controlplane.failovers,
+               "t_dead": rep.t_dead, "t_promoted": rep.t_promoted,
+               "digest": rep.digest_is_the_log()}
+    finally:
+        rep.close()
+    r0, joi = recs[0], recs[3]
+    grown = [s for r in recs for s in r["steps"] if s["size"] == 4]
+    digests = [d for r in recs for d in r["digests"]]
+    line = {"leg": "d-cards-coordkill-grow", "ranks": "3->4",
+            "cards": "0-2, the joiner's 3", "chaos": CP_CARDS_KILL,
+            "kill_to_promotion_ms": None if not (
+                out["t_dead"] and out["t_promoted"])
+            else (out["t_promoted"] - out["t_dead"]) * 1e3,
+            "grow": [r.get("grow") for r in recs[:3]],
+            "join": joi.get("join"),
+            "step_ms_before": [s["ms"] for s in r0["steps"]
+                               if s["size"] == 3],
+            "grown_step_ms": [s["ms"] for s in r0["steps"]
+                              if s["size"] == 4],
+            "grown_plane": sorted({s["plane"] for s in grown}),
+            "devices": sorted({s.get("device") for r in recs
+                               for s in r["steps"]}),
+            "digests": [(d["name"], d["equal"]) for d in r0["digests"]],
+            "shrinks": [r.get("shrink") for r in recs],
+            **{k: out[k] for k in ("wall_s", "primary_rc", "role",
+                                   "failovers", "digest")}}
+    emit({"phase": "controlplane", **line})
+    tag = "controlplane (d)"
+    if [g and g.get("size") for g in line["grow"]] != [4, 4, 4]:
+        problems.append(f"{tag}: no grow to 4: {line['grow']}")
+    if any(line["shrinks"]) or out["primary_rc"] != -signal.SIGKILL or \
+            out["role"] != "primary" or out["failovers"] != 1 or \
+            not out["digest"]["equal"]:
+        problems.append(f"{tag}: {line}")
+    if len(r0["digests"]) != SS_GROWN_STEPS + 1 or \
+            not all(d["equal"] for d in digests) or \
+            not joi.get("joined_digest_equals_stamp"):
+        problems.append(f"{tag}: parameters differ across ranks: "
+                        f"{line['digests']}")
+    if line["grown_plane"] != ["card"] or \
+            line["devices"] != [f"cuda:{c}" for c in range(4)] or \
+            len(grown) != 4 * SS_GROWN_STEPS:
+        problems.append(f"{tag}: grown steps {len(grown)} on "
+                        f"{line['grown_plane']} {line['devices']}")
+    if not all(_ss_launches_ok(r["steps"], layers) for r in recs):
+        problems.append(f"{tag}: flash launches not {layers} of each "
+                        f"kernel on every step")
+    return line
+
+
+def phase_controlplane(cards_only: bool = False) -> dict:
+    """The control plane that survives its coordinator (see the module
+    docstring): (a) with (b) and (e) beside its unbroken world, then (c)
+    and, with four cards, (d); ``cards_only`` runs (d) alone (``--phases
+    controlplane-cards``, for a four-card call)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    card = _smi("--query-gpu=name,power.limit",
+                "--format=csv,noheader").splitlines()[:1]
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="_cpwal", dir=_wal_parent())
+    legs, train = {}, {}
+    try:
+        if not cards_only:
+            t0 = time.perf_counter()
+            train = _cp_train(root, problems)
+            legs["a_b_e_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _cp_wal_cost(root, problems)
+            legs["c_s"] = time.perf_counter() - t0
+        n = torch.cuda.device_count()
+        if n < CP_CARDS:
+            emit({"phase": "controlplane", "leg": "d-cards-coordkill-grow",
+                  "not_run": f"the machine shows {n} card(s); the leg "
+                             f"needs {CP_CARDS}"})
+        else:
+            t0 = time.perf_counter()
+            _cp_cards(root, problems)
+            legs["d_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    launches = train.get("launches", {})
+    emit({"phase": "controlplane", "leg": "summary", "seconds": seconds,
+          "legs_s": legs, "card": card, "flash_launches": launches,
+          "problems": problems})
+    fa.reset_launch_counts()
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds, "launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1 and sys.argv[1] == "--eager-worker":
@@ -8862,6 +9716,8 @@ def main() -> int:
         return shard_worker(sys.argv[2])
     if len(sys.argv) > 1 and sys.argv[1] == "--perf-card-worker":
         return perf_card_worker(sys.argv[2])
+    if len(sys.argv) > 1 and sys.argv[1] == "--cp-worker":
+        return cp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if len(sys.argv) > 1 and sys.argv[1] == "--statesync-worker":
         role, rank, size, port, outdir = sys.argv[2:7]
         return statesync_worker(role, int(rank), int(size), int(port),
@@ -8885,7 +9741,10 @@ def main() -> int:
                   "resilience": phase_resilience, "elastic": phase_elastic,
                   "parallel": phase_parallel, "fit": phase_fit,
                   "statesync": phase_statesync, "cards": phase_cards,
-                  "shard": phase_shard, "perf": phase_perf}
+                  "shard": phase_shard, "perf": phase_perf,
+                  "controlplane": phase_controlplane,
+                  "controlplane-cards":
+                      lambda: phase_controlplane(cards_only=True)}
         for name in sys.argv[2].split(","):
             phases[name]()
         return 0
@@ -8907,6 +9766,7 @@ def main() -> int:
     cards = phase_cards(train)
     shard = phase_shard()
     perf = phase_perf()
+    controlplane = phase_controlplane()
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -8921,6 +9781,7 @@ def main() -> int:
          "cards_launches": cards["launches"][name],
          "shard_launches": shard["launches"][name],
          "perf_launches": perf["launches"][name],
+         "controlplane_launches": controlplane["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

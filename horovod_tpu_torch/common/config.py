@@ -165,13 +165,27 @@ GLOO_TIMEOUT_SECONDS = Knob(
     "Control-plane connect/recv timeout.")
 RENDEZVOUS_REPLICAS = Knob(
     "HOROVOD_RENDEZVOUS_REPLICAS", 0, int,
-    "Standby rendezvous replicas beside the primary.  Not ported (ROADMAP "
-    "queue A item 12): a value above 0 makes the launcher raise "
-    "NotImplementedError.")
+    "Standby rendezvous replicas launched next to the primary (0 = the "
+    "single-server control plane); requires HOROVOD_RENDEZVOUS_WAL_DIR. "
+    "Standbys tail the primary's WAL and promote on lease lapse "
+    "(runner/controlplane.py).")
+RENDEZVOUS_LEASE_MS = Knob(
+    "HOROVOD_RENDEZVOUS_LEASE_MS", 3000.0, float,
+    "Rendezvous leader lease in milliseconds: the primary renews every "
+    "third of it, a standby promotes after ~2x of silence, and a "
+    "primary whose lease lapsed must re-verify the log (epoch fence) "
+    "before accepting another write.")
 RENDEZVOUS_WAL_DIR = Knob(
     "HOROVOD_RENDEZVOUS_WAL_DIR", "", str,
-    "Directory of the rendezvous write-ahead log.  Not ported (ROADMAP "
-    "queue A item 12): a value raises NotImplementedError.")
+    "Directory of the rendezvous write-ahead log (shared by the "
+    "replica set).  Empty = no WAL: the KV is in-memory only and does "
+    "not survive coordinator death.")
+PROTO_COMPAT = Knob(
+    "HOROVOD_PROTO_COMPAT", 0, int,
+    "Advertise this wire protocol version (masking newer feature bits) "
+    "at every channel HELLO instead of the build's native version; 0 = "
+    "native.  The rolling-upgrade lever: peers negotiate the min "
+    "common schema per mesh.")
 CYCLE_TIME = Knob(
     "HOROVOD_CYCLE_TIME", 1.0, float,
     "Background-loop cycle time in milliseconds.")

@@ -314,6 +314,11 @@ def init(*, rank: int | None = None, size: int | None = None,
         if _global.initialized:
             return
         config.check_eager_knobs()
+        # Under jsrun (LSF) or mpirun every rank receives the same
+        # environment; rank identity arrives via JSM/OMPI/PMIx vars
+        # instead of per-slot env.
+        from .runner.js_run import adopt_jsm_env
+        adopt_jsm_env()
 
         def _resolve(kwarg, knob, fallback):
             if kwarg is not None:

@@ -4,9 +4,8 @@ The port's copy of ``horovod_tpu/resilience/chaos.py`` (``parse_spec``,
 ``ChaosAction``, ``ChaosEngine``, ``configure``): the same grammar, the
 same counters and the same seeded ``prob`` matcher, so one spec fires at
 the same collective or send in either package.  ``coordkill`` and
-``coordpause`` parse, but an engine armed with one raises
-``NotImplementedError``: they signal the rendezvous primary of the
-replicated control plane, which is ROADMAP queue A item 12.
+``coordpause`` signal the rendezvous primary of the replicated control
+plane (``runner/controlplane.py``), found through the seed list.
 
 ``HOROVOD_CHAOS`` holds a ``';'``-separated list of actions, each
 ``kind:key=val,key=val``.  Matching is deterministic — actions fire at a
@@ -35,9 +34,15 @@ Response-level actions (fired by the background loop before dispatch;
   ``rank=`` names the LAUNCH-TIME rank, and the engine with its counts
   survives the re-init of a retry or an elastic re-rendezvous
   (``configure``).
-- ``coordkill:at=5[,rank=0]`` and ``coordpause:at=5,ms=800[,rank=0]``
-  — SIGKILL, or SIGSTOP then SIGCONT, the rendezvous primary (the
-  reference's control-plane failover shapes; not armed in the port).
+- ``coordkill:at=5[,rank=0]``          — SIGKILL the rendezvous
+  PRIMARY (pid resolved through the client's ``/.ctl/pid`` endpoint)
+  at the global collective index: the coordinator-death shape the
+  replicated control plane's standby promotion must absorb.  Fires
+  from launch rank 0 by default so an N-rank world kills once.
+- ``coordpause:at=5,ms=800[,rank=0]``  — SIGSTOP the rendezvous
+  primary and SIGCONT it ``ms`` later: the lease-lapse-then-return
+  split-brain shape; the resumed primary must fence itself on the
+  WAL's higher leader epoch instead of acking stale writes.
 
 Send-level actions (fired by ``PeerMesh`` at enqueue; ``send=`` is the
 per-(mesh-scope, peer) send index, ``mesh=`` a scope prefix like
@@ -63,6 +68,14 @@ import time
 
 from ..common import config
 from ..common.logging import logger
+
+
+def _sigcont(pid: int) -> None:
+    """Resume a coordpause victim (fire-and-forget Timer body)."""
+    try:
+        os.kill(pid, signal.SIGCONT)
+    except OSError:
+        pass
 
 
 __all__ = ["ChaosAction", "ChaosEngine", "ChaosInjectedError", "active",
@@ -179,6 +192,29 @@ def parse_spec(spec: str) -> list[ChaosAction]:
     return actions
 
 
+def _coordinator_pid() -> int | None:
+    """Resolve the rendezvous PRIMARY's pid through the seed list's
+    ``/.ctl/pid`` endpoint (same-host chaos harness contract: the
+    coordinator process must be signalable from this rank)."""
+    from urllib import request as urlrequest
+
+    from ..runner.network import RendezvousClient
+
+    addr = config.RENDEZVOUS_ADDR.get()
+    port = config.RENDEZVOUS_PORT.get()
+    if not addr:
+        return None
+    endpoint = RendezvousClient(addr, port, timeout=5.0).find_primary()
+    if endpoint is None:
+        return None
+    try:
+        with urlrequest.urlopen(
+                f"http://{endpoint}/.ctl/pid", timeout=2.0) as resp:
+            return int(resp.read())
+    except (OSError, ValueError):
+        return None
+
+
 class ChaosEngine:
     """Process-wide injector.  Survives core shutdown/re-init on purpose:
     consumed ``count``s persist, so a retried collective after a world
@@ -188,13 +224,6 @@ class ChaosEngine:
         self.spec = spec
         self.rank = rank
         self.actions = parse_spec(spec)
-        coord = sorted({a.kind for a in self.actions
-                        if a.kind.startswith("coord")})
-        if coord:
-            raise NotImplementedError(
-                f"chaos {'/'.join(coord)} signals the rendezvous primary "
-                f"of the replicated control plane, which is ROADMAP queue "
-                f"A item 12")
         self._op_index = 0
         self._send_index: dict[tuple[str, int], int] = {}
         self._lock = threading.Lock()
@@ -218,6 +247,8 @@ class ChaosEngine:
                 logger.warning("chaos: freezing rank %d at collective %d "
                                "for %.0f ms", self.rank, idx, act.ms)
                 time.sleep(act.ms / 1e3)
+            elif act.kind in ("coordkill", "coordpause"):
+                self._fire_coord(act, idx)
             elif act.kind == "fail":
                 logger.warning("chaos: failing collective %d (%s)",
                                idx, list(tensor_names))
@@ -244,6 +275,32 @@ class ChaosEngine:
         # NOT followed by an exit: the grace path owns the
         # departure; without a grace handler the default
         # disposition (or flight's chained handler) fires.
+
+    def _fire_coord(self, act: ChaosAction, idx: int) -> None:
+        """SIGKILL (coordkill) or SIGSTOP+delayed-SIGCONT (coordpause)
+        the rendezvous primary.  The victim pid is resolved through the
+        seed list at fire time, so the action targets whichever replica
+        CURRENTLY leads — a second firing after a failover exercises
+        the next promotion."""
+        pid = _coordinator_pid()
+        if pid is None:
+            logger.warning("chaos: %s at collective %d: no rendezvous "
+                           "primary reachable; skipping", act.kind, idx)
+            return
+        if act.kind == "coordkill":
+            logger.warning("chaos: SIGKILL rendezvous primary pid %d "
+                           "at collective %d", pid, idx)
+            os.kill(pid, signal.SIGKILL)
+            return
+        pause_s = (act.ms or 1000.0) / 1e3
+        logger.warning("chaos: SIGSTOP rendezvous primary pid %d at "
+                       "collective %d for %.0f ms (lease-lapse-then-"
+                       "return)", pid, idx, pause_s * 1e3)
+        os.kill(pid, signal.SIGSTOP)
+        timer = threading.Timer(pause_s, _sigcont, args=(pid,))
+        timer.daemon = True
+        timer.name = "hvd-chaos-cont"
+        timer.start()
 
     # -- send hook (PeerMesh enqueue path) -------------------------------
     def on_send(self, scope: str, peer: int) -> str | None:

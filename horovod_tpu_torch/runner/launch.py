@@ -9,11 +9,12 @@ runner/gloo_run.py:133-272). Remote hosts go through ssh; localhost slots
 exec directly. `--min-np/--max-np/--host-discovery-script` switches to the
 elastic driver.
 
-The flags are the reference's.  Not ported, each raising
-``NotImplementedError`` that names ROADMAP queue A item 12: the MPI and
-jsrun starters (``--use-mpi``, ``--use-jsrun``, with LSF host discovery),
-the replicated control plane (``HOROVOD_RENDEZVOUS_REPLICAS``) and the
-fleet controller (``--fleet``).
+The flags are the reference's: the ssh starter, the mpirun and jsrun
+starters (``--use-mpi``, ``--use-jsrun``, with LSF host discovery;
+``mpi_run.py``, ``js_run.py``) and the replicated control plane
+(``HOROVOD_RENDEZVOUS_REPLICAS`` with ``HOROVOD_RENDEZVOUS_WAL_DIR``;
+``controlplane.py``).  Not ported: the fleet controller (``--fleet``
+raises ``NotImplementedError`` naming ROADMAP queue A item 12).
 
 Usage:
     python -m horovod_tpu_torch.runner.launch -np 4 python train.py
@@ -28,6 +29,7 @@ import signal
 import sys
 import threading
 
+from ..common.logging import logger
 from . import safe_shell_exec
 from .hosts import (get_host_assignments, host_ids_env, is_local_host,
                     parse_host_files, parse_hosts, SlotInfo)
@@ -61,12 +63,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--ssh-identity-file", default=None)
     starter = parser.add_mutually_exclusive_group()
     starter.add_argument("--use-gloo", action="store_true",
-                         help="The rendezvous/ssh process starter (the "
-                         "default and, in this package, the only one).")
+                         help="Force the rendezvous/ssh process starter "
+                         "(the default; disables jsrun auto-detection).")
     starter.add_argument("--use-mpi", action="store_true",
-                         help=f"Start workers through mpirun ({_ITEM_12}).")
+                         help="Start workers through mpirun; ranks adopt "
+                         "their identity from the OMPI/PMIx env.")
     starter.add_argument("--use-jsrun", action="store_true",
-                         help=f"Start workers through jsrun ({_ITEM_12}).")
+                         help="Start workers through jsrun (LSF).")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--disable-cache", action="store_true",
                         help="Disable the response cache.")
@@ -221,8 +224,10 @@ def check_build(out=sys.stdout) -> None:
 def rendezvous_env(addr: str, port: int,
                    start_timeout: float) -> dict[str, str]:
     """The env block every worker needs to reach the control plane —
-    shared by the static, elastic and programmatic launch paths so the
-    contract can't drift between them."""
+    shared by the ssh, jsrun, elastic and programmatic launch paths so
+    the contract can't drift between them.  ``addr`` may be a single
+    host or a comma-separated ``host:port`` seed list (replicated control
+    plane): ``RendezvousClient`` parses both."""
     return {
         "HOROVOD_GLOO_RENDEZVOUS_ADDR": addr,
         "HOROVOD_GLOO_RENDEZVOUS_PORT": str(port),
@@ -232,16 +237,29 @@ def rendezvous_env(addr: str, port: int,
 
 
 def start_rendezvous(advertised_addr: str):
-    """Start the rendezvous control plane: one in-memory server.  Returns
-    ``(servers, addr_spec, port)``, the reference's shape; stop every
-    server at teardown.  The reference's WAL-backed replica set
-    (``HOROVOD_RENDEZVOUS_REPLICAS`` > 0) is not ported."""
+    """Start the rendezvous control plane: one plain in-memory server
+    by default, or, under ``HOROVOD_RENDEZVOUS_REPLICAS`` > 0 with
+    ``HOROVOD_RENDEZVOUS_WAL_DIR`` set, a WAL-backed primary plus N
+    standby replicas that survive coordinator death (standby promotion
+    on lease lapse, ``controlplane.py``).  Returns ``(servers,
+    addr_spec, port)``; pass ``addr_spec`` (a seed list when
+    replicated) to :func:`rendezvous_env` and stop every server at
+    teardown."""
     from ..common import config as _config
 
-    if _config.RENDEZVOUS_REPLICAS.get() > 0:
-        raise NotImplementedError(
-            f"HOROVOD_RENDEZVOUS_REPLICAS (the replicated control plane) "
-            f"is {_ITEM_12}")
+    replicas = _config.RENDEZVOUS_REPLICAS.get()
+    wal_dir = _config.RENDEZVOUS_WAL_DIR.get()
+    if replicas > 0 and wal_dir:
+        from .controlplane import start_replica_set
+        servers, endpoints = start_replica_set(
+            replicas, wal_dir, host=advertised_addr)
+        return servers, ",".join(endpoints), servers[0].port
+    if replicas > 0:
+        logger.warning(
+            "HOROVOD_RENDEZVOUS_REPLICAS=%d needs "
+            "HOROVOD_RENDEZVOUS_WAL_DIR (the replica set shares the "
+            "durable log); starting a single un-replicated server",
+            replicas)
     server = RendezvousServer()
     port = server.start()
     return [server], advertised_addr, port
@@ -263,15 +281,9 @@ def _ssh_command(slot: SlotInfo, command: list[str], env: dict[str, str],
                     for i, s in enumerate(ssh))
 
 
-def _refuse_unported(args) -> None:
-    """The reference's starters and flags this package does not have."""
-    if getattr(args, "use_mpi", False):
-        raise NotImplementedError(f"--use-mpi (the mpirun starter, "
-                                  f"mpi_run.py) is {_ITEM_12}")
-    if getattr(args, "use_jsrun", False):
-        raise NotImplementedError(f"--use-jsrun (the jsrun starter and LSF "
-                                  f"host discovery, js_run.py) is "
-                                  f"{_ITEM_12}")
+def _refuse_fleet(args) -> None:
+    """The reference's fleet controller, which this package does not
+    have."""
     if getattr(args, "fleet", False):
         raise NotImplementedError(f"--fleet (the fleet controller) is "
                                   f"{_ITEM_12}")
@@ -279,10 +291,29 @@ def _refuse_unported(args) -> None:
 
 def launch_static(args, command: list[str]) -> int:
     """Static (non-elastic) launch (upstream gloo_run.py launch_gloo)."""
-    _refuse_unported(args)
+    from . import js_run
+    _refuse_fleet(args)
     if args.hostfile:
         args.hosts = parse_host_files(args.hostfile)
+    if args.hosts is None and js_run.using_lsf():
+        # Inside an LSF job the allocation IS the host list (upstream
+        # launch.py _check_all_hosts_ssh_successful / lsf default hosts).
+        args.hosts = js_run.lsf_hosts_string()
     hosts = parse_hosts(args.hosts) if args.hosts else None
+    if getattr(args, "use_mpi", False):
+        return launch_mpi(args, command)
+    if getattr(args, "use_jsrun", False):
+        if hosts is None:
+            sys.stderr.write(f"{PROG}: --use-jsrun needs -H or an LSF "
+                             f"allocation\n")
+            return 2
+        return js_run.launch_jsrun(args, command)
+    if hosts is not None and not getattr(args, "use_gloo", False) and \
+            js_run.using_lsf() and js_run.jsrun_available() and \
+            not all(_is_local(h.hostname) for h in hosts):
+        # jsrun is the process starter on LSF clusters (ssh is usually
+        # disabled between compute nodes there); control plane unchanged.
+        return js_run.launch_jsrun(args, command)
     np = args.num_proc or (sum(h.slots for h in hosts) if hosts else 1)
     if hosts is None:
         hosts = parse_hosts(f"localhost:{np}")
@@ -349,16 +380,50 @@ def launch_static(args, command: list[str]) -> int:
 
 def control_plane_env(args, hosts, port: int,
                       layout: str | None = None) -> dict[str, str]:
-    """The env block of the one-shot starters (mpirun, jsrun): not
-    ported."""
-    raise NotImplementedError(f"the one-shot starters' control-plane env "
-                              f"(mpirun, jsrun) is {_ITEM_12}")
+    """Worker env block for starters that launch all ranks in one shot
+    (mpirun, jsrun): tuning knobs + rendezvous coordinates, plus the host
+    layout for rank adoption when the starter cannot hand out per-rank
+    env. One definition so the contract can't drift between starters."""
+    env = args_to_env(args)
+    env.update(rendezvous_env(
+        _advertised_address(hosts, getattr(args, "network_interface",
+                                           None)),
+        port, args.start_timeout))
+    if layout:
+        from .js_run import JSRUN_HOSTS_ENV
+        env[JSRUN_HOSTS_ENV] = layout
+    return env
 
 
 def launch_mpi(args, command: list[str]) -> int:
-    """Static launch through mpirun: not ported."""
-    raise NotImplementedError(f"--use-mpi (the mpirun starter, mpi_run.py) "
-                              f"is {_ITEM_12}")
+    """Static launch through mpirun (upstream mpi_run.py / launch.py
+    --use-mpi): ONE mpirun invocation starts every rank; mpirun cannot
+    hand out per-rank env, so workers adopt their identity from the
+    OMPI/PMIx vars plus the exported host layout (the same adoption path
+    jsrun uses, ``js_run.adopt_jsm_env``) and dial back to the
+    rendezvous server started here.  MPI is the process starter only:
+    the control plane stays TCP and the data plane the port's."""
+    from .mpi_run import build_mpi_command, mpi_available
+
+    if not mpi_available():
+        sys.stderr.write(f"{PROG}: --use-mpi but mpirun is not on PATH\n")
+        return 2
+    hosts_str = args.hosts or f"localhost:{args.num_proc or 1}"
+    hosts = parse_hosts(hosts_str)
+    np = args.num_proc or sum(h.slots for h in hosts)
+
+    server = RendezvousServer()
+    port = server.start()
+    env = dict(os.environ)
+    env.update(control_plane_env(args, hosts, port, layout=hosts_str))
+    cmd = build_mpi_command(command, np=np, hosts=hosts_str, env=env,
+                            ssh_port=args.ssh_port)
+    if args.verbose:
+        print(" ".join(cmd))
+    try:
+        return safe_shell_exec.execute(cmd, env=env)
+    finally:
+        server.stop()
 
 
 def _advertised_address(hosts, network_interface: str | None = None) -> str:
@@ -376,7 +441,7 @@ def _advertised_address(hosts, network_interface: str | None = None) -> str:
 
 
 def launch_elastic(args, command: list[str]) -> int:
-    _refuse_unported(args)
+    _refuse_fleet(args)
     from ..elastic.launcher import launch_elastic as _launch
     return _launch(args, command)
 

@@ -7,8 +7,10 @@ the rendezvous KV (``RendezvousServer``, its HTTP handler,
 queue's depth, the KV verbs' latency), and under fault tolerance the
 deadline-bounded socket waits and the chaos send hooks (resilience/).
 ``HOROVOD_GLOO_IFACE`` pins the NIC peers dial (``driver_service.py``).
-Left out: the write-ahead-logged replica set
-(``HOROVOD_RENDEZVOUS_WAL_DIR``; ROADMAP queue A item 12).
+With ``HOROVOD_RENDEZVOUS_WAL_DIR`` (or ``wal_dir=``) a server is one
+replica of the write-ahead-logged replica set of ``controlplane.py``: the
+write gate answers 409 with the leader's endpoint on a standby, and every
+mutating verb is committed to the log before it is acked.
 
 Reference analogues: horovod/common/gloo/http_store.cc (KV client),
 horovod/runner/http/http_server.py:35-241 (rendezvous KV server), and the
@@ -40,7 +42,7 @@ from urllib import request as urlrequest
 
 from ..common import config, wire
 from ..common.logging import logger
-from .controlplane import _FNV_OFFSET, apply_record
+from .controlplane import _FNV_OFFSET, ControlPlane, apply_record
 
 _LEN = struct.Struct(">I")
 
@@ -133,8 +135,13 @@ def free_port() -> int:
 # Rendezvous KV store (HTTP, like the reference's RendezvousServer/HTTPStore)
 # ---------------------------------------------------------------------------
 def _kv_apply(httpd, kind: str, scope: str, key: str, value: bytes):
-    """Apply one mutating KV verb under the KV lock and wake the
-    long-polls.  Returns the claim index for a claim, else None."""
+    """Commit (WAL, when a control plane is attached) + apply one
+    mutating KV verb.  Enqueue and apply happen under the KV lock so
+    log order equals in-memory apply order; the fsync wait happens on
+    the returned event AFTER the lock is released (the caller acks the
+    client only once it is set).  Returns ``(commit_event|None,
+    claim_index|None)``."""
+    cp = httpd.controlplane
     with httpd.kv_lock:
         result = None
         if kind == "claim":
@@ -142,26 +149,41 @@ def _kv_apply(httpd, kind: str, scope: str, key: str, value: bytes):
             ckey = f"{scope}/{key}"
             assigned = httpd.claims.setdefault(ckey, {})
             if claimant and claimant in assigned:
-                return assigned[claimant]    # idempotent re-present
+                # Idempotent re-present: nothing new to commit.
+                return None, assigned[claimant]
             result = httpd.counters.get(ckey, 0)
+            # The record carries the ASSIGNED index so replay never
+            # re-runs the counter (claim order in the log is free).
             value = f"{claimant}|{result}".encode()
+        commit = cp.record(kind, scope, key, value) \
+            if cp is not None else None
         state = {"kv": httpd.kv, "counters": httpd.counters,
                  "claims": httpd.claims, "digest": httpd.kv_digest}
         apply_record(state, kind, scope, key, value)
         httpd.kv_digest = state["digest"]
         httpd.kv_cond.notify_all()
-    return result
+    return commit, result
 
 
-def _kv_apply_many(httpd, records) -> None:
-    """Apply a batch of put records under ONE KV-lock hold."""
+def _kv_apply_many(httpd, records):
+    """Apply a batch of put records under ONE KV-lock hold: every WAL
+    record is enqueued back-to-back so the group-commit lane drains them
+    in one (or very few) fsync batches instead of interleaving with
+    other writers.  Returns the LAST commit event only — the WAL queue
+    is FIFO and the writer sets commit events in batch order, so the
+    last record's durability implies every earlier record's."""
+    cp = httpd.controlplane
+    last = None
     with httpd.kv_lock:
         state = {"kv": httpd.kv, "counters": httpd.counters,
                  "claims": httpd.claims, "digest": httpd.kv_digest}
         for scope, key, value in records:
+            if cp is not None:
+                last = cp.record("put", scope, key, value)
             apply_record(state, "put", scope, key, value)
         httpd.kv_digest = state["digest"]
         httpd.kv_cond.notify_all()
+    return last
 
 
 def encode_batch(records) -> bytes:
@@ -227,26 +249,57 @@ class _KVHandler(BaseHTTPRequestHandler):
         if body:
             self.wfile.write(body)
 
+    def _gate(self) -> bool:
+        """Leader fence: with a control plane attached, only the
+        current primary answers KV verbs (reads included — clients must
+        never observe a stale standby mirror).  A refused request gets
+        409 + the best-known leader endpoint so clients converge."""
+        cp = self.server.controlplane
+        if cp is None:
+            return True
+        ok, hint = cp.check_write()
+        if ok:
+            return True
+        self._reply(409, headers=((("X-Hvd-Leader", hint),)
+                                  if hint else ()))
+        return False
+
+    def _commit_or_fail(self, commit) -> bool:
+        """Wait for the WAL group-commit fsync before acking; a write
+        that never reached disk answers 503 instead of lying."""
+        if commit is None or commit.wait(timeout=10.0):
+            return True
+        self._reply(503)
+        return False
+
     def do_PUT(self):
+        if not self._gate():
+            return
         scope, key = self._split()
         length = int(self.headers.get("Content-Length", 0))
         value = self.rfile.read(length)
         if scope == BATCH_SCOPE:
-            # Fan-in verb: one request carries many put records, applied
-            # under a single lock hold.
+            # Fan-in verb: one request carries many put records (a host
+            # group's heartbeat stamps), applied under a single lock hold
+            # so WAL group-commit coalesces them.
             try:
                 records = decode_batch(value)
             except (ValueError, IndexError):
                 return self._reply(400)
-            _kv_apply_many(self.server, records)
-            return self._reply(200, str(len(records)).encode())
-        _kv_apply(self.server, "put", scope, key, value)
-        self._reply(200)
+            commit = _kv_apply_many(self.server, records)
+            if self._commit_or_fail(commit):
+                self._reply(200, str(len(records)).encode())
+            return
+        commit, _ = _kv_apply(self.server, "put", scope, key, value)
+        if self._commit_or_fail(commit):
+            self._reply(200)
 
     def do_GET(self):
         scope, key = self._split()
         if scope == ".ctl":
             return self._ctl(key)
+        if not self._gate():
+            return
         if key == "":
             # Scope dump: one request returns every key in the scope
             # (fleetsim host groups refresh their heartbeat snapshot
@@ -278,17 +331,30 @@ class _KVHandler(BaseHTTPRequestHandler):
             self._reply(200, value)
 
     def _ctl(self, key: str) -> None:
-        """Introspection endpoints under ``/.ctl/``: the role (always the
-        primary: there is no replica set), the process id and the live
-        KV digest."""
+        """Introspection endpoints under ``/.ctl/``: replica role/epoch
+        (``role``), process id (``pid``, the chaos ``coordkill:``
+        target), live KV digest (``digest``) and the raw log tail
+        (``wal?from=<offset>``) standbys replicate from."""
+        cp = self.server.controlplane
         if key == "pid":
             return self._reply(200, str(os.getpid()).encode())
         if key == "role":
-            return self._reply(200, b"primary|0|")
+            desc = cp.describe() if cp is not None else "primary|0|"
+            return self._reply(200, desc.encode())
         if key == "digest":
             with self.server.kv_lock:
                 digest = self.server.kv_digest
             return self._reply(200, str(digest).encode())
+        if key.startswith("wal"):
+            if cp is None:
+                return self._reply(404)
+            try:
+                offset = int(self._query().get("from", ["0"])[0])
+            except ValueError:
+                offset = 0
+            raw, end = cp.wal_bytes_from(offset)
+            return self._reply(200, raw,
+                               headers=(("X-Hvd-Wal-End", str(end)),))
         self._reply(404)
 
     def do_POST(self):
@@ -297,24 +363,37 @@ class _KVHandler(BaseHTTPRequestHandler):
         task-registration counter, spark/runner.py:47-426). A non-empty
         body names the logical claimant: re-presenting the same body
         returns the original index (idempotent under task retries)."""
+        if not self._gate():
+            return
         scope, key = self._split()
         length = int(self.headers.get("Content-Length", 0))
         claimant = self.rfile.read(length)
-        n = _kv_apply(self.server, "claim", scope, key, claimant)
-        self._reply(200, str(n).encode())
+        commit, n = _kv_apply(self.server, "claim", scope, key, claimant)
+        if self._commit_or_fail(commit):
+            self._reply(200, str(n).encode())
 
     def do_DELETE(self):
+        if not self._gate():
+            return
         scope, key = self._split()
-        _kv_apply(self.server, "delete", scope, key, b"")
-        self._reply(200)
+        commit, _ = _kv_apply(self.server, "delete", scope, key, b"")
+        if self._commit_or_fail(commit):
+            self._reply(200)
 
 
 class RendezvousServer:
-    """Threaded HTTP KV store (reference: runner/http/http_server.py),
-    in memory.  ``wal_dir`` (or ``HOROVOD_RENDEZVOUS_WAL_DIR``), the
-    reference's write-ahead-logged replica set, raises."""
+    """Threaded HTTP KV store (reference: runner/http/http_server.py).
 
-    def __init__(self, port: int = 0, wal_dir: str | None = None) -> None:
+    With ``wal_dir`` (or ``HOROVOD_RENDEZVOUS_WAL_DIR``) set, a
+    :class:`~.controlplane.ControlPlane` is attached: every mutating
+    verb is WAL-committed before it is acked, standby replicas tail the
+    log and promote on lease lapse, and the handler fences every verb
+    on the current leadership (``runner/controlplane.py``)."""
+
+    def __init__(self, port: int = 0, wal_dir: str | None = None,
+                 replica_id: int = 0, endpoints=None,
+                 lease_ms: float | None = None,
+                 standby: bool = False) -> None:
         self._httpd = ThreadingHTTPServer(("", port), _KVHandler)
         self._httpd.kv = {}
         self._httpd.counters = {}
@@ -322,18 +401,24 @@ class RendezvousServer:
         self._httpd.kv_digest = _FNV_OFFSET
         self._httpd.kv_lock = threading.Lock()
         self._httpd.kv_cond = threading.Condition(self._httpd.kv_lock)
-        if wal_dir or config.RENDEZVOUS_WAL_DIR.get():
-            self._httpd.server_close()
-            raise NotImplementedError(
-                "a write-ahead-logged rendezvous replica set "
-                "(HOROVOD_RENDEZVOUS_WAL_DIR) is ROADMAP queue A item 12")
+        wal_dir = wal_dir or (config.RENDEZVOUS_WAL_DIR.get() or None)
+        self._httpd.controlplane = None if wal_dir is None else \
+            ControlPlane(self, wal_dir, replica_id=replica_id,
+                         endpoints=endpoints, lease_ms=lease_ms,
+                         standby=standby)
         self._thread: threading.Thread | None = None
 
     @property
     def port(self) -> int:
         return self._httpd.server_address[1]
 
+    @property
+    def controlplane(self) -> ControlPlane | None:
+        return self._httpd.controlplane
+
     def start(self) -> int:
+        if self._httpd.controlplane is not None:
+            self._httpd.controlplane.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True,
                                         name="hvd-rendezvous")
@@ -341,12 +426,16 @@ class RendezvousServer:
         return self.port
 
     def put(self, scope: str, key: str, value: bytes) -> None:
-        _kv_apply(self._httpd, "put", scope, key, value)
+        commit, _ = _kv_apply(self._httpd, "put", scope, key, value)
+        if commit is not None:
+            commit.wait(timeout=10.0)
 
     def put_many(self, records) -> None:
         """Batched puts (``[(scope, key, value), ...]``) applied under
         one lock hold — the in-proc mirror of ``PUT /.batch/``."""
-        _kv_apply_many(self._httpd, list(records))
+        commit = _kv_apply_many(self._httpd, list(records))
+        if commit is not None:
+            commit.wait(timeout=10.0)
 
     def get(self, scope: str, key: str) -> bytes | None:
         with self._httpd.kv_lock:
@@ -363,6 +452,8 @@ class RendezvousServer:
             return self._httpd.kv_digest
 
     def stop(self) -> None:
+        if self._httpd.controlplane is not None:
+            self._httpd.controlplane.close()
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
@@ -533,7 +624,7 @@ class RendezvousClient:
     def put_many(self, records) -> None:
         """Batched puts: ``[(scope, key, value), ...]`` in ONE request
         (``PUT /.batch/``), applied server-side under a single lock
-        hold.
+        hold so the WAL group-commits them in one fsync lane pass.
         Idempotent — every record is a last-write-wins put."""
         records = list(records)
         if not records:
@@ -630,10 +721,14 @@ class RendezvousClient:
 
 def advertised_hello() -> tuple[int, int]:
     """The wire proto version + feature bits this process offers at
-    channel establishment: the build's native version.  (The reference's
-    ``HOROVOD_PROTO_COMPAT`` pin for rolling upgrades comes with the
-    launcher, ROADMAP queue A item 12.)"""
-    return wire.PROTO_VERSION, wire.proto_features(wire.PROTO_VERSION)
+    channel establishment.  ``HOROVOD_PROTO_COMPAT=<N>`` pins the
+    advertisement to version N (masking newer feature bits) so a world
+    can roll from framework version N to N+1 rank-by-rank: the still-
+    old ranks negotiate every peer down to the min common schema."""
+    compat = config.PROTO_COMPAT.get()
+    proto = wire.PROTO_VERSION if compat <= 0 \
+        else min(compat, wire.PROTO_VERSION)
+    return proto, wire.proto_features(proto)
 
 
 # ---------------------------------------------------------------------------

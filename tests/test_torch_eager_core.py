@@ -615,7 +615,7 @@ def test_defaults_of_unported_knobs_do_not_raise(monkeypatch, solo):
     assert hvd.allreduce(torch.ones(2), op=hvd.Sum).tolist() == [1.0, 1.0]
 
 
-def test_unported_calls_raise(solo):
+def test_unported_calls_raise(solo, tmp_path, monkeypatch):
     x = torch.ones(3)
     # Adasum and the wire codecs are ported: at one rank they return the
     # input, as the reference's basic plane does.
@@ -625,12 +625,17 @@ def test_unported_calls_raise(solo):
                  lambda: solo.allreduce(x, op=solo.Max)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # The replicated control plane and the mpirun starter are ported: a
+    # server over a log directory carries its control plane, and --use-mpi
+    # without mpirun on PATH exits 2 as the reference's does.
     from horovod_tpu_torch.runner.launch import launch_mpi, parse_args
     from horovod_tpu_torch.runner.network import RendezvousServer
-    with pytest.raises(NotImplementedError, match="item 12"):
-        RendezvousServer(wal_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launch_mpi(parse_args(["true"]), ["true"])
+    server = RendezvousServer(wal_dir=str(tmp_path))
+    server.start()
+    assert server.controlplane.role == "primary"
+    server.stop()
+    monkeypatch.setenv("PATH", str(tmp_path))
+    assert launch_mpi(parse_args(["true"]), ["true"]) == 2
     with pytest.raises(TypeError):
         solo.allreduce(np.ones(3))
     assert not solo.nccl_built() and solo.tcp_built() and solo.gloo_built()

@@ -51,7 +51,8 @@ for sub in ("common.controller", "backend.tcp", "backend.shm", "native",
             "statesync.snapshot", "checkpoint", "spark", "spark.store",
             "data", "data.loader", "callbacks", "statesync.stream",
             "statesync.service", "statesync.autoscale",
-            "serving.kvstream"):
+            "serving.kvstream", "runner.controlplane", "runner.mpi_run",
+            "runner.js_run"):
     assert "horovod_tpu_torch." + sub in new, sub
 bad = [m for m in new
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",

@@ -218,15 +218,24 @@ def test_chaos_prob_matcher_is_seed_deterministic():
 @pytest.mark.parametrize("spec", ["coordkill:at=5",
                                   "coordpause:at=5,ms=800",
                                   "fail:op=1;coordkill:at=2,rank=0"])
-def test_coordinator_actions_parse_but_do_not_arm(spec, monkeypatch):
+def test_coordinator_actions_arm_as_the_reference(spec, monkeypatch):
+    """An engine armed with a coordinator action fires as the
+    reference's does: with no rendezvous to find a primary through, each
+    coordinator action is spent and skipped at its collective, and the
+    other actions fire as before (the signals themselves are
+    ``tests/test_torch_controlplane.py``'s)."""
+    monkeypatch.delenv("HOROVOD_GLOO_RENDEZVOUS_ADDR", raising=False)
     assert [a.kind for a in tchaos.parse_spec(spec)] == \
         [a.kind for a in jchaos.parse_spec(spec)]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tchaos.ChaosEngine(spec, rank=0)
+    assert _drive(tchaos, spec, 0, _SCRIPT) == \
+        _drive(jchaos, spec, 0, _SCRIPT)
+    assert _drive(tchaos, spec, 1, _SCRIPT) == \
+        _drive(jchaos, spec, 1, _SCRIPT)
     monkeypatch.setenv("HOROVOD_CHAOS", spec)
     try:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tchaos.configure(0)
+        eng = tchaos.configure(0)
+        assert [a.kind for a in eng.actions] == \
+            [a.kind for a in jchaos.parse_spec(spec)]
     finally:
         monkeypatch.setenv("HOROVOD_CHAOS", "")
         tchaos.configure(0)
