@@ -147,7 +147,9 @@ Phases, each printed as one JSON object on its own line:
    equal the plain AdamW loop's bit for bit (at one rank both are the
    wrapped step) and every flash kernel launch 12 times a step.  With
    two or more cards, (b) and (c) also run across two ranks, one card
-   each (``--reduce-card-worker``); with one the summary says so.
+   each (``--reduce-card-worker``); with one the summary says so.  (a)'s
+   worlds run one after another beside (b)-(d), which run in this
+   process.
 
 12. runtime: the eager core's runtime half, one line a leg.  (a) The
    card leg: gpt_small at full width (B=8, T=2048, bf16, flash
@@ -187,6 +189,8 @@ Phases, each printed as one JSON object on its own line:
    only, as the reference does, and the dump's tail names the op; on
    the other ranks the script dumps the ring itself (``rec.dump()``) to
    show what it held, and checks that none of them dumped on its own.
+   (b)'s worlds run one after another beside (a), which runs in this
+   process.
 
 13. resilience: the eager core's failure half, one line a leg.  (a) A
    serving world of two ranks through ``--eager-worker rserve-<leg>``,
@@ -222,6 +226,7 @@ Phases, each printed as one JSON object on its own line:
    survivor), the retry at 4 (exact after a rebuild), a freeze at 2 and
    the off mode at 2, each time to the error printed (the four worlds
    at once; each line's ``wall_s`` counts from their common start).
+   The worlds of (a) and (b) run at once, then (c) beside (d).
 
 14. elastic: the launcher and elastic training, one line a leg.  (a)
    ``python -m horovod_tpu_torch.runner.launch -np 1 -H localhost:1``
@@ -253,9 +258,9 @@ Phases, each printed as one JSON object on its own line:
    (``tests/torch_elastic_worker.py`` ``run_scenario``: happy, a node
    failure, a grow through a discovery script, ``HOROVOD_ON_FAILURE=
    shrink`` with a chaos kill at 3 ranks, ``hvd.run`` under the driver;
-   CPU tensors, CUDA hidden), the five worlds at once, beside (b)'s
-   unbroken run: each world's wall time and its fault to recovery.  Any
-   leg that fails fails the phase.
+   CPU tensors, CUDA hidden), the five worlds at once, beside (a) and
+   (b)'s unbroken run: each world's wall time and its fault to recovery.
+   Any leg that fails fails the phase.
 
 15. parallel: sequence and expert parallelism, one line a leg, gpt_small
    at full width (bf16, the bf16 wire, AdamW(3e-4, wd 1e-4), 2 warm-up
@@ -282,7 +287,16 @@ Phases, each printed as one JSON object on its own line:
    block call, the recompute on autograd's device thread included, runs
    inside the step's global view, flash_fwd launches 24 times a step and
    the backward kernels 12, and the losses lie within
-   ``PARALLEL_LOSS_TOL`` of (c)'s.  The kernels line's
+   ``PARALLEL_LOSS_TOL`` of (c)'s.  (f) The pure-GSPMD step (sync axes
+   ``()``) with ``batch_spec=("dp", "sp")`` and with ``("dp",)``, flash,
+   B=8, two steps each: at sp=1 nothing is gathered or bound, so the
+   losses must be bitwise equal.  With n cards, (d) also runs the
+   pure-GSPMD step with ``batch_spec=("dp", "sp")`` on (a)'s sequence
+   chunks: Ulysses, which takes its chunk as it is (losses within
+   ``PARALLEL_LOSS_TOL`` of (d)'s manual Ulysses leg and of the one-card
+   leg), and flash, whose sequence the Trainer gathers at the step's
+   entry (within ``PARALLEL_LOSS_TOL`` of (a)'s flash leg); 12 launches
+   of each kernel a step on every rank.  The kernels line's
    ``parallel_launches`` are leg (a)'s.
 
 16. fit: the fit loop and its state on gpt_small as the train phase
@@ -352,8 +366,9 @@ Phases, each printed as one JSON object on its own line:
    colocated one-rank paged run's in this process (where one parts, each
    token within 1e-3 of the full forward's argmax); KV bytes a request
    and a token, stream ms a MB, time to first token beside the colocated
-   run's.  The kernels line's ``statesync_launches`` are leg (a)'s
-   incumbent's over all its steps.
+   run's.  The worlds of (a)/(b), (c) and (d) run at once, sharing the
+   card; (d)'s colocated run follows its world.  The kernels line's
+   ``statesync_launches`` are leg (a)'s incumbent's over all its steps.
 
 18. cards: the data-parallel main path across the cards of this host,
    one line a leg.  Every rank is a process the port's launcher starts
@@ -397,8 +412,25 @@ Phases, each printed as one JSON object on its own line:
    optimizer state and batch must lie on its own card.  Then
    ``_reduce_two_cards`` and the statesync phase's legs with each process
    on a card of its own: (a)/(b) (the grown world on the NCCL plane), (d)
-   and, with three cards, (c) and (e), a training grow 2 -> 3 whose two
-   incumbents share the bulk round.  The world line gives NCCL's
+   and, with three cards, (c), (e), a training grow 2 -> 3 whose two
+   incumbents share the bulk round, and (f): gpt_small through
+   ``Trainer(param_rules=SHARD_FSDP)`` (the FSDP table) on cards 0 and
+   1 at fsdp=2, 12 rows of T=2048 a step (6 a rank), grown to fsdp=3 by
+   a joiner on card 2 (its template a fresh unsharded state's tree), which
+   sends itself SIGTERM after 3 grown steps; the world shrinks back to
+   fsdp=2 and takes 3 more.  The state stays sharded: each rank's
+   ``StateSyncService(sharded=True)`` gathers it at each boundary that
+   needs it, and after each transition every rank builds a Trainer on
+   the new mesh over a fresh model and cuts the transition's whole tree
+   into it.  Checks: the grow and the departure with sizes 3 then 2, the
+   ranks' ``_whole_digest`` equal after every step, the joiner's image
+   the stamp's and every rank's image equal after each transition, the
+   parameter and AdamW bytes a rank the reckoning at fsdp=3 and 2, every
+   tensor on its rank's card, 12 launches of each kernel a step, finite
+   losses within ``PARALLEL_LOSS_TOL`` of an unbroken unsharded run of
+   the same global batches on card 0, the flight events in order
+   (``--phases cards-grow-sharded`` runs (f) alone).  The world line
+   gives NCCL's
    transports and link types (``NCCL_DEBUG=INFO``); the first line the
    cards' names, power limits, ``nvidia-smi topo -m`` and ``nvlink
    --status``.  On one card every n-card leg says "not
@@ -638,8 +670,14 @@ BENCH_SERVE_ARGS = ["--requests", "96", "--duration", "5", "--rate", "120",
                     "--max-batch", "4", "--slo-ms", "400"]
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout (whole, from any thread)."""
+    line = json.dumps(obj)
+    with _EMIT_LOCK:
+        print(line, flush=True)
 
 
 def time_ms(fn, calls: int = 1, rounds: int = 20, warmup: int = 3) -> float:
@@ -1941,16 +1979,19 @@ def eager_worker(job: str, rank: int, size: int, port: int,
 
 def _eager_world(job: str, size: int, outdir: str,
                  hide_cuda: bool = True,
-                 expected_rcs: dict | None = None) -> list[dict | None]:
+                 expected_rcs: dict | None = None,
+                 environ: dict | None = None) -> list[dict | None]:
     """Spawn one world of ``size`` ranks against the port's own
     RendezvousServer; every rank within EAGER_WORLD_TIMEOUT, with exit
     code 0 unless ``expected_rcs`` names another (a rank expected to die
-    reports nothing: its entry is None)."""
+    reports nothing: its entry is None).  The ranks' environment is
+    ``environ`` (default ``os.environ``; a copy taken beforehand where
+    another thread may change it) without the ``HOROVOD_`` knobs."""
     expected_rcs = expected_rcs or {}
     from horovod_tpu_torch.runner.network import RendezvousServer
     server = RendezvousServer()
     port = server.start()
-    env = {k: v for k, v in os.environ.items()
+    env = {k: v for k, v in (environ or os.environ).items()
            if not k.startswith("HOROVOD_")}
     if hide_cuda:
         env["CUDA_VISIBLE_DEVICES"] = ""      # the eager planes are host
@@ -3061,16 +3102,28 @@ def phase_reduce() -> dict:
         os.environ.pop(var, None)
     problems: list[str] = []
     host: dict = {}
-    with tempfile.TemporaryDirectory(prefix="reduce") as outdir:
+
+    def host_worlds(outdir: str, environ: dict) -> None:
         for job, size in (("reduce", 2), ("reduce", 4),
                           ("reduce-hier", 4)):
-            res = _eager_world(job, size, outdir)
+            res = _eager_world(job, size, outdir, environ=environ)
             for r, rr in enumerate(res):
-                problems += [f"{job} {size} rank {r}: {p}"
-                             for p in rr["problems"]]
+                problems.extend(f"{job} {size} rank {r}: {p}"
+                                for p in rr["problems"])
             host[f"{job}-{size}"] = {k: v for k, v in res[0].items()
                                      if k not in ("problems",
                                                   "native_loaded")}
+    from concurrent.futures import ThreadPoolExecutor
+    # The host worlds (CUDA hidden) one after another, beside the card
+    # legs in this thread.
+    with tempfile.TemporaryDirectory(prefix="reduce") as outdir, \
+            ThreadPoolExecutor(1) as pool:
+        worlds = pool.submit(host_worlds, outdir, dict(os.environ))
+        with _one_rank_nccl():
+            _reduce_plane(problems)
+        _reduce_adasum_arith(problems)
+        _reduce_gpt(problems)
+        worlds.result()
     timing = host["reduce-2"]
     for plane in ("tcp", "shm"):
         emit({"phase": "reduce", "leg": f"host-{plane}", "ranks": 2,
@@ -3085,10 +3138,6 @@ def phase_reduce() -> dict:
           "worlds": {k: {kk: vv for kk, vv in v.items()
                          if kk not in ("tcp", "shm")}
                      for k, v in host.items()}})
-    with _one_rank_nccl():
-        _reduce_plane(problems)
-    _reduce_adasum_arith(problems)
-    _reduce_gpt(problems)
     cards = torch.cuda.device_count()
     if cards < 2:
         across = f"not run: the machine shows {cards} card"
@@ -3652,15 +3701,25 @@ def _runtime_world(hvd, core, world, rank: int, size: int,
 
 def phase_runtime() -> dict:
     """The eager core's runtime half (see the module docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
     t_phase = time.perf_counter()
     problems: list[str] = []
-    card = _runtime_card(problems)
     host = {}
-    with tempfile.TemporaryDirectory(prefix="runtime") as outdir:
-        for size in (2, 4):
+    with tempfile.TemporaryDirectory(prefix="runtime") as outdir, \
+            ThreadPoolExecutor(1) as pool:
+        environ = dict(os.environ)
+
+        def world(size: int) -> list:
             sub = os.path.join(outdir, str(size))
             os.makedirs(sub)
-            res = _eager_world("runtime", size, sub)
+            return _eager_world("runtime", size, sub, environ=environ)
+        # The host worlds (CUDA hidden) one after another, beside (a) in
+        # this thread, which sets the knobs of each setting.
+        worlds = pool.submit(lambda: {size: world(size) for size in (2, 4)})
+        card = _runtime_card(problems)
+        worlds = worlds.result()
+        for size in (2, 4):
+            res = worlds[size]
             for r, rr in enumerate(res):
                 problems += [f"runtime {size} rank {r}: {p}"
                              for p in rr["problems"]]
@@ -3908,14 +3967,26 @@ def _resilience_serve_rank(hvd, world, rank: int, outdir: str,
     return out
 
 
-def _resilience_serve(problems: list[str]) -> dict:
+def _resilience_serve(problems: list[str], beside_freeze) -> dict:
     """Leg (a), (b) and (c): the 2-rank serving world on the one card,
-    fault tolerance off and on, then a kill and a freeze."""
+    fault tolerance off and on and a kill, the three worlds at once; then
+    a freeze, while ``beside_freeze()`` runs in this thread."""
+    from concurrent.futures import ThreadPoolExecutor
     legs = {}
-    with tempfile.TemporaryDirectory(prefix="rserve") as outdir:
+    with tempfile.TemporaryDirectory(prefix="rserve") as outdir, \
+            ThreadPoolExecutor(len(RES_SERVE_LEGS)) as pool:
+        def world(leg: str, rc1: int):
+            return pool.submit(_eager_world, f"rserve-{leg}", 2, outdir,
+                               hide_cuda=False, expected_rcs={1: rc1})
+        worlds = {leg: world(leg, rc1) for leg, _, rc1 in RES_SERVE_LEGS
+                  if leg != "freeze"}
+        worlds = {leg: w.result() for leg, w in worlds.items()}
+        freeze = world("freeze", next(rc1 for leg, _, rc1
+                                      in RES_SERVE_LEGS if leg == "freeze"))
+        beside = beside_freeze()
+        worlds["freeze"] = freeze.result()
         for leg, _, rc1 in RES_SERVE_LEGS:
-            r0, r1 = _eager_world(f"rserve-{leg}", 2, outdir,
-                                  hide_cuda=False, expected_rcs={1: rc1})
+            r0, r1 = worlds[leg]
             stamp = os.path.join(outdir, f"{leg}-fault-time")
             fault_at = None
             if os.path.exists(stamp):
@@ -4040,7 +4111,7 @@ def _resilience_serve(problems: list[str]) -> dict:
     on, off = legs["on"]["step_ms"]["p50"], legs["off"]["step_ms"]["p50"]
     return {"on_over_off_step_p50": on / off if off else None,
             "tokens_per_s": {k: legs[k]["tokens_per_s"]
-                             for k in ("off", "on")}}
+                             for k in ("off", "on")}, "beside": beside}
 
 
 def _resilience_host(problems: list[str]) -> dict:
@@ -4106,8 +4177,9 @@ def phase_resilience() -> dict:
     """The eager core's failure half (see the module docstring)."""
     t_phase = time.perf_counter()
     problems: list[str] = []
-    serve = _resilience_serve(problems)
-    host = _resilience_host(problems)
+    serve = _resilience_serve(problems,
+                              lambda: _resilience_host(problems))
+    host = serve.pop("beside")
     seconds = time.perf_counter() - t_phase
     emit({"phase": "resilience", "leg": "summary", "seconds": seconds,
           **serve, "host_seconds_to_error": host, "problems": problems})
@@ -4404,51 +4476,58 @@ def phase_elastic(binding: dict | None = None) -> dict:
     root = tempfile.mkdtemp(prefix="elastic")
     launches: dict[str, dict] = {}
 
-    # (a) the static launcher, a world of one on the card.
-    out_a = os.path.join(root, "static")
-    os.makedirs(out_a)
-    t_launch = time.time()
-    rc, text = _launcher_run(
-        ["-np", "1", "-H", "localhost:1", sys.executable,
-         os.path.abspath(__file__), "--launch-worker", "static", out_a], {})
-    wall_a = time.time() - t_launch
-    static = {}
-    if rc != 0 or not os.path.exists(os.path.join(out_a, "static.json")):
-        problems.append(f"elastic (a): launcher rc {rc}: {text[-3000:]}")
-    else:
-        with open(os.path.join(out_a, "static.json")) as f:
-            static = json.load(f)
-        launches["static"] = static["launches"]
-        mean_ms = statistics.mean(static["step_ms"][WARMUP_STEPS:])
-        emit({"phase": "elastic", "leg": "static-launch",
-              "command": "horovodrun-tpu-torch -np 1 -H localhost:1",
-              "worker_rc": rc, "wall_s": wall_a,
-              "launch_to_first_step_s": static["t_first_step"] - t_launch,
-              "timed_step_ms_mean": mean_ms,
-              "binding_timed_step_ms_mean":
-                  None if binding is None else
-                  binding.get("timed_step_ms_mean"),
-              "losses": static["losses"],
-              "launches_per_step": {n: c / steps for n, c in
-                                    static["launches"].items()},
-              "launcher_env": static["launcher_env"],
-              "device": static["device"]})
-        if (static["rank"], static["size"]) != (0, 1):
-            problems.append(f"elastic (a): rank/size "
-                            f"{static['rank']}/{static['size']}")
-        if not all(math.isfinite(x) for x in static["losses"]) or \
-                not static["losses"][-1] < static["losses"][0]:
-            problems.append(f"elastic (a): losses {static['losses']}")
-        for name, c in static["launches"].items():
-            if c != per_step * steps:
-                problems.append(f"elastic (a): {name} launched {c} times, "
-                                f"not {per_step} a step")
+    def static_leg() -> None:
+        """(a) the static launcher, a world of one on the card, beside
+        (b)'s unbroken run and (c)."""
+        out_a = os.path.join(root, "static")
+        os.makedirs(out_a)
+        t_launch = time.time()
+        rc, text = _launcher_run(
+            ["-np", "1", "-H", "localhost:1", sys.executable,
+             os.path.abspath(__file__), "--launch-worker", "static",
+             out_a], {})
+        wall_a = time.time() - t_launch
+        static = {}
+        if rc != 0 or not os.path.exists(
+                os.path.join(out_a, "static.json")):
+            problems.append(f"elastic (a): launcher rc {rc}: "
+                            f"{text[-3000:]}")
+        else:
+            with open(os.path.join(out_a, "static.json")) as f:
+                static = json.load(f)
+            launches["static"] = static["launches"]
+            mean_ms = statistics.mean(static["step_ms"][WARMUP_STEPS:])
+            emit({"phase": "elastic", "leg": "static-launch",
+                  "command": "horovodrun-tpu-torch -np 1 -H localhost:1",
+                  "worker_rc": rc, "wall_s": wall_a,
+                  "launch_to_first_step_s":
+                      static["t_first_step"] - t_launch,
+                  "timed_step_ms_mean": mean_ms,
+                  "binding_timed_step_ms_mean":
+                      None if binding is None else
+                      binding.get("timed_step_ms_mean"),
+                  "losses": static["losses"],
+                  "launches_per_step": {n: c / steps for n, c in
+                                        static["launches"].items()},
+                  "launcher_env": static["launcher_env"],
+                  "device": static["device"]})
+            if (static["rank"], static["size"]) != (0, 1):
+                problems.append(f"elastic (a): rank/size "
+                                f"{static['rank']}/{static['size']}")
+            if not all(math.isfinite(x) for x in static["losses"]) or \
+                    not static["losses"][-1] < static["losses"][0]:
+                problems.append(f"elastic (a): losses {static['losses']}")
+            for name, c in static["launches"].items():
+                if c != per_step * steps:
+                    problems.append(f"elastic (a): {name} launched {c} "
+                                    f"times, not {per_step} a step")
 
-    # (c) the host worlds start here and run beside (b)'s unbroken run:
-    # the five scenarios of the integration tests through the launcher,
-    # CPU tensors, CUDA hidden, all at once (their start-up, imports
-    # mostly, sets their time), so each wall time is under the others'
-    # load and the card worker's.  The chaos run waits for them to end.
+    # (c) the host worlds start here and run beside (a) and (b)'s
+    # unbroken run: the five scenarios of the integration tests through
+    # the launcher, CPU tensors, CUDA hidden, all at once (their start-up,
+    # imports mostly, sets their time), so each wall time is under the
+    # others' load and the card workers'.  The chaos run waits for them
+    # to end.
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "tests"))
     import torch_elastic_worker as worlds
@@ -4460,7 +4539,8 @@ def phase_elastic(binding: dict | None = None) -> dict:
         return worlds.run_scenario(name, out)
 
     t_host = time.perf_counter()
-    pool = ThreadPoolExecutor(len(worlds.SCENARIOS))
+    pool = ThreadPoolExecutor(len(worlds.SCENARIOS) + 1)
+    static = pool.submit(static_leg)
     futures = [pool.submit(scenario, name) for name in worlds.SCENARIOS]
 
     # (b) the elastic launcher, a world of one on the card: an unbroken
@@ -4476,6 +4556,7 @@ def phase_elastic(binding: dict | None = None) -> dict:
         out_u, f"fail:op={ELASTIC_NEVER},rank=*", spread=True)
     wall_u = time.time() - t0
     results = [f.result() for f in futures]
+    static.result()
     pool.shutdown()
     host = {"wall_s": time.perf_counter() - t_host}
     for name, res in zip(worlds.SCENARIOS, results):
@@ -4605,14 +4686,16 @@ PARALLEL_MOE = dict(batch=4, seq=1024, experts=8)
 PARALLEL_LOSS_TOL = 5e-2
 PARALLEL_MOE_CHECK_REL = 1e-4
 PARALLEL_WORLD_TIMEOUT = 600.0
+PARALLEL_SPEC_STEPS = 2                 # leg (f) at sp=1, each spec
 
 
 def _parallel_train(cfg, batch: dict, mesh, sync_kw: dict | None = None,
-                    batch_spec=None, on_model=None) -> dict:
+                    batch_spec=None, on_model=None,
+                    steps: int = sum(PARALLEL_STEPS)) -> dict:
     """``Trainer.step`` on a model of ``cfg`` (seed 0) with AdamW(3e-4,
     wd 1e-4) and the bf16 wire: losses, step ms, peak memory and the
-    flash launches of the warm-up and timed steps.  ``on_model(model)``
-    runs once the model is built."""
+    flash launches of the warm-up and timed steps (``steps`` in all).
+    ``on_model(model)`` runs once the model is built."""
     from horovod_tpu_torch import GradSyncConfig, Trainer, TransformerLM
     from horovod_tpu_torch.ops import flash_attention as fa
     model = TransformerLM(cfg, seed=0)
@@ -4627,7 +4710,6 @@ def _parallel_train(cfg, batch: dict, mesh, sync_kw: dict | None = None,
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()                 # the leg's path starts
     losses, step_ms = [], []
-    steps = sum(PARALLEL_STEPS)
     for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = trainer.step(state, batch)
@@ -4638,7 +4720,7 @@ def _parallel_train(cfg, batch: dict, mesh, sync_kw: dict | None = None,
     out = {"params": sum(p.numel() for p in model.parameters()),
            "losses": losses, "step_ms": step_ms,
            "timed_step_ms_mean":
-               statistics.mean(step_ms[PARALLEL_STEPS[0]:]),
+               statistics.mean(step_ms[min(PARALLEL_STEPS[0], steps - 1):]),
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches,
            "launches_per_step": {n: c / steps for n, c in launches.items()}}
@@ -4657,7 +4739,7 @@ def _parallel_checks(leg: str, out: dict, per_step: int | dict
         problems.append(f"parallel ({leg}): a loss is not finite")
     elif not losses[-1] < losses[0]:
         problems.append(f"parallel ({leg}): the loss did not fall")
-    steps = sum(PARALLEL_STEPS)
+    steps = len(losses)
     for name, c in out["launches"].items():
         want = per_step[name] if isinstance(per_step, dict) else per_step
         if c != want * steps:
@@ -4732,6 +4814,22 @@ def _parallel_one_card(problems: list[str]) -> dict:
         if not legs["ulysses"]["losses_bitwise_equal_flash"]:
             problems.append("parallel (a): Ulysses at sp=1 and flash give "
                             "other losses")
+        # (f) the pure-GSPMD step with the sequence dim in batch_spec: at
+        # sp=1 nothing is gathered or bound, so two steps give the
+        # ("dp",) spec's losses bit for bit.
+        cfg = gpt_small(attention="flash", max_seq_len=2048, mesh=mesh)
+        for name, spec in (("gspmd-dp", ("dp",)),
+                           ("gspmd-dp-sp", ("dp", "sp"))):
+            legs[name] = _parallel_train(cfg, batch, mesh, {"axes": ()},
+                                         batch_spec=spec,
+                                         steps=PARALLEL_SPEC_STEPS)
+            legs[name].update(batch=8, seq=2048, batch_spec=spec)
+            problems += _parallel_checks(name, legs[name], cfg.num_layers)
+        legs["gspmd-dp-sp"]["losses_bitwise_equal_dp"] = \
+            legs["gspmd-dp-sp"]["losses"] == legs["gspmd-dp"]["losses"]
+        if not legs["gspmd-dp-sp"]["losses_bitwise_equal_dp"]:
+            problems.append("parallel (f): batch_spec (dp, sp) at sp=1 and "
+                            "(dp,) give other losses")
         # (b) the ring at sp=1 (local attention, fp32) against dense.
         batch = synthetic_text_batch(PARALLEL_RING_BATCH, 2048, vocab,
                                      seed=1)
@@ -4794,9 +4892,11 @@ def _parallel_one_card(problems: list[str]) -> dict:
 
 def parallel_card_worker(rank: int, n: int, port: int, outdir: str) -> int:
     """One rank of leg (d), on card ``rank`` over NCCL: Ulysses and the
-    ring at sp=n (each rank its sequence chunk, sync over sp), MoE at
-    ep=n in the pure-GSPMD step (each rank its row block), without and
-    with every block checkpointed."""
+    ring at sp=n (each rank its sequence chunk, sync over sp), Ulysses
+    and flash on the same chunks in the pure-GSPMD step
+    (``batch_spec=("dp", "sp")``: Ulysses takes its chunk, flash gets the
+    sequence gathered), MoE at ep=n in the pure-GSPMD step (each rank its
+    row block), without and with every block checkpointed."""
     import torch.distributed as dist
     from horovod_tpu_torch import build_mesh, gpt_small, synthetic_text_batch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4813,13 +4913,21 @@ def parallel_card_worker(rank: int, n: int, port: int, outdir: str) -> int:
                 ("ring", "ring", PARALLEL_RING_BATCH, 1)):
             mesh = build_mesh(sp=n)
             full = synthetic_text_batch(b, 2048, vocab, seed=seed)
-            c = 2048 // n
+            c = full["input"].shape[1] // n
             batch = {k: v[:, rank * c:(rank + 1) * c].contiguous()
                      for k, v in full.items()}
             cfg = gpt_small(attention=attention, max_seq_len=2048, mesh=mesh)
             out[name] = _parallel_train(cfg, batch, mesh,
                                         {"axes": ("dp", "sp")},
                                         batch_spec=("dp", "sp"))
+            if name == "ulysses":
+                # The pure-GSPMD step on the same chunks: Ulysses takes
+                # its chunk as it is; flash gets the sequence gathered.
+                out["ulysses-gspmd"] = _parallel_train(
+                    cfg, batch, mesh, {"axes": ()}, batch_spec=("dp", "sp"))
+                out["flash-gspmd-seq"] = _parallel_train(
+                    dataclasses.replace(cfg, attention="flash"), batch,
+                    mesh, {"axes": ()}, batch_spec=("dp", "sp"))
         moe = PARALLEL_MOE
         mesh = build_mesh(ep=n)
         full = synthetic_text_batch(moe["batch"], moe["seq"], vocab, seed=2)
@@ -4874,9 +4982,11 @@ def _parallel_cards(legs: dict, problems: list[str]) -> dict:
     for r in range(n):
         with open(os.path.join(outdir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    against = {"ulysses-gspmd": "ulysses", "flash-gspmd-seq": "flash"}
     for name, per_step in (("ulysses", 12), ("ring", 0), ("moe-gspmd", 12),
-                           ("moe-gspmd-remat-full", _remat_launches(12))):
-        one = legs[name]
+                           ("moe-gspmd-remat-full", _remat_launches(12)),
+                           ("ulysses-gspmd", 12), ("flash-gspmd-seq", 12)):
+        one = legs[against.get(name, name)]
         rec = {"losses": ranks[0][name]["losses"],
                "timed_step_ms_mean": [x[name]["timed_step_ms_mean"]
                                       for x in ranks],
@@ -4885,6 +4995,16 @@ def _parallel_cards(legs: dict, problems: list[str]) -> dict:
                "launches_per_step": ranks[0][name]["launches_per_step"],
                "loss_max_abs_diff_one_card":
                    _max_loss_diff(ranks[0][name]["losses"], one["losses"])}
+        if name == "ulysses-gspmd":
+            # Held to the manual Ulysses leg of this world.
+            rec["loss_max_abs_diff_manual"] = _max_loss_diff(
+                rec["losses"], ranks[0]["ulysses"]["losses"])
+            rec["losses_bitwise_equal_manual"] = \
+                rec["losses"] == ranks[0]["ulysses"]["losses"]
+            if rec["loss_max_abs_diff_manual"] > PARALLEL_LOSS_TOL:
+                problems.append(f"parallel (d) {name}: losses "
+                                f"{rec['loss_max_abs_diff_manual']} from "
+                                f"the manual Ulysses leg's")
         result[name] = rec
         if any(x[name]["losses"] != rec["losses"] for x in ranks):
             problems.append(f"parallel (d) {name}: the ranks' losses differ")
@@ -5482,6 +5602,12 @@ SS_DISAGG = dict(SERVE_TIMED, requests=16, pool=16, max_new=32, seed=8)
 # One token's K and V in every layer of gpt_small in bf16 (the image a
 # prefill streams): 12 layers x 2 x 768 x 2 bytes.
 SS_KV_BYTES_PER_TOKEN = 12 * 2 * 768 * 2
+# Leg (f) of the cards phase: gpt_small with the FSDP table (SHARD_FSDP)
+# grown from fsdp=2 to 3 and preempted back to 2.  Step s trains on the
+# global batch of SS_SHARD_ROWS rows drawn from seed SS_SHARD_SEED + s:
+# 6 rows a rank at fsdp=2, 4 at fsdp=3.
+SS_SHARD_ROWS = 12
+SS_SHARD_SEED = 300
 
 
 def _ss_env(role: str, outdir: str) -> dict:
@@ -5500,6 +5626,12 @@ def _ss_env(role: str, outdir: str) -> dict:
                    HOROVOD_RENDEZVOUS_EPOCH="cpgrow")
         if role == "cp3":
             env["HOROVOD_CHAOS"] = CP_CARDS_KILL
+    elif role.startswith("shard2"):
+        # Leg (f): the joiner sends itself SIGTERM inside the grace.
+        env.update(HOROVOD_FAULT_TOLERANCE="1",
+                   HOROVOD_FAULT_TIMEOUT=str(SS_FAULT_TIMEOUT),
+                   HOROVOD_PREEMPT_GRACE_S=str(SS_GRACE_S),
+                   HOROVOD_RENDEZVOUS_EPOCH="ssshard2")
     elif role.startswith("train2"):
         # The grow 2 -> 3 of the cards phase: no preemption.
         env.update(HOROVOD_FAULT_TOLERANCE="1",
@@ -5707,6 +5839,181 @@ def _ss_train_rank(role: str, port: int, outdir: str) -> dict:
     return rec
 
 
+def _ss_shard_text(step: int) -> dict:
+    """Step ``step``'s global batch of leg (f)."""
+    return _shard_text(SS_SHARD_ROWS, SHARD["seq"], SS_SHARD_SEED + step)
+
+
+def _ss_shard_rank(role: str, outdir: str) -> dict:
+    """Leg (f), one process: an incumbent of the fsdp=2 world
+    (``shard2``) or the joiner (``shard2-joiner``).  Each rank trains
+    gpt_small through ``Trainer(param_rules=SHARD_FSDP)`` on its rows of
+    each step's global batch; at each transition it builds a Trainer on
+    the new mesh over a fresh model and cuts the ``WorldChange``'s whole
+    tree into it.  The joiner sends itself SIGTERM after its
+    SS_GROWN_STEPS-th step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import GradSyncConfig, Trainer, statesync
+    from horovod_tpu_torch.checkpoint import (load_train_state,
+                                              train_state_tree,
+                                              whole_tree_template)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    from horovod_tpu_torch.runner.network import RendezvousClient
+    from horovod_tpu_torch.statesync import service as ss_service
+    from horovod_tpu_torch.telemetry import flight
+    from horovod_tpu_torch.training import TrainState
+    kv = RendezvousClient(os.environ["HOROVOD_GLOO_RENDEZVOUS_ADDR"],
+                          int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"]),
+                          120.0)
+    rec: dict = {"role": role, "steps": [], "builds": [],
+                 "boundary_ms": [], "snapshots": []}
+
+    class TimedSnapshot(statesync.Snapshot):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            rec["snapshots"].append(
+                {"ms": (time.perf_counter() - t0) * 1e3,
+                 "bytes": len(self.data), "step": self.stamp.step})
+    ss_service.Snapshot = TimedSnapshot
+    device = torch.device("cuda", torch.cuda.current_device())
+    live: dict = {}
+
+    def fresh():
+        model = _shard_gpt()
+        opt = torch.optim.AdamW(model.parameters(), lr=CARDS_LR,
+                                weight_decay=CARDS_WD)
+        return TrainState(step=0, model=model, optimizer=opt)
+
+    def build(tree, state=None) -> None:
+        """The old Trainer released, then one on a mesh of fsdp = size
+        over a fresh model with ``tree`` (whole) cut into it, and the
+        image digest of its gathered state (collective)."""
+        live.clear()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state = state or fresh()
+        mesh = build_mesh(fsdp=hvd.size())
+        reckoned = _reckoned_bytes(state.model, mesh, SHARD_FSDP)
+        trainer = Trainer(state.model, state.optimizer, mesh,
+                          sync=GradSyncConfig(op="average",
+                                              compression="bf16",
+                                              axes=("fsdp",)),
+                          param_rules=_shard_rules(SHARD_FSDP))
+        state = trainer.init()
+        if tree is not None:
+            load_train_state(tree, state)
+        live.update(trainer=trainer, state=state)
+        image = statesync.state_digest(statesync.flatten_state(
+            train_state_tree(state, gather=True)))
+        torch.cuda.synchronize()
+        rec["builds"].append({
+            "size": hvd.size(), "step": state.step, "image_digest": image,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "reckoned_bytes": reckoned,
+            "misplaced": _misplaced(device, [
+                *state.model.named_parameters(),
+                *((f"optimizer.{k}", t)
+                  for st in state.optimizer.state.values()
+                  for k, t in st.items() if k != "step")])})
+
+    def step() -> None:
+        rank, size = hvd.rank(), hvd.size()
+        state = live["state"]
+        rows = SS_SHARD_ROWS // size
+        batch = {k: v[rank * rows:(rank + 1) * rows]
+                 for k, v in _ss_shard_text(state.step).items()}
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = live["trainer"].step(state, batch)
+        loss = metrics["loss"].item()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = fa.launch_counts()
+        rec["steps"].append({"step": state.step, "size": size, "ms": ms,
+                             "loss": loss, "launches": launches,
+                             "state_bytes": _state_bytes(state),
+                             "digest": _whole_digest(state),
+                             "device": str(next(
+                                 state.model.parameters()).device)})
+
+    def provider():
+        return train_state_tree(live["state"], gather=True)
+
+    if role.endswith("joiner"):
+        first = fresh()
+        template = whole_tree_template(first)
+        kv.wait(*SS_GO, SS_WORLD_TIMEOUT)
+        rec["t_announce"] = time.time()
+        tree, info = statesync.join_world(template)
+        rec["t_entered"] = time.time()
+        build(tree, first)
+        del tree
+        rec["join"] = {"rank": info.rank, "size": info.size,
+                       "catch_up_ms": info.catch_up_ms,
+                       "bulk_bytes": info.bulk_bytes,
+                       "bulk_gb_per_s": info.bulk_bytes
+                       / (info.catch_up_ms * 1e6),
+                       "donor_stats": info.donor_stats,
+                       "stamp": info.stamp.as_meta()}
+        rec["joined_digest_equals_stamp"] = \
+            rec["builds"][-1]["image_digest"] == info.stamp.digest
+        svc = statesync.StateSyncService(provider, sharded=True)
+        for i in range(SS_GROWN_STEPS):
+            step()
+            if i == SS_GROWN_STEPS - 1:
+                rec["t_sigterm"] = time.time()
+                os.kill(os.getpid(), signal.SIGTERM)
+            change = svc.step_boundary()
+        rec["departed"] = change is not None and change.kind == "departed"
+    else:
+        hvd.init()
+        build(None)
+        svc = statesync.StateSyncService(provider, sharded=True)
+        posted, grown, after = False, None, None
+        deadline = time.monotonic() + SS_WORLD_TIMEOUT
+        while time.monotonic() < deadline:
+            step()
+            if grown is not None:
+                grown += 1
+            if after is not None:
+                after += 1
+                if after == SS_GROWN_STEPS:
+                    break
+            t0 = time.perf_counter()
+            change = svc.step_boundary()
+            rec["boundary_ms"].append((time.perf_counter() - t0) * 1e3)
+            if change is not None and change.kind == "grow":
+                rec["grow"] = {"size": change.size,
+                               "step": live["state"].step,
+                               "boundary_ms": rec["boundary_ms"][-1]}
+                build(change.tree)
+                grown = 0
+            elif change is not None and change.kind == "shrink":
+                rec["shrink"] = {"size": change.size,
+                                 "dead": list(change.dead),
+                                 "step": live["state"].step,
+                                 "boundary_ms": rec["boundary_ms"][-1],
+                                 "t": time.time()}
+                build(change.tree)
+                after = 0
+            if hvd.rank() == 0 and not posted \
+                    and live["state"].step >= SS_BEFORE_STEPS:
+                kv.put(*SS_GO, b"1")
+                posted = True
+    rec["flight"] = [ev["kind"] for ev in flight.recorder().snapshot()
+                     if ev["kind"] in ("donate", "grow", "join-announce",
+                                       "join-ready", "join-entered",
+                                       "sigterm-grace", "departed",
+                                       "shrink-proactive", "shrink",
+                                       "ranks-failed", "mark-failed")]
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    svc.close()
+    live.clear()
+    hvd.shutdown()
+    return rec
+
+
 def _ss_serve_rank(role: str, rank: int, port: int, outdir: str) -> dict:
     """Leg (c), one process: an incumbent serving rank (``serve``) or the
     joiner (``serve-joiner``), fp32 gpt_small on the card."""
@@ -5880,6 +6187,8 @@ def statesync_worker(role: str, rank: int, size: int, port: int,
         os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size))
     if role.startswith(("train", "cp3")):
         rec = _ss_train_rank(role, port, outdir)
+    elif role.startswith("shard2"):
+        rec = _ss_shard_rank(role, outdir)
     elif role.startswith("serve"):
         rec = _ss_serve_rank(role, rank, port, outdir)
     else:
@@ -6113,17 +6422,24 @@ def _ss_serving(problems: list[str], cards: bool = False) -> dict:
     return line
 
 
-def _ss_disagg(problems: list[str], cards: bool = False) -> dict:
-    """Leg (d): disaggregated prefill at 2 ranks against a colocated
-    one-rank paged run of the same requests in this process (``cards``:
-    the decode rank on card 0, the prefill rank on card 1)."""
-    import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import TransformerLM, gpt_small
+def _ss_disagg_world(cards: bool = False) -> list[dict]:
+    """Leg (d)'s two ranks (``cards``: the decode rank on card 0, the
+    prefill rank on card 1); their records."""
     jobs = [("disagg", 0, 2, 0), ("disagg", 1, 2, 1)] if cards \
         else [("disagg", 0, 2), ("disagg", 1, 2)]
-    tag = "cards statesync" if cards else "statesync"
     with tempfile.TemporaryDirectory(prefix="ssdisagg") as outdir:
-        r0, r1 = _ss_world(jobs, outdir)
+        return _ss_world(jobs, outdir)
+
+
+def _ss_disagg(problems: list[str], cards: bool = False,
+               world: list[dict] | None = None) -> dict:
+    """Leg (d): disaggregated prefill at 2 ranks (``world``, the records of
+    ``_ss_disagg_world``, run here if not given) against a colocated
+    one-rank paged run of the same requests in this process."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import TransformerLM, gpt_small
+    tag = "cards statesync" if cards else "statesync"
+    r0, r1 = world if world is not None else _ss_disagg_world(cards)
     from horovod_tpu_torch.serving import ReplicaExecutor, ServeConfig
     cfg = gpt_small()
     model = TransformerLM(cfg, seed=0)
@@ -6215,11 +6531,18 @@ def _ss_disagg(problems: list[str], cards: bool = False) -> dict:
 
 def phase_statesync() -> dict:
     """Elastic membership without a restart (see the module docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
     t_phase = time.perf_counter()
     problems: list[str] = []
-    train = _ss_training(problems)
-    _ss_serving(problems)
-    _ss_disagg(problems)
+    # The three worlds at once (their processes share the card); the
+    # colocated run of (d) in this process once its world has ended.
+    with ThreadPoolExecutor(3) as pool:
+        train = pool.submit(_ss_training, problems)
+        serve = pool.submit(_ss_serving, problems)
+        disagg = pool.submit(_ss_disagg_world)
+        _ss_disagg(problems, world=disagg.result())
+        train = train.result()
+        serve.result()
     seconds = time.perf_counter() - t_phase
     emit({"phase": "statesync", "leg": "summary", "seconds": seconds,
           "problems": problems})
@@ -7202,12 +7525,156 @@ def _ss_two_donors(problems: list[str]) -> dict:
     return line
 
 
+def _ss_shard_reference(steps: int) -> list[float]:
+    """Leg (f)'s reference: the same ``steps`` global batches through one
+    unbroken unsharded Trainer on card 0 (a one-rank NCCL group)."""
+    from horovod_tpu_torch import GradSyncConfig, Trainer, build_mesh
+    losses = []
+    with _one_rank_nccl():
+        model = _shard_gpt()
+        opt = torch.optim.AdamW(model.parameters(), lr=CARDS_LR,
+                                weight_decay=CARDS_WD)
+        trainer = Trainer(model, opt, build_mesh(),
+                          sync=GradSyncConfig(op="average",
+                                              compression="bf16"))
+        state = trainer.init()
+        for s in range(steps):
+            state, metrics = trainer.step(state, _ss_shard_text(s))
+            losses.append(metrics["loss"].item())
+        del trainer, state, opt, model
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _ss_grow_sharded(problems: list[str]) -> dict:
+    """Leg (f): gpt_small with the FSDP table on cards 0 and 1 (fsdp=2)
+    grows to fsdp=3 by a joiner on card 2, which is preempted (its own
+    SIGTERM inside the grace), and the world shrinks back to fsdp=2; the
+    state stays sharded throughout, the grown and shrunk worlds re-cut
+    the transitions' whole trees.  Held to an unbroken unsharded run of
+    the same global batches."""
+    from horovod_tpu_torch import gpt_small
+    layers = gpt_small().num_layers
+    with tempfile.TemporaryDirectory(prefix="ssshard") as outdir:
+        r0, r1, joi = _ss_world([("shard2", 0, 2, 0), ("shard2", 1, 2, 1),
+                                 ("shard2-joiner", 0, 0, 2)], outdir)
+    ranks = {"rank0": r0, "rank1": r1, "joiner": joi}
+    ref = _ss_shard_reference(len(r0["steps"]))
+    grow, shrink = r0.get("grow") or {}, r0.get("shrink") or {}
+    join = joi.get("join", {})
+    by_step: dict[int, set] = {}
+    for r in ranks.values():
+        for st in r["steps"]:
+            by_step.setdefault(st["step"], set()).add(st["digest"])
+    diffs = {name: max(_loss_diffs([st["loss"] for st in r["steps"]],
+                                   [ref[st["step"] - 1]
+                                    for st in r["steps"]]), default=None)
+             for name, r in ranks.items()}
+    builds = {name: [{k: b[k] for k in ("size", "step", "reckoned_bytes",
+                                         "ms")}
+                     for b in r["builds"]] for name, r in ranks.items()}
+    held = {name: {n: sorted({st["state_bytes"] for st in r["steps"]
+                              if st["size"] == n}) for n in (2, 3)}
+            for name, r in ranks.items()}
+    line = {"phase": "cards", "leg": "f-train-grow-sharded",
+            "model": "gpt_small", "rules": SHARD_FSDP, "dtype": "bfloat16",
+            "global_batch": SS_SHARD_ROWS, "seq": SHARD["seq"],
+            "fsdp": "2->3->2",
+            "card": "cards 0, 1 and the joiner's 2, one a process",
+            "sizes": [st["size"] for st in r0["steps"]],
+            "catch_up_ms": join.get("catch_up_ms"),
+            "bulk_bytes": join.get("bulk_bytes"),
+            "bulk_gb_per_s": join.get("bulk_gb_per_s"),
+            "donor_stats": join.get("donor_stats"),
+            "grow_boundary_ms": grow.get("boundary_ms"),
+            "depart_boundary_ms": shrink.get("boundary_ms"),
+            "steady_boundary_ms_p50": statistics.median(r0["boundary_ms"])
+            if r0["boundary_ms"] else None,
+            "snapshots": r0["snapshots"],
+            "step_ms": {name: {n: [st["ms"] for st in r["steps"]
+                                   if st["size"] == n] for n in (2, 3)}
+                        for name, r in ranks.items()},
+            "builds": builds, "state_bytes": held,
+            "join_wall_s": None if not joi["steps"] else
+            joi["t_entered"] - joi["t_announce"],
+            "joined_digest_equals_stamp":
+                joi.get("joined_digest_equals_stamp"),
+            "digests_equal_every_step": all(len(d) == 1
+                                            for d in by_step.values()),
+            "losses": [st["loss"] for st in r0["steps"]],
+            "reference_losses": ref, "loss_max_abs_diff_unsharded": diffs,
+            "launches_per_step": r0["steps"][0]["launches"]
+            if r0["steps"] else None,
+            "peak_memory_bytes": {name: r["peak_memory_bytes"]
+                                  for name, r in ranks.items()},
+            "flight": {name: r["flight"] for name, r in ranks.items()}}
+    emit(line)
+    tag = "cards statesync (f)"
+    if grow.get("size") != 3 or shrink.get("size") != 2 \
+            or shrink.get("dead") != [2] or not joi.get("departed") \
+            or (r1.get("grow") or {}).get("size") != 3 \
+            or (r1.get("shrink") or {}).get("size") != 2:
+        problems.append(f"{tag}: grow {grow}, shrink {shrink}, joiner "
+                        f"departed {joi.get('departed')}")
+    want = [2] * (len(r0["steps"]) - 2 * SS_GROWN_STEPS) \
+        + [3] * SS_GROWN_STEPS + [2] * SS_GROWN_STEPS
+    if line["sizes"] != want or len(joi["steps"]) != SS_GROWN_STEPS:
+        problems.append(f"{tag}: step sizes {line['sizes']}, joiner steps "
+                        f"{len(joi['steps'])}")
+    if not line["digests_equal_every_step"] or \
+            sorted(by_step) != list(range(1, len(r0["steps"]) + 1)):
+        problems.append(f"{tag}: the ranks' gathered states differ "
+                        f"after a step: {by_step}")
+    if not line["joined_digest_equals_stamp"]:
+        problems.append(f"{tag}: the joiner's image is not the stamp's")
+    # Each rank's image after each transition: the grown world's (the
+    # joiner's first build, the incumbents' second), the shrunk world's.
+    for what, images in (
+            ("grown", [r["builds"][i]["image_digest"] for r, i in
+                       ((r0, 1), (r1, 1), (joi, 0)) if len(r["builds"]) > i]),
+            ("shrunk", [r["builds"][2]["image_digest"] for r in (r0, r1)
+                        if len(r["builds"]) > 2])):
+        if len(images) != (3 if what == "grown" else 2) \
+                or len(set(images)) != 1:
+            problems.append(f"{tag}: the {what} world's images {images}")
+    for name, r in ranks.items():
+        reckoned = {b["size"]: b["reckoned_bytes"] for b in r["builds"]}
+        if sorted(reckoned) != ([3] if name == "joiner" else [2, 3]) \
+                or any(held[name][n] != [reckoned[n]] for n in reckoned):
+            problems.append(f"{tag} {name}: bytes a rank {held[name]}, "
+                            f"reckoned {reckoned}")
+        misplaced = [b["misplaced"] for b in r["builds"] if b["misplaced"]]
+        if misplaced:
+            problems.append(f"{tag} {name}: tensors off the card: "
+                            f"{misplaced[0][:4]}")
+        card = {"rank0": 0, "rank1": 1, "joiner": 2}[name]
+        if {st["device"] for st in r["steps"]} != {f"cuda:{card}"}:
+            problems.append(f"{tag} {name}: tensors off card {card}")
+        if not _ss_launches_ok(r["steps"], layers):
+            problems.append(f"{tag} {name}: flash launches not {layers} of "
+                            f"each kernel on every step")
+        if not all(math.isfinite(st["loss"]) for st in r["steps"]):
+            problems.append(f"{tag} {name}: a loss is not finite")
+        if diffs[name] is None or diffs[name] > PARALLEL_LOSS_TOL:
+            problems.append(f"{tag} {name}: losses {diffs[name]} from the "
+                            f"unsharded run's")
+    kinds = {name: r["flight"] for name, r in ranks.items()}
+    if kinds["rank0"] != ["donate", "grow", "shrink-proactive"] \
+            or kinds["rank1"] != kinds["rank0"] \
+            or kinds["joiner"] != ["join-announce", "join-ready",
+                                   "join-entered", "sigterm-grace",
+                                   "departed"]:
+        problems.append(f"{tag}: flight {kinds}")
+    return line
+
+
 def _cards_statesync(n: int, problems: list[str]) -> dict:
     """(6) The statesync phase's legs with each process on a card of its
     own: (a)/(b) the training grow 1 -> 2 (the grown world on the NCCL
     plane) and the preemption 2 -> 1, (d) disaggregated prefill across two
     cards, (c) the serving grow 2 -> 3 on three cards, and (e) the
-    training grow 2 -> 3 with two donors."""
+    training grow 2 -> 3 with two donors; (f) the grow 2 -> 3 -> 2 of a
+    state with sharded parameters."""
     t0 = time.perf_counter()
     train = _ss_training(problems, cards=True)
     disagg = _ss_disagg(problems, cards=True)
@@ -7221,12 +7688,33 @@ def _cards_statesync(n: int, problems: list[str]) -> dict:
         out["serve_catch_up_ms"] = serve["catch_up_ms"]
         two = _ss_two_donors(problems)
         out["two_donors_catch_up_ms"] = two["catch_up_ms"]
+        sharded = _ss_grow_sharded(problems)
+        out["sharded_catch_up_ms"] = sharded["catch_up_ms"]
     else:
-        for leg in ("c-serve-grow", "e-train-grow-two-donors"):
+        for leg in ("c-serve-grow", "e-train-grow-two-donors",
+                    "f-train-grow-sharded"):
             emit({"phase": "cards", "leg": leg,
                   "not_run": f"the machine shows {n} cards"})
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def phase_cards_grow_sharded() -> dict:
+    """Leg (f) of the cards phase alone (three cards or more)."""
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    n = torch.cuda.device_count()
+    if n < 3:
+        emit({"phase": "cards", "leg": "f-train-grow-sharded",
+              "not_run": f"the machine shows {n} cards"})
+    else:
+        _ss_grow_sharded(problems)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "cards-grow-sharded", "leg": "summary",
+          "seconds": seconds, "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"seconds": seconds}
 
 
 def _flash_per_step() -> float:
@@ -9743,6 +10231,7 @@ def main() -> int:
                   "statesync": phase_statesync, "cards": phase_cards,
                   "shard": phase_shard, "perf": phase_perf,
                   "controlplane": phase_controlplane,
+                  "cards-grow-sharded": phase_cards_grow_sharded,
                   "controlplane-cards":
                       lambda: phase_controlplane(cards_only=True)}
         for name in sys.argv[2].split(","):

@@ -28,9 +28,9 @@ and digest are the unsharded state's and either package's tree reads
 it.  Restoring into such a state cuts this rank's chunks out of the
 whole leaves, for whatever mesh and rules the restoring Trainer has:
 the reference's reshard of a trained state onto another mesh.
-``train_state_tree(state, gather=True)`` gives the same gathered tree;
-statesync's paths (``train_state_tree`` without ``gather``,
-``load_train_state``) refuse such a state, whose grow is not ported.
+``train_state_tree(state, gather=True)`` gives the same gathered tree,
+the image statesync streams, and ``load_train_state`` cuts a whole tree
+into such a state by its own plan, as a restore does.
 
 Restoring reads the manifest, checks the image's byte count and digest
 before any byte of it is interpreted (the reference's HVD1007 rule),
@@ -136,13 +136,14 @@ def _whole(state, name: str, p: torch.Tensor,
     return sharding.gather(name, value)
 
 
-def _optimizer_leaves(state, initial: bool = False
+def _optimizer_leaves(state, initial: bool = False, whole=_whole
                       ) -> tuple[dict[str, torch.Tensor], dict]:
     """The optimizer's per-parameter state as ``opt/<name>/<key>`` leaves
     and its class and param groups (hyperparameters, parameter names).
     With ``initial``, a parameter the optimizer has not stepped yet
     contributes the state its first step starts from, so a fresh state's
-    tree has the leaves of a stepped one."""
+    tree has the leaves of a stepped one.  ``whole(state, name, p,
+    value)`` makes each leaf whole (default: gathered)."""
     from .training import _leaf_order
     opt = state.optimizer
     by_id = {id(p): n for n, p in state.model.named_parameters()}
@@ -166,7 +167,7 @@ def _optimizer_leaves(state, initial: bool = False
         if initial and not entry and id(p) in group_of:
             entry = _initial_state(opt, group_of[id(p)], p)
         for key, value in sorted(entry.items()):
-            leaves[f"opt/{name}/{key}"] = _whole(state, name, p, _leaf(value))
+            leaves[f"opt/{name}/{key}"] = whole(state, name, p, _leaf(value))
     return leaves, meta
 
 
@@ -207,11 +208,9 @@ def _tree(state: Any, initial: bool = False
 
 
 _SHARDED_STATESYNC = (
-    "statesync of a state with sharded parameters (its donors, a "
-    "departing rank's donation and a joiner's template and load) is not "
-    "ported: ROADMAP queue A lists it with what stays of sharded "
-    "parameters; a checkpoint (save_checkpoint, every rank) or "
-    "train_state_tree(state, gather=True) on every rank gathers the state")
+    "train_state_tree of a state with sharded parameters needs "
+    "gather=True, called alike on every rank of its mesh: the tree is "
+    "the unsharded state's, gathered from every rank's chunks")
 
 
 def _sharded(state) -> bool:
@@ -227,16 +226,13 @@ def train_state_tree(state, *, gather: bool = False
     (``opt/<name>/<key>``; a parameter not stepped yet gives the state
     its first step starts from) and ``step`` (int64).  The tensors are
     the live ones, detached, on their devices: ``statesync.Snapshot``
-    copies them into its image at a step boundary, and a fresh state of
-    the same model and optimizer gives a tree with the same leaves, the
-    template ``statesync.join_world`` pulls into.
+    copies them into its image at a step boundary.
 
     A state with sharded parameters needs ``gather=True``: its sharded
     parameters and their optimizer state then come whole, gathered from
     every rank's chunks, and every rank of the mesh must call it alike
     (the tree, its image and digest are the unsharded state's).
-    Without it such a state raises ``NotImplementedError``: statesync
-    calls its provider on some ranks only."""
+    Without it such a state raises ``NotImplementedError``."""
     if not _is_train_state(state):
         raise TypeError("train_state_tree takes a TrainState")
     if _sharded(state) and not gather:
@@ -246,18 +242,44 @@ def train_state_tree(state, *, gather: bool = False
     return tree
 
 
+def whole_tree_template(state) -> dict[str, torch.Tensor]:
+    """The leaves of ``train_state_tree(state, gather=True)``, each a
+    ``meta`` tensor of its whole shape and dtype, with no collective: the
+    template ``statesync.join_world`` pulls into and
+    :func:`load_train_state` checks a tree against.  A fresh unsharded
+    state of the same model and optimizer has the same template as a
+    sharded one (a joiner, which holds no mesh until it is admitted,
+    builds its template so)."""
+    if not _is_train_state(state):
+        raise TypeError("whole_tree_template takes a TrainState")
+    sharding = getattr(state, "sharding", None)
+
+    def whole_meta(_, name, p, value):
+        shape = tuple(value.shape)
+        if sharding is not None and name in sharding.leaves \
+                and shape == tuple(p.shape):
+            shape = tuple(sharding.shapes[name])
+        return torch.empty(shape, dtype=value.dtype, device="meta")
+    tree = {name: torch.empty(_whole_shape(state, name, t), dtype=t.dtype,
+                              device="meta")
+            for name, t in _model_leaves(state).items()}
+    tree.update(_optimizer_leaves(state, initial=True, whole=whole_meta)[0])
+    tree["step"] = torch.empty((), dtype=torch.int64, device="meta")
+    return tree
+
+
 def load_train_state(tree: Mapping[str, Any], state) -> Any:
-    """Put a tree of :func:`train_state_tree`'s leaves (as
+    """Put a whole tree of :func:`train_state_tree`'s leaves (as
     ``statesync.join_world`` returns it, CPU tensors) into ``state`` in
     place: each parameter and buffer copied onto its device, the
     optimizer's state through ``load_state_dict`` (onto its parameter's
-    device), and the step.  ``state`` must hold the same model and
-    optimizer class; it is returned.  A state with sharded parameters
-    raises ``NotImplementedError`` (statesync's grow of one is not
-    ported)."""
-    if _sharded(state):
-        raise NotImplementedError(_SHARDED_STATESYNC)
-    own = train_state_tree(state)
+    device), and the step.  Where the state shards a parameter (its
+    Trainer's ``param_rules``), the parameter and each optimizer leaf of
+    its shape take this rank's chunk of the whole leaf, cut by the
+    state's own plan, as a restore does.  ``state`` must hold the same
+    model and optimizer class; a tree of other leaves, shapes or dtypes
+    raises ``ValueError``.  It runs no collective and returns ``state``."""
+    own = whole_tree_template(state)
     if list(tree) != list(own):
         raise ValueError("the tree's leaves are not this state's")
     for name, t in own.items():
@@ -271,7 +293,7 @@ def load_train_state(tree: Mapping[str, Any], state) -> Any:
     live = _model_leaves(state)
     with torch.no_grad():
         for name, t in live.items():
-            t.copy_(tree[name])
+            t.copy_(_cut(state, name[name.index("/") + 1:], tree[name]))
     saved = opt.state_dict()
     index = {id(p): i for i, p in enumerate(
         p for g in opt.param_groups for p in g["params"])}
@@ -280,7 +302,8 @@ def load_train_state(tree: Mapping[str, Any], state) -> Any:
         if not name.startswith("opt/"):
             continue
         pname, key = name[len("opt/"):].rsplit("/", 1)
-        states.setdefault(index[id(params[pname])], {})[key] = value
+        states.setdefault(index[id(params[pname])], {})[key] = \
+            _cut(state, pname, value)
     opt.load_state_dict({"state": states,
                          "param_groups": saved["param_groups"]})
     state.step = int(tree["step"])

@@ -22,7 +22,9 @@ Same configuration, presets and mixed-precision rules as the flax model:
   reference's manual region.  Inside ``parallel.mesh.global_batch`` (the
   Trainer's pure-GSPMD step) every ``sp`` rank holds the whole sequence,
   as the reference's model does there: attention runs on this rank's
-  chunk and gathers the sequence back;
+  chunk and gathers the sequence back; where that view binds the ``sp``
+  axis (a ``batch_spec`` that shards the sequence over it), the tokens
+  are the chunk again;
 - ``moe_experts > 0`` puts ``models/moe.py``'s ``MoEMLP`` in each block's
   place of the MLP, its experts over ``cfg.mesh``'s ``ep`` axis;
 - tensor parallelism: ``Attention.split`` and ``MLP.split`` (set by
@@ -75,6 +77,7 @@ from ..common.device import resolve_device
 from ..ops.flash_attention import NEG_INF, flash_attention, mha_reference
 from ..parallel.collectives import allgather, enter_split, leave_split
 from ..parallel.mesh import (axis_size, current_global_batch,
+                             current_sequence_axes, current_view,
                              global_batch)
 from ..parallel.ring_attention import ring_attention
 from ..parallel.sharding import entry_axes
@@ -192,7 +195,7 @@ def _taping(kept: list, recording: bool):
 
 
 def _in_view(view):
-    """Re-enter ``view``, a forward's ``current_global_batch()``, for a
+    """Re-enter ``view``, a forward's ``current_view()``, for a
     checkpointed block's recompute.  The view is this thread's, and on
     the card autograd runs a CUDA backward on a device thread of its own,
     where the recompute would otherwise see none."""
@@ -288,7 +291,7 @@ class _CheckpointDots(torch.autograd.Function):
         kept: list[torch.Tensor] = []
         with _taping(kept, recording=True):
             y = block(x)
-        ctx.block, ctx.view = block, current_global_batch()
+        ctx.block, ctx.view = block, current_view()
         ctx.save_for_backward(x, *kept)
         return y
 
@@ -394,7 +397,7 @@ class Attention(nn.Module):
         else:
             positions = torch.arange(t, device=x.device)
             if cfg.attention in ("ring", "ulysses") \
-                    and current_global_batch() is None:
+                    and _sequence_chunk(cfg):
                 # The tokens are a sequence chunk: global positions.
                 positions = positions \
                     + cfg.mesh.axis_index(cfg.sp_axis) * t
@@ -504,12 +507,20 @@ def _bthd_attn_adapter(q, k, v, causal=False, sm_scale=None, *,
     return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
+def _sequence_chunk(cfg: TransformerConfig) -> bool:
+    """Whether the tokens are this rank's chunk of the sequence over
+    ``cfg.sp_axis``: outside ``global_batch``, or inside it where the
+    view binds that axis."""
+    return current_global_batch() is None \
+        or cfg.sp_axis in current_sequence_axes()
+
+
 def _sequence_parallel(cfg: TransformerConfig, q: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Ring or Ulysses attention over ``cfg.mesh``'s ``sp`` axis.  Outside
-    ``global_batch`` q, k and v are this rank's sequence chunk; inside it
-    they hold the whole sequence, and the chunk's result is gathered back
-    over ``sp``."""
+    """Ring or Ulysses attention over ``cfg.mesh``'s ``sp`` axis.  Where
+    the tokens are a sequence chunk (``_sequence_chunk``) q, k and v are
+    this rank's chunk; else they hold the whole sequence, and the chunk's
+    result is gathered back over ``sp``."""
     mesh = cfg.mesh
     n = axis_size(mesh, cfg.sp_axis)
     group = mesh.axis_group(cfg.sp_axis) if n > 1 else None
@@ -520,7 +531,7 @@ def _sequence_parallel(cfg: TransformerConfig, q: torch.Tensor,
         inner = partial(ulysses_attention, group=group, causal=cfg.causal,
                         axis_size=n,
                         attn_fn=partial(_bthd_attn_adapter, cfg=cfg))
-    if n == 1 or current_global_batch() is None:
+    if n == 1 or _sequence_chunk(cfg):
         return inner(q, k, v)
     c = q.shape[1] // n
     i = mesh.axis_index(cfg.sp_axis)
@@ -708,7 +719,7 @@ class TransformerLM(nn.Module):
                 x = block(x, cache, i, block_tables, cursors, lengths)
             elif cfg.remat and train and torch.is_grad_enabled():
                 # The recompute re-enters this forward's global view.
-                view = current_global_batch()
+                view = current_view()
                 x = (checkpoint(block, x, use_reentrant=False,
                                 context_fn=lambda: (contextlib.nullcontext(),
                                                     _in_view(view)))

@@ -172,9 +172,11 @@ def axis_groups(shape: dict[str, int],
 
 
 class _View(threading.local):
-    """The mesh and batch axes of the Trainer's pure-GSPMD step, and the
-    mesh of its manual step, on this thread (None outside them)."""
+    """The mesh and batch axes of the Trainer's pure-GSPMD step, the
+    sequence axes bound there, and the mesh of its manual step, on this
+    thread (None and () outside them)."""
     batch: tuple[Mesh, tuple[str, ...]] | None = None
+    seq: tuple[str, ...] = ()
     manual: Mesh | None = None
 
 
@@ -182,26 +184,46 @@ _VIEW = _View()
 
 
 @contextlib.contextmanager
-def global_batch(mesh: Mesh, batch_axes: tuple[str, ...]):
+def global_batch(mesh: Mesh, batch_axes: tuple[str, ...],
+                 seq_axes: tuple[str, ...] = ()):
     """Inside, a model's rows are this rank's shard of a global batch laid
     over ``mesh``'s ``batch_axes`` (row-major, in that order), and a layer
     whose result depends on rows other than its own sees the global
     batch, as the reference's model does under its pure-GSPMD step (sync
     axes ``()``), where it is traced with global shapes.  Outside, a
     model's rows are all it sees, as inside the reference's manual
-    region."""
-    prev = _VIEW.batch
-    _VIEW.batch = (mesh, tuple(batch_axes))
+    region.
+
+    ``seq_axes`` are bound as in a manual region: a model's tokens are
+    this rank's chunk of the sequence over them, and a layer that
+    computes over that axis itself (ring or Ulysses attention over its
+    ``sp`` axis) takes the chunk as it is, as the reference's nested
+    ``shard_map`` over ``P(batch_spec, sp_axis)`` does."""
+    prev = _VIEW.batch, _VIEW.seq
+    _VIEW.batch, _VIEW.seq = (mesh, tuple(batch_axes)), tuple(seq_axes)
     try:
         yield
     finally:
-        _VIEW.batch = prev
+        _VIEW.batch, _VIEW.seq = prev
 
 
 def current_global_batch() -> tuple[Mesh, tuple[str, ...]] | None:
     """The mesh and batch axes of the enclosing ``global_batch``, else
     None."""
     return _VIEW.batch
+
+
+def current_sequence_axes() -> tuple[str, ...]:
+    """The sequence axes the enclosing ``global_batch`` binds, else ()."""
+    return _VIEW.seq if _VIEW.batch is not None else ()
+
+
+def current_view() -> tuple | None:
+    """The enclosing ``global_batch``'s arguments (to enter it again,
+    ``global_batch(*view)``), else None."""
+    if _VIEW.batch is None:
+        return None
+    return (*_VIEW.batch, _VIEW.seq)
 
 
 @contextlib.contextmanager

@@ -40,9 +40,27 @@ array, or number), flattened by :mod:`.snapshot` in its own order; a
 tree in the flax leaf order with each leaf viewed in flax's shape
 (serving's ``ReplicaExecutor.state_tree``) has the reference's bytes and
 digest.  A ``TrainState``'s tree is ``checkpoint.train_state_tree``, and
-``checkpoint.load_train_state`` puts a pulled one back; both refuse a
-state with sharded parameters (``Trainer(param_rules=...)``), whose grow
-is not ported (ROADMAP queue A, sharded parameters).
+``checkpoint.load_train_state`` puts a pulled one back.
+
+A state with sharded parameters (``Trainer(param_rules=...)``) grows and
+is preempted too.  Its service is built with ``sharded=True`` and its
+provider is ``train_state_tree(state, gather=True)``, a collective of the
+mesh.  The service calls the provider on every rank of the world at the
+same boundary: at a join (``_start_donation``), at the grow
+(``_transition_grow``), and at a departure (``_transition_depart``, the
+departing rank included, so that its chunks do not leave with it).  The
+image each incumbent donates is therefore the whole, unsharded state, and
+two donors split one image as they do for a replicated state.  The
+``WorldChange`` of a grow or a proactive shrink carries that whole tree
+(``tree``: the final snapshot's, the image the joiner verified, or the
+departing world's), and the loop re-cuts it on the new mesh: a
+``Trainer`` with the same rules built after the transition, then
+``load_train_state``.  The joiner's template is the tree of a fresh
+unsharded state of the same model and optimizer
+(``checkpoint.whole_tree_template``): it holds no mesh until it is
+admitted.  A failure shrink of a sharded state raises: the dead ranks'
+chunks are gone, and the state comes back from a checkpoint
+(``checkpoint.restore_checkpoint`` into a Trainer on the new mesh).
 """
 from __future__ import annotations
 
@@ -53,6 +71,8 @@ import signal
 import threading
 import time
 from typing import Any, Callable
+
+import torch
 
 from ..common import config
 from ..common.logging import logger
@@ -89,6 +109,10 @@ class WorldChange:
     size: int = 0
     dead: tuple = ()               # shrink: the removed launch ranks
     join_id: int = -1              # grow: the admitted join event
+    # A sharded service's whole state tree at the transition (grow: the
+    # final snapshot's; proactive shrink: the departing world's), to be
+    # re-cut on the new mesh; None otherwise.
+    tree: Any = None
 
 
 @dataclasses.dataclass
@@ -118,19 +142,37 @@ def _kv_client():
                             config.GLOO_TIMEOUT_SECONDS.get())
 
 
+def _settled(tree: Any) -> Any:
+    """``tree`` once the card has finished the work that produced its
+    tensors: a sharded state's gather runs on the world's process group,
+    which the transition that follows destroys."""
+    for leaf in tree.values() if isinstance(tree, dict) else ():
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            torch.cuda.synchronize(leaf.device)
+            break
+    return tree
+
+
 class StateSyncService:
     """One rank's membership agent.  Create AFTER ``hvd.init()``; the
-    service survives every world transition (it is not owned by core)."""
+    service survives every world transition (it is not owned by core).
+
+    ``sharded=True``: the state has sharded parameters, and
+    ``state_provider`` gathers it (a collective every rank of the world
+    calls alike; see the module docstring)."""
 
     def __init__(self, state_provider: Callable[[], Any], *,
                  static_state: bool = False,
                  donate_provider: Callable[[], Any] | None = None,
-                 kv=None) -> None:
+                 kv=None, sharded: bool = False) -> None:
+        if sharded and static_state:
+            raise ValueError("a static state (serving) is not sharded")
         self._provider = state_provider
         self._donate_provider = donate_provider
         # Static state (serving: params never change between steps)
         # skips the final round — the bulk image IS the entry state.
         self.static_state = static_state
+        self.sharded = sharded
         self._kv = kv if kv is not None else _kv_client()
         self._seq = 0
         self._lock = threading.Lock()
@@ -400,6 +442,7 @@ class StateSyncService:
             old_rank, old_size = self.rank, self.size
         donor = self._donors.get(join_id)
         final = not self.static_state
+        tree = None
         if final:
             if donor is None or not donor.is_alive():
                 # The donor thread died (joiner vanished after ready?):
@@ -409,8 +452,8 @@ class StateSyncService:
                                     old_rank, old_size)
                 donor.start()
                 self._donors[join_id] = donor
-            donor.offer_snapshot(
-                1, Snapshot(self._provider(), epoch, self._seq))
+            tree = _settled(self._provider())
+            donor.offer_snapshot(1, Snapshot(tree, epoch, self._seq))
         new_epoch = f"{epoch}~g{join_id}"
         new_size = old_size + 1
         if old_rank == 0:
@@ -433,7 +476,8 @@ class StateSyncService:
         self.grow_windows.append((self._grow_t0, time.monotonic()))
         self._refresh_world()
         return WorldChange("grow", rank=self.rank, size=self.size,
-                           join_id=join_id)
+                           join_id=join_id,
+                           tree=tree if self.sharded else None)
 
     def _transition_depart(self, departing: list[int]) -> WorldChange:
         from .. import core
@@ -441,6 +485,9 @@ class StateSyncService:
         with self._lock:
             epoch = self._epoch
             old_rank, old_size = self.rank, self.size
+        # Every rank of the old world gathers a sharded state, the
+        # departing ones included, before their chunks leave.
+        tree = _settled(self._provider()) if self.sharded else None
         if old_rank in departing:
             if self._grace_timer is not None:
                 # Cancel AND reap: cancel() only marks the timer; the
@@ -484,15 +531,24 @@ class StateSyncService:
                           epoch=new_epoch)
         self._refresh_world()
         return WorldChange("shrink", rank=self.rank, size=self.size,
-                           dead=tuple(departing))
+                           dead=tuple(departing), tree=tree)
 
     def shrink_on_failure(self, exc) -> WorldChange:
         """Hard-failure shrink: converge on the heartbeat-confirmed
         dead set (never a merely-slow peer), renumber deterministically,
         rebuild on the survivors.  Re-raises ``exc`` when the failure
-        cannot be confirmed."""
+        cannot be confirmed.  A sharded state raises at once: the dead
+        ranks took their chunks with them."""
         from .. import core
         from ..resilience import converge_confirmed_dead
+
+        if self.sharded:
+            raise RuntimeError(
+                "statesync: a failure shrink cannot keep a state with "
+                "sharded parameters (the dead ranks' chunks are lost); "
+                "rebuild the world and restore the last checkpoint with "
+                "checkpoint.restore_checkpoint into a Trainer on the new "
+                "mesh") from exc
 
         dead = converge_confirmed_dead(exc)
         with self._lock:

@@ -55,8 +55,16 @@ the batch dim).  The reference has two modes, and so does the port:
   sequence under ring or Ulysses), and the replicated parameters'
   gradients and the loss are averaged in fp32 over every rank of the
   mesh before ``sync_gradients`` applies the wire cast, loss scale and
-  clip of ``sync`` over no axis, as the reference's does.  Only the
-  batch dim may be sharded here.
+  clip of ``sync`` over no axis, as the reference's does.  A
+  ``batch_spec`` may shard other dims too (``("dp", "sp")``: each rank
+  passes its ``[B/dp, T/sp]`` shard, row-major as in the manual mode).
+  A Transformer whose ring or Ulysses attention runs over the spec's
+  dim-1 axis (``cfg.sp_axis``) takes that chunk as it is: the view binds
+  the axis, as the reference's nested ``shard_map`` over ``P(batch_spec,
+  sp_axis)`` sees it.  Any other model gets its inputs and labels
+  all-gathered along those dims at the step's entry, and computes on the
+  whole dims: what the reference's sharding constraint leaves of the
+  function.  The loss and gradients are the global mean either way.
 
 With ``param_rules`` (``parallel.sharding.ShardingRules`` over the flax
 paths and shapes) each parameter that a rule splits over mesh axes of
@@ -360,11 +368,7 @@ class Trainer:
                 raise ValueError(
                     "optimizer_in_ring needs explicit sync axes (pure-GSPMD "
                     "mode has no manual axis to shard the update over)")
-            if any(entry_axes(e) for e in self.batch_spec[1:]):
-                raise NotImplementedError(
-                    f"batch_spec {self.batch_spec}: the pure-GSPMD step "
-                    "shards the batch dim only (other dims are ROADMAP "
-                    "queue A item 10b)")
+            self._plan_inputs()
             self._sync_group = {}
             self._metric_groups = [mesh.groups[a] for a in big]
         elif set(big) <= {"dp"}:
@@ -385,6 +389,34 @@ class Trainer:
             self._sync = dataclasses.replace(self.sync, axes=kept)
             self._metric_groups = [mesh.groups[a] for a in kept]
 
+    def _plan_inputs(self) -> None:
+        """The pure-GSPMD step's non-batch dims that ``batch_spec`` shards
+        over axes of more than one rank: bound in the view where the
+        model computes over them itself (``_seq_axes``), else gathered at
+        the step's entry (``_gather_dims``, (dim, axes) pairs)."""
+        mesh = self.mesh
+        split = [(dim, tuple(a for a in entry_axes(e)
+                             if axis_size(mesh, a) > 1))
+                 for dim, e in enumerate(self.batch_spec) if dim > 0]
+        split = [(dim, axes) for dim, axes in split if axes]
+        cfg = getattr(self.model, "cfg", None)
+        if cfg is not None and getattr(cfg, "attention", None) in (
+                "ring", "ulysses") and not getattr(cfg, "moe_experts", 0) \
+                and split == [(1, (cfg.sp_axis,))]:
+            self._seq_axes, self._gather_dims = (cfg.sp_axis,), []
+        else:
+            self._seq_axes, self._gather_dims = (), split
+
+    def _entry(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` all-gathered along the dims of ``_gather_dims`` it has,
+        over their axes (row-major, as the shards were laid)."""
+        for dim, axes in self._gather_dims:
+            if dim < x.dim():
+                groups = [self.mesh.groups[a] for a in axes]
+                x = collectives.allgather(x.movedim(dim, 0).contiguous(),
+                                          groups).movedim(0, dim)
+        return x.contiguous()
+
     def init(self, sample_batch: dict | None = None) -> TrainState:
         """The state at step 0.  The model's parameters were drawn when
         it was built (from its generator), so every rank that builds it
@@ -399,17 +431,21 @@ class Trainer:
                           else self._ring, sharding=self._sharded)
 
     def _batch(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """The inputs and labels on the mesh's device; numpy arrays (a
-        loader's batches) are taken too, as the reference's step takes
-        them."""
-        return (torch.as_tensor(_model_input(batch)).to(self.device),
-                torch.as_tensor(batch["label"]).to(self.device))
+        """The inputs and labels on the mesh's device, whole along the
+        dims the pure-GSPMD step gathers; numpy arrays (a loader's
+        batches) are taken too, as the reference's step takes them."""
+        inputs = torch.as_tensor(_model_input(batch)).to(self.device)
+        labels = torch.as_tensor(batch["label"]).to(self.device)
+        if self._gspmd and self._gather_dims:
+            return self._entry(inputs), self._entry(labels)
+        return inputs, labels
 
     def _view(self):
         """The global view of the pure-GSPMD step, else the manual
         region, where the mesh's axis names are bound."""
         if self._gspmd:
-            return global_batch(self.mesh, entry_axes(self.batch_spec[0]))
+            return global_batch(self.mesh, entry_axes(self.batch_spec[0]),
+                                self._seq_axes)
         return manual_region(self.mesh)
 
     def _gathered(self) -> dict[str, torch.Tensor]:
@@ -518,9 +554,10 @@ class Trainer:
 
     def _mesh_shape(self, x) -> list[int]:
         """The shape of the input the whole mesh consumes in one step: each
-        local dim times the sizes of the mesh axes ``batch_spec`` names on
-        it (dp and fsdp grow the batch, sp the sequence; tp and ep repeat
-        it)."""
+        dim of this rank's shard ``x`` (as the caller passed it, before
+        any gather) times the sizes of the mesh axes ``batch_spec`` names
+        on it (dp and fsdp grow the batch, sp the sequence; tp and ep
+        repeat it)."""
         shape = [int(n) for n in x.shape]
         for dim, entry in enumerate(self.batch_spec[:len(shape)]):
             for axis in entry_axes(entry):

@@ -28,6 +28,7 @@ import torch
 from horovod_tpu.runner.network import RendezvousServer as RefServer
 from horovod_tpu_torch.runner.network import RendezvousServer
 from torch_sigterm import restore_sigterm  # noqa: F401
+from torch_world_lock import world_locked
 
 _WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "torch_binding_worker.py")
@@ -38,6 +39,7 @@ BATTERIES = ("torch", "grid", "sparse", "syncbn", "optimizer_mlp",
              "optimizer_gpt")
 
 
+@world_locked("size")
 def _run_world(side: str, size: int, outdir: str, failures: list) -> None:
     server = _SERVERS[side]()
     port = server.start()

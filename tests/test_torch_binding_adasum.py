@@ -30,11 +30,13 @@ _WORKER = os.path.join(_HERE, "torch_binding_reduce_worker.py")
 sys.path.insert(0, _HERE)
 import torch_binding_reduce_worker as W  # noqa: E402
 from torch_sigterm import restore_sigterm  # noqa: F401
+from torch_world_lock import world_locked
 
 _SERVERS = {"port": RendezvousServer, "ref": RefServer}
 WORLD_TIMEOUT = 150.0
 
 
+@world_locked("size")
 def _run_world(side: str, size: int, outdir: str, failures: list) -> None:
     server = _SERVERS[side]()
     port = server.start()

@@ -42,6 +42,7 @@ from horovod_tpu_torch.runner import controlplane as t_cp
 from horovod_tpu_torch.runner import network as t_net
 from horovod_tpu_torch.runner.network import (RendezvousClient,
                                               RendezvousServer, free_port)
+from torch_world_lock import world_locked
 
 REPO = Path(__file__).resolve().parent.parent
 TESTS = Path(__file__).resolve().parent
@@ -578,6 +579,7 @@ def _clean_env(epoch: str) -> dict:
     return env
 
 
+@world_locked("size")
 def _run_world(battery: str, size: int, eps: list[str], outdir: Path,
                timeout: float, expected_rcs=None) -> list[str]:
     port = eps[0].rsplit(":", 1)[1]

@@ -39,12 +39,14 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _HERE)
 import torch_device_plane_worker as W  # noqa: E402
 from torch_sigterm import restore_sigterm  # noqa: F401
+from torch_world_lock import world_locked
 
 WORLD_TIMEOUT = 120.0
 HALF = ("float16", "bfloat16")
 EPS = {"float32": 2.0 ** -24, "float64": 2.0 ** -53}
 
 
+@world_locked("size")
 def _run_world(size: int, outdir: str, failures: list) -> None:
     server = RendezvousServer()
     port = server.start()

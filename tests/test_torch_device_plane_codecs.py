@@ -33,10 +33,12 @@ from horovod_tpu_torch.runner.network import RendezvousServer
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _HERE)
 import torch_device_codec_worker as W  # noqa: E402
+from torch_world_lock import world_locked
 
 WORLD_TIMEOUT = 120.0
 
 
+@world_locked("size")
 def _run_world(size: int, outdir: str, failures: list) -> None:
     server = RendezvousServer()
     port = server.start()

@@ -26,6 +26,7 @@ import pytest
 
 from horovod_tpu.runner.network import RendezvousServer as RefServer
 from horovod_tpu_torch.runner.network import RendezvousServer
+from torch_world_lock import world_locked
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _WORKERS = {"port": os.path.join(_HERE, "torch_eager_worker.py"),
@@ -34,6 +35,7 @@ _SERVERS = {"port": RendezvousServer, "ref": RefServer}
 WORLD_TIMEOUT = 150.0
 
 
+@world_locked("size")
 def _run_world(side: str, size: int, outdir: str, failures: list) -> None:
     server = _SERVERS[side]()
     port = server.start()

@@ -31,11 +31,13 @@ from __future__ import annotations
 import pytest
 
 import torch_elastic_worker as worlds
+from torch_world_lock import world_lock
 
 
 @pytest.mark.parametrize("name", worlds.SCENARIOS)
 def test_scenario(tmp_path, name):
-    result = worlds.run_scenario(name, tmp_path)
+    with world_lock(3 if name == "shrink" else 2):
+        result = worlds.run_scenario(name, tmp_path)
     assert result["problems"] == []
     if name in ("node-failure", "grow", "shrink"):
         assert result["fault_to_recovery_s"] is not None

@@ -225,9 +225,26 @@ def test_trainer_refusals():
     with pytest.raises(ValueError, match="optimizer_in_ring"):
         Trainer(model, opt, build_mesh(device=CPU),
                 sync=GradSyncConfig(axes=(), optimizer_in_ring=True))
-    with pytest.raises(NotImplementedError, match="batch dim only"):
-        Trainer(model, opt, build_mesh(device=CPU),
-                sync=GradSyncConfig(axes=()), batch_spec=("dp", "sp"))
+    # A pure-GSPMD batch_spec over a non-batch dim builds (on this mesh
+    # of one rank nothing is gathered).
+    trainer = Trainer(model, opt, build_mesh(device=CPU),
+                      sync=GradSyncConfig(axes=()), batch_spec=("dp", "sp"))
+    assert trainer.batch_spec == ("dp", "sp")
+    assert trainer._gather_dims == [] and trainer._seq_axes == ()
+    # Over dp=2 x sp=2 (a mesh made by hand: planning uses no group) the
+    # dense model gets the sequence gathered, the Ulysses one over that
+    # sp axis takes its chunk.
+    shape = {"pp": 1, "dp": 2, "fsdp": 1, "ep": 1, "sp": 2, "tp": 1}
+    mesh = Mesh(shape=shape, group=None, device=torch.device(CPU),
+                groups={"dp": None, "sp": None},
+                coords=dict.fromkeys(shape, 0))
+    for attention, gathered, bound in (("dense", [(1, ("sp",))], ()),
+                                       ("ulysses", [], ("sp",))):
+        m = _tiny_model(attention=attention, mesh=mesh)
+        trainer = Trainer(m, torch.optim.SGD(m.parameters(), lr=0.1), mesh,
+                          sync=GradSyncConfig(axes=()),
+                          batch_spec=("dp", "sp"))
+        assert (trainer._gather_dims, trainer._seq_axes) == (gathered, bound)
     # MoE over ep > 1 in the manual step (a mesh made by hand: the
     # refusal comes before any group is used).
     shape = {"pp": 1, "dp": 1, "fsdp": 1, "ep": 2, "sp": 1, "tp": 1}

@@ -23,9 +23,14 @@ JAX tests' own (``tests/test_attention.py``, ``tests/test_parallel.py``):
   would show, once more with every block checkpointed (``remat``), whose
   recompute must route over the same rows; and Ulysses on dp=2 x sp=2
   in pure-GSPMD mode (``batch_spec=("dp",)``: every sp rank holds the
-  whole sequence).
+  whole sequence); and dense, Ulysses and ring attention on dp=2 x sp=2
+  in pure-GSPMD mode with the sequence sharded too (``batch_spec=("dp",
+  "sp")``, against the JAX Trainer's ``P("dp", "sp")``): the ring and
+  Ulysses models take their chunk as it is, the dense one gets the
+  sequence gathered at the step's entry.
   Losses within 1e-5, and the parameters' updates as in
-  ``tests/test_torch_training.py``.
+  ``tests/test_torch_training.py``; the input shape the MFU gauge counts
+  is the global batch's in every case.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from horovod_tpu.parallel.ring_attention import ring_attention as jring
 from horovod_tpu.parallel.ulysses import ulysses_attention as julysses
 from horovod_tpu_torch import convert
 from horovod_tpu_torch.models import transformer as ttr
+from torch_world_lock import world_lock
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
@@ -75,6 +81,11 @@ TRAINERS = {
                                   mesh={"dp": 2, "sp": 2},
                                   sync=dict(axes=[], op="average"),
                                   batch_spec=["dp"]),
+    **{f"{kind}-dp2xsp2-gspmd-seq": dict(model=dict(attention=kind),
+                                         mesh={"dp": 2, "sp": 2},
+                                         sync=dict(axes=[], op="average"),
+                                         batch_spec=["dp", "sp"])
+       for kind in ("dense", "ulysses", "ring")},
     "moe-dp2xep2-gspmd": dict(model=dict(moe_experts=4,
                                          moe_capacity_factor=0.5),
                               mesh={"dp": 2, "ep": 2},
@@ -267,25 +278,26 @@ def worlds(tmp_path_factory):
                     arrays[f"{j}/state/{name}"] = v.numpy()
                 trainers[j] = (trainer, state, params0)
         tmp = tmp_path_factory.mktemp(f"world{world}")
-        procs = _start_world(tmp, world, jobs, arrays)
-        refs = {}
-        try:
-            for j, job in enumerate(jobs):
-                a = {k.split("/", 1)[1]: v for k, v in arrays.items()
-                     if k.startswith(f"{j}/")}
-                kind = job["kind"]
-                if kind in ("ring", "ulysses"):
-                    refs[j] = _jax_attention(job, a, world)
-                elif kind == "pipeline":
-                    refs[j] = _jax_pipeline(job, a, world)
-                elif kind == "moe":
-                    refs[j] = _jax_moe(job, a, world)
-                else:
-                    trainer, state, params0 = trainers[j]
-                    refs[j] = {**_run_jax_trainer(trainer, state, a),
-                               "params0": params0}
-        finally:
-            results = _join_world(tmp, procs)
+        with world_lock(world):
+            procs = _start_world(tmp, world, jobs, arrays)
+            refs = {}
+            try:
+                for j, job in enumerate(jobs):
+                    a = {k.split("/", 1)[1]: v for k, v in arrays.items()
+                         if k.startswith(f"{j}/")}
+                    kind = job["kind"]
+                    if kind in ("ring", "ulysses"):
+                        refs[j] = _jax_attention(job, a, world)
+                    elif kind == "pipeline":
+                        refs[j] = _jax_pipeline(job, a, world)
+                    elif kind == "moe":
+                        refs[j] = _jax_moe(job, a, world)
+                    else:
+                        trainer, state, params0 = trainers[j]
+                        refs[j] = {**_run_jax_trainer(trainer, state, a),
+                                   "params0": params0}
+            finally:
+                results = _join_world(tmp, procs)
         out[world] = (jobs, arrays, results, refs)
     return out
 
@@ -354,6 +366,7 @@ def test_trainer_over_mesh_matches_jax(worlds, name):
     for r in results:
         np.testing.assert_allclose(r[f"{j}/losses"], ref["losses"],
                                    rtol=1e-5, atol=1e-5)
+        assert r[f"{j}/mesh_shape"].tolist() == [B, T]
     assert ref["losses"][-1] < ref["losses"][0]
     # Every rank ends with the same parameters.
     prefix = f"{j}/state/"

@@ -51,6 +51,7 @@ from horovod_tpu_torch.resilience import context as tcontext
 from horovod_tpu_torch.resilience import heartbeat as theartbeat
 from horovod_tpu_torch.resilience import policy as tpolicy
 from torch_sigterm import restore_sigterm  # noqa: F401
+from torch_world_lock import world_locked
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_resilience_worker.py"
@@ -708,6 +709,7 @@ def test_chaos_send_actions(port_kv, monkeypatch, kind):
 # ---------------------------------------------------------------------------
 # Process batteries, one world at a time
 # ---------------------------------------------------------------------------
+@world_locked("size")
 def _run_world(battery: str, size: int, tmp_path, expected_rcs=None,
                timeout: float = 120.0) -> list[str]:
     from horovod_tpu_torch.runner.network import RendezvousServer

@@ -13,6 +13,12 @@ package, in one process.
 """
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -265,16 +271,19 @@ def test_spec_tokens_match_the_reference():
         == jspecs.rule_coverage(table, paths)
 
 
-def test_gspmd_quantized_wire_splits_and_statesync_refuses_the_state():
+def test_gspmd_quantized_wire_splits_and_statesync_refuses_the_state(
+        tmp_path):
     """The reference quantizes whole gradients in its pure-GSPMD step, and
     so does the port: an int8 or uint4 wire there takes sharded leaves
     (gathered before the sync, cut after it).  The split is the model's
     (``apply_tensor_parallel``) and a later Trainer without rules clears
-    it.  statesync's paths refuse a sharded state: its grow stays in
-    ROADMAP queue A."""
+    it.  statesync's tree of such a state, in a 2-rank gloo world at
+    tp=2: refused without ``gather=True``; with it, the whole tree
+    (whose template a fresh unsharded state gives too), and
+    ``load_train_state`` cuts it into a fresh sharded Trainer, whose
+    tree is the same again and whose chunks are the first state's; a
+    tree of other leaves or dtypes raises."""
     from horovod_tpu_torch import GradSyncConfig, Trainer
-    from horovod_tpu_torch.checkpoint import (load_train_state,
-                                              train_state_tree)
     for codec in ("int8", "uint4"):
         model = ttr.TransformerLM(ttr.gpt_tiny(dtype=torch.float32),
                                   device="cpu")
@@ -288,11 +297,37 @@ def test_gspmd_quantized_wire_splits_and_statesync_refuses_the_state():
             == (whole[0] // 2, whole[1])
         assert all(b.attn.split is not None and b.mlp.split is not None
                    for b in model.layers)
-        with pytest.raises(NotImplementedError, match="statesync of a state with sharded"):
-            train_state_tree(state)
-        with pytest.raises(NotImplementedError, match="statesync of a state with sharded"):
-            load_train_state({}, state)
     Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1),
             _port_mesh())
     assert all(b.attn.split is None and b.mlp.split is None
                for b in model.layers)
+    found = _statesync_round_trip_world(tmp_path, 2)
+    assert found == {f"{codec}/{check}": True
+                     for codec in ("int8", "uint4")
+                     for check in ("refused", "templates", "round_trip",
+                                   "chunks", "refuses_leaves",
+                                   "refuses_dtype")}, found
+
+
+def _statesync_round_trip_world(tmp_path, world: int) -> dict:
+    """``tests/torch_sharding_worker.py statesync`` in a gloo world."""
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (str(here.parent), os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_sharding_worker.py"), "statesync",
+         str(r), str(world), str(tmp_path / "store"),
+         str(tmp_path / f"found{r}.json")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    found = [json.loads((tmp_path / f"found{r}.json").read_text())
+             for r in range(world)]
+    assert all(f == found[0] for f in found), found
+    return found[0]

@@ -86,6 +86,7 @@ from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.parallel.sharding import ShardingRules
 from horovod_tpu_torch.telemetry import perfmodel as tperf
 from torch_cnn_util import random_variables
+from torch_world_lock import world_lock
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_sharding_worker.py"
@@ -335,18 +336,20 @@ def world(tmp_path_factory):
         if job["name"] not in WITH_JAX:       # the port's own init
             for name, v in _port_model(job["name"]).state_dict().items():
                 arrays[f"{j}/state/{name}"] = v.numpy()
-    procs = _start(tmp, jobs, arrays)
-    refs = {}
-    try:
-        for j, (trainer, state) in trainers.items():
-            refs[j] = _run_jax(jobs[j]["name"], j, trainer, state, arrays)
-    finally:
+    with world_lock(WORLD):
+        procs = _start(tmp, jobs, arrays)
+        refs = {}
         try:
-            logs = [p.communicate(timeout=240)[0] for p in procs]
+            for j, (trainer, state) in trainers.items():
+                refs[j] = _run_jax(jobs[j]["name"], j, trainer, state,
+                                   arrays)
         finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
+            try:
+                logs = [p.communicate(timeout=240)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
     results = [dict(np.load(tmp / f"out{r}.npz")) for r in range(WORLD)]

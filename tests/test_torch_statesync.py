@@ -54,6 +54,8 @@ from horovod_tpu_torch.statesync import (AutoscaleController,
 from horovod_tpu_torch.statesync import autoscale as t_autoscale
 from horovod_tpu_torch.statesync.stream import StreamGuard
 from torch_sigterm import restore_sigterm  # noqa: F401
+from torch_statesync_worker import JOINERS
+from torch_world_lock import world_lock
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_statesync_worker.py"
@@ -671,6 +673,27 @@ class TestDonation:
         assert fetch_donation("ep", 1, {"shard": np.zeros(32, np.float32)},
                               kv=kv_server) is None
 
+    def test_failure_shrink_of_a_sharded_state_raises(self, kv_server):
+        """A dead rank took its chunks with it: a sharded service's
+        failure shrink raises at once, naming the restore; a static
+        (serving) state cannot be sharded."""
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.statesync import StateSyncService
+        hvd.init()
+        try:
+            svc = StateSyncService(lambda: {}, sharded=True, kv=kv_server)
+            dead = hvd.RanksFailedError({1}, op="loss.2")
+            with pytest.raises(RuntimeError,
+                               match="restore_checkpoint") as err:
+                svc.shrink_on_failure(dead)
+            assert err.value.__cause__ is dead
+            svc.close()
+            with pytest.raises(ValueError, match="not sharded"):
+                StateSyncService(lambda: {}, sharded=True,
+                                 static_state=True, kv=kv_server)
+        finally:
+            hvd.shutdown()
+
     def test_missing_donation_is_none(self, kv_server):
         from horovod_tpu_torch.statesync.service import fetch_donation
         assert fetch_donation("ep", 7, {"x": np.zeros(1)},
@@ -723,6 +746,15 @@ class TestChaosPreempt:
 # ---------------------------------------------------------------------------
 def _run_world(battery: str, size: int, outdir: Path, expected_rcs=None,
                timeout: float = 240.0) -> list[str]:
+    """Run ``battery``'s world of ``size`` launch ranks (and its joiner)
+    and return each launch rank's output; a battery with a joiner runs
+    one process more."""
+    with world_lock(size + (battery in JOINERS)):
+        return _world(battery, size, outdir, expected_rcs, timeout)
+
+
+def _world(battery: str, size: int, outdir: Path, expected_rcs,
+           timeout: float) -> list[str]:
     server = RendezvousServer()
     port = server.start()
     env = {k: v for k, v in os.environ.items()
@@ -795,3 +827,118 @@ def test_statesync_preempt_grace_3rank(tmp_path):
         assert "no RanksFailedError anywhere" in outputs[r], outputs[r]
         assert membership_events(tmp_path, "preempt", r) == \
             ["shrink-proactive"]
+
+
+def _sharded_records(outdir: Path, battery: str) -> dict:
+    joiner = battery.replace("grow", "joiner")
+    return {name: json.load(open(outdir / f"{name}.json"))
+            for name in (f"{battery}.0", f"{battery}.1", f"{joiner}.J")}
+
+
+def _fake_mesh(**sizes):
+    """A port ``Mesh`` record (no group) of the given axis sizes, rank 0."""
+    from horovod_tpu_torch.parallel.mesh import DEFAULT_AXES, Mesh
+    shape = {a: sizes.get(a, 1) for a in DEFAULT_AXES}
+    return Mesh(shape=shape, group=None, device=torch.device("cpu"),
+                groups={a: None for a, n in shape.items() if n > 1},
+                coords=dict.fromkeys(shape, 0))
+
+
+def _sharded_plan(model, n: int) -> dict:
+    from horovod_tpu_torch.parallel.sharding import (ShardingRules,
+                                                     plan_sharding)
+    from torch_statesync_worker import SHARDED_RULES
+    return plan_sharding(model, _fake_mesh(fsdp=n),
+                         ShardingRules(list(SHARDED_RULES)))
+
+
+def test_statesync_grow_sharded_rides_fsdp_2_3_2(tmp_path):
+    """A state with sharded parameters (the FSDP table) grows from fsdp=2
+    to 3 by a joiner and is preempted back to 2, without a restart: the
+    incumbents donate the gathered (whole) state, the joiner loads it into
+    its sharded Trainer with the stamp's digest, every rank re-cuts the
+    transition's whole tree on the new mesh, and every rank's gathered
+    state is equal after every step.  The same battery with no rules
+    gives the same losses and digests, bit for bit."""
+    from torch_statesync_worker import ShardedRun
+    runs = {}
+    for battery in ("grow-sharded", "grow-plain"):
+        out = tmp_path / battery
+        out.mkdir()
+        outputs = _run_world(battery, 2, out)
+        for r in (0, 1):
+            assert "rode fsdp 2->3->2" in outputs[r], outputs[r]
+            assert membership_events(out, battery, r) == \
+                ["donate", "grow", "shrink-proactive"]
+        joiner = battery.replace("grow", "joiner")
+        assert membership_events(out, joiner, "J") == \
+            ["join-announce", "join-ready", "join-entered", "sigterm-grace",
+             "departed"]
+        runs[battery] = _sharded_records(out, battery)
+    sharded, plain = runs["grow-sharded"], runs["grow-plain"]
+    for (name, got), want in zip(sharded.items(), plain.values()):
+        strip = [{k: v for k, v in s.items() if k != "elements"}
+                 for rec in (got, want) for s in rec["steps"]]
+        half = len(strip) // 2
+        assert strip[:half] == strip[half:], name
+        assert got["entered_digest"] == want["entered_digest"], name
+    inc = sharded["grow-sharded.0"]["steps"]
+    assert [s["size"] for s in inc] == [2, 2, 3, 3, 3, 2, 2, 2]
+    joined = sharded["joiner-sharded.J"]
+    assert joined["entered_digest"] == joined["stamp_digest"] \
+        == sharded["grow-sharded.0"]["entered_digest"]
+    assert (joined["rank"], joined["size"]) == (2, 3)
+    # Every rank's gathered state is the same after every step.
+    by_step: dict[int, set] = {}
+    for rec in sharded.values():
+        for s in rec["steps"]:
+            by_step.setdefault(s["step"], set()).add(s["digest"])
+    assert sorted(by_step) == list(range(1, 9))
+    assert all(len(d) == 1 for d in by_step.values()), by_step
+    # Each rank holds its chunks: the elements the table cuts, over the
+    # world's size.
+    model = ShardedRun.fresh().model
+    whole = sum(p.numel() for p in model.parameters())
+    for n in (2, 3):
+        held = sum(int(np.prod(leaf.flax_shape)) // (n if leaf.sharded
+                                                      else 1)
+                   for leaf in _sharded_plan(model, n).values())
+        assert held < whole
+        assert {s["elements"] for rec in sharded.values()
+                for s in rec["steps"] if s["size"] == n} == {held}
+    assert {s["elements"] for rec in plain.values()
+            for s in rec["steps"]} == {whole}
+    _hold_gathered_to_reference(tmp_path / "grow-sharded", model)
+
+
+def _hold_gathered_to_reference(outdir: Path, model) -> None:
+    """The port's gathered parameters at fsdp=2, leaf by leaf, against
+    what the reference's snapshot reads (``np.asarray`` of each leaf)
+    from arrays sharded by the same rules on a 2-device CPU mesh, built
+    from the two ranks' chunks; then the two images whole."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+    from horovod_tpu.parallel.mesh import DEFAULT_AXES
+    chunks = [dict(np.load(outdir / f"grow-sharded.{r}.chunks.npz"))
+              for r in (0, 1)]
+    whole = dict(np.load(outdir / "grow-sharded.whole.npz"))
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(
+        [2 if a == "fsdp" else 1 for a in DEFAULT_AXES]), DEFAULT_AXES)
+    ref_tree, port_tree = [], []
+    for name, leaf in _sharded_plan(model, 2).items():
+        parts = [leaf.to_flax(torch.from_numpy(c[name]),
+                              leaf.chunk_flax_shape).contiguous().numpy()
+                 for c in chunks]
+        arr = jax.make_array_from_single_device_arrays(
+            leaf.flax_shape, NamedSharding(mesh, PartitionSpec(*leaf.spec)),
+            [jax.device_put(p, d) for p, d in
+             zip(parts, mesh.devices.reshape(-1))])
+        got = leaf.to_flax(torch.from_numpy(whole[f"params/{name}"]),
+                           leaf.flax_shape).contiguous()
+        want = np.asarray(arr)
+        assert (got.numpy().dtype, got.shape) == (want.dtype, want.shape)
+        assert got.numpy().tobytes() == want.tobytes(), name
+        ref_tree.append(arr)
+        port_tree.append(got)
+    assert bytes(flatten_state(port_tree)) == \
+        bytes(j_snapshot.flatten_state(ref_tree))

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch import convert
+from torch_world_lock import world_locked
 
 REPO = Path(__file__).resolve().parent.parent
 CNN_WORKER = Path(__file__).resolve().parent / "torch_cnn_worker.py"
@@ -86,6 +87,7 @@ def assert_trees_close(got: dict, want: dict, atol: float,
                                    err_msg=jax.tree_util.keystr(path))
 
 
+@world_locked("world")
 def run_cnn_world(tmp_path, inputs: dict, world: int) -> list:
     """``tests/torch_cnn_worker.py`` over a gloo world of ``world`` ranks
     (FileStore under ``tmp_path``) on ``inputs`` (the worker's

@@ -26,7 +26,8 @@ to ``OUT.npz``.  Jobs (``kind``):
   ``Trainer(..., sync=GradSyncConfig(**sync), batch_spec=batch_spec)``
   with AdamW(``lr``, wd 1e-4) for ``steps`` steps on the global
   ``inputs``/``labels``, each rank passing its shard as ``batch_spec``
-  lays it over the mesh; writes ``losses`` and the final ``state/<name>``.
+  lays it over the mesh; writes ``losses``, the final ``state/<name>``
+  and ``mesh_shape``, the input shape the MFU gauge counts.
 
 It imports torch and the port only.
 """
@@ -138,7 +139,8 @@ def _trainer(job, j, data, world, rank):
     for _ in range(job["steps"]):
         state, metrics = trainer.step(state, batch)
         losses.append(float(metrics["loss"]))
-    out = {"losses": torch.tensor(losses, dtype=torch.float64)}
+    out = {"losses": torch.tensor(losses, dtype=torch.float64),
+           "mesh_shape": torch.tensor(trainer._mesh_shape(batch["input"]))}
     for name, p in model.state_dict().items():
         out[f"state/{name}"] = p
     return out

@@ -23,6 +23,7 @@ import numpy as np
 
 import torch_runtime_battery as runtime
 from torch_eager_battery import Recorder, draw
+from torch_world_lock import world_locked
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "torch_reduce_worker.py")
@@ -269,6 +270,7 @@ def run_suite(side, hvd, core, suite: str, rank: int, size: int,
 # ---------------------------------------------------------------------------
 # The test side: spawn both packages' worlds and read their records.
 # ---------------------------------------------------------------------------
+@world_locked("size")
 def _run_world(side: str, suite: str, size: int, outdir: str,
                failures: list) -> None:
     if side == "port":

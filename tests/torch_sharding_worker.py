@@ -43,6 +43,13 @@ After the jobs, ``gather/roundtrip``: ``gather_params`` of this rank's
 seed 0) over a ``dp=2, tp=2`` mesh with the strided table of
 ``gather_rules`` is the tree again, bit for bit.
 
+``python torch_sharding_worker.py statesync RANK WORLD STORE_FILE
+OUT.json`` runs ``statesync_round_trip`` instead: at tp=WORLD in the
+pure-GSPMD step with the int8 and the uint4 wire (the layers split),
+one SGD-with-momentum step, then the state's tree through
+``train_state_tree(gather=True)`` and ``load_train_state`` into a fresh
+sharded Trainer of another seed.
+
 It imports torch and the port only; one compute thread a rank.
 """
 from __future__ import annotations
@@ -296,5 +303,82 @@ def main(rank: int, world: int, store: str, inputs: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+TP_RULES = [(r"attn/w[qkv]/kernel", (None, "tp", None)),
+            (r"attn/wo/kernel", ("tp", None, None)),
+            (r"mlp/(gate|up)/kernel", (None, "tp")),
+            (r"mlp/down/kernel", ("tp", None))]
+
+
+def statesync_round_trip(rank: int, world: int, store: str,
+                         out: str) -> None:
+    """Each check's verdict (True or the error's text) into ``out``."""
+    from horovod_tpu_torch.checkpoint import (load_train_state,
+                                              whole_tree_template)
+    from horovod_tpu_torch.training import TrainState
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    found: dict = {}
+
+    def sharded(codec: str, seed: int):
+        model = ttr.TransformerLM(ttr.gpt_tiny(dtype=torch.float32),
+                                  device="cpu", seed=seed)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        trainer = Trainer(model, opt, build_mesh(tp=world, device="cpu"),
+                          sync=GradSyncConfig(axes=(), compression=codec),
+                          param_rules=ShardingRules(TP_RULES))
+        return trainer, trainer.init()
+
+    def layout(tree):
+        return [(k, tuple(v.shape), v.dtype) for k, v in tree.items()]
+    try:
+        for codec in ("int8", "uint4"):
+            trainer, state = sharded(codec, 0)
+            tokens = torch.from_numpy(np.random.default_rng(3).integers(
+                0, 256, (2, 17)))
+            trainer.step(state, {"input": tokens[:, :-1],
+                                 "label": tokens[:, 1:]})
+            try:
+                train_state_tree(state)
+                found[f"{codec}/refused"] = "no error"
+            except NotImplementedError as exc:
+                found[f"{codec}/refused"] = "gather=True" in str(exc)
+            tree = {k: v.clone() for k, v in
+                    train_state_tree(state, gather=True).items()}
+            plain = ttr.TransformerLM(ttr.gpt_tiny(dtype=torch.float32),
+                                      device="cpu", seed=2)
+            fresh = TrainState(step=0, model=plain, optimizer=torch.optim.SGD(
+                plain.parameters(), lr=0.1, momentum=0.9))
+            found[f"{codec}/templates"] = \
+                layout(whole_tree_template(state)) == layout(tree) \
+                == layout(whole_tree_template(fresh)) \
+                == layout(train_state_tree(fresh))
+            _, target = sharded(codec, 1)
+            load_train_state(tree, target)
+            again = train_state_tree(target, gather=True)
+            found[f"{codec}/round_trip"] = list(again) == list(tree) and all(
+                torch.equal(again[k], tree[k]) for k in tree)
+            found[f"{codec}/chunks"] = all(
+                torch.equal(a, b) for a, b in
+                zip(state.model.parameters(), target.model.parameters()))
+            for bad, what in (({k: v for k, v in tree.items()
+                                if k != "step"}, "leaves"),
+                              ({**tree, "step": tree["step"].int()},
+                               "dtype")):
+                try:
+                    load_train_state(bad, target)
+                    found[f"{codec}/refuses_{what}"] = "no error"
+                except ValueError:
+                    found[f"{codec}/refuses_{what}"] = True
+        with open(out, "w") as f:
+            json.dump(found, f)
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
+    if sys.argv[1] == "statesync":
+        statesync_round_trip(int(sys.argv[2]), int(sys.argv[3]),
+                             *sys.argv[4:6])
+    else:
+        main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])

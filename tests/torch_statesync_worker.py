@@ -11,6 +11,15 @@ is 4 -> 3 -> 4).  A joiner (``joiner``, ``serve_joiner``) is started by
 the world's rank 0 with RANK and SIZE ignored: it enters the world
 itself through ``join_world``.
 
+``grow-sharded`` and ``grow-plain`` have no reference battery: a narrow
+fp32 Transformer trained by ``Trainer`` at fsdp=2 (``grow-sharded``
+with the FSDP rule table, ``grow-plain`` with none) grows to fsdp=3 by a
+joiner (``joiner-sharded``, ``joiner-plain``), whose SIGTERM then
+shrinks it back to fsdp=2.  Every rank records each step's size, loss
+and the digest of its gathered state; the test holds the two batteries
+to each other bit for bit.  Each world forms its gloo process group
+over the rendezvous KV after every transition.
+
 Each rank prints its verdict line and writes ``OUTDIR/<battery>.<launch
 rank>.json``: the kinds and names of its flight ring's events in order
 (``flight``) and the battery's record.  An assertion fails the rank's
@@ -46,6 +55,16 @@ ENV = {
     "preempt": {"HOROVOD_FAULT_TIMEOUT": "30",
                 "HOROVOD_PREEMPT_GRACE_S": "20",
                 "HOROVOD_CHAOS": "preempt:rank=1,op=6"},
+    # The sharded grow: the joiner sends itself SIGTERM after its third
+    # step in the grown world, inside the grace window.
+    "grow-sharded": {"HOROVOD_FAULT_TIMEOUT": "30",
+                     "HOROVOD_PREEMPT_GRACE_S": "30"},
+    "grow-plain": {"HOROVOD_FAULT_TIMEOUT": "30",
+                   "HOROVOD_PREEMPT_GRACE_S": "30"},
+    "joiner-sharded": {"HOROVOD_FAULT_TIMEOUT": "30",
+                       "HOROVOD_PREEMPT_GRACE_S": "30"},
+    "joiner-plain": {"HOROVOD_FAULT_TIMEOUT": "30",
+                     "HOROVOD_PREEMPT_GRACE_S": "30"},
     "serve": {"HOROVOD_FAULT_TIMEOUT": "10"},
     "serve_joiner": {"HOROVOD_FAULT_TIMEOUT": "10"},
     # The split-role loop under the strict fingerprint: a rank-divergent
@@ -54,7 +73,15 @@ ENV = {
                "HOROVOD_METRICS": "on",
                "HOROVOD_FAULT_TOLERANCE": "0"},
 }
-JOINERS = {"grow": "joiner", "serve": "serve_joiner"}
+JOINERS = {"grow": "joiner", "serve": "serve_joiner",
+           "grow-sharded": "joiner-sharded", "grow-plain": "joiner-plain"}
+# The sharded grow's model (every dim the FSDP table cuts divides by 2
+# and by 3), its table, the global batch of each step (12 rows: 6 a rank
+# at fsdp=2, 4 at fsdp=3) and the steps of each world size.
+SHARDED_MODEL = dict(vocab_size=384, d_model=96, num_heads=6, num_layers=2)
+SHARDED_RULES = ((r"embedding|kernel", ("fsdp",)),)
+SHARDED_ROWS, SHARDED_SEQ = 12, 16
+SHARDED_BEFORE, SHARDED_GROWN, SHARDED_AFTER = 2, 3, 3
 SERVE_GROW_CFG = dict(max_batch=4, token_budget=64, max_seq=64,
                       slo_ms=120000.0)
 DISAGG_CFG = dict(max_batch=4, token_budget=256, max_seq=64,
@@ -272,6 +299,177 @@ def battery_preempt(hvd, rank: int, size: int, outdir: str) -> None:
           f"RanksFailedError anywhere")
 
 
+# --- the sharded grow -------------------------------------------------------
+class ShardedRun:
+    """One rank's Trainer of the sharded grow (``grow-sharded``: the
+    FSDP table; ``grow-plain``: no rules), rebuilt on a mesh of the
+    current world after every transition from the whole state tree."""
+
+    def __init__(self, battery: str):
+        self.sharded = battery.endswith("sharded")
+        port = int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"])
+        from horovod_tpu_torch.runner.network import RendezvousClient
+        self.kv = RendezvousClient("127.0.0.1", port, 60.0)
+        self.trainer = self.state = None
+        self.records: list[dict] = []
+
+    @staticmethod
+    def fresh():
+        """A fresh unsharded state of the model and optimizer."""
+        from horovod_tpu_torch import TransformerLM, gpt_tiny
+        from horovod_tpu_torch.training import TrainState
+        model = TransformerLM(gpt_tiny(dtype=torch.float32,
+                                       **SHARDED_MODEL),
+                              device="cpu", seed=0)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3,
+                                weight_decay=1e-4)
+        return TrainState(step=0, model=model, optimizer=opt)
+
+    def build(self, tree) -> None:
+        """The old Trainer and its group released, the current world's
+        gloo group formed, then a Trainer on a mesh of fsdp = size over a
+        fresh model, and ``tree`` (whole) cut into it."""
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch import Trainer, build_mesh
+        from horovod_tpu_torch.checkpoint import load_train_state
+        from horovod_tpu_torch.parallel import multihost
+        from horovod_tpu_torch.parallel.sharding import ShardingRules
+        self.trainer = self.state = None
+        multihost.shutdown()
+        multihost.init_process_group(hvd.rank(), hvd.size(), self.kv,
+                                     backend="gloo")
+        fresh = self.fresh()
+        mesh = build_mesh(fsdp=hvd.size(), device="cpu")
+        self.trainer = Trainer(
+            fresh.model, fresh.optimizer, mesh,
+            param_rules=ShardingRules(list(SHARDED_RULES))
+            if self.sharded else None)
+        self.state = load_train_state(tree, self.trainer.init())
+
+    def tree(self):
+        from horovod_tpu_torch.checkpoint import train_state_tree
+        return train_state_tree(self.state, gather=self.sharded)
+
+    def digest(self) -> int:
+        from horovod_tpu_torch import statesync
+        return statesync.state_digest(statesync.flatten_state(self.tree()))
+
+    def step(self) -> None:
+        """One step on this rank's rows of the step's global batch, then
+        the gathered state's digest (collective for a sharded state)."""
+        import horovod_tpu_torch as hvd
+        rank, size = hvd.rank(), hvd.size()
+        step = self.state.step
+        tokens = np.random.default_rng(1000 + step).integers(
+            0, SHARDED_MODEL["vocab_size"], (SHARDED_ROWS, SHARDED_SEQ + 1))
+        rows = SHARDED_ROWS // size
+        part = torch.from_numpy(tokens[rank * rows:(rank + 1) * rows])
+        self.state, metrics = self.trainer.step(
+            self.state, {"input": part[:, :-1], "label": part[:, 1:]})
+        self.records.append({"step": self.state.step, "size": size,
+                             "loss": float(metrics["loss"]).hex(),
+                             "digest": self.digest(),
+                             "elements": sum(p.numel() for p in
+                                             self.state.model.parameters())})
+
+    def chunks(self) -> dict:
+        return {n: p.detach().numpy().copy()
+                for n, p in self.state.model.named_parameters()}
+
+
+def battery_grow_sharded(hvd, rank: int, size: int, outdir: str,
+                         battery: str = "grow-sharded") -> None:
+    """fsdp=2 -> 3 -> 2 without a restart: the incumbents train, rank 0
+    starts the joiner, the incumbents wait at the boundary (so that both
+    batteries change size at the same step) until it is admitted, train
+    the grown world until the joiner departs on its SIGTERM, and train
+    the shrunk world.  After each transition every rank re-cuts the
+    whole tree of the ``WorldChange`` on the new mesh."""
+    from horovod_tpu_torch import statesync
+    from horovod_tpu_torch.checkpoint import train_state_tree
+    run = ShardedRun(battery)
+    run.build(train_state_tree(run.fresh()))
+    svc = statesync.StateSyncService(run.tree, sharded=run.sharded)
+    joiner = None
+    for _ in range(SHARDED_BEFORE):
+        run.step()
+        assert svc.step_boundary() is None
+    if rank == 0:
+        joiner = _spawn_joiner(battery, outdir)
+    deadline = time.monotonic() + 120.0
+    while (change := svc.step_boundary()) is None:
+        assert time.monotonic() < deadline, "the joiner was never admitted"
+        time.sleep(0.05)
+    assert change.kind == "grow" and hvd.size() == size + 1, change
+    assert (change.tree is not None) == run.sharded
+    run.build(change.tree if run.sharded else run.tree())
+    entered = run.digest()
+    for i in range(SHARDED_GROWN):
+        run.step()
+        change = svc.step_boundary()
+        if i < SHARDED_GROWN - 1:
+            assert change is None, change
+    assert change is not None and change.kind == "shrink", change
+    assert change.dead == (size,) and hvd.size() == size, change
+    run.build(change.tree if run.sharded else run.tree())
+    for _ in range(SHARDED_AFTER):
+        run.step()
+        assert svc.step_boundary() is None
+    final = run.tree()
+    svc.close()
+    if joiner is not None:
+        _reap_joiner(joiner, "sharded joiner: departed")
+    np.savez(os.path.join(outdir, f"{battery}.{rank}.chunks.npz"),
+             **run.chunks())
+    if rank == 0:
+        np.savez(os.path.join(outdir, f"{battery}.whole.npz"),
+                 **{k: v.numpy() for k, v in final.items()
+                    if k.startswith("params/")})
+    _write(outdir, battery, rank, {"steps": run.records,
+                                   "entered_digest": entered})
+    print(f"launch rank {rank}: rode fsdp {size}->{size + 1}->{size} to "
+          f"step {run.state.step}")
+
+
+def battery_grow_plain(hvd, rank: int, size: int, outdir: str) -> None:
+    """``grow-sharded`` with no rules: the bitwise reference."""
+    battery_grow_sharded(hvd, rank, size, outdir, battery="grow-plain")
+
+
+def _battery_sharded_joiner(outdir: str, battery: str) -> int:
+    """The joiner of the sharded grow: its template is a fresh unsharded
+    state's whole tree; once admitted it forms the group, builds the
+    Trainer with the rules and loads the tree, trains the grown world,
+    and departs on its own SIGTERM."""
+    import signal
+
+    from horovod_tpu_torch import statesync
+    from horovod_tpu_torch.checkpoint import whole_tree_template
+    run = ShardedRun(battery)
+    tree, info = statesync.join_world(whole_tree_template(run.fresh()))
+    import horovod_tpu_torch as hvd
+    run.build(tree)
+    entered = run.digest()
+    assert entered == info.stamp.digest, (entered, info.stamp)
+    svc = statesync.StateSyncService(run.tree, sharded=run.sharded)
+    for i in range(SHARDED_GROWN):
+        run.step()
+        if i == SHARDED_GROWN - 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        change = svc.step_boundary()
+    assert change is not None and change.kind == "departed", change
+    svc.close()
+    from horovod_tpu_torch.parallel import multihost
+    multihost.shutdown()
+    _write(outdir, battery.replace("grow", "joiner"), "J",
+           {"steps": run.records, "entered_digest": entered,
+            "stamp_digest": info.stamp.digest, "rank": info.rank,
+            "size": info.size})
+    print(f"sharded joiner: departed after {SHARDED_GROWN} steps as rank "
+          f"{info.rank}/{info.size}")
+    return 0
+
+
 # --- serving ----------------------------------------------------------------
 def _serve_grow_submit(ex, seed: int, count: int) -> None:
     rng = random.Random(seed)
@@ -416,8 +614,14 @@ def battery_disagg(hvd, rank: int, size: int, outdir: str) -> None:
 
 
 BATTERIES = {"grow": battery_grow, "preempt": battery_preempt,
-             "serve": battery_serve, "disagg": battery_disagg}
-PREINIT = {"joiner": battery_joiner, "serve_joiner": battery_serve_joiner}
+             "serve": battery_serve, "disagg": battery_disagg,
+             "grow-sharded": battery_grow_sharded,
+             "grow-plain": battery_grow_plain}
+PREINIT = {"joiner": battery_joiner, "serve_joiner": battery_serve_joiner,
+           "joiner-sharded": lambda outdir: _battery_sharded_joiner(
+               outdir, "grow-sharded"),
+           "joiner-plain": lambda outdir: _battery_sharded_joiner(
+               outdir, "grow-plain")}
 
 
 def main(battery: str, rank: int, size: int, port: int,

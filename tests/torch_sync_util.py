@@ -17,11 +17,13 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from horovod_tpu.common.jax_compat import shard_map
 from horovod_tpu.parallel import grad_sync as jsync
+from torch_world_lock import world_locked
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_sync_worker.py"
 
 
+@world_locked("world")
 def run_gloo_world(tmp_path, world: int, sets: dict, jobs: list,
                    timeout: float = 180) -> list:
     """Run ``jobs`` in a ``world``-rank gloo world.  ``sets`` maps a set
